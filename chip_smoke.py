@@ -1,0 +1,375 @@
+"""Smoke run of distaff_torch on one NVIDIA H100: builds the kernels, holds
+each against its plain PyTorch version at the main path's shapes, and
+proves and verifies the bench's Fibonacci program on the card.
+
+Usage (from the root of the repository, on a machine with the card):
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+  1. build   - nvcc builds distaff_torch/csrc/*.cu, g++ builds native/*.cpp
+               (both into distaff_torch/_build/); prints the card's name
+               and power limit
+  2. kernels - K1 ntt_leaf at (2048, 1024, 4) and the packed small leaves,
+               K2 add/sub/mul/exp_const at 2^21 elements and the broadcast
+               operands of the main path, K3 blake3_rows at 2^21 rows of 320
+               bytes and a Merkle level of 2^21 -> 2^20 nodes, each equal
+               (tolerance zero: integer field arithmetic and hashing) to its
+               plain version on the same inputs; times from CUDA events
+  3. golden  - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
+               proved on cuda must serialize to the bytes pinned in
+               tests/test_determinism.py
+  4. main    - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
+               [1, 0], default ProofOptions) proved on cuda and verified,
+               with its time, peak device memory and the launches of every
+               kernel, each of which must be non-zero; then proved with
+               per-step times, and once more without
+
+The last two lines are the kernel table as JSON and the contract line
+{"ok": true, "device": {...}}.
+"""
+
+import hashlib
+import json
+import logging
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+GOLDEN_SHA256 = "876d9f49cddbe11a3b360c04245d3b29712b6309a1eb446af835b123c729c842"
+GOLDEN_LEN = 12926
+MAIN_LOG2_TRACE = 16
+SEED = 20261016
+
+# Bounds: the least time the card could take is the larger of the bytes
+# moved (each input read once, each output written once) at 3.35 TB/s
+# (H100 SXM data sheet) and the 32-bit integer instructions issued at the
+# SM's issue width: 4 schedulers x 32 lanes, one instruction per lane per
+# cycle, x SM count x maximum SM clock, both read from the card.  (The
+# integer-only pipe has 64 lanes per SM, but IMAD and shifts also issue to
+# the FMA pipe; the BLAKE3 kernel runs faster than 64 lanes would allow.)
+# Instruction counts per operation, from the algorithms at their leanest:
+# a modular add or sub is 4 carry-chained adds, 4 trial subtractions and 4
+# selects; a modular multiply is 16 wide 32x32->64 multiply-adds with 16
+# carry adds, the fold of the high half through the 46-bit R (8 + 8), the
+# second fold (4 + 4) and the final conditional subtraction (8); a BLAKE3
+# compression is 7 rounds x 8 G x 12 (2 three-input adds, 2 adds, 4 xors,
+# 4 rotates) plus the 8 output xors.
+HBM_BYTES_PER_S = 3.35e12
+ISSUE_LANES_PER_SM = 128
+ADD_OPS = SUB_OPS = 12
+MUL_OPS = 64
+COMPRESS_OPS = 7 * 8 * 12 + 8
+# a kernel's time is the median of this many means over back-to-back launches
+KERNEL_TRIALS = 7
+# ~20 ms of spinning at 1.98 GHz: longer than the host takes to enqueue the
+# launches of one trial
+QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def int32_ops_per_s():
+    """32-bit instructions the card can issue per second."""
+    clock_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_LANES_PER_SM * float(clock_mhz) * 1e6
+
+
+def time_ms(fn, reps, trials=1, queued=False):
+    """Time of one fn() from CUDA events: the mean over `reps` back-to-back
+    runs after a warm-up, and the median of `trials` such means.  With
+    `queued`, a spin kernel first holds the card while the host enqueues
+    the runs, so that the events time them on the card and not the host's
+    rate of launching them."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return sorted(means)[len(means) // 2]
+
+
+def random_elements(gen, shape):
+    """Canonical field elements (< M) as (..., 4) uint32 limbs on the card,
+    from a seeded generator, with 0, 1, M-2 and M-1 in front."""
+    from distaff_torch.math import field_torch as ft
+
+    limbs = torch.randint(0, 1 << 32, tuple(shape) + (4,), generator=gen,
+                          device="cuda", dtype=torch.int64)
+    limbs[..., 3] = limbs[..., 3] % 0xFFFFFFFF      # top limb below M's keeps x < M
+    x = limbs.to(torch.uint32)
+    flat = x.view(-1, 4)
+    for i, v in enumerate((0, 1, ft.M - 2, ft.M - 1)):
+        flat[i] = ft.constant(v, "cuda")
+    return x
+
+
+def check_kernel(name, shape, kernel, plain, reps, plain_reps, bound_bytes, bound_ops,
+                 ops_rate, source, replaces):
+    """Hold kernel() against plain() (tolerance zero), time both and return
+    the kernel's row of the JSON table."""
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"{name} at {shape}: kernel and plain version differ "
+                             f"(max abs err {err})")
+    ms = time_ms(kernel, reps, KERNEL_TRIALS, queued=True)
+    plain_ms = time_ms(plain, plain_reps)
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bound_ops / ops_rate * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+          f"bound {max(t_bytes, t_ops):.4f} ms by {bound_by})", flush=True)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by, "library_ms": None}
+
+
+def phase_kernels(ops_rate):
+    """Each kernel at the main path's shapes, equal to its plain version.
+    The first check of each kernel entry gives its row of the JSON table;
+    the others hold the broadcast layouts and leaf packings that the 2^16
+    proof also launches."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.ops import tiles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    rows = []
+    k1 = ("distaff_torch/csrc/ntt_leaf.cu", "distaff_tpu/ops/field_pallas.py:252")
+    k2 = "distaff_torch/csrc/field_ew.cu"
+    k3 = "distaff_torch/csrc/blake3_rows.cu"
+
+    # K1: step 5's leaf launch (the constraint LDE's 2048 leaves of 1024),
+    # then the packed small leaves of the four-step recursion: the 2^21
+    # LDE's last columns (8 x 2^20 leaves of 2), the 2^16 interpolation's
+    # (20 x 1024 of 64) and the 2^19 constraint interpolation's (3 x 1024 of 512)
+    for b, n in ((2048, 1024), (8 << 20, 2), (20480, 64), (3072, 512)):
+        leaves = random_elements(gen, (b, n))
+        tw = tiles.power_series(hostfield.get_root_of_unity(n), n // 2, "cuda")
+        butterflies = b * (n // 2) * (n.bit_length() - 1)
+        row = check_kernel(
+            "ntt_leaf", f"({b}, {n}, 4)", lambda: fk.ntt_leaf(leaves, tw),
+            lambda: fk.ntt_leaf_plain(leaves, tw), 20, 1 if rows else 2,
+            2 * b * n * 16 + (n // 2) * 16, butterflies * (ADD_OPS + SUB_OPS + MUL_OPS),
+            ops_rate, *k1)
+        if not rows:
+            rows.append(row)
+        del leaves
+
+    # K2 at the LDE domain of the 2^16 rung: 2^21 elements
+    count = 1 << 21
+    a = random_elements(gen, (count,))
+    c = random_elements(gen, (count,))
+    for op, cost, line in (("mul", MUL_OPS, 248), ("add", ADD_OPS, 123), ("sub", SUB_OPS, 137)):
+        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
+        rows.append(check_kernel(
+            f"field_ew.{op}", f"{count} x {count}", lambda k=kern: k(a, c),
+            lambda p=plain: p(a, c), 50, 3, 3 * count * 16, count * cost, ops_rate,
+            k2, f"distaff_tpu/math/field_jax.py:{line}"))
+    e = hostfield.M - 2                                   # inv_batch's exponent
+    chain = (e.bit_length() - 1) + (bin(e).count("1") - 1)
+    rows.append(check_kernel(
+        "field_ew.exp_const", f"{count}", lambda: fk.exp_const(a, e),
+        lambda: fk.exp_const_plain(a, e), 5, 1, 2 * count * 16, count * chain * MUL_OPS,
+        ops_rate, k2, "distaff_tpu/math/field_jax.py:279"))
+
+    # K2's broadcasts on the main path: a constant operand (tiles.scale and
+    # the weighted register sums over the LDE), neg (a zero scalar minus a
+    # column), the four-step twiddle table repeated over a chunk of 8
+    # registers, and a register of the LDE's stride-4 slice (step 3's
+    # boundary sums) times its weight
+    scalar = ft.constant(0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321, "cuda")
+    zero = ft.zeros((), "cuda")
+    variants = [
+        ("mul", f"{count} x (4,)", a, scalar, count, 2 * count + 1),
+        ("sub", f"(4,) x {count}", zero, a, count, 2 * count + 1),
+    ]
+    chunk = random_elements(gen, (8, 2048, 1024))
+    table = random_elements(gen, (2048, 1024))
+    variants.append(("mul", "(8, 2048, 1024) x (2048, 1024)", chunk, table, 8 * count,
+                     2 * 8 * count + count))
+    lde = random_elements(gen, (20, count))
+    variants.append(("mul", f"(20, {count})[3, ::4] x (4,)", lde[3, ::4], scalar, count // 4,
+                     2 * (count // 4)))
+    for op, shape, x, y, n, elements in variants:
+        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
+        check_kernel(f"field_ew.{op}", shape, lambda k=kern, x=x, y=y: k(x, y),
+                     lambda p=plain, x=x, y=y: p(x, y), 50, 1, elements * 16,
+                     n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate, k2, "")
+    del chunk, table
+
+    # K3: trace rows of the 2^16 rung (20 registers = 320 bytes) hashed in
+    # place from the (R, D, 4) LDE, and one Merkle level 2^21 -> 2^20
+    regs = 20
+    trace_rows = lde.permute(1, 0, 2)
+    blocks = (regs * 16 + 63) // 64
+    rows.append(check_kernel(
+        "blake3_rows", f"{count} rows x {regs * 16} B", lambda: b3.hash_rows(trace_rows),
+        lambda: b3.hash_rows_plain(trace_rows), 10, 1, count * (regs * 16 + 32),
+        count * blocks * COMPRESS_OPS, ops_rate, k3, "distaff_tpu/ops/blake3_jax.py:95"))
+    level = random_elements(gen, (count, 2)).view(count, 8)
+    rows.append(check_kernel(
+        "blake3_rows.parents", f"{count} -> {count // 2} nodes", lambda: b3.hash_level(level),
+        lambda: b3.hash_rows_plain(level.view(count // 2, 4, 4)),
+        20, 1, count * 32 + count // 2 * 32, count // 2 * COMPRESS_OPS, ops_rate,
+        k3, "distaff_tpu/crypto/merkle_dev.py:34"))
+    return rows
+
+
+def phase_golden():
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.stark import serde
+
+    program = assembly.compile("begin push.3 push.5 add end")
+    inputs = ProgramInputs.none()
+    options = ProofOptions(extension_factor=16, num_queries=10, grinding_factor=2)
+    outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cuda")
+    blob = serde.serialize(proof)
+    digest = hashlib.sha256(blob).hexdigest()
+    if len(blob) != GOLDEN_LEN or digest != GOLDEN_SHA256:
+        raise AssertionError(f"golden proof differs: {len(blob)} bytes, sha256 {digest}")
+    if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+        raise AssertionError("golden proof does not verify")
+    print(f"golden proof on cuda: {len(blob)} bytes, sha256 {digest}, verified", flush=True)
+
+
+class _StepLog(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def fibonacci_program(assembly, log2_trace):
+    # bench.py's sizing: 3N/64 unrolled iterations pad to exactly 2^k steps
+    n_iter = (1 << log2_trace) * 3 // 64
+    return assembly.compile(f"begin repeat.{n_iter} swap dup.2 drop add end end")
+
+
+def timed_execute(program, inputs, options, stepped):
+    """One 2^16 proof on cuda and its wall time.  With `stepped`, DEBUG
+    step logging is on, which synchronizes the card at each step's end, and
+    the step lines come back too."""
+    import distaff_torch
+
+    steps = _StepLog()
+    package_log = logging.getLogger("distaff_torch")
+    if stepped:
+        package_log.addHandler(steps)
+        package_log.setLevel(logging.DEBUG)
+    try:
+        t0 = time.perf_counter()
+        outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cuda")
+        torch.cuda.synchronize()
+        return outputs, proof, time.perf_counter() - t0, steps.lines
+    finally:
+        package_log.removeHandler(steps)
+        package_log.setLevel(logging.NOTSET)
+
+
+def phase_main():
+    """The 2^16 proof three times: as a user runs it (no step logging, so
+    no synchronize between steps), with the launch counts and peak memory
+    read around it; with DEBUG step logging for the per-step times; and
+    unstepped again, so that the cost of the step synchronizes shows beside
+    the drift from one proof to the next."""
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import cuda_lib
+
+    program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
+    inputs = ProgramInputs.from_public([1, 0])
+    options = ProofOptions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    if proof.trace_length() != 1 << MAIN_LOG2_TRACE:
+        raise AssertionError(f"trace length {proof.trace_length()}")
+    t1 = time.perf_counter()
+    if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+        raise AssertionError("2^16 proof does not verify")
+    verify_s = time.perf_counter() - t1
+    print(f"2^{MAIN_LOG2_TRACE} proof: execute {prove_s:.3f} s, verify {verify_s:.3f} s, "
+          f"output {outputs}, peak device memory {peak} bytes", flush=True)
+    print(f"2^{MAIN_LOG2_TRACE} launches: {json.dumps(launches)}", flush=True)
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the main path: {idle}")
+
+    stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
+    again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
+    if stepped_outputs != outputs or again_outputs != outputs:
+        raise AssertionError("a repeated 2^16 proof's outputs differ")
+    for line in lines:
+        print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
+    print(f"2^{MAIN_LOG2_TRACE} execute: stepped (synchronized at each step's end) "
+          f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from distaff_torch import native
+    from distaff_torch.ops import cuda_lib
+
+    # phase 1: build both libraries at once
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(cuda_lib.lib), pool.submit(native.lib)]
+        for b in builds:
+            b.result()
+    card = card_line()
+    print(f"build: kernels and native runtime in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)", flush=True)
+
+    rows = phase_kernels(int32_ops_per_s())
+    phase_golden()
+    launches = phase_main()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""BLAKE3 row hashing on the card: kernel K3 (blake3_rows) and its plain version.
+
+K3 (csrc/blake3_rows.cu) replaces the XLA BLAKE3 of
+distaff_tpu/ops/blake3_jax.py (_compress, hash_rows_u32, parent_root) and
+the level hashing of distaff_tpu/crypto/merkle_dev.py: N equal-length rows
+of up to 2048 bytes (one or two 1024-byte chunks) -> (N, 8) uint32
+digests.  Bound by operations; one thread per row with the state in
+registers.
+
+Rows are given as (N, K, 4) uint32 views: K 16-byte registers per row,
+any row and register strides, limbs contiguous - so a (R, D, 4) trace LDE
+is hashed row-wise through `lde.permute(1, 0, 2)` without a copy.  The row
+bytes are the registers' little-endian limbs in order, which is the u128 LE
+serialization the reference hashes.
+
+On CPU tensors the wrappers run the plain version, in int64 lanes.
+"""
+
+import torch
+
+from ..crypto.blake3 import _IV, _PERM, CHUNK_START, CHUNK_END, ROOT, PARENT
+from . import cuda_lib
+
+_MASK32 = 0xFFFFFFFF
+MAX_ROW_BYTES = 2048
+
+
+# ------------------------------------------------------------------------------------------------
+# plain version: lists of (N,) int64 lanes holding 32-bit words
+# ------------------------------------------------------------------------------------------------
+
+def _rotr(x, n):
+    return ((x >> n) | (x << (32 - n))) & _MASK32
+
+
+def _g(s, a, b, c, d, mx, my):
+    s[a] = (s[a] + s[b] + mx) & _MASK32
+    s[d] = _rotr(s[d] ^ s[a], 16)
+    s[c] = (s[c] + s[d]) & _MASK32
+    s[b] = _rotr(s[b] ^ s[c], 12)
+    s[a] = (s[a] + s[b] + my) & _MASK32
+    s[d] = _rotr(s[d] ^ s[a], 8)
+    s[c] = (s[c] + s[d]) & _MASK32
+    s[b] = _rotr(s[b] ^ s[c], 7)
+
+
+def compress_plain(cv, m, counter, block_len, flags):
+    """cv: 8 lanes, m: 16 lanes -> the 8 lanes of the new chaining value."""
+    s = list(cv) + list(_IV[:4]) + [
+        counter & _MASK32, (counter >> 32) & _MASK32, block_len, flags]
+    m = list(m)
+    for r in range(7):
+        _g(s, 0, 4, 8, 12, m[0], m[1])
+        _g(s, 1, 5, 9, 13, m[2], m[3])
+        _g(s, 2, 6, 10, 14, m[4], m[5])
+        _g(s, 3, 7, 11, 15, m[6], m[7])
+        _g(s, 0, 5, 10, 15, m[8], m[9])
+        _g(s, 1, 6, 11, 12, m[10], m[11])
+        _g(s, 2, 7, 8, 13, m[12], m[13])
+        _g(s, 3, 4, 9, 14, m[14], m[15])
+        if r < 6:
+            m = [m[p] for p in _PERM]
+    return [s[i] ^ s[i + 8] for i in range(8)]
+
+
+def parent_root(cv0, cv1):
+    """Root digest of a two-chunk message from its chunk chaining values
+    (a BLAKE3 parent node, counter 0, flags PARENT | ROOT)."""
+    return compress_plain(list(_IV), list(cv0) + list(cv1), 0, 64, PARENT | ROOT)
+
+
+def hash_rows_plain(rows):
+    """(N, K, 4) uint32 -> (N, 8) uint32 digests, as hash_rows_u32 does."""
+    n, k = rows.shape[0], rows.shape[1]
+    byte_len = k * 16
+    words = rows.reshape(n, 4 * k).to(torch.int64)
+    nblocks = max((byte_len + 63) // 64, 1)
+    nchunks = (nblocks + 15) // 16
+    zero = torch.zeros(n, dtype=torch.int64, device=rows.device)
+
+    def word(w):
+        return words[:, w] if w < 4 * k else zero
+
+    chunk_cvs = []
+    for c in range(nchunks):
+        first, last = c * 16, min((c + 1) * 16, nblocks) - 1
+        cv = list(_IV)
+        for i in range(first, last + 1):
+            flags = CHUNK_START if i == first else 0
+            if i == last:
+                flags |= CHUNK_END | (ROOT if nchunks == 1 else 0)
+            blen = 64 if i < nblocks - 1 else byte_len - 64 * (nblocks - 1)
+            cv = compress_plain(cv, [word(16 * i + j) for j in range(16)], c, blen, flags)
+        chunk_cvs.append(cv)
+    cv = chunk_cvs[0] if nchunks == 1 else parent_root(*chunk_cvs)
+    cv = [v if torch.is_tensor(v) else torch.full_like(zero, v) for v in cv]
+    return torch.stack(cv, dim=1).to(torch.uint32)
+
+
+# ------------------------------------------------------------------------------------------------
+# K3 wrappers
+# ------------------------------------------------------------------------------------------------
+
+def _launch(rows, out, counter):
+    n, k = rows.shape[0], rows.shape[1]
+    code = cuda_lib.lib().distaff_blake3_rows(
+        cuda_lib.ptr(rows), cuda_lib.ptr(out), n, k,
+        rows.stride(0) // 4, rows.stride(1) // 4, cuda_lib.stream(rows))
+    cuda_lib.check(code, counter)
+    cuda_lib.LAUNCHES[counter] += 1
+    return out
+
+
+def _check_rows(rows):
+    if rows.dim() != 3 or rows.shape[-1] != 4 or not 1 <= rows.shape[1] <= MAX_ROW_BYTES // 16:
+        raise ValueError(
+            f"blake3_rows: expected (N, K <= {MAX_ROW_BYTES // 16}, 4) rows, "
+            f"got {tuple(rows.shape)}")
+
+
+def hash_rows(rows, out=None):
+    """BLAKE3 digest of every row of an (N, K, 4) uint32 view -> (N, 8)."""
+    _check_rows(rows)
+    if rows.device.type == "cpu":
+        digests = hash_rows_plain(rows)
+        return digests if out is None else out.copy_(digests)
+    cuda_lib.require_limbs("blake3_rows", rows)
+    if out is None:
+        out = torch.empty((rows.shape[0], 8), dtype=torch.uint32, device=rows.device)
+    return _launch(rows, out, "blake3_rows")
+
+
+def hash_level(children, out=None):
+    """One Merkle level: (2m, 8) node digests -> (m, 8) parents, each the
+    BLAKE3 of its two children's 64 bytes (reference merkle.rs node hash)."""
+    m = children.shape[0] // 2
+    rows = children.reshape(m, 4, 4)
+    if children.device.type == "cpu":
+        digests = hash_rows_plain(rows)
+        return digests if out is None else out.copy_(digests)
+    cuda_lib.require_limbs("blake3_rows.parents", rows)
+    if out is None:
+        out = torch.empty((m, 8), dtype=torch.uint32, device=children.device)
+    return _launch(rows, out, "blake3_rows.parents")
+
+
+def hash_rows_u32(rows_u32, byte_len):
+    """(N, W) uint32 message words, byte_len = 4*W a multiple of 16 ->
+    (N, 8) digests (the signature of blake3_jax.hash_rows_u32)."""
+    n, w = rows_u32.shape
+    if w * 4 != byte_len or byte_len % 16:
+        raise ValueError(f"hash_rows_u32: {w} words do not make {byte_len} bytes of registers")
+    return hash_rows(rows_u32.reshape(n, w // 4, 4))
+
+
+def hash_trace_rows_dev(lde):
+    """(R, D, 4) limb LDE -> (D, 8) uint32 leaf digests: row d is the
+    R registers' limbs at domain point d."""
+    return hash_rows(lde.permute(1, 0, 2))

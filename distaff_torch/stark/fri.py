@@ -1,0 +1,206 @@
+"""Radix-4 FRI (reference src/stark/fri/): device folds and device layer
+trees for the prover, host-side verification.
+"""
+
+from ..math import field, quartic, polynom
+from ..math import field_torch as ft
+from ..utils import rand
+from ..crypto.merkle import MerkleTree, BatchMerkleProof
+from ..crypto import hashes
+from ..ops import fri_torch
+
+MAX_REMAINDER_LENGTH = 256
+
+
+class FriLayer:
+    def __init__(self, root, values, nodes, depth):
+        self.root = root        # bytes(32)
+        self.values = values    # list of [v0, v1, v2, v3] int rows
+        self.nodes = nodes      # list[list[bytes(32)]]
+        self.depth = depth
+
+
+class FriProof:
+    def __init__(self, layers, rem_root, rem_values):
+        self.layers = layers
+        self.rem_root = rem_root
+        self.rem_values = rem_values
+
+
+def _build_layer_tree(rows_dev):
+    """Commit to (q, 4, 4limbs) rows: each row's 64 bytes are the u128 LE
+    concatenation, which the limb layout already is; the leaves and every
+    tree level are hashed on the device (kernel K3)."""
+    from ..ops.blake3_torch import hash_rows
+    from ..crypto.merkle_dev import DeviceMerkleTree
+
+    return DeviceMerkleTree(hash_rows(rows_dev))
+
+
+def reduce(evaluations_dev, domain_root, options):
+    """Reduce composition evaluations down to <= 256 remainder values.
+
+    evaluations_dev: (n, 4limbs) device tensor over the LDE domain.
+    Returns (trees, row_values_dev) per layer; the Fiat-Shamir fold point of
+    each layer is drawn from that layer's Merkle root.
+    """
+    from ..ops import tiles
+
+    device = evaluations_dev.device
+    n = evaluations_dev.shape[0]
+    # first-column node coordinates [x^0 .. x^(n/4 - 1)]; every later
+    # layer's nodes are a [::4] stride of these, and so are their inverse
+    # cubes, the power series of w^-3
+    x0 = tiles.power_series(domain_root, n // 4, device)
+    inv_root3 = field.exp(field.inv(domain_root), 3)
+    x0_inv3 = tiles.power_series(inv_root3, n // 4, device)
+
+    tree_results = []
+    value_results = []
+
+    p_values = fri_torch.transpose_quartic(evaluations_dev, 1)
+    p_tree = _build_layer_tree(p_values)
+
+    while p_values.shape[0] * 4 > MAX_REMAINDER_LENGTH:
+        special_x = rand.prng(p_tree.root(), field.M)
+        column = fri_torch.fold_rows(p_values, x0, x0_inv3, ft.constant(special_x, device))
+        x0 = x0[::4]
+        x0_inv3 = x0_inv3[::4]
+
+        c_values = fri_torch.transpose_quartic(column, 1)
+        c_tree = _build_layer_tree(c_values)
+
+        tree_results.append(p_tree)
+        value_results.append(p_values)
+        p_tree, p_values = c_tree, c_values
+
+    tree_results.append(p_tree)
+    value_results.append(p_values)
+    return tree_results, value_results
+
+
+def build_proof(trees, values, positions, batch):
+    """Openings of every layer at the augmented query positions; the device
+    gathers ride the caller's TransferBatch (one copy to the host)."""
+    from ..ops.gather import gather_rows_dev
+
+    positions = list(positions)
+    domain_size = trees[0].leaves().shape[0] * 4
+
+    pending = []
+    for i in range(len(trees) - 1):
+        positions = get_augmented_positions(positions, domain_size)
+        pending.append(
+            (trees[i], trees[i].prove_batch_async(positions, batch),
+             batch.add(gather_rows_dev(values[i], positions)), len(positions)))
+        domain_size //= 4
+    last_ref = batch.add(values[-1])
+
+    layers = []
+    for tree, pending_proof, rows_ref, n_pos in pending:
+        proof = pending_proof.result()
+        rows_host = ft.to_ints(batch.get(rows_ref))           # (Q, 4) obj
+        queried = [[int(v) for v in rows_host[k]] for k in range(n_pos)]
+        layers.append(FriLayer(tree.root(), queried, proof.nodes, proof.depth))
+
+    last_values = ft.to_ints(batch.get(last_ref))             # (q, 4) object
+    q = last_values.shape[0]
+    remainder = [0] * (q * 4)
+    for i in range(q):
+        for j in range(4):
+            remainder[i + q * j] = int(last_values[i][j])
+    return FriProof(layers, trees[-1].root(), remainder)
+
+
+def verify(proof, evaluations, positions, max_degree, options):
+    """Host-side FRI verification (reference src/stark/fri/verifier.rs)."""
+    hash_name = options.hash_fn
+    hash_fn = hashes.HASH_FUNCTIONS[hash_name]
+
+    domain_size = (2 ** proof.layers[0].depth) * 4
+    domain_root = field.get_root_of_unity(domain_size)
+    quartic_roots = [
+        1,
+        field.exp(domain_root, domain_size // 4),
+        field.exp(domain_root, domain_size // 2),
+        field.exp(domain_root, domain_size * 3 // 4),
+    ]
+
+    max_degree_plus_1 = max_degree + 1
+    positions = list(positions)
+    evaluations = list(evaluations)
+
+    for depth, layer in enumerate(proof.layers):
+        augmented_positions = get_augmented_positions(positions, domain_size)
+        column_values = _get_column_values(
+            layer.values, positions, augmented_positions, domain_size)
+        if evaluations != column_values:
+            raise ValueError(f"evaluations did not match column value at depth {depth}")
+
+        leaf_hashes = [hash_fn(_row_bytes(row)) for row in layer.values]
+        merkle_proof = BatchMerkleProof(leaf_hashes, layer.nodes, layer.depth)
+        if not MerkleTree.verify_batch(layer.root, augmented_positions, merkle_proof, hash_name):
+            raise ValueError(f"verification of Merkle proof failed at layer {depth}")
+
+        xs = []
+        for p in augmented_positions:
+            xe = field.exp(domain_root, p)
+            xs.append([field.mul(r, xe) for r in quartic_roots])
+
+        row_polys = quartic.interpolate_batch(xs, layer.values)
+        special_x = rand.prng(layer.root, field.M)
+        evaluations = quartic.evaluate_batch(row_polys, special_x)
+
+        domain_root = field.exp(domain_root, 4)
+        max_degree_plus_1 //= 4
+        domain_size //= 4
+        positions = augmented_positions
+
+    for position, evaluation in zip(positions, evaluations):
+        if proof.rem_values[position] != evaluation:
+            raise ValueError("remainder values are inconsistent with the last column")
+
+    _verify_remainder(
+        proof.rem_values, max_degree_plus_1, domain_root, options.extension_factor())
+    return True
+
+
+def _verify_remainder(remainder, max_degree_plus_1, domain_root, extension_factor):
+    if max_degree_plus_1 > len(remainder):
+        raise ValueError("remainder degree is greater than number of remainder values")
+
+    positions = [i for i in range(len(remainder)) if i % extension_factor != 0]
+    domain = field.get_power_series(domain_root, len(remainder))
+
+    xs = [domain[positions[i]] for i in range(max_degree_plus_1)]
+    ys = [remainder[positions[i]] for i in range(max_degree_plus_1)]
+    poly = polynom.interpolate(xs, ys)
+
+    for i in range(max_degree_plus_1, len(positions)):
+        p = positions[i]
+        if polynom.eval(poly, domain[p]) != remainder[p]:
+            raise ValueError(
+                f"remainder is not a valid degree {max_degree_plus_1 - 1} polynomial")
+
+
+def get_augmented_positions(positions, column_length):
+    row_length = column_length // 4
+    result = []
+    for p in positions:
+        ap = p % row_length
+        if ap not in result:
+            result.append(ap)
+    return result
+
+
+def _get_column_values(values, positions, augmented_positions, column_length):
+    row_length = column_length // 4
+    result = []
+    for position in positions:
+        idx = augmented_positions.index(position % row_length)
+        result.append(values[idx][position // row_length])
+    return result
+
+
+def _row_bytes(row):
+    return b"".join(field.to_bytes(v) for v in row)

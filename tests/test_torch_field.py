@@ -1,0 +1,215 @@
+"""distaff_torch field arithmetic (kernel K2's plain version on the CPU)
+against distaff_tpu.math.field_jax on the same limbs: exact equality,
+since this is integer field arithmetic.
+
+Every JAX call here uses one operand shape, (128, 4), so that the file
+costs only a handful of XLA compiles."""
+
+import random
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distaff_tpu.math import field as jax_host_field
+from distaff_tpu.math import field_jax as fj
+from distaff_tpu.math import quartic
+import distaff_torch
+from distaff_torch.interop import limbs_from_numpy, limbs_to_numpy
+from distaff_torch.math import field_torch as ft
+from distaff_torch.ops import field_kernels as fk
+from distaff_torch.ops import fri_torch
+
+M = ft.M
+EDGE = [0, 1, 2, M - 1, M - 2, 2**96, 2**96 + 12345, 2**127, 2**64 - 1, 2**64, M // 2]
+N = 128
+
+
+def _elements(n, seed):
+    """n canonical field elements as (n, 4) uint32 limbs, uniform below M,
+    from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 32, size=(n, 4), dtype=np.uint64)
+    limbs[:, 3] %= 0xFFFFFFFF                     # top limb below M's keeps x < M
+    return limbs.astype(np.uint32)
+
+
+def _edge_pairs():
+    """(128, 4) operands: every edge value against every edge value (121
+    pairs), then random elements."""
+    edge = np.asarray(fj.from_ints(EDGE))
+    a, b = _elements(N, 1), _elements(N, 2)
+    k = len(EDGE) ** 2
+    a[:k] = np.repeat(edge, len(EDGE), axis=0)
+    b[:k] = np.tile(edge, (len(EDGE), 1))
+    return a, b
+
+
+def _port(arr):
+    return limbs_from_numpy(arr, "cpu")
+
+
+def _same(port_tensor, jax_array):
+    return np.array_equal(limbs_to_numpy(port_tensor), np.asarray(jax_array))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_binary_ops_match_field_jax(op):
+    a, b = _edge_pairs()
+    assert _same(getattr(ft, op)(_port(a), _port(b)), getattr(fj, op)(a, b))
+
+
+def test_neg_matches_field_jax():
+    a, _ = _edge_pairs()
+    assert _same(ft.neg(_port(a)), fj.neg(a))
+
+
+@pytest.mark.parametrize("e", [0, 2**64 + 7])
+def test_exp_const_matches_field_jax(e):
+    a, _ = _edge_pairs()
+    assert _same(ft.exp_const(_port(a), e), fj.exp_const(a, e))
+
+
+def test_inv_batch_matches_field_jax_zero_to_zero():
+    a, _ = _edge_pairs()                          # the first 11 are zero
+    got = ft.inv_batch(_port(a))
+    assert _same(got, fj.inv_batch(a))
+    for v, x in zip(ft.to_ints(got), ft.to_ints(a)):
+        assert (v == 0) if x == 0 else (v * x % M == 1)
+
+
+def test_cumsum_matches_field_jax():
+    a = _elements(N, 3)
+    assert _same(ft.cumsum(_port(a), axis=0), fj.cumsum(a, axis=0))
+    # along a middle axis too (the port's scan moves it first)
+    grid = ft.cumsum(_port(a.reshape(4, 32, 4)), axis=1)
+    rows = ft.to_ints(a.reshape(4, 32, 4))
+    assert ft.to_ints(grid).tolist() == [
+        [sum(row[: j + 1]) % M for j in range(32)] for row in rows]
+
+
+def test_power_series_matches_field_jax():
+    x = 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321 % M
+    assert _same(ft.power_series_dev(ft.constant(x, "cpu"), N), fj.power_series(x, N))
+
+
+def test_sum_reduce_matches_host():
+    a = _elements(5 * 7, 4).reshape(5, 7, 4)
+    want = [sum(col) % M for col in ft.to_ints(a).T]
+    assert ft.to_ints(ft.sum_reduce(_port(a), axis=0)).tolist() == want
+
+
+def test_broadcast_operands_match_expanded():
+    x = _port(_elements(96, 5).reshape(3, 8, 4, 4))
+    for b in (_elements(32, 6).reshape(8, 4, 4), _elements(24, 7).reshape(3, 8, 1, 4),
+              _elements(1, 8)[0]):
+        full = _port(b).expand(x.shape).contiguous()
+        assert torch.equal(ft.mul(x, _port(b)), ft.mul(x, full))
+        assert torch.equal(ft.sub(_port(b), x), ft.sub(full, x))
+
+
+def _operand_cases():
+    """(a, b, collapsed dimension count): the broadcasts K2 meets on the
+    prover's path, at small sizes, as views of one base tensor."""
+    base = _port(_elements(8 * 16 * 8, 10)).reshape(8, 16, 8, 4)
+    flat = base.reshape(-1, 4)
+    column = base[:3, :8, :1]
+    return {
+        "contiguous": (flat, flat.flip(0), 1),
+        "constant": (base, flat[5], 1),
+        "neg": (ft.zeros((), "cpu"), flat, 1),
+        "table": (base, base[0], 2),                        # four-step twiddles
+        "slice": (base.reshape(4, -1, 4)[3, ::4], flat[7], 1),  # LDE stride slice
+        "column": (base[:3, :8, :4], column, 3),
+        "points": (base[None, 0], base[:2, 0, None], 3),     # poly eval (P, R, n)
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_operand_cases()))
+def test_kernel_indexing_of_broadcast_operands(case):
+    # K2 reads element i of an operand at sum_d k_d * stride_d over the
+    # collapsed dimensions (k_d the digits of i): emulate that on the host
+    a, b, dims = _operand_cases()[case]
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    sizes, strides = fk.collapse_dims(shape, a, b)
+    assert len(sizes) == dims
+    count = 1
+    for size in sizes:
+        count *= size
+    assert count * 4 == torch.Size(shape).numel()
+    for t, st in zip((a, b), strides):
+        storage = torch.tensor([], dtype=torch.uint32).set_(t.untyped_storage()).reshape(-1, 4)
+        rest, offset = torch.arange(count), torch.full((count,), t.storage_offset() // 4)
+        for size, stride in zip(reversed(sizes), reversed(st)):
+            offset += (rest % size) * stride
+            rest //= size
+        read = storage.index_select(0, offset)
+        assert torch.equal(read, t.expand(shape).reshape(-1, 4))
+
+
+def test_fold_rows_matches_quartic_interpolation():
+    # the fold is the reference's interpolate-then-evaluate of each 4-point
+    # row (distaff_tpu/math/quartic.py), at the layer's special_x
+    q, n = 8, 32
+    root = jax_host_field.get_root_of_unity(n)
+    ys = ft.to_ints(_elements(q * 4, 9).reshape(q, 4, 4))
+    x0 = [pow(root, i, M) for i in range(q)]
+    inv3 = [pow(jax_host_field.inv(x), 3, M) for x in x0]
+    sx = 0x0BAD_CAFE_F00D_1234_5678_9ABC_DEF0_1357
+    got = fri_torch.fold_rows(ft.from_ints(ys, "cpu"), ft.from_ints(x0, "cpu"),
+                              ft.from_ints(inv3, "cpu"), ft.constant(sx, "cpu"))
+    xs = [[x * pow(root, j * q, M) % M for j in range(4)] for x in x0]
+    want = quartic.evaluate_batch(quartic.interpolate_batch(xs, ys.tolist()), sx)
+    assert ft.to_ints(got).tolist() == want
+
+
+def test_wrapper_on_cpu_uses_plain_version():
+    a, b = (_port(x) for x in _edge_pairs())
+    assert torch.equal(fk.mul(a, b), fk.mul_plain(a, b))
+    assert torch.equal(fk.exp_const(a, 9), fk.exp_const_plain(a, 9))
+
+
+_HARNESS = r"""
+#include "field128.cuh"
+#include <cstdio>
+using f128::u128;
+static u128 parse(const char* s) {
+    u128 v = 0;
+    for (; *s; ++s) v = v * 16 + (*s <= '9' ? *s - '0' : (*s | 32) - 'a' + 10);
+    return v;
+}
+static void put(u128 v) {
+    printf("%016llx%016llx ", (unsigned long long)(v >> 64), (unsigned long long)v);
+}
+int main() {
+    char a[40], b[40], e[40];
+    while (scanf("%39s %39s %39s", a, b, e) == 3) {
+        u128 x = parse(a), y = parse(b);
+        if (f128::from_limbs(f128::to_limbs(x)) != x) return 1;
+        put(f128::add(x, y)); put(f128::sub(x, y)); put(f128::mul(x, y));
+        put(f128::pow(x, parse(e)));
+        printf("\n");
+    }
+}
+"""
+
+
+def test_kernel_arithmetic_header_matches_host_ints(tmp_path):
+    # csrc/field128.cuh, the arithmetic of kernels K1 and K2, compiles as
+    # plain C++: check it against Python integers on the host
+    csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
+    (tmp_path / "harness.cpp").write_text(_HARNESS)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-I", str(csrc), str(tmp_path / "harness.cpp"),
+                    "-o", str(tmp_path / "harness")], check=True, timeout=120)
+    rng = random.Random(0)
+    cases = [(x, y, rng.choice([0, 1, 2, M - 2, rng.randrange(M)])) for x in EDGE for y in EDGE]
+    cases += [(rng.randrange(M), rng.randrange(M), rng.randrange(1 << 64)) for _ in range(500)]
+    feed = "\n".join(f"{x:x} {y:x} {e:x}" for x, y, e in cases)
+    out = subprocess.run([str(tmp_path / "harness")], input=feed, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.splitlines()
+    assert len(out) == len(cases)
+    for (x, y, e), line in zip(cases, out):
+        assert [int(v, 16) for v in line.split()] == [
+            (x + y) % M, (x - y) % M, x * y % M, pow(x, e, M)], (x, y, e)
