@@ -1,29 +1,39 @@
 """Smoke run of distaff_torch on one NVIDIA H100: builds the kernels, holds
-each against its plain PyTorch version at the main path's shapes, and
-proves and verifies the bench's Fibonacci program on the card.
+each against its plain PyTorch version at the main path's shapes, proves
+and verifies the bench's Fibonacci program on the card, and runs the
+kernel bench.
 
 Usage (from the root of the repository, on a machine with the card):
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build   - nvcc builds distaff_torch/csrc/*.cu, g++ builds native/*.cpp
-               (both into distaff_torch/_build/); prints the card's name
+  1. build   - nvcc builds each distaff_torch/csrc/*.cu (K1-K5, all started
+               together) and links them, g++ builds native/*.cpp and K4's
+               host row evaluator (all into distaff_torch/_build/); prints
+               ptxas' register and spill lines for K4 and the card's name
                and power limit
   2. kernels - K1 ntt_leaf at (2048, 1024, 4) and the packed small leaves,
                K2 add/sub/mul/exp_const at 2^21 elements and the broadcast
                operands of the main path, K3 blake3_rows at 2^21 rows of 320
-               bytes and a Merkle level of 2^21 -> 2^20 nodes, each equal
-               (tolerance zero: integer field arithmetic and hashing) to its
-               plain version on the same inputs; times from CUDA events
+               bytes and a Merkle level of 2^21 -> 2^20 nodes, K4
+               air_transition at (20, 2^19) on the stride slice of the 2^16
+               Fibonacci LDE (bad steps 0), on a copy with one value altered
+               (bad steps > 0) and on random registers, K5 butterfly at 2^19
+               pairs, each equal (tolerance zero: integer field arithmetic
+               and hashing) to its plain version on the same inputs; times
+               from CUDA events
   3. golden  - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
-               proved on cuda must serialize to the bytes pinned in
-               tests/test_determinism.py
+               proved on cuda (step 3 through K4) must serialize to the
+               bytes pinned in tests/test_determinism.py
   4. main    - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                [1, 0], default ProofOptions) proved on cuda and verified,
                with its time, peak device memory and the launches of every
-               kernel, each of which must be non-zero; then proved with
+               kernel: K1-K4 must launch (K4 exactly once); then proved with
                per-step times, and once more without
+  5. bench   - the kernel bench (distaff_torch/tools/kernel_bench.py) at
+               2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
+               tiles.ntt (K1, K2) at each size; K5 and K1-K3 must launch
 
 The last two lines are the kernel table as JSON and the contract line
 {"ok": true, "device": {...}}.
@@ -38,6 +48,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+
+from distaff_torch.tools.timing import time_ms
 
 GOLDEN_SHA256 = "876d9f49cddbe11a3b360c04245d3b29712b6309a1eb446af835b123c729c842"
 GOLDEN_LEN = 12926
@@ -57,7 +69,9 @@ SEED = 20261016
 # carry adds, the fold of the high half through the 46-bit R (8 + 8), the
 # second fold (4 + 4) and the final conditional subtraction (8); a BLAKE3
 # compression is 7 rounds x 8 G x 12 (2 three-input adds, 2 adds, 4 xors,
-# 4 rotates) plus the 8 output xors.
+# 4 rotates) plus the 8 output xors.  K4's field operations per row are
+# counted from its own code (air_kernels.air_ops_per_row: the row
+# evaluator built for the host counts them at this run's depths and groups).
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
@@ -65,16 +79,12 @@ MUL_OPS = 64
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# ~20 ms of spinning at 1.98 GHz: longer than the host takes to enqueue the
-# launches of one trial
-QUEUE_AHEAD_CYCLES = 40_000_000
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
+# kernels of each path: the proof launches K1-K4, the kernel bench K5 with
+# K1-K3 (the bench also times K4, on a random domain)
+MAIN_PATH = ("ntt_leaf", "field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const",
+             "blake3_rows", "blake3_rows.parents", "air_transition")
+BENCH_PATH = ("ntt_leaf", "field_ew.mul", "field_ew.exp_const", "blake3_rows", "butterfly")
+BENCH_SIZES = (14, 18, 20)
 
 
 def int32_ops_per_s():
@@ -86,54 +96,31 @@ def int32_ops_per_s():
     return sms * ISSUE_LANES_PER_SM * float(clock_mhz) * 1e6
 
 
-def time_ms(fn, reps, trials=1, queued=False):
-    """Time of one fn() from CUDA events: the mean over `reps` back-to-back
-    runs after a warm-up, and the median of `trials` such means.  With
-    `queued`, a spin kernel first holds the card while the host enqueues
-    the runs, so that the events time them on the card and not the host's
-    rate of launching them."""
-    fn()
+def max_abs_err(got, want):
+    """Largest difference between two tensors, or two tuples of them."""
+    if isinstance(got, tuple):
+        return max(max_abs_err(g, w) for g, w in zip(got, want))
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def check_equal(name, shape, kernel, plain):
+    """Hold kernel() against plain() (tolerance zero); returns kernel()'s
+    result and the largest difference, 0."""
+    got = kernel()
+    want = plain()
     torch.cuda.synchronize()
-    means = []
-    for _ in range(trials):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        means.append(start.elapsed_time(end) / reps)
-    return sorted(means)[len(means) // 2]
-
-
-def random_elements(gen, shape):
-    """Canonical field elements (< M) as (..., 4) uint32 limbs on the card,
-    from a seeded generator, with 0, 1, M-2 and M-1 in front."""
-    from distaff_torch.math import field_torch as ft
-
-    limbs = torch.randint(0, 1 << 32, tuple(shape) + (4,), generator=gen,
-                          device="cuda", dtype=torch.int64)
-    limbs[..., 3] = limbs[..., 3] % 0xFFFFFFFF      # top limb below M's keeps x < M
-    x = limbs.to(torch.uint32)
-    flat = x.view(-1, 4)
-    for i, v in enumerate((0, 1, ft.M - 2, ft.M - 1)):
-        flat[i] = ft.constant(v, "cuda")
-    return x
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name} at {shape}: kernel and plain version differ "
+                             f"(max abs err {err})")
+    return got, err
 
 
 def check_kernel(name, shape, kernel, plain, reps, plain_reps, bound_bytes, bound_ops,
                  ops_rate, source, replaces):
     """Hold kernel() against plain() (tolerance zero), time both and return
     the kernel's row of the JSON table."""
-    got = kernel()
-    want = plain()
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err != 0:
-        raise AssertionError(f"{name} at {shape}: kernel and plain version differ "
-                             f"(max abs err {err})")
+    _, err = check_equal(name, shape, kernel, plain)
     ms = time_ms(kernel, reps, KERNEL_TRIALS, queued=True)
     plain_ms = time_ms(plain, plain_reps)
     t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
@@ -156,6 +143,7 @@ def phase_kernels(ops_rate):
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import field_kernels as fk
     from distaff_torch.ops import tiles
+    from distaff_torch.tools.timing import random_elements
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -238,7 +226,79 @@ def phase_kernels(ops_rate):
         lambda: b3.hash_rows_plain(level.view(count // 2, 4, 4)),
         20, 1, count * 32 + count // 2 * 32, count // 2 * COMPRESS_OPS, ops_rate,
         k3, "distaff_tpu/crypto/merkle_dev.py:34"))
+    del lde, trace_rows, level
+    rows.append(check_air(gen, ops_rate))
+    rows.append(check_butterfly(gen, ops_rate))
     return rows
+
+
+def check_air(gen, ops_rate):
+    """K4 at (20, 2^19): on the stride slice of the 2^16 Fibonacci LDE (no
+    bad steps), on a copy with one value altered (bad steps), and on random
+    registers, which set every op flag and so reach every constraint arm.
+    The first check gives K4's row of the JSON table."""
+    from distaff_torch import assembly, native, ProgramInputs
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import air_kernels
+    from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain
+    from distaff_torch.stark.constraints.evaluator import Evaluator
+    from distaff_torch.stark.trace_table import TraceTable
+    from distaff_torch.tools.timing import random_elements
+
+    inputs = ProgramInputs.from_public([1, 0])
+    regs, ctx, loop = native.execute_u64(fibonacci_program(assembly, MAIN_LOG2_TRACE), inputs)
+    trace = TraceTable(regs, ctx, loop, 32)
+    trace.extend("cuda")
+    root = trace.build_merkle_tree("blake3").root()
+    evaluator = Evaluator.from_trace(trace, root, inputs.get_public_inputs(),
+                                     trace.get_last_state().user_stack[:1])
+    lde = trace.lde_dev[:, ::4]                                  # D_ev = 2^19 rows
+    tables = air_tables(evaluator, "cuda")
+    r, n = lde.shape[0], lde.shape[1]
+    muls, adds, subs = air_kernels.air_ops_per_row(tables)
+    print(f"K4 at {r} registers, depths ({ctx}, {loop}, {tables.stack_depth}): "
+          f"{muls} multiplies, {adds} adds, {subs} subtractions a row", flush=True)
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc,
+        tables.group_idx, tables.group_size))
+    bound_bytes = (r + tables.xp.shape[0] + 1) * n * 16 + table_bytes
+    bound_ops = n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS)
+    source = ("distaff_torch/csrc/air_transition.cu",
+              "distaff_tpu/stark/constraints/device_eval.py:121")
+
+    def run(x, plain=False):
+        f = transition_plain if plain else air_kernels.air_transition
+        return lambda: f(x, tables)
+
+    row = check_kernel("air_transition", f"({r}, {n}) Fibonacci LDE slice", run(lde),
+                       run(lde, True), 20, 1, bound_bytes, bound_ops, ops_rate, *source)
+    bad = [int(run(lde)()[1])]
+    tampered = lde.clone()
+    tampered[0, 8 * 1000] = ft.constant(12345, "cuda")       # the op counter at step 1000
+    noise = random_elements(gen, (r, n))
+    for what, x in (("slice with one value altered", tampered), ("random registers", noise)):
+        (_, count), _ = check_equal("air_transition", f"({r}, {n}) {what}", run(x), run(x, True))
+        print(f"kernel air_transition at ({r}, {n}) {what}: equal to plain", flush=True)
+        bad.append(int(count))
+    print(f"K4 bad steps: {bad[0]} on the Fibonacci slice, {bad[1]} with one value altered, "
+          f"{bad[2]} on random registers", flush=True)
+    if bad[0] != 0 or bad[1] == 0:
+        raise AssertionError(f"K4 bad-step counts {bad[:2]}: expected 0 and > 0")
+    return row
+
+
+def check_butterfly(gen, ops_rate):
+    """K5 at 2^19 pairs: the middle stage of a 2^20-point stagewise NTT."""
+    from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.tools.timing import random_elements
+
+    pairs = 1 << 19
+    a, b, w = (random_elements(gen, (pairs,)) for _ in range(3))
+    return check_kernel(
+        "butterfly", f"{pairs} pairs", lambda: fk.butterfly_stage(a, b, w),
+        lambda: fk.butterfly_stage_plain(a, b, w), 50, 3, pairs * 80,
+        pairs * (ADD_OPS + SUB_OPS + MUL_OPS), ops_rate,
+        "distaff_torch/csrc/butterfly.cu", "distaff_tpu/ops/field_pallas.py:171")
 
 
 def phase_golden():
@@ -324,9 +384,11 @@ def phase_main():
     print(f"2^{MAIN_LOG2_TRACE} proof: execute {prove_s:.3f} s, verify {verify_s:.3f} s, "
           f"output {outputs}, peak device memory {peak} bytes", flush=True)
     print(f"2^{MAIN_LOG2_TRACE} launches: {json.dumps(launches)}", flush=True)
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in MAIN_PATH if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
+    if launches["air_transition"] != 1:
+        raise AssertionError(f"air_transition launched {launches['air_transition']} times")
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -339,29 +401,55 @@ def phase_main():
     return launches
 
 
+def phase_bench():
+    """The kernel bench at BENCH_SIZES; it raises if ntt_stagewise and
+    tiles.ntt differ at any size.  Returns the launches of its run."""
+    from distaff_torch.ops import cuda_lib
+    from distaff_torch.tools import kernel_bench
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    kernel_bench.bench(BENCH_SIZES)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"bench launches: {json.dumps(launches)}", flush=True)
+    print(f"bench: ntt_stagewise equal to tiles.ntt at 2^{', 2^'.join(map(str, BENCH_SIZES))}",
+          flush=True)
+    idle = [k for k in BENCH_PATH if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the bench path: {idle}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from distaff_torch import native
-    from distaff_torch.ops import cuda_lib
+    from distaff_torch.ops import air_kernels, cuda_lib
+    from distaff_torch.tools.timing import card_line
 
-    # phase 1: build both libraries at once
+    # phase 1: build every library at once (each kernel source in its own nvcc)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(cuda_lib.lib), pool.submit(native.lib)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(cuda_lib.lib), pool.submit(native.lib),
+                  pool.submit(air_kernels.host_lib)]
         for b in builds:
             b.result()
     card = card_line()
     print(f"build: kernels and native runtime in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in cuda_lib.ptxas_report("air_transition"):
+        print(f"K4 {line.strip()}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     rows = phase_kernels(int32_ops_per_s())
     phase_golden()
     launches = phase_main()
+    bench_launches = phase_bench()
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        name = row["name"]
+        row["launches"] = launches[name] if name in MAIN_PATH else bench_launches[name]
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

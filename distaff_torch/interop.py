@@ -10,13 +10,18 @@ import torch
 
 
 def limbs_from_numpy(arr, device):
-    """(..., 4) uint32 numpy limbs -> tensor on `device`."""
+    """(..., 4) uint32 numpy limbs -> tensor on `device`.  A copy to the
+    card is staged in pinned memory and queued on the current stream, so
+    the host does not wait for the work queued before it."""
     arr = np.ascontiguousarray(arr, dtype=np.uint32)
     if not arr.flags.writeable:
         arr = arr.copy()
     if arr.shape[-1:] != (4,):
         raise ValueError(f"expected (..., 4) limbs, got shape {arr.shape}")
-    return torch.from_numpy(arr).to(device)
+    tensor = torch.from_numpy(arr)
+    if torch.device(device).type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
 
 
 def limbs_to_numpy(tensor):

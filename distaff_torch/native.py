@@ -1,8 +1,9 @@
 """ctypes bindings to the native host runtime, built from `native/*.cpp`.
 
 Provides the C++ VM (trace generation), batch BLAKE3, the Merkle node
-builder, the op-sponge rounds of program hashing and the columnar AIR
-transition sweep.  The library is compiled at first use with g++ and the
+builder and the op-sponge rounds of program hashing.  (native/air.cpp, the
+JAX package's host AIR sweep, is not built: the port evaluates the
+transition constraints on the device, kernel K4.)  The library is compiled at first use with g++ and the
 flags of native/Makefile into the port's build directory (see
 distaff_torch/build.py); the committed binary under native/ is never
 loaded, and nothing is written there.  A failed build or load raises: the
@@ -18,7 +19,7 @@ import numpy as np
 from . import build
 
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-SOURCES = ("vm.cpp", "blake3.cpp", "air.cpp")
+SOURCES = ("vm.cpp", "blake3.cpp")
 HEADERS = ("field128.h", "ark_constants.h")
 # native/Makefile's CXXFLAGS, plus -shared
 FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-fopenmp", "-Wall", "-shared")
@@ -55,14 +56,6 @@ def lib():
         handle.dt_sponge_rounds.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_size_t, ctypes.c_size_t]
-        handle.dt_eval_transition.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
-            ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
-            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint32),
-            ctypes.POINTER(ctypes.c_uint32), ctypes.c_size_t,
-            ctypes.c_char_p, ctypes.c_char_p,
-        ]
         _lib = handle
     return _lib
 
@@ -190,53 +183,5 @@ def merkle_nodes(leaves: np.ndarray) -> np.ndarray:
     out = np.empty((2 * (n // 2), 32), dtype=np.uint8)
     lib().dt_merkle_nodes(
         leaves.ctypes.data_as(ctypes.c_char_p), n,
-        out.ctypes.data_as(ctypes.c_char_p))
-    return out
-
-
-# ------------------------------------------------------------------------------------------------
-# native transition-constraint evaluation
-# ------------------------------------------------------------------------------------------------
-
-def _u128_bytes_from_ints(values):
-    return b"".join(int(v).to_bytes(16, "little") for v in values)
-
-
-def eval_transition(trace_u32, ctx_depth, loop_depth, stack_depth,
-                    dec_ark_rows, mask_rows, stk_ark_rows,
-                    cc_transition, degree_groups, xp_u32):
-    """Combined transition-constraint column via native/air.cpp.
-
-    trace_u32: (R, n, 4) uint32 strided evaluation-domain samples
-    *_rows:    periodic constant tables as lists of per-row cycle lists (ints)
-    cc_transition: coefficient list (pairs, group-consumption order)
-    degree_groups: [(incremental_degree, [constraint indices]), ...]
-    xp_u32:   (n_groups, n, 4) uint32 degree-adjustment columns
-    Returns the (n, 4) uint32 combined column.
-    """
-    trace_u32 = np.ascontiguousarray(trace_u32)
-    num_regs, n, _ = trace_u32.shape
-    cycle = len(dec_ark_rows[0])
-
-    dec_ark = _u128_bytes_from_ints(v for row in dec_ark_rows for v in row)
-    masks = _u128_bytes_from_ints(v for row in mask_rows for v in row)
-    stk_ark = _u128_bytes_from_ints(v for row in stk_ark_rows for v in row)
-    cc = _u128_bytes_from_ints(cc_transition)
-
-    group_idx = np.array(
-        [idx for _, idxs in degree_groups for idx in idxs], dtype=np.uint32)
-    group_size = np.array([len(idxs) for _, idxs in degree_groups], dtype=np.uint32)
-    xp_u32 = np.ascontiguousarray(xp_u32)
-
-    out = np.empty((n, 4), dtype=np.uint32)
-    lib().dt_eval_transition(
-        trace_u32.ctypes.data_as(ctypes.c_char_p), n, num_regs,
-        ctx_depth, loop_depth, stack_depth,
-        dec_ark, masks, stk_ark, cycle,
-        cc,
-        group_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        group_size.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        len(degree_groups),
-        xp_u32.ctypes.data_as(ctypes.c_char_p),
         out.ctypes.data_as(ctypes.c_char_p))
     return out

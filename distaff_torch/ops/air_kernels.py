@@ -1,0 +1,177 @@
+"""Kernel K4 (air_transition): its launch, its tables and its host build.
+
+K4 (csrc/air_transition.cu, per-row evaluator csrc/air_row.cuh) replaces
+the fused XLA AIR kernel of the JAX package,
+distaff_tpu/stark/constraints/device_eval.py::_transition_kernel: over every
+row j of the evaluation domain D_ev it evaluates the decoder and stack
+transition constraints between row j and row j + 8 (the next trace step)
+of the stride-(ext/8) LDE slice, and folds them into the degree-grouped
+random linear combination.  It also counts the trace-step rows where the
+combination is nonzero (`bad`), leaving out the last step, whose
+wrap-around transition is legitimately nonzero.  Bound by operations (a
+few hundred field multiplies a row); see the source for the design.
+
+`air_transition` launches the kernel on tensors on the card and raises on
+any other.  K4's plain version is the polymorphic AIR over TorchCol
+columns, stark/constraints/device_eval.py `transition_plain`, and
+`device_eval.transition` chooses between the two by the tensor's device.
+"""
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from . import cuda_lib
+
+STEP_ROWS = 8                      # rows of D_ev per trace step (MAX_CONSTRAINT_DEGREE)
+MAX_CTX, MAX_LOOP, MAX_STACK = 16, 8, 32
+
+
+@dataclass
+class AirTables:
+    """Everything K4 reads besides the trace, for one evaluator.
+
+    Periodic tables are (k, cycle, 4) limbs indexed by j % cycle; `mds` is
+    the sponge MDS, its inverse, the hasher MDS and its inverse, row-major,
+    as (104, 4); `cc` holds the coefficient pairs in consumption order (the
+    stack's are sized for a stack of at least 8);
+    `group_idx` (int32) lists the constraint indices group by group and
+    `group_size` (int32) the groups' sizes; `xp` is the (G, n, 4) series
+    x^p of each group's degree adjustment over D_ev.  `groups` is the same
+    grouping as host tuples, for the plain version."""
+    ctx_depth: int
+    loop_depth: int
+    stack_depth: int
+    groups: tuple
+    dec_ark: torch.Tensor
+    masks: torch.Tensor
+    stk_ark: torch.Tensor
+    mds: torch.Tensor
+    cc: torch.Tensor
+    group_idx: torch.Tensor
+    group_size: torch.Tensor
+    xp: torch.Tensor
+
+    def constraint_count(self):
+        return (20 + max(self.ctx_depth, 1) + max(self.loop_depth, 1)
+                + 2 + self.stack_depth)
+
+
+def check_inputs(lde, t):
+    """Raise unless the slice and the tables fit each other and the depths
+    fit the kernel."""
+    r, n = lde.shape[0], lde.shape[1]
+    depths = (t.ctx_depth, t.loop_depth, t.stack_depth)
+    if not (0 <= t.ctx_depth <= MAX_CTX and 0 <= t.loop_depth <= MAX_LOOP
+            and 0 <= t.stack_depth <= MAX_STACK):
+        raise ValueError(f"air_transition: depths {depths} out of range")
+    if lde.dim() != 3 or r != 15 + sum(depths):
+        raise ValueError(f"air_transition: expected ({15 + sum(depths)}, n, 4) registers, "
+                         f"got {tuple(lde.shape)}")
+    cycle = t.dec_ark.shape[1]
+    if n < STEP_ROWS or n % cycle or tuple(t.xp.shape) != (len(t.groups), n, 4):
+        raise ValueError(f"air_transition: domain {n} does not fit cycle {cycle} "
+                         f"or series {tuple(t.xp.shape)}")
+    if (t.dec_ark.shape[0], t.masks.shape[0], t.stk_ark.shape[0]) != (8, 3, 12) or \
+            t.masks.shape[1] != cycle or t.stk_ark.shape[1] != cycle or t.mds.shape[0] != 104:
+        raise ValueError("air_transition: periodic or MDS tables of the wrong shape")
+    count = t.constraint_count()
+    if t.cc.shape[0] < 2 * count or t.group_idx.shape[0] != count or \
+            sum(len(g) for g in t.groups) != count:
+        raise ValueError(f"air_transition: expected {count} constraints in the groups")
+
+
+def air_transition(lde, tables):
+    """(R, n, 4) LDE slice over D_ev on the card (any row and register
+    strides, limbs contiguous) -> (combined (n, 4) column, bad count as a
+    (1,) int32 tensor on the same device), in one launch."""
+    check_inputs(lde, tables)
+    t = tables
+    cuda_lib.require_limbs("air_transition", lde, t.dec_ark, t.masks, t.stk_ark, t.mds,
+                           t.cc, t.xp)
+    for name, v in (("group_idx", t.group_idx), ("group_size", t.group_size)):
+        if v.dtype != torch.int32 or v.device != lde.device or not v.is_contiguous():
+            raise ValueError(f"air_transition: {name} must be contiguous int32 on {lde.device}")
+    dec_ark, masks, stk_ark = t.dec_ark.contiguous(), t.masks.contiguous(), t.stk_ark.contiguous()
+    mds, cc, xp = t.mds.contiguous(), t.cc.contiguous(), t.xp.contiguous()
+    n = lde.shape[1]
+    out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
+    bad = torch.zeros((1,), dtype=torch.int32, device=lde.device)
+    p = cuda_lib.ptr
+    code = cuda_lib.lib().distaff_air_transition(
+        p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
+        t.ctx_depth, t.loop_depth, t.stack_depth,
+        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds),
+        p(cc), p(t.group_idx), p(t.group_size), len(t.groups), p(xp),
+        p(out), p(bad), cuda_lib.stream(lde))
+    cuda_lib.check(code, "air_transition")
+    cuda_lib.LAUNCHES["air_transition"] += 1
+    return out, bad
+
+
+# ------------------------------------------------------------------------------------------------
+# the per-row evaluator of csrc/air_row.cuh built for the host (g++): the
+# CPU tests hold it against the plain version, and its operation counts
+# give K4's bound
+# ------------------------------------------------------------------------------------------------
+
+_host = None
+
+
+def host_lib():
+    """csrc/air_row_host.cpp built with g++ at first use."""
+    global _host
+    if _host is None:
+        from .. import build
+
+        src = cuda_lib.CSRC / "air_row_host.cpp"
+        headers = [cuda_lib.CSRC / h for h in ("air_row.cuh", "field128.cuh")]
+        path = build.shared_library(
+            "distaff_air_host", ["g++", "-O2", "-std=c++17", "-fPIC", "-shared",
+                                 "-I", str(cuda_lib.CSRC), str(src)], [src, *headers])
+        handle = ctypes.CDLL(str(path))
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        handle.distaff_air_rows_host.argtypes = [
+            vp, ll, ll, ll, i32, i32, i32, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp]
+        handle.distaff_air_ops_host.argtypes = [
+            i32, i32, i32, i32, vp, vp, ctypes.POINTER(ll)]
+        handle.distaff_air_rows_host.restype = None
+        handle.distaff_air_ops_host.restype = None
+        _host = handle
+    return _host
+
+
+def _host_args(t):
+    tensors = [t.dec_ark, t.masks, t.stk_ark, t.mds, t.cc, t.group_idx, t.group_size, t.xp]
+    return [x.detach().cpu().contiguous() for x in tensors]
+
+
+def air_rows_host(lde, tables):
+    """The combined column computed row by row on the host by air_row.cuh."""
+    check_inputs(lde, tables)
+    t = tables
+    lde = lde.detach().cpu()
+    dec_ark, masks, stk_ark, mds, cc, group_idx, group_size, xp = _host_args(t)
+    n = lde.shape[1]
+    out = torch.empty((n, 4), dtype=torch.uint32)
+    p = cuda_lib.ptr
+    host_lib().distaff_air_rows_host(
+        p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
+        t.ctx_depth, t.loop_depth, t.stack_depth,
+        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds),
+        p(cc), p(group_idx), p(group_size), len(t.groups), p(xp), p(out))
+    return out
+
+
+def air_ops_per_row(tables):
+    """(multiplies, adds, subtractions) in the field that air_row.cuh does
+    for one row at these depths and groups: the count is the same for every
+    row and every value."""
+    t = tables
+    group_idx, group_size = _host_args(t)[5:7]
+    counts = (ctypes.c_longlong * 3)()
+    host_lib().distaff_air_ops_host(
+        t.ctx_depth, t.loop_depth, t.stack_depth, len(t.groups),
+        cuda_lib.ptr(group_idx), cuda_lib.ptr(group_size), counts)
+    return tuple(counts)

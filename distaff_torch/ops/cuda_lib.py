@@ -1,11 +1,12 @@
 """The port's CUDA kernels: build, load and launch accounting.
 
-All `distaff_torch/csrc/*.cu` sources compile in one nvcc call for Hopper
-(`sm_90a`) into a shared library with a plain C interface, loaded with
-ctypes.  Pointers and the stream travel as `c_void_p`; every entry point
-returns `cudaGetLastError()` and `check` turns a non-zero code into an
-exception.  Nothing here runs at import: the build happens at the first
-launch.
+Each `distaff_torch/csrc/*.cu` source compiles in its own nvcc call for
+Hopper (`sm_90a`), all started together, with ptxas' register and spill
+report kept beside each object (`ptxas_report`); one more nvcc call links
+them into a shared library with a plain C interface, loaded with ctypes.
+Pointers and the stream travel as `c_void_p`; every entry point returns
+`cudaGetLastError()` and `check` turns a non-zero code into an exception.
+Nothing here runs at import: the build happens at the first launch.
 
 `LAUNCHES` counts, per kernel entry, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else.
@@ -13,6 +14,7 @@ wrapper adds one where it launches its kernel and nowhere else.
 
 import ctypes
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,6 +32,8 @@ LAUNCHES = {
     "field_ew.exp_const": 0,
     "blake3_rows": 0,
     "blake3_rows.parents": 0,
+    "air_transition": 0,
+    "butterfly": 0,
 }
 
 _lib = None
@@ -47,19 +51,36 @@ def nvcc_path():
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def build_command():
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    return ([nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC"] + sources)
+def compile_command(source):
+    """nvcc command that compiles one source to an object (without -o)."""
+    return [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-c", str(source)]
+
+
+def _objects():
+    """One object per source, compiled in parallel (cached by content)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(
+            lambda src: build.artifact(src.stem, ".o", compile_command(src), [src, *headers]),
+            sources))
+
+
+def ptxas_report(stem):
+    """ptxas' lines (registers, stack frame, spills) for csrc/<stem>.cu."""
+    obj = next(o for o in _objects() if o.name.startswith(stem + "-"))
+    return [line for line in obj.with_suffix(".log").read_text().splitlines()
+            if "ptxas" in line or "bytes stack frame" in line]
 
 
 def lib():
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
+        objects = _objects()
         path = build.shared_library(
-            "distaff_kernels", build_command(),
-            list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+            "distaff_kernels", [nvcc_path(), "-gencode", ARCH, "-shared", *objects], objects)
         handle = ctypes.CDLL(str(path))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         llp = ctypes.POINTER(ctypes.c_longlong)
@@ -69,8 +90,12 @@ def lib():
         handle.distaff_field_exp.argtypes = [
             vp, vp, ll, ctypes.c_ulonglong, ctypes.c_ulonglong, vp]
         handle.distaff_blake3_rows.argtypes = [vp, vp, ll, i32, ll, ll, vp]
+        handle.distaff_air_transition.argtypes = [
+            vp, ll, ll, ll, i32, i32, i32, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, vp, vp]
+        handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         for fn in (handle.distaff_ntt_leaf, handle.distaff_field_binary,
-                   handle.distaff_field_exp, handle.distaff_blake3_rows):
+                   handle.distaff_field_exp, handle.distaff_blake3_rows,
+                   handle.distaff_air_transition, handle.distaff_butterfly):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

@@ -12,6 +12,13 @@ and the XLA arithmetic of distaff_tpu/math/field_jax.py (add, sub, mul,
 exp_const): elementwise over broadcast operands.  add/sub/mul are bound by
 memory traffic, exp_const by operations.
 
+K5 `butterfly` (csrc/butterfly.cu) replaces the TPU kernel
+distaff_tpu/ops/field_pallas.py::_butterfly_kernel (launched by
+butterfly_stage_planes, wrapped by butterfly_stage): one radix-2 stage,
+(a + b, (a - b) * w).  `ntt_stagewise` drives it stage by stage, as
+ntt_pallas does; the kernel bench (distaff_torch/tools/kernel_bench.py) is
+its only caller.  Bound by memory traffic.
+
 Each wrapper takes its kernel's plain version for tensors on the CPU, and
 launches the kernel for tensors on the card, or raises: there is no
 fallback from one to the other.  The plain versions (`*_plain`) compute in
@@ -307,3 +314,53 @@ def ntt_leaf(values, tw):
     cuda_lib.check(code, "ntt_leaf")
     cuda_lib.LAUNCHES["ntt_leaf"] += 1
     return out
+
+
+# ------------------------------------------------------------------------------------------------
+# K5 butterfly
+# ------------------------------------------------------------------------------------------------
+
+def butterfly_stage_plain(a, b, w):
+    return add_plain(a, b), mul_plain(sub_plain(a, b), w)
+
+
+def butterfly_stage(a, b, w):
+    """One radix-2 stage over (n, 4) uint32 limbs: (a + b, (a - b) * w)."""
+    if a.dim() != 2 or a.shape != b.shape or a.shape != w.shape:
+        raise ValueError(f"butterfly: expected three equal (n, 4) operands, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(w.shape)}")
+    if _on_cpu(a, b, w):
+        return butterfly_stage_plain(a, b, w)
+    cuda_lib.require_limbs("butterfly", a, b, w)
+    a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+    even, odd = torch.empty_like(a), torch.empty_like(a)
+    code = cuda_lib.lib().distaff_butterfly(
+        cuda_lib.ptr(a), cuda_lib.ptr(b), cuda_lib.ptr(w), cuda_lib.ptr(even),
+        cuda_lib.ptr(odd), a.shape[0], cuda_lib.stream(a))
+    cuda_lib.check(code, "butterfly")
+    cuda_lib.LAUNCHES["butterfly"] += 1
+    return even, odd
+
+
+def ntt_stagewise(values, root=None):
+    """Natural-order NTT of an (n, 4) vector, n a power of two >= 2, one
+    butterfly launch per stage (ntt_pallas's schedule): Pease stages with
+    the twiddle of pair i at stage s being W[(i >> s) << s], the stages'
+    outputs interleaved, and one bit-reversal at the end."""
+    from ..math import field as hostfield
+    from . import tiles
+
+    n = values.shape[0]
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"ntt_stagewise: n must be a power of two >= 2, got {n}")
+    if root is None:
+        root = hostfield.get_root_of_unity(n)
+    half = n // 2
+    table = tiles.power_series(root, half, values.device)
+    pair = torch.arange(half, device=values.device)
+    x = values
+    for s in range(n.bit_length() - 1):
+        w = table.index_select(0, (pair >> s) << s)
+        even, odd = butterfly_stage(x[:half], x[half:], w)
+        x = torch.stack([even, odd], dim=1).reshape(n, 4)
+    return x.index_select(0, _bitrev(n, values.device))

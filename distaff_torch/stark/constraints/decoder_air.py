@@ -191,6 +191,10 @@ def enforce_op_bits(result, current, next_state, masks):
 # ------------------------------------------------------------------------------------------------
 
 def _sponge_mds(state, mds):
+    from ...math.torch_col import is_col, mds_apply
+
+    if is_col(*state):
+        return mds_apply(state, mds, SPONGE_WIDTH)
     out = []
     for i in range(SPONGE_WIDTH):
         acc = 0
@@ -201,6 +205,10 @@ def _sponge_mds(state, mds):
 
 
 def _pow3_all(values):
+    from ...math.torch_col import is_col, pow3_all
+
+    if is_col(*values):
+        return pow3_all(values)
     return [pow_3(v) for v in values]
 
 

@@ -1,0 +1,205 @@
+"""Transition constraints over the whole evaluation domain, on the device.
+
+The port's counterpart of distaff_tpu/stark/constraints/device_eval.py.
+Prover step 3 evaluates the decoder and stack transition constraints at
+every row of D_ev (the stride-(ext/8) slice of the LDE) against the row 8
+ahead, and folds them into the degree-grouped random linear combination.
+On the card this is one launch of kernel K4 (ops/air_kernels.py) over the
+whole domain, reading the LDE slice in place; on the CPU it is K4's plain
+version, `transition_plain` below (`transition` chooses by device): the polymorphic AIR (decoder_air,
+stack_air) run over TorchCol columns, with the structured hot spots
+batched through the math/torch_col helpers.  Both give the values of the
+JAX package's fused kernel and of its host columnar sweep bit for bit.
+
+Unlike the JAX package, the port runs this at every domain size and in one
+piece: there is no compile to amortize and no chunking.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from ...math import field
+from ...math import field_torch as ft
+from ...math.torch_col import TorchCol, stack_cols, unstack, weighted_sum
+from ...config import MAX_CONSTRAINT_DEGREE, NUM_CF_OPS, NUM_LD_OPS, NUM_HD_OPS
+from ...crypto.ark_constants import SPONGE_MDS, SPONGE_INV_MDS, HASHER_MDS, HASHER_INV_MDS
+from ...ops import air_kernels
+from ...ops.air_kernels import AirTables
+from ...ops.field_kernels import sub_plain, mul_plain
+from ...programs.opcodes import OpCode
+from ..trace_state import TraceState
+from .evaluator import _ResultView
+
+M = field.M
+
+
+class _DeviceTraceState(TraceState):
+    """TraceState whose lazy op-flag computation runs as stacked column
+    products.
+
+    Bit-identical to TraceState._compute_flags (including the reference's
+    ld_op_flags[2] quirk using cf_op_bits[1] and the PUSH/ASSERT degree
+    fix-ups after the BEGIN and NOOP flags, trace_state.rs:281-350) but with
+    the flag families factored as binary splits: low-bit combinations times
+    high-bit combinations, one (k, n, 4) multiply per level.  Field
+    multiplication is exact, so the new association order changes nothing."""
+
+    def _compute_flags(self):
+        device = self.cf_op_bits[0].t.device
+
+        def bits_and_nots(bit_cols):
+            b = stack_cols(bit_cols)
+            return b, sub_plain(ft.constant(1, device), b)
+
+        def pick(t, seq):
+            return t.index_select(0, torch.tensor(seq, dtype=torch.int64, device=device))
+
+        cb, ncb = bits_and_nots(self.cf_op_bits)
+        lb, nlb = bits_and_nots(self.ld_op_bits)
+        hb, nhb = bits_and_nots(self.hd_op_bits)
+
+        # cf flags: low-2-bit combinations, then times bit 2
+        cf01 = mul_plain(torch.stack([ncb[0], cb[0], ncb[0], cb[0]]),
+                         torch.stack([ncb[1], ncb[1], cb[1], cb[1]]))
+        cf = mul_plain(pick(cf01, [i & 3 for i in range(NUM_CF_OPS)]),
+                       torch.stack([cb[2] if (i >> 2) & 1 else ncb[2]
+                                    for i in range(NUM_CF_OPS)]))
+
+        # ld flags: combination 2 of the low two bits takes cf_op_bits[1] as
+        # its position-1 factor, the reference's quirk (trace_state.rs:301)
+        ld01 = mul_plain(torch.stack([nlb[0], lb[0], nlb[0], lb[0]]),
+                         torch.stack([nlb[1], nlb[1], cb[1], lb[1]]))
+        ld23 = mul_plain(torch.stack([nlb[2], lb[2], nlb[2], lb[2]]),
+                         torch.stack([nlb[3], nlb[3], lb[3], lb[3]]))
+        ld234 = mul_plain(pick(ld23, [i & 3 for i in range(8)]),
+                          torch.stack([lb[4] if (i >> 2) & 1 else nlb[4] for i in range(8)]))
+        ld = mul_plain(pick(ld01, [i & 3 for i in range(NUM_LD_OPS)]),
+                       pick(ld234, [i >> 2 for i in range(NUM_LD_OPS)]))
+
+        hd = mul_plain(torch.stack([nhb[0], hb[0], nhb[0], hb[0]]),
+                       torch.stack([nhb[1], nhb[1], hb[1], hb[1]]))[:NUM_HD_OPS]
+
+        begin_flag = TorchCol(mul_plain(ld[OpCode.Begin.ld_index()], hd[OpCode.Begin.hd_index()]))
+        noop_flag = TorchCol(mul_plain(ld[OpCode.Noop.ld_index()], hd[OpCode.Noop.hd_index()]))
+
+        # degree fix-ups so PUSH/ASSERT flags don't coincide with BEGIN
+        hd = torch.cat([mul_plain(hd[0], lb[0])[None], hd[1:]])
+        ld = torch.cat([mul_plain(ld[0], hb[0])[None], ld[1:]])
+
+        self._flags = (unstack(cf), unstack(ld), unstack(hd), begin_flag, noop_flag)
+
+
+def _device_state(tables, columns):
+    state = TraceState.from_vec(tables.ctx_depth, tables.loop_depth, tables.stack_depth, columns)
+    state.__class__ = _DeviceTraceState
+    return state
+
+
+@functools.lru_cache(maxsize=None)
+def _air(ctx_depth, loop_depth, stack_depth):
+    """Decoder and Stack AIR objects: here they supply constraint code and
+    counts only; their periodic constants arrive through the tables."""
+    from .decoder_air import Decoder
+    from .stack_air import Stack
+
+    return (Decoder(16, MAX_CONSTRAINT_DEGREE, ctx_depth, loop_depth),
+            Stack(16, MAX_CONSTRAINT_DEGREE, stack_depth))
+
+
+def _nonzero_step_rows(combined):
+    """Count of trace-step rows (every 8th) where `combined` is nonzero,
+    leaving out the last step, as a (1,) int32 tensor."""
+    rows = combined[::MAX_CONSTRAINT_DEGREE].view(torch.int32)
+    nonzero = rows.ne(0).sum(dim=1).gt(0)
+    return nonzero[:-1].sum().to(torch.int32).reshape(1)
+
+
+def transition_plain(lde, tables):
+    """K4's plain version: (R, n, 4) slice over D_ev and its AirTables ->
+    (combined (n, 4) column, count of trace-step rows other than the last
+    where it is nonzero, as a (1,) int32 tensor)."""
+    r_count, n = lde.shape[0], lde.shape[1]
+    nxt = torch.cat([lde[:, MAX_CONSTRAINT_DEGREE:], lde[:, :MAX_CONSTRAINT_DEGREE]], dim=1)
+    current = _device_state(tables, [TorchCol(lde[i]) for i in range(r_count)])
+    next_state = _device_state(tables, [TorchCol(nxt[i]) for i in range(r_count)])
+
+    cycle = tables.dec_ark.shape[1]
+
+    def tile(rows):
+        return [TorchCol(rows[k][None].expand(n // cycle, cycle, 4).reshape(n, 4))
+                for k in range(rows.shape[0])]
+
+    dec, stk = _air(tables.ctx_depth, tables.loop_depth, tables.stack_depth)
+    num_decoder = dec.constraint_count()
+    evaluations = [0] * (num_decoder + stk.constraint_count())
+    dec.evaluate_columns(current, next_state, tile(tables.dec_ark), tile(tables.masks),
+                         _ResultView(evaluations, 0, num_decoder))
+    stk.evaluate_columns(current, next_state, tile(tables.stk_ark),
+                         _ResultView(evaluations, num_decoder, len(evaluations)))
+
+    # degree-grouped combination (Evaluator._combine_transition), each group
+    # two weighted sums over its stacked constraint columns
+    result = TorchCol(ft.zeros((n,), lde.device))
+    i = 0
+    for g, constraints in enumerate(tables.groups):
+        cols = [evaluations[c] if isinstance(evaluations[c], TorchCol)
+                else TorchCol(ft.constant(int(evaluations[c]) % M, lde.device).expand(n, 4))
+                for c in constraints]
+        pairs = torch.arange(2 * i, 2 * (i + len(constraints)), device=lde.device)
+        even = tables.cc.index_select(0, pairs[0::2])
+        odd = tables.cc.index_select(0, pairs[1::2])
+        i += len(constraints)
+        result = (result + weighted_sum(cols, even)) % M
+        result = (result + weighted_sum(cols, odd) * TorchCol(tables.xp[g])) % M
+    combined = result.t.expand(n, 4).contiguous()
+    return combined, _nonzero_step_rows(combined)
+
+
+def transition(lde, tables):
+    """K4's wrapper: its plain version for a slice on the CPU, one launch of
+    the kernel for a slice on the card (ops/air_kernels.air_transition)."""
+    if lde.device.type == "cpu":
+        air_kernels.check_inputs(lde, tables)
+        return transition_plain(lde, tables)
+    return air_kernels.air_transition(lde, tables)
+
+
+def air_tables(evaluator, device):
+    """The AirTables of an evaluator on `device`: periodic constants, MDS
+    matrices, transcript coefficients, groups and xp series."""
+    from ...ops import tiles
+
+    n_ev = evaluator.domain_size
+    root_ev = field.get_root_of_unity(n_ev)
+    groups = tuple(tuple(cs) for _, cs in evaluator.t_degree_groups)
+
+    def limbs(rows):
+        return ft.from_ints(np.array(rows, dtype=object), device)
+
+    def int32(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+
+    return AirTables(
+        ctx_depth=evaluator.ctx_depth, loop_depth=evaluator.loop_depth,
+        stack_depth=evaluator.stack_depth, groups=groups,
+        dec_ark=limbs(evaluator.decoder.ark_rows), masks=limbs(evaluator.decoder.mask_rows),
+        stk_ark=limbs(evaluator.stack.ark_rows),
+        mds=limbs(SPONGE_MDS + SPONGE_INV_MDS + HASHER_MDS + HASHER_INV_MDS),
+        cc=limbs(evaluator.coefficients.transition),
+        group_idx=int32([c for g in groups for c in g]),
+        group_size=int32([len(g) for g in groups]),
+        xp=torch.stack([tiles.power_series(field.exp(root_ev, incr), n_ev, device)
+                        for incr, _ in evaluator.t_degree_groups]))
+
+
+def evaluate_transition_device(evaluator, trace):
+    """Prover step 3 (transition part) on the device of the LDE: one K4
+    launch on the card, the plain version on the CPU.  Returns the combined
+    column over D_ev as (n_ev, 4) limbs and the count of trace steps, other
+    than the last, whose transition constraints do not vanish, as a (1,)
+    int32 tensor: 0 for an honest trace."""
+    stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
+    lde = trace.lde_dev[:, ::stride]
+    return transition(lde, air_tables(evaluator, lde.device))

@@ -364,6 +364,10 @@ def enforce_cswap2(result, aux, old_stack, new_stack, op_flag):
 # crypto -------------------------------------------------------------------------------------
 
 def _hasher_mds(state, mds):
+    from ...math.torch_col import is_col, mds_apply
+
+    if is_col(*state):
+        return mds_apply(state, mds, HASH_STATE_WIDTH)
     out = []
     for i in range(HASH_STATE_WIDTH):
         acc = 0
@@ -374,6 +378,10 @@ def _hasher_mds(state, mds):
 
 
 def _pow3_all(values):
+    from ...math.torch_col import is_col, pow3_all
+
+    if is_col(*values):
+        return pow3_all(values)
     return [pow_3(v) for v in values]
 
 

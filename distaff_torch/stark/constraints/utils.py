@@ -1,9 +1,10 @@
 """Polymorphic constraint operators and shared stack-shift enforcement.
 
 All functions operate on "values" that are either Python ints (verifier,
-out-of-domain evaluation at z) or numpy object-array columns (prover,
-vectorized over the whole evaluation domain).  Plain `% M` arithmetic works
-identically for both, so the AIR has a single source of truth.
+out-of-domain evaluation at z) or columns over the whole evaluation domain
+(numpy object arrays, or TorchCol limb columns in kernel K4's plain
+version).  Plain `% M` arithmetic works identically for all of them, so
+the AIR has a single source of truth.
 """
 
 from ...math import field, polynom
@@ -34,9 +35,16 @@ def agg(result, index, flag, value):
 
 
 def _agg_many(result, start, flag, values):
-    """agg over consecutive slots."""
-    for i, value in enumerate(values):
-        agg(result, start + i, flag, value)
+    """agg over consecutive slots; on TorchCol columns the flag multiply is
+    a single batched op (identical field values to the scalar loop)."""
+    from ...math.torch_col import is_col, mul_flag
+
+    if values and is_col(flag, *values):
+        for i, prod in enumerate(mul_flag(flag, values)):
+            result[start + i] = (result[start + i] + prod) % M
+    else:
+        for i, value in enumerate(values):
+            agg(result, start + i, flag, value)
 
 
 def enforce_stack_copy(result, old_stack, new_stack, from_slot, op_flag):

@@ -4,8 +4,8 @@ the domain-sized work on the device:
 1. trace LDE           - batched NTTs per register (kernels K1, K2)
 2. trace Merkle tree   - leaf rows and every level hashed on device (K3)
 3. constraint eval     - boundary columns as weighted register sums on
-                         device; transition constraints by the native
-                         columnar sweep on the host
+                         device; transition constraints in one launch of
+                         the AIR kernel over the LDE slice (K4)
 4. constraint poly     - device iNTT + suffix-sum synthetic divisions
 5. constraint commit   - device NTT over the LDE domain + device tree
 6. DEEP composition    - pointwise over the evaluation domain with one
@@ -14,9 +14,10 @@ the domain-sized work on the device:
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
 
-Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms");
-while that level is enabled every step ends with a device synchronize, so
-the times are the device's and not the enqueue's.
+Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms"),
+and step 3's parts as "step 3 part <name>: <ms> ms"; while that level is
+enabled every step and part ends with a device synchronize, so the times
+are the device's and not the enqueue's.
 """
 
 import logging
@@ -29,7 +30,7 @@ from ..math import field
 from ..math import field_torch as ft
 from ..config import MAX_CONSTRAINT_DEGREE
 from ..crypto import hashes
-from ..interop import limbs_from_numpy, limbs_to_numpy
+from ..interop import limbs_to_numpy
 from .constraints.evaluator import Evaluator
 from . import utils, fri
 from .proof import StarkProof, DeepValues
@@ -45,16 +46,27 @@ class _StepClock:
     def __init__(self, device):
         self.device = device
         self.enabled = log.isEnabledFor(logging.DEBUG)
-        self.now = time.perf_counter()
+        self.now = self.part_now = time.perf_counter()
+
+    def _synchronized_now(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def part(self, index, name):
+        """Logs the time since the step's start or its last part."""
+        if not self.enabled:
+            return
+        now = self._synchronized_now()
+        log.debug("step %d part %s: %.3f ms", index, name, (now - self.part_now) * 1000)
+        self.part_now = now
 
     def done(self, index, name):
         if not self.enabled:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
+        now = self._synchronized_now()
         log.debug("step %d %s: %.3f ms", index, name, (now - self.now) * 1000)
-        self.now = now
+        self.now = self.part_now = now
 
 
 def prove(trace, inputs, outputs, options, device="cuda"):
@@ -79,7 +91,8 @@ def prove(trace, inputs, outputs, options, device="cuda"):
 
     # 3 ----- evaluate constraints over the evaluation domain ------------------------------------
     evaluator = Evaluator.from_trace(trace, trace_tree.root(), inputs, outputs)
-    i_evals, f_evals, t_evals = _evaluate_constraints_columnar(evaluator, trace)
+    clock.part(3, "evaluator (host)")
+    i_evals, f_evals, t_evals = _evaluate_constraints_columnar(evaluator, trace, clock)
     clock.done(3, "evaluate constraints")
 
     # 4 ----- combine into the constraint polynomial ---------------------------------------------
@@ -150,36 +163,17 @@ def prove(trace, inputs, outputs, options, device="cuda"):
 # step 3: columnar constraint evaluation
 # ------------------------------------------------------------------------------------------------
 
-def _evaluate_constraints_columnar(evaluator, trace):
-    """Boundary columns on the device; the transition column from the
-    native sweep over the D_ev stride slice (the JAX package's own path
-    with its device AIR kernel switched off)."""
+def _evaluate_constraints_columnar(evaluator, trace, clock):
+    """Boundary and transition columns over D_ev, all on the device of the
+    LDE: the stride slice is read in place and never leaves it."""
+    from .constraints.device_eval import evaluate_transition_device
+
     stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
     i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace, stride)
-    t_evals = _native_transition_column(evaluator, trace, stride)
+    clock.part(3, "boundary columns")
+    t_evals, _ = evaluate_transition_device(evaluator, trace)
+    clock.part(3, "transition (K4 tables and launch)")
     return i_evals, f_evals, t_evals
-
-
-def _native_transition_column(evaluator, trace, stride):
-    """Native C++ columnar transition sweep over D_ev (host-side): the
-    stride slice crosses to the host once, the xp power series come from
-    the device, and the combined column returns as an (n_ev, 4) tensor."""
-    from .. import native
-    from ..ops import tiles
-
-    device = trace.lde_dev.device
-    n_ev = evaluator.domain_size
-    trace_u32 = limbs_to_numpy(trace.lde_dev[:, ::stride])
-    root_ev = field.get_root_of_unity(n_ev)
-    xp_u32 = limbs_to_numpy(torch.stack([
-        tiles.power_series(field.exp(root_ev, incr), n_ev, device)
-        for incr, _ in evaluator.t_degree_groups]))
-    t_u32 = native.eval_transition(
-        trace_u32, trace.ctx_depth, trace.loop_depth, trace.stack_depth,
-        evaluator.decoder.ark_rows, evaluator.decoder.mask_rows,
-        evaluator.stack.ark_rows,
-        evaluator.coefficients.transition, evaluator.t_degree_groups, xp_u32)
-    return limbs_from_numpy(t_u32, device)
 
 
 def _evaluate_boundaries_device(evaluator, trace, stride):

@@ -1,10 +1,12 @@
 """distaff_torch NTTs on the CPU (kernel K1's plain version and the
-four-step built on it) against the JAX package: exact equality."""
+four-step built on it, kernel K5's plain version and the stage-by-stage
+NTT built on it) against the JAX package: exact equality."""
 
 import functools
 
 import numpy as np
 import pytest
+import torch
 
 from distaff_tpu.math import field as jax_host_field
 from distaff_tpu.math import field_jax as fj
@@ -85,3 +87,23 @@ def test_ntt_batched_matches_host_fft(log_n, b):
     assert ft.to_ints(evals).tolist() == [polynom.eval_fft(r) for r in rows]
     coeffs = tiles.intt_batched(_port(x), None, LEAF)
     assert ft.to_ints(coeffs).tolist() == [polynom.interpolate_fft(r) for r in rows]
+
+
+def test_butterfly_plain_matches_pallas_kernel_interpreted():
+    # kernel K5's plain version against the TPU kernel it replaces
+    n = 256
+    a, b, w = _elements((n,), 31), _elements((n,), 32), _elements((n,), 33)
+    want_even, want_odd = fp.butterfly_stage(a, b, w, interpret=True)
+    even, odd = fk.butterfly_stage_plain(_port(a), _port(b), _port(w))
+    assert np.array_equal(limbs_to_numpy(even), np.asarray(want_even))
+    assert np.array_equal(limbs_to_numpy(odd), np.asarray(want_odd))
+    assert all(torch.equal(x, y) for x, y in zip(
+        fk.butterfly_stage(_port(a), _port(b), _port(w)), (even, odd)))
+
+
+@pytest.mark.parametrize("log_n", range(1, 11))
+def test_ntt_stagewise_matches_host_fft(log_n):
+    n = 1 << log_n
+    x = _elements((n,), 200 + log_n)
+    got = fk.ntt_stagewise(_port(x))
+    assert ft.to_ints(got).tolist() == polynom.eval_fft(ft.to_ints(x).tolist())
