@@ -8,32 +8,39 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build   - nvcc builds each distaff_torch/csrc/*.cu (K1-K5, all started
-               together) and links them, g++ builds native/*.cpp and K4's
-               host row evaluator (all into distaff_torch/_build/); prints
-               ptxas' register and spill lines for K4 and the card's name
-               and power limit
+  1. build   - all at once: nvcc builds each distaff_torch/csrc/*.cu but
+               K4's (K1-K3, K5, K6) in its own call and links them, and K4
+               once for each depth triple of AIR_TRIPLES (its library is
+               built per geometry); g++ builds native/*.cpp and K4's host
+               row evaluator (all into distaff_torch/_build/); prints each
+               build's seconds, ptxas' register and spill lines for K4 at
+               each triple and for K6, and the card's name and power limit
   2. kernels - K1 ntt_leaf at (2048, 1024, 4) and the packed small leaves,
-               K2 add/sub/mul/exp_const at 2^21 elements and the broadcast
+               K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
+               edge values (the PTX multiply's carries) and on the broadcast
                operands of the main path, K3 blake3_rows at 2^21 rows of 320
                bytes and a Merkle level of 2^21 -> 2^20 nodes, K4
                air_transition at (20, 2^19) on the stride slice of the 2^16
                Fibonacci LDE (bad steps 0), on a copy with one value altered
                (bad steps > 0) and on random registers, K5 butterfly at 2^19
-               pairs, each equal (tolerance zero: integer field arithmetic
-               and hashing) to its plain version on the same inputs; times
-               from CUDA events
+               pairs, K6 inv_batch at 2^21 elements with zeros and edge
+               values and on a ragged length, each equal (tolerance zero:
+               integer field arithmetic and hashing) to its plain version on
+               the same inputs; times from CUDA events
   3. golden  - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
-               proved on cuda (step 3 through K4) must serialize to the
-               bytes pinned in tests/test_determinism.py
+               proved on cuda (step 3 through K4 at depths (0, 0, 2), step 6
+               through K6) must serialize to the bytes pinned in
+               tests/test_determinism.py
   4. main    - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                [1, 0], default ProofOptions) proved on cuda and verified,
                with its time, peak device memory and the launches of every
-               kernel: K1-K4 must launch (K4 exactly once); then proved with
-               per-step times, and once more without
+               kernel: K1-K4 and K6 must launch (K4 and K6 exactly once, K2's
+               exp_const never); then proved with per-step times, and once
+               more without
   5. bench   - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
-               tiles.ntt (K1, K2) at each size; K5 and K1-K3 must launch
+               tiles.ntt (K1, K2) at each size; K5, K2's exp_const, K6 and
+               K1-K3 must launch
 
 The last two lines are the kernel table as JSON and the contract line
 {"ok": true, "device": {...}}.
@@ -71,7 +78,11 @@ SEED = 20261016
 # compression is 7 rounds x 8 G x 12 (2 three-input adds, 2 adds, 4 xors,
 # 4 rotates) plus the 8 output xors.  K4's field operations per row are
 # counted from its own code (air_kernels.air_ops_per_row: the row
-# evaluator built for the host counts them at this run's depths and groups).
+# evaluator built for the host counts them at this run's depths).  K6's
+# bound: one read and one write of 16 bytes an element (2^21 elements: 67
+# MB, 0.020 ms) against 3 multiplies an element, Montgomery's least; its
+# floor in practice is the latency of a block's one dependent inversion
+# chain.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
@@ -79,12 +90,17 @@ MUL_OPS = 64
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# kernels of each path: the proof launches K1-K4, the kernel bench K5 with
-# K1-K3 (the bench also times K4, on a random domain)
-MAIN_PATH = ("ntt_leaf", "field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const",
+# kernels of each path: the proof launches K1-K4 and K6, the kernel bench
+# K5 and K2's exp_const with K1-K3 and K6 (the bench also times K4, on a
+# random domain)
+MAIN_PATH = ("ntt_leaf", "field_ew.add", "field_ew.sub", "field_ew.mul", "inv_batch",
              "blake3_rows", "blake3_rows.parents", "air_transition")
-BENCH_PATH = ("ntt_leaf", "field_ew.mul", "field_ew.exp_const", "blake3_rows", "butterfly")
+BENCH_PATH = ("ntt_leaf", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
+              "butterfly")
 BENCH_SIZES = (14, 18, 20)
+# K4's geometries on this run's paths: the bench program's (also the kernel
+# bench's AIR_DEPTHS) and the golden program's
+AIR_TRIPLES = ((1, 0, 4), (0, 0, 2))
 
 
 def int32_ops_per_s():
@@ -186,6 +202,29 @@ def phase_kernels(ops_rate):
         lambda: fk.exp_const_plain(a, e), 5, 1, 2 * count * 16, count * chain * MUL_OPS,
         ops_rate, k2, "distaff_tpu/math/field_jax.py:279"))
 
+    # the PTX multiply's carries: K2 over every pair of edge values
+    x, y = edge_pairs(ft)
+    for op in ("mul", "add", "sub"):
+        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
+        check_equal(f"field_ew.{op}", f"{x.shape[0]} edge pairs", lambda: kern(x, y),
+                    lambda: plain(x, y))
+    print(f"kernel field_ew.mul/add/sub over {x.shape[0]} edge pairs: equal to plain",
+          flush=True)
+
+    # K6 at 2^21 with every 1000th element zero and the edge values in
+    # front, then on a length that leaves its last tile ragged
+    z = a.clone()
+    z[::1000] = ft.zeros((), "cuda")
+    z[1:x.shape[0] + 1] = x
+    rows.append(check_kernel(
+        "inv_batch", f"{count}, zeros and edge values", lambda: fk.inv_batch(z),
+        lambda: fk.inv_batch_plain(z), 50, 1, 2 * count * 16, count * 3 * MUL_OPS, ops_rate,
+        "distaff_torch/csrc/inv_batch.cu", "distaff_tpu/math/field_jax.py:338"))
+    ragged = z[:count - 2077]
+    check_equal("inv_batch", f"{ragged.shape[0]}", lambda: fk.inv_batch(ragged),
+                lambda: fk.inv_batch_plain(ragged))
+    print(f"kernel inv_batch at {ragged.shape[0]}: equal to plain", flush=True)
+
     # K2's broadcasts on the main path: a constant operand (tiles.scale and
     # the weighted register sums over the LDE), neg (a zero scalar minus a
     # column), the four-step twiddle table repeated over a chunk of 8
@@ -232,6 +271,25 @@ def phase_kernels(ops_rate):
     return rows
 
 
+def edge_pairs(ft):
+    """Every pair of edge values as two (n, 4) limb tensors on the card: 0,
+    1, M - 1, M - 2, 2^64 +- 1, limbs of all ones below M, and products
+    2^127 y whose first fold lies less than 2^93 below a multiple of 2^128
+    (the second fold carries into bit 128; tests/test_torch_field.py's
+    interpreter of the PTX multiply takes the same values)."""
+    m = ft.M
+    values = [0, 1, 2, m - 1, m - 2, m - 3, 2**64 - 1, 2**64, 2**64 + 1, 2**32 - 1,
+              2**96 - 1, 2**127 - 1, 2**127, 2**128 - 2**96 - 1, m // 2]
+    r_inv = pow((45 << 40) - 1, -1, 1 << 128)
+    for bits in range(1, 94, 4):
+        y = 2 * ((-(1 << bits) + 1) * r_inv % (1 << 128))
+        if y < m:
+            values.append(y)
+    xs = [v for v in values for _ in values]
+    ys = [w for _ in values for w in values]
+    return ft.from_ints(xs, "cuda"), ft.from_ints(ys, "cuda")
+
+
 def check_air(gen, ops_rate):
     """K4 at (20, 2^19): on the stride slice of the 2^16 Fibonacci LDE (no
     bad steps), on a copy with one value altered (bad steps), and on random
@@ -255,12 +313,11 @@ def check_air(gen, ops_rate):
     lde = trace.lde_dev[:, ::4]                                  # D_ev = 2^19 rows
     tables = air_tables(evaluator, "cuda")
     r, n = lde.shape[0], lde.shape[1]
-    muls, adds, subs = air_kernels.air_ops_per_row(tables)
-    print(f"K4 at {r} registers, depths ({ctx}, {loop}, {tables.stack_depth}): "
+    muls, adds, subs = air_kernels.air_ops_per_row(tables.depths())
+    print(f"K4 at {r} registers, depths {tables.depths()}: "
           f"{muls} multiplies, {adds} adds, {subs} subtractions a row", flush=True)
     table_bytes = sum(t.numel() * t.element_size() for t in (
-        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc,
-        tables.group_idx, tables.group_size))
+        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc))
     bound_bytes = (r + tables.xp.shape[0] + 1) * n * 16 + table_bytes
     bound_ops = n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS)
     source = ("distaff_torch/csrc/air_transition.cu",
@@ -387,8 +444,9 @@ def phase_main():
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    if launches["air_transition"] != 1:
-        raise AssertionError(f"air_transition launched {launches['air_transition']} times")
+    for name, want in (("air_transition", 1), ("inv_batch", 1), ("field_ew.exp_const", 0)):
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -429,17 +487,28 @@ def main():
     from distaff_torch.ops import air_kernels, cuda_lib
     from distaff_torch.tools.timing import card_line
 
-    # phase 1: build every library at once (each kernel source in its own nvcc)
+    # phase 1: build every library at once (each kernel source in its own
+    # nvcc, K4 once per triple), each timed from the start of the phase
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = [pool.submit(cuda_lib.lib), pool.submit(native.lib),
-                  pool.submit(air_kernels.host_lib)]
-        for b in builds:
-            b.result()
+
+    def timed(fn, *args):
+        fn(*args)
+        return time.perf_counter() - t0
+
+    builds = {"kernels K1-K3, K5, K6": (cuda_lib.lib,), "native runtime": (native.lib,),
+              "K4 host evaluator": (air_kernels.host_lib,)}
+    builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        done = {name: pool.submit(timed, *job) for name, job in builds.items()}
+        seconds = {name: f.result() for name, f in done.items()}
     card = card_line()
-    print(f"build: kernels and native runtime in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in cuda_lib.ptxas_report("air_transition"):
-        print(f"K4 {line.strip()}", flush=True)
+    print(f"build: every library in {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"{name} done at {s:.1f} s" for name, s in seconds.items()), flush=True)
+    for d in AIR_TRIPLES:
+        for line in air_kernels.ptxas_report(d):
+            print(f"K4 {d} {line.strip()}", flush=True)
+    for line in cuda_lib.ptxas_report("inv_batch"):
+        print(f"K6 {line.strip()}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 

@@ -1,7 +1,10 @@
 // K4's per-row evaluator (air_row.cuh) built for the host with g++, with a
 // plain C interface: the CPU tests hold it against K4's plain version
 // before any chip call, and its operation count gives K4's bound
-// (ops/air_kernels.py: air_rows_host, air_ops_per_row).
+// (ops/air_kernels.py: air_rows_host, air_ops_per_row, air_degrees_host).
+// The evaluator is a template over the trace's depths; this library
+// instantiates the geometries of AIR_TRIPLES, and its entry points return
+// -1 for any other.
 
 #define AIR_COUNT_OPS
 #include "air_row.cuh"
@@ -13,72 +16,120 @@ namespace air {
 long long op_counts[3];
 }
 
+// (ctx, loop, stack) depths: those of the CPU tests' random domains, the
+// bench program's (1, 0, 4) and the golden program's (0, 0, 2)
+#define AIR_TRIPLES(X) \
+    X(0, 0, 1) X(0, 0, 2) X(1, 0, 4) X(1, 0, 8) X(1, 1, 8) X(16, 8, 32)
+
 namespace {
 
 air::Inputs make_inputs(const void* trace, long long n, long long reg_stride,
-                        long long row_stride, int ctx_depth, int loop_depth, int stack_depth,
-                        const void* dec_ark, const void* masks, const void* stk_ark, int cycle,
-                        const void* mds, const void* cc, const void* group_idx,
-                        const void* group_size, int n_groups, const void* xp) {
+                        long long row_stride, const void* dec_ark, const void* masks,
+                        const void* stk_ark, int cycle, const void* mds, const void* cc,
+                        const void* xp) {
     air::Inputs in;
     in.trace = (const uint4*)trace;
     in.n = n;
     in.reg_stride = reg_stride;
     in.row_stride = row_stride;
-    in.ctx_depth = ctx_depth;
-    in.loop_depth = loop_depth;
-    in.stack_depth = stack_depth;
     in.dec_ark = (const uint4*)dec_ark;
     in.masks = (const uint4*)masks;
     in.stk_ark = (const uint4*)stk_ark;
     in.cycle = cycle;
     in.mds = (const uint4*)mds;
     in.cc = (const uint4*)cc;
-    in.group_idx = (const int32_t*)group_idx;
-    in.group_size = (const int32_t*)group_size;
-    in.n_groups = n_groups;
     in.xp = (const uint4*)xp;
     return in;
+}
+
+// the combined constraint at row j, both states read from the slice in place
+template <int CTX, int LOOP, int STACK>
+f128::u128 row(const air::Inputs& in, long long j) {
+    const uint4* cur = in.trace + j * in.row_stride;
+    const uint4* nxt = in.trace + (j + air::kStepRows) % in.n * in.row_stride;
+    return air::eval_row<CTX, LOOP, STACK>(in, cur, nxt, in.reg_stride, j);
+}
+
+// the combined column at every row
+template <int CTX, int LOOP, int STACK>
+void rows(const air::Inputs& in, uint4* out) {
+    for (long long j = 0; j < in.n; j++) out[j] = f128::to_limbs(row<CTX, LOOP, STACK>(in, j));
+}
+
+// field multiplies, adds and subtractions of one row: the count depends on
+// the depths only, so one row of zeros gives it
+template <int CTX, int LOOP, int STACK>
+void ops(long long* counts) {
+    using L = air::Layout<CTX, LOOP, STACK>;
+    const int regs = 15 + CTX + LOOP + STACK;
+    std::vector<uint4> trace(regs * air::kStepRows), tables(8 + 3 + 12 + 104);
+    std::vector<uint4> cc(2 * L::kCount), xp(L::kGroups * air::kStepRows);
+    std::memset(trace.data(), 0, trace.size() * sizeof(uint4));
+    std::memset(tables.data(), 0, tables.size() * sizeof(uint4));
+    std::memset(cc.data(), 0, cc.size() * sizeof(uint4));
+    std::memset(xp.data(), 0, xp.size() * sizeof(uint4));
+    const air::Inputs in = make_inputs(trace.data(), air::kStepRows, air::kStepRows, 1,
+                                       tables.data(), tables.data() + 8, tables.data() + 11, 1,
+                                       tables.data() + 23, cc.data(), xp.data());
+    air::op_counts[0] = air::op_counts[1] = air::op_counts[2] = 0;
+    row<CTX, LOOP, STACK>(in, 0);
+    for (int k = 0; k < 3; k++) counts[k] = air::op_counts[k];
+}
+
+template <int CTX, int LOOP, int STACK>
+int layout(int* degrees) {
+    using L = air::Layout<CTX, LOOP, STACK>;
+    for (int c = 0; c < L::kCount; c++) degrees[c] = L::degree(c);
+    return L::kCount;
+}
+
+bool is(int ctx, int loop, int stack, int c, int l, int s) {
+    return ctx == c && loop == l && stack == s;
 }
 
 }  // namespace
 
 extern "C" {
 
-// the combined column at every row, arguments as distaff_air_transition's
-void distaff_air_rows_host(const void* trace, long long n, long long reg_stride,
-                           long long row_stride, int ctx_depth, int loop_depth,
-                           int stack_depth, const void* dec_ark, const void* masks,
-                           const void* stk_ark, int cycle, const void* mds, const void* cc,
-                           const void* group_idx, const void* group_size, int n_groups,
-                           const void* xp, void* out) {
-    const air::Inputs in = make_inputs(trace, n, reg_stride, row_stride, ctx_depth, loop_depth,
-                                       stack_depth, dec_ark, masks, stk_ark, cycle, mds, cc,
-                                       group_idx, group_size, n_groups, xp);
-    uint4* o = (uint4*)out;
-    for (long long j = 0; j < n; j++) o[j] = f128::to_limbs(air::eval_row(in, j));
+// the geometries built in: triples[3 k .. 3 k + 3) for k < the count returned
+int distaff_air_host_triples(int* triples) {
+    int k = 0;
+#define AIR_LIST(c, l, s) triples[k++] = c, triples[k++] = l, triples[k++] = s;
+    AIR_TRIPLES(AIR_LIST)
+#undef AIR_LIST
+    return k / 3;
 }
 
-// field multiplies, adds and subtractions of one row (counts[0..3)); the
-// count depends on the depths and the groups only, so one row of zeros
-// gives it
-void distaff_air_ops_host(int ctx_depth, int loop_depth, int stack_depth, int n_groups,
-                          const void* group_idx, const void* group_size, long long* counts) {
-    const int regs = 15 + ctx_depth + loop_depth + stack_depth;
-    const int cycle = 1;
-    std::vector<uint4> trace(regs * air::kStepRows), tables(8 + 3 + 12 + 104);
-    std::vector<uint4> cc(2 * air::kMaxConstraints), xp(n_groups * air::kStepRows);
-    std::memset(trace.data(), 0, trace.size() * sizeof(uint4));
-    std::memset(tables.data(), 0, tables.size() * sizeof(uint4));
-    std::memset(cc.data(), 0, cc.size() * sizeof(uint4));
-    std::memset(xp.data(), 0, xp.size() * sizeof(uint4));
-    const air::Inputs in = make_inputs(
-        trace.data(), air::kStepRows, air::kStepRows, 1, ctx_depth, loop_depth, stack_depth,
-        tables.data(), tables.data() + 8, tables.data() + 11, cycle, tables.data() + 23,
-        cc.data(), group_idx, group_size, n_groups, xp.data());
-    air::op_counts[0] = air::op_counts[1] = air::op_counts[2] = 0;
-    air::eval_row(in, 0);
-    for (int k = 0; k < 3; k++) counts[k] = air::op_counts[k];
+// the combined column at every row, arguments as distaff_air_transition's
+int distaff_air_rows_host(int ctx, int loop, int stack, const void* trace, long long n,
+                          long long reg_stride, long long row_stride, const void* dec_ark,
+                          const void* masks, const void* stk_ark, int cycle, const void* mds,
+                          const void* cc, const void* xp, void* out) {
+    const air::Inputs in = make_inputs(trace, n, reg_stride, row_stride, dec_ark, masks, stk_ark,
+                                       cycle, mds, cc, xp);
+#define AIR_ROWS(c, l, s) \
+    if (is(ctx, loop, stack, c, l, s)) return rows<c, l, s>(in, (uint4*)out), 0;
+    AIR_TRIPLES(AIR_ROWS)
+#undef AIR_ROWS
+    return -1;
+}
+
+// counts[0..3): field multiplies, adds and subtractions of one row
+int distaff_air_ops_host(int ctx, int loop, int stack, long long* counts) {
+#define AIR_OPS(c, l, s) \
+    if (is(ctx, loop, stack, c, l, s)) return ops<c, l, s>(counts), 0;
+    AIR_TRIPLES(AIR_OPS)
+#undef AIR_OPS
+    return -1;
+}
+
+// the constraint count, with each constraint's degree in degrees[]
+int distaff_air_layout_host(int ctx, int loop, int stack, int* degrees) {
+#define AIR_LAYOUT(c, l, s) \
+    if (is(ctx, loop, stack, c, l, s)) return layout<c, l, s>(degrees);
+    AIR_TRIPLES(AIR_LAYOUT)
+#undef AIR_LAYOUT
+    return -1;
 }
 
 }  // extern "C"

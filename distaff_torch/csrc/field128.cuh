@@ -12,8 +12,13 @@
 // Field elements travel as four little-endian uint32 limbs (uint4), the
 // layout of the (..., 4) tensors on both sides of the port.
 //
-// The header also compiles as plain C++ (the qualifiers below vanish), so
-// its functions can be checked on a host without a GPU.
+// On the card the multiply is PTX on four 32-bit limbs (mul_limbs below), a
+// carry chain that the compiled u128 formulation is slower than (K2's
+// exp_const and K4 on the card, PERF.md).  The header also compiles as
+// plain C++ (the qualifiers below vanish, and mul takes the portable u128
+// code), so its functions can be checked on a host without a GPU; the CPU
+// tests also run the PTX text of mul_limbs through an interpreter of its
+// instructions.
 
 #pragma once
 #include <cstdint>
@@ -62,10 +67,134 @@ F128_FN u128 add(u128 a, u128 b) {
 
 F128_FN u128 sub(u128 a, u128 b) { return (a < b) ? modulus() - b + a : a - b; }
 
+#ifdef __CUDA_ARCH__
+// The device multiply on 32-bit limbs, a = a0 + 2^32 a1 + ..., in one carry
+// chain: the 256-bit product p one row of b's limbs at a time (the low
+// halves of a row's four partial products, then the high halves, each pass
+// one mad.cc/madc chain), then the folds of mul's host code with R = 2^128
+// mod M = 0x2CFF_FFFFFFFF as two limbs: t = p_lo + p_hi R < 2^175, u =
+// t_lo + t_hi R < 2^128 + 2^93, u_lo + R where u carried into bit 128 (u_lo
+// < 2^93 then, so this cannot carry), and the subtraction of M unless it
+// borrows.  Operands: %0-%3 the result, %4-%7 a, %8-%11 b.
+__device__ __forceinline__ uint4 mul_limbs(uint4 a, uint4 b) {
+    uint4 r;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, a2, a3, b0, b1, b2, b3;\n\t"
+        ".reg .u32 p0, p1, p2, p3, p4, p5, p6, p7;\n\t"
+        ".reg .u32 t0, t1, t2, t3, t4, t5, u0, u1, u2, u3, u4;\n\t"
+        ".reg .u32 d0, d1, d2, d3, bw;\n\t"
+        ".reg .pred under;\n\t"
+        "mov.b32 a0, %4;\n\t"
+        "mov.b32 a1, %5;\n\t"
+        "mov.b32 a2, %6;\n\t"
+        "mov.b32 a3, %7;\n\t"
+        "mov.b32 b0, %8;\n\t"
+        "mov.b32 b1, %9;\n\t"
+        "mov.b32 b2, %10;\n\t"
+        "mov.b32 b3, %11;\n\t"
+        // row 0: p[0..5) = a * b0
+        "mul.lo.u32 p0, a0, b0;\n\t"
+        "mul.lo.u32 p1, a1, b0;\n\t"
+        "mul.lo.u32 p2, a2, b0;\n\t"
+        "mul.lo.u32 p3, a3, b0;\n\t"
+        "mad.hi.cc.u32 p1, a0, b0, p1;\n\t"
+        "madc.hi.cc.u32 p2, a1, b0, p2;\n\t"
+        "madc.hi.cc.u32 p3, a2, b0, p3;\n\t"
+        "madc.hi.u32 p4, a3, b0, 0;\n\t"
+        // row 1: p[1..6) += a * b1
+        "mad.lo.cc.u32 p1, a0, b1, p1;\n\t"
+        "madc.lo.cc.u32 p2, a1, b1, p2;\n\t"
+        "madc.lo.cc.u32 p3, a2, b1, p3;\n\t"
+        "madc.lo.cc.u32 p4, a3, b1, p4;\n\t"
+        "addc.u32 p5, 0, 0;\n\t"
+        "mad.hi.cc.u32 p2, a0, b1, p2;\n\t"
+        "madc.hi.cc.u32 p3, a1, b1, p3;\n\t"
+        "madc.hi.cc.u32 p4, a2, b1, p4;\n\t"
+        "madc.hi.u32 p5, a3, b1, p5;\n\t"
+        // row 2: p[2..7) += a * b2
+        "mad.lo.cc.u32 p2, a0, b2, p2;\n\t"
+        "madc.lo.cc.u32 p3, a1, b2, p3;\n\t"
+        "madc.lo.cc.u32 p4, a2, b2, p4;\n\t"
+        "madc.lo.cc.u32 p5, a3, b2, p5;\n\t"
+        "addc.u32 p6, 0, 0;\n\t"
+        "mad.hi.cc.u32 p3, a0, b2, p3;\n\t"
+        "madc.hi.cc.u32 p4, a1, b2, p4;\n\t"
+        "madc.hi.cc.u32 p5, a2, b2, p5;\n\t"
+        "madc.hi.u32 p6, a3, b2, p6;\n\t"
+        // row 3: p[3..8) += a * b3
+        "mad.lo.cc.u32 p3, a0, b3, p3;\n\t"
+        "madc.lo.cc.u32 p4, a1, b3, p4;\n\t"
+        "madc.lo.cc.u32 p5, a2, b3, p5;\n\t"
+        "madc.lo.cc.u32 p6, a3, b3, p6;\n\t"
+        "addc.u32 p7, 0, 0;\n\t"
+        "mad.hi.cc.u32 p4, a0, b3, p4;\n\t"
+        "madc.hi.cc.u32 p5, a1, b3, p5;\n\t"
+        "madc.hi.cc.u32 p6, a2, b3, p6;\n\t"
+        "madc.hi.u32 p7, a3, b3, p7;\n\t"
+        // first fold: t = p[0..4) + p[4..8) * R, R's low limb then its high one
+        "mad.lo.cc.u32 t0, p4, 0xFFFFFFFFU, p0;\n\t"
+        "madc.lo.cc.u32 t1, p5, 0xFFFFFFFFU, p1;\n\t"
+        "madc.lo.cc.u32 t2, p6, 0xFFFFFFFFU, p2;\n\t"
+        "madc.lo.cc.u32 t3, p7, 0xFFFFFFFFU, p3;\n\t"
+        "addc.u32 t4, 0, 0;\n\t"
+        "mad.hi.cc.u32 t1, p4, 0xFFFFFFFFU, t1;\n\t"
+        "madc.hi.cc.u32 t2, p5, 0xFFFFFFFFU, t2;\n\t"
+        "madc.hi.cc.u32 t3, p6, 0xFFFFFFFFU, t3;\n\t"
+        "madc.hi.cc.u32 t4, p7, 0xFFFFFFFFU, t4;\n\t"
+        "addc.u32 t5, 0, 0;\n\t"
+        "mad.lo.cc.u32 t1, p4, 0x2CFFU, t1;\n\t"
+        "madc.lo.cc.u32 t2, p5, 0x2CFFU, t2;\n\t"
+        "madc.lo.cc.u32 t3, p6, 0x2CFFU, t3;\n\t"
+        "madc.lo.cc.u32 t4, p7, 0x2CFFU, t4;\n\t"
+        "addc.u32 t5, t5, 0;\n\t"
+        "mad.hi.cc.u32 t2, p4, 0x2CFFU, t2;\n\t"
+        "madc.hi.cc.u32 t3, p5, 0x2CFFU, t3;\n\t"
+        "madc.hi.cc.u32 t4, p6, 0x2CFFU, t4;\n\t"
+        "madc.hi.u32 t5, p7, 0x2CFFU, t5;\n\t"
+        // second fold: u = t[0..4) + (t4 + 2^32 t5) * R, u4 the carry into bit 128
+        "mad.lo.cc.u32 u0, t4, 0xFFFFFFFFU, t0;\n\t"
+        "madc.hi.cc.u32 u1, t4, 0xFFFFFFFFU, t1;\n\t"
+        "madc.hi.cc.u32 u2, t4, 0x2CFFU, t2;\n\t"
+        "addc.cc.u32 u3, t3, 0;\n\t"
+        "addc.u32 u4, 0, 0;\n\t"
+        "mad.lo.cc.u32 u1, t4, 0x2CFFU, u1;\n\t"
+        "madc.hi.cc.u32 u2, t5, 0xFFFFFFFFU, u2;\n\t"
+        "addc.cc.u32 u3, u3, 0;\n\t"
+        "addc.u32 u4, u4, 0;\n\t"
+        "mad.lo.cc.u32 u1, t5, 0xFFFFFFFFU, u1;\n\t"
+        "madc.lo.cc.u32 u2, t5, 0x2CFFU, u2;\n\t"
+        "addc.cc.u32 u3, u3, 0;\n\t"
+        "addc.u32 u4, u4, 0;\n\t"
+        // third fold: u += u4 * R
+        "mad.lo.cc.u32 u0, u4, 0xFFFFFFFFU, u0;\n\t"
+        "madc.lo.cc.u32 u1, u4, 0x2CFFU, u1;\n\t"
+        "addc.cc.u32 u2, u2, 0;\n\t"
+        "addc.u32 u3, u3, 0;\n\t"
+        // u - M unless that borrows; M = 0xFFFFFFFF_FFFFFFFF_FFFFD300_00000001
+        "sub.cc.u32 d0, u0, 0x00000001U;\n\t"
+        "subc.cc.u32 d1, u1, 0xFFFFD300U;\n\t"
+        "subc.cc.u32 d2, u2, 0xFFFFFFFFU;\n\t"
+        "subc.cc.u32 d3, u3, 0xFFFFFFFFU;\n\t"
+        "subc.u32 bw, 0, 0;\n\t"
+        "setp.ne.u32 under, bw, 0;\n\t"
+        "selp.b32 %0, u0, d0, under;\n\t"
+        "selp.b32 %1, u1, d1, under;\n\t"
+        "selp.b32 %2, u2, d2, under;\n\t"
+        "selp.b32 %3, u3, d3, under;\n\t"
+        "}"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w));
+    return r;
+}
+#endif
+
 // 128x128 -> 256-bit product, then two folds of the high half through R and
 // a final conditional subtraction: the step that _reduce256_h ends with,
 // for results in [M, 2^128).
 F128_FN u128 mul(u128 a, u128 b) {
+#ifdef __CUDA_ARCH__
+    return from_limbs(mul_limbs(to_limbs(a), to_limbs(b)));
+#else
     u64 a0 = (u64)a, a1 = (u64)(a >> 64);
     u64 b0 = (u64)b, b1 = (u64)(b >> 64);
 
@@ -98,6 +227,38 @@ F128_FN u128 mul(u128 a, u128 b) {
     if (res < acc_lo) res += r;                      // wrapped past 2^128
     if (res >= modulus()) res -= modulus();
     return res;
+#endif
+}
+
+// a^(-1) = a^(M-2) (0 for 0) by the binary extended Euclidean algorithm:
+// u = a and v = M with x1 a = u and x2 a = v (mod M) throughout; each step
+// halves u or v (x1 or x2 with it, (x + M) / 2 = (x >> 1) + (M >> 1) + 1 for
+// odd x) or subtracts the smaller from the larger, until u or v is 1.  At
+// most 256 halvings and as many subtractions, a chain of shifts and adds:
+// for one thread alone it is shorter than the ~250 dependent multiplies of
+// a^(M-2) (K6's inversion of a block's total, PERF.md).
+F128_FN u128 inv(u128 a) {
+    if (a == 0) return 0;
+    const u128 half = (modulus() >> 1) + 1;
+    u128 u = a, v = modulus(), x1 = 1, x2 = 0;
+    while (u != 1 && v != 1) {
+        while ((u & 1) == 0) {
+            u >>= 1;
+            x1 = (x1 & 1) ? (x1 >> 1) + half : x1 >> 1;
+        }
+        while ((v & 1) == 0) {
+            v >>= 1;
+            x2 = (x2 & 1) ? (x2 >> 1) + half : x2 >> 1;
+        }
+        if (u >= v) {
+            u -= v;
+            x1 = sub(x1, x2);
+        } else {
+            v -= u;
+            x2 = sub(x2, x1);
+        }
+    }
+    return u == 1 ? x1 : x2;
 }
 
 // base^e by square-and-multiply from the low exponent bit, as

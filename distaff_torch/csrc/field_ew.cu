@@ -9,7 +9,9 @@
 // at most ~120 integer instructions, so they are bound by memory traffic;
 // exp_const runs a 128-step square-and-multiply chain per element and is
 // bound by operations.  One thread per element, operands read as 16-byte
-// vectors.
+// vectors.  exp_const serves a general constant exponent (the kernel
+// bench); the prover's inverses go through K6 (inv_batch.cu), which runs
+// one chain a block instead of one an element.
 //
 // Operands may be broadcast or strided: the wrapper collapses the output's
 // batch dimensions (size-1 dimensions dropped, neighbours that are

@@ -5,8 +5,9 @@ is four little-endian uint32 limbs in the trailing axis of a
 ``torch.uint32`` tensor of shape ``(..., 4)``, the layout of the JAX
 arrays.  The elementwise arithmetic is kernel K2 (ops/field_kernels.py):
 on the card every add, sub, mul and exp_const is one launch, on the CPU
-it is the kernel's plain version.  Scans and reductions here are
-log-depth sequences of those launches plus PyTorch data movement.
+it is the kernel's plain version; the batch inverse is kernel K6.  Scans
+and reductions here are log-depth sequences of those launches plus
+PyTorch data movement.
 
 Every function returns canonical values (< M), bit-identical to
 field_jax on the same inputs.
@@ -66,9 +67,8 @@ def neg(a):
     return sub(zeros((), a.device), a)
 
 
-def inv_batch(a):
-    """Elementwise inverse a^(M-2) (Fermat); zero maps to zero."""
-    return exp_const(a, M - 2)
+# elementwise inverse, zero to zero: kernel K6 (Montgomery's trick per block)
+inv_batch = fk.inv_batch
 
 
 # ------------------------------------------------------------------------------------------------

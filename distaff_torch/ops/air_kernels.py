@@ -11,6 +11,12 @@ combination is nonzero (`bad`), leaving out the last step, whose
 wrap-around transition is legitimately nonzero.  Bound by operations (a
 few hundred field multiplies a row); see the source for the design.
 
+The evaluator is a template over the trace's depths (ctx, loop, stack):
+`air_lib` builds one library per depth triple at its first launch (nvcc,
+into distaff_torch/_build/), and a triple out of range raises.  The
+coefficient positions and degree groups are fixed in the build; the
+launch checks that the tables' groups are the library's.
+
 `air_transition` launches the kernel on tensors on the card and raises on
 any other.  K4's plain version is the polymorphic AIR over TorchCol
 columns, stark/constraints/device_eval.py `transition_plain`, and
@@ -26,6 +32,7 @@ from . import cuda_lib
 
 STEP_ROWS = 8                      # rows of D_ev per trace step (MAX_CONSTRAINT_DEGREE)
 MAX_CTX, MAX_LOOP, MAX_STACK = 16, 8, 32
+MAX_CONSTRAINTS = 22 + MAX_CTX + MAX_LOOP + MAX_STACK
 
 
 @dataclass
@@ -35,11 +42,9 @@ class AirTables:
     Periodic tables are (k, cycle, 4) limbs indexed by j % cycle; `mds` is
     the sponge MDS, its inverse, the hasher MDS and its inverse, row-major,
     as (104, 4); `cc` holds the coefficient pairs in consumption order (the
-    stack's are sized for a stack of at least 8);
-    `group_idx` (int32) lists the constraint indices group by group and
-    `group_size` (int32) the groups' sizes; `xp` is the (G, n, 4) series
-    x^p of each group's degree adjustment over D_ev.  `groups` is the same
-    grouping as host tuples, for the plain version."""
+    stack's are sized for a stack of at least 8); `groups` lists the
+    constraint indices of each degree group, by ascending degree; `xp` is
+    the (G, n, 4) series x^p of each group's degree adjustment over D_ev."""
     ctx_depth: int
     loop_depth: int
     stack_depth: int
@@ -49,20 +54,28 @@ class AirTables:
     stk_ark: torch.Tensor
     mds: torch.Tensor
     cc: torch.Tensor
-    group_idx: torch.Tensor
-    group_size: torch.Tensor
     xp: torch.Tensor
+
+    def depths(self):
+        return (self.ctx_depth, self.loop_depth, self.stack_depth)
 
     def constraint_count(self):
         return (20 + max(self.ctx_depth, 1) + max(self.loop_depth, 1)
                 + 2 + self.stack_depth)
 
 
+def degree_groups(degrees):
+    """Constraint indices grouped by degree, by ascending degree (the
+    Evaluator's grouping)."""
+    return tuple(tuple(c for c, d in enumerate(degrees) if d == degree)
+                 for degree in sorted(set(degrees)))
+
+
 def check_inputs(lde, t):
     """Raise unless the slice and the tables fit each other and the depths
     fit the kernel."""
     r, n = lde.shape[0], lde.shape[1]
-    depths = (t.ctx_depth, t.loop_depth, t.stack_depth)
+    depths = t.depths()
     if not (0 <= t.ctx_depth <= MAX_CTX and 0 <= t.loop_depth <= MAX_LOOP
             and 0 <= t.stack_depth <= MAX_STACK):
         raise ValueError(f"air_transition: depths {depths} out of range")
@@ -77,9 +90,46 @@ def check_inputs(lde, t):
             t.masks.shape[1] != cycle or t.stk_ark.shape[1] != cycle or t.mds.shape[0] != 104:
         raise ValueError("air_transition: periodic or MDS tables of the wrong shape")
     count = t.constraint_count()
-    if t.cc.shape[0] < 2 * count or t.group_idx.shape[0] != count or \
-            sum(len(g) for g in t.groups) != count:
+    if t.cc.shape[0] < 2 * count or sum(len(g) for g in t.groups) != count:
         raise ValueError(f"air_transition: expected {count} constraints in the groups")
+
+
+# ------------------------------------------------------------------------------------------------
+# the kernel: one library per depth triple
+# ------------------------------------------------------------------------------------------------
+
+_libs = {}
+
+
+def air_lib(depths):
+    """K4 built for these (ctx, loop, stack) depths at first use, with the
+    groups of its degree table: (ctypes handle, groups, build log path)."""
+    depths = tuple(int(d) for d in depths)
+    if depths not in _libs:
+        ctx, loop, stack = depths
+        if not (0 <= ctx <= MAX_CTX and 0 <= loop <= MAX_LOOP and 0 <= stack <= MAX_STACK):
+            raise ValueError(f"air_transition: depths {depths} out of range")
+        path = cuda_lib.build_library(
+            f"distaff_air_{ctx}_{loop}_{stack}", cuda_lib.CSRC / "air_transition.cu",
+            [f"AIR_CTX={ctx}", f"AIR_LOOP={loop}", f"AIR_STACK={stack}"])
+        handle = ctypes.CDLL(str(path))
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        handle.distaff_air_transition.argtypes = [
+            vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp]
+        handle.distaff_air_transition.restype = i32
+        handle.distaff_air_layout.argtypes = [vp, vp]
+        handle.distaff_air_layout.restype = i32
+        built, degrees = (ctypes.c_int * 3)(), (ctypes.c_int * MAX_CONSTRAINTS)()
+        count = handle.distaff_air_layout(built, degrees)
+        if tuple(built) != depths:
+            raise RuntimeError(f"air_transition: library for {depths} reports {tuple(built)}")
+        _libs[depths] = (handle, degree_groups(degrees[:count]), path.with_suffix(".log"))
+    return _libs[depths]
+
+
+def ptxas_report(depths):
+    """ptxas' lines (registers, stack frame, spills) for K4 at these depths."""
+    return cuda_lib.ptxas_lines(air_lib(depths)[2])
 
 
 def air_transition(lde, tables):
@@ -90,30 +140,29 @@ def air_transition(lde, tables):
     t = tables
     cuda_lib.require_limbs("air_transition", lde, t.dec_ark, t.masks, t.stk_ark, t.mds,
                            t.cc, t.xp)
-    for name, v in (("group_idx", t.group_idx), ("group_size", t.group_size)):
-        if v.dtype != torch.int32 or v.device != lde.device or not v.is_contiguous():
-            raise ValueError(f"air_transition: {name} must be contiguous int32 on {lde.device}")
+    handle, groups, _ = air_lib(t.depths())
+    if tuple(tuple(g) for g in t.groups) != groups:
+        raise ValueError(f"air_transition: the tables' degree groups are not those of the "
+                         f"kernel built for depths {t.depths()}")
     dec_ark, masks, stk_ark = t.dec_ark.contiguous(), t.masks.contiguous(), t.stk_ark.contiguous()
     mds, cc, xp = t.mds.contiguous(), t.cc.contiguous(), t.xp.contiguous()
     n = lde.shape[1]
     out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
     bad = torch.zeros((1,), dtype=torch.int32, device=lde.device)
     p = cuda_lib.ptr
-    code = cuda_lib.lib().distaff_air_transition(
+    code = handle.distaff_air_transition(
         p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
-        t.ctx_depth, t.loop_depth, t.stack_depth,
         p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds),
-        p(cc), p(t.group_idx), p(t.group_size), len(t.groups), p(xp),
-        p(out), p(bad), cuda_lib.stream(lde))
+        p(cc), p(xp), p(out), p(bad), cuda_lib.stream(lde))
     cuda_lib.check(code, "air_transition")
     cuda_lib.LAUNCHES["air_transition"] += 1
     return out, bad
 
 
 # ------------------------------------------------------------------------------------------------
-# the per-row evaluator of csrc/air_row.cuh built for the host (g++): the
-# CPU tests hold it against the plain version, and its operation counts
-# give K4's bound
+# the per-row evaluator of csrc/air_row.cuh built for the host (g++), at the
+# triples of csrc/air_row_host.cpp: the CPU tests hold it against the plain
+# version, and its operation counts give K4's bound
 # ------------------------------------------------------------------------------------------------
 
 _host = None
@@ -132,46 +181,61 @@ def host_lib():
                                  "-I", str(cuda_lib.CSRC), str(src)], [src, *headers])
         handle = ctypes.CDLL(str(path))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        handle.distaff_air_host_triples.argtypes = [vp]
         handle.distaff_air_rows_host.argtypes = [
-            vp, ll, ll, ll, i32, i32, i32, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp]
-        handle.distaff_air_ops_host.argtypes = [
-            i32, i32, i32, i32, vp, vp, ctypes.POINTER(ll)]
-        handle.distaff_air_rows_host.restype = None
-        handle.distaff_air_ops_host.restype = None
+            i32, i32, i32, vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, vp, vp]
+        handle.distaff_air_ops_host.argtypes = [i32, i32, i32, ctypes.POINTER(ll)]
+        handle.distaff_air_layout_host.argtypes = [i32, i32, i32, vp]
+        for fn in (handle.distaff_air_host_triples, handle.distaff_air_rows_host,
+                   handle.distaff_air_ops_host, handle.distaff_air_layout_host):
+            fn.restype = i32
         _host = handle
     return _host
 
 
-def _host_args(t):
-    tensors = [t.dec_ark, t.masks, t.stk_ark, t.mds, t.cc, t.group_idx, t.group_size, t.xp]
-    return [x.detach().cpu().contiguous() for x in tensors]
+def host_triples():
+    """The depth triples the host build instantiates."""
+    out = (ctypes.c_int * 96)()
+    count = host_lib().distaff_air_host_triples(out)
+    return [tuple(out[3 * k: 3 * k + 3]) for k in range(count)]
+
+
+def _host_call(depths, code):
+    if code < 0:
+        raise ValueError(f"air_row_host: no instantiation for depths {tuple(depths)} "
+                         f"(built: {host_triples()})")
+    return code
 
 
 def air_rows_host(lde, tables):
     """The combined column computed row by row on the host by air_row.cuh."""
     check_inputs(lde, tables)
     t = tables
+    if tuple(tuple(g) for g in t.groups) != degree_groups(air_degrees_host(t.depths())):
+        raise ValueError("air_rows_host: the tables' degree groups are not the evaluator's")
     lde = lde.detach().cpu()
-    dec_ark, masks, stk_ark, mds, cc, group_idx, group_size, xp = _host_args(t)
+    dec_ark, masks, stk_ark, mds, cc, xp = (
+        x.detach().cpu().contiguous() for x in (t.dec_ark, t.masks, t.stk_ark, t.mds, t.cc, t.xp))
     n = lde.shape[1]
     out = torch.empty((n, 4), dtype=torch.uint32)
     p = cuda_lib.ptr
-    host_lib().distaff_air_rows_host(
-        p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
-        t.ctx_depth, t.loop_depth, t.stack_depth,
-        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds),
-        p(cc), p(group_idx), p(group_size), len(t.groups), p(xp), p(out))
+    _host_call(t.depths(), host_lib().distaff_air_rows_host(
+        *t.depths(), p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
+        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds), p(cc), p(xp), p(out)))
     return out
 
 
-def air_ops_per_row(tables):
+def air_ops_per_row(depths):
     """(multiplies, adds, subtractions) in the field that air_row.cuh does
-    for one row at these depths and groups: the count is the same for every
-    row and every value."""
-    t = tables
-    group_idx, group_size = _host_args(t)[5:7]
+    for one row at these (ctx, loop, stack) depths: the count is the same
+    for every row and every value."""
     counts = (ctypes.c_longlong * 3)()
-    host_lib().distaff_air_ops_host(
-        t.ctx_depth, t.loop_depth, t.stack_depth, len(t.groups),
-        cuda_lib.ptr(group_idx), cuda_lib.ptr(group_size), counts)
+    _host_call(depths, host_lib().distaff_air_ops_host(*depths, counts))
     return tuple(counts)
+
+
+def air_degrees_host(depths):
+    """The degree of each constraint in air_row.cuh's table at these depths."""
+    degrees = (ctypes.c_int * MAX_CONSTRAINTS)()
+    count = _host_call(depths, host_lib().distaff_air_layout_host(*depths, degrees))
+    return list(degrees[:count])

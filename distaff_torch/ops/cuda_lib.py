@@ -1,12 +1,15 @@
 """The port's CUDA kernels: build, load and launch accounting.
 
-Each `distaff_torch/csrc/*.cu` source compiles in its own nvcc call for
-Hopper (`sm_90a`), all started together, with ptxas' register and spill
-report kept beside each object (`ptxas_report`); one more nvcc call links
-them into a shared library with a plain C interface, loaded with ctypes.
-Pointers and the stream travel as `c_void_p`; every entry point returns
-`cudaGetLastError()` and `check` turns a non-zero code into an exception.
-Nothing here runs at import: the build happens at the first launch.
+Each `distaff_torch/csrc/*.cu` source but K4's compiles in its own nvcc
+call for Hopper (`sm_90a`), all started together, with ptxas' register and
+spill report kept beside each object (`ptxas_report`); one more nvcc call
+links them into a shared library with a plain C interface, loaded with
+ctypes.  K4 (`air_transition.cu`) is built for one trace geometry at a
+time, into a library of its own (ops/air_kernels.air_lib, on
+`build_library`).  Pointers and the stream travel as `c_void_p`; every
+entry point returns `cudaGetLastError()` and `check` turns a non-zero code
+into an exception.  Nothing here runs at import: the build happens at the
+first launch.
 
 `LAUNCHES` counts, per kernel entry, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else.
@@ -34,6 +37,7 @@ LAUNCHES = {
     "blake3_rows.parents": 0,
     "air_transition": 0,
     "butterfly": 0,
+    "inv_batch": 0,
 }
 
 _lib = None
@@ -57,9 +61,18 @@ def compile_command(source):
             "-Xptxas", "-v", "-c", str(source)]
 
 
+def build_library(name, source, defines):
+    """Path of a shared library built by one nvcc call from one source with
+    these -D definitions (compile and link; ptxas' report kept in its log)."""
+    command = compile_command(source)
+    command = command[:command.index("-c")] + [f"-D{d}" for d in defines] + ["-shared", str(source)]
+    return build.shared_library(name, command, [source, *sorted(CSRC.glob("*.cuh"))])
+
+
 def _objects():
-    """One object per source, compiled in parallel (cached by content)."""
-    sources = sorted(CSRC.glob("*.cu"))
+    """One object per source but K4's, compiled in parallel (cached by
+    content)."""
+    sources = [s for s in sorted(CSRC.glob("*.cu")) if s.stem != "air_transition"]
     headers = sorted(CSRC.glob("*.cuh"))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         return list(pool.map(
@@ -67,11 +80,16 @@ def _objects():
             sources))
 
 
-def ptxas_report(stem):
-    """ptxas' lines (registers, stack frame, spills) for csrc/<stem>.cu."""
-    obj = next(o for o in _objects() if o.name.startswith(stem + "-"))
-    return [line for line in obj.with_suffix(".log").read_text().splitlines()
+def ptxas_lines(log):
+    """ptxas' lines (registers, stack frame, spills) of a build log."""
+    return [line for line in Path(log).read_text().splitlines()
             if "ptxas" in line or "bytes stack frame" in line]
+
+
+def ptxas_report(stem):
+    """ptxas' lines for csrc/<stem>.cu."""
+    obj = next(o for o in _objects() if o.name.startswith(stem + "-"))
+    return ptxas_lines(obj.with_suffix(".log"))
 
 
 def lib():
@@ -90,12 +108,11 @@ def lib():
         handle.distaff_field_exp.argtypes = [
             vp, vp, ll, ctypes.c_ulonglong, ctypes.c_ulonglong, vp]
         handle.distaff_blake3_rows.argtypes = [vp, vp, ll, i32, ll, ll, vp]
-        handle.distaff_air_transition.argtypes = [
-            vp, ll, ll, ll, i32, i32, i32, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, vp, vp]
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
+        handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
         for fn in (handle.distaff_ntt_leaf, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
-                   handle.distaff_air_transition, handle.distaff_butterfly):
+                   handle.distaff_butterfly, handle.distaff_inv_batch):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

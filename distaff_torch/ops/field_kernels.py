@@ -1,4 +1,5 @@
-"""Field kernels K1 (ntt_leaf) and K2 (field_ew): wrappers and plain versions.
+"""Field kernels K1 (ntt_leaf), K2 (field_ew), K5 (butterfly) and K6
+(inv_batch): wrappers and plain versions.
 
 K1 `ntt_leaf` (csrc/ntt_leaf.cu) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_leaf_ntt_kernel (launched by
@@ -11,6 +12,12 @@ both Pallas kernels (field_pallas.py _add_limbs, _sub_limbs, _mul_limbs)
 and the XLA arithmetic of distaff_tpu/math/field_jax.py (add, sub, mul,
 exp_const): elementwise over broadcast operands.  add/sub/mul are bound by
 memory traffic, exp_const by operations.
+
+K6 `inv_batch` (csrc/inv_batch.cu) replaces the XLA batch inversion
+distaff_tpu/math/field_jax.py::inv_batch_scan (Montgomery's trick): every
+element's inverse, zero to zero, with one Fermat chain a block.  Its plain
+version is `exp_const_plain(a, M - 2)`, another algorithm with the same
+results.  Bound by memory traffic.
 
 K5 `butterfly` (csrc/butterfly.cu) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_butterfly_kernel (launched by
@@ -287,6 +294,28 @@ def exp_const(a, e):
         e & ((1 << 64) - 1), e >> 64, cuda_lib.stream(a))
     cuda_lib.check(code, "field_ew.exp_const")
     cuda_lib.LAUNCHES["field_ew.exp_const"] += 1
+    return out
+
+
+# ------------------------------------------------------------------------------------------------
+# K6 inv_batch
+# ------------------------------------------------------------------------------------------------
+
+def inv_batch_plain(a):
+    return exp_const_plain(a, M - 2)
+
+
+def inv_batch(a):
+    """Elementwise inverse of (..., 4) uint32 limbs; zero maps to zero."""
+    if _on_cpu(a):
+        return inv_batch_plain(a)
+    cuda_lib.require_limbs("inv_batch", a)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    code = cuda_lib.lib().distaff_inv_batch(
+        cuda_lib.ptr(a), cuda_lib.ptr(out), a.numel() // 4, cuda_lib.stream(a))
+    cuda_lib.check(code, "inv_batch")
+    cuda_lib.LAUNCHES["inv_batch"] += 1
     return out
 
 

@@ -178,9 +178,6 @@ def air_tables(evaluator, device):
     def limbs(rows):
         return ft.from_ints(np.array(rows, dtype=object), device)
 
-    def int32(values):
-        return torch.tensor(values, dtype=torch.int32, device=device)
-
     return AirTables(
         ctx_depth=evaluator.ctx_depth, loop_depth=evaluator.loop_depth,
         stack_depth=evaluator.stack_depth, groups=groups,
@@ -188,8 +185,6 @@ def air_tables(evaluator, device):
         stk_ark=limbs(evaluator.stack.ark_rows),
         mds=limbs(SPONGE_MDS + SPONGE_INV_MDS + HASHER_MDS + HASHER_INV_MDS),
         cc=limbs(evaluator.coefficients.transition),
-        group_idx=int32([c for g in groups for c in g]),
-        group_size=int32([len(g) for g in groups]),
         xp=torch.stack([tiles.power_series(field.exp(root_ev, incr), n_ev, device)
                         for incr, _ in evaluator.t_degree_groups]))
 

@@ -9,7 +9,7 @@ the domain-sized work on the device:
 4. constraint poly     - device iNTT + suffix-sum synthetic divisions
 5. constraint commit   - device NTT over the LDE domain + device tree
 6. DEEP composition    - pointwise over the evaluation domain with one
-                         batched Fermat inversion
+                         batch inversion (K6, Montgomery's trick)
 7. FRI                 - device radix-4 folds + device layer trees
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
@@ -293,7 +293,7 @@ def polynom_eval_dev(poly_dev, x_int):
 
 def _compose_tiles_batched(a1, a2, c_t, xs, x_incr, z, nz, s1, s2, c_at_z, k1, k2, kc):
     """The DEEP composition over the domain, pointwise.  (x-z) and (x-zg)
-    are inverted through one Fermat inversion of their product:
+    are inverted through one batch inversion (K6) of their product:
     1/(x-z) = (x-zg) * w and 1/(x-zg) = (x-z) * w with
     w = 1/((x-z)(x-zg))."""
     xz = ft.sub(xs, z)

@@ -1,0 +1,170 @@
+"""K4's and K6's design choices measured on the card, each against the
+kernel with that one choice undone.
+
+Usage (from the root of the repository, on a machine with the card):
+
+    python -m distaff_torch.tools.air_probe
+
+K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
+(the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
+it, built as it is and as these variants, each compiled from a patched copy
+of distaff_torch/csrc and held equal to the production build:
+
+  ordinary-loads   the rows are staged with ordinary loads (ld.global), not
+                   streaming ones (ld.global.cs, evict first)
+  u128-multiply    field128.cuh's multiply is its portable u128 code, not
+                   the PTX carry chain
+  128-registers    __launch_bounds__(128, 4): at most 128 registers a
+                   thread, 16 warps an SM instead of 8, more spills
+
+and K6 at 2^14, 2^20 and 2^21 with the block total inverted by the binary
+extended Euclid (production) and by square-and-multiply (f128::pow, 250
+dependent multiplies).  Times come from CUDA events around calls queued
+behind a spin kernel (tools/timing.time_ms); ptxas' spill line of each
+build is printed.  Any difference from the production build raises.
+"""
+
+import ctypes
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from ..ops import air_kernels, cuda_lib
+from .timing import card_line, random_elements, time_ms
+
+BENCH_DEPTHS = (1, 0, 4)
+MUL_DEVICE = "#ifdef __CUDA_ARCH__\n    return from_limbs(mul_limbs(to_limbs(a), to_limbs(b)));\n#else"
+STAGE = "rows[e] = __ldcs(in.trace + row * in.row_stride + r * in.reg_stride);"
+BOUNDS = "__launch_bounds__(kThreads)"
+# variant: (file, text, replacement)
+K4_VARIANTS = {
+    "ordinary-loads": ("air_transition.cu", STAGE,
+                       "rows[e] = in.trace[row * in.row_stride + r * in.reg_stride];"),
+    "u128-multiply": ("field128.cuh", MUL_DEVICE, "#if 0\n#else"),
+    "128-registers": ("air_transition.cu", BOUNDS, "__launch_bounds__(kThreads, 4)"),
+}
+K6_VARIANT = ("inv_batch.cu", "block_inv = f128::inv(acc);",
+              "block_inv = f128::pow(acc, f128::modulus() - 2);")
+
+
+def _build(name, source, patch, defines=()):
+    """A copy of csrc with `patch` applied, `source` built into a library:
+    (ctypes handle, ptxas' spill lines)."""
+    work = Path(tempfile.mkdtemp(prefix=f"air_probe-{name}-"))
+    try:
+        for f in cuda_lib.CSRC.glob("*.cu*"):
+            shutil.copy(f, work)
+        file, old, new = patch
+        text = (work / file).read_text()
+        if old not in text:
+            raise RuntimeError(f"air_probe: {name}: the text to patch is not in {file}")
+        (work / file).write_text(text.replace(old, new))
+        command = cuda_lib.compile_command(work / source)
+        command = command[:command.index("-c")] + [f"-D{d}" for d in defines] + [
+            "-shared", str(work / source), "-o", str(work / "lib.so")]
+        proc = subprocess.run([str(c) for c in command], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"air_probe: {name} failed to build:\n{proc.stderr[-3000:]}")
+        spills = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                  if "spill" in line or "registers" in line]
+        return ctypes.CDLL(str(work / "lib.so")), spills
+    finally:
+        shutil.rmtree(work, ignore_errors=True)      # the loaded library stays mapped
+
+
+def _fibonacci_case():
+    from .. import assembly, native, ProgramInputs
+    from ..stark.constraints.device_eval import air_tables
+    from ..stark.constraints.evaluator import Evaluator
+    from ..stark.trace_table import TraceTable
+
+    inputs = ProgramInputs.from_public([1, 0])
+    program = assembly.compile(f"begin repeat.{(1 << 16) * 3 // 64} swap dup.2 drop add end end")
+    regs, ctx, loop = native.execute_u64(program, inputs)
+    trace = TraceTable(regs, ctx, loop, 32)
+    trace.extend("cuda")
+    evaluator = Evaluator.from_trace(trace, trace.build_merkle_tree("blake3").root(),
+                                     inputs.get_public_inputs(),
+                                     trace.get_last_state().user_stack[:1])
+    lde = trace.lde_dev[:, ::4]
+    if (ctx, loop, evaluator.stack_depth) != BENCH_DEPTHS:
+        raise RuntimeError(f"air_probe: the bench program's depths are {(ctx, loop)}")
+    return lde, air_tables(evaluator, "cuda")
+
+
+def probe_k4():
+    lde, t = _fibonacci_case()
+    layouts = (("LDE slice", lde), ("contiguous copy", lde.contiguous()))
+    want, _ = air_kernels.air_transition(lde, t)
+    spills = [line for line in air_kernels.ptxas_report(BENCH_DEPTHS) if "spill" in line]
+    print(f"K4 production: {spills[0].strip()}", flush=True)
+    for layout, x in layouts:
+        ms = time_ms(lambda: air_kernels.air_transition(x, t), 20, 7, queued=True)
+        print(f"K4 production, {layout}: {ms:.4f} ms", flush=True)
+    defines = [f"AIR_{k}={v}" for k, v in zip(("CTX", "LOOP", "STACK"), BENCH_DEPTHS)]
+    with ThreadPoolExecutor(len(K4_VARIANTS)) as pool:
+        built = dict(zip(K4_VARIANTS, pool.map(
+            lambda kv: _build(kv[0], "air_transition.cu", kv[1], defines), K4_VARIANTS.items())))
+    p, n = cuda_lib.ptr, lde.shape[1]
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_air_transition
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                       *[ctypes.c_void_p] * 3, ctypes.c_int, *[ctypes.c_void_p] * 6]
+        fn.restype = ctypes.c_int
+
+        def run(x):
+            out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
+            bad = torch.zeros((1,), dtype=torch.int32, device="cuda")
+            cuda_lib.check(fn(p(x), n, x.stride(0) // 4, x.stride(1) // 4, p(t.dec_ark),
+                              p(t.masks), p(t.stk_ark), t.dec_ark.shape[1], p(t.mds), p(t.cc),
+                              p(t.xp), p(out), p(bad), cuda_lib.stream(x)), name)
+            return out
+
+        print(f"K4 {name}: {'; '.join(spills)}", flush=True)
+        for layout, x in layouts:
+            if not torch.equal(run(x), want):
+                raise AssertionError(f"air_probe: K4 {name} differs from the production build")
+            ms = time_ms(lambda: run(x), 20, 7, queued=True)
+            print(f"K4 {name}, {layout}: {ms:.4f} ms", flush=True)
+
+
+def probe_k6():
+    from ..ops import field_kernels as fk
+
+    handle, _ = _build("k6-pow", "inv_batch.cu", K6_VARIANT)
+    fn = handle.distaff_inv_batch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for log_n in (14, 20, 21):
+        a = random_elements(gen, (1 << log_n,))
+
+        def pow_run():
+            out = torch.empty_like(a)
+            cuda_lib.check(fn(cuda_lib.ptr(a), cuda_lib.ptr(out), a.shape[0],
+                              cuda_lib.stream(a)), "inv_batch (pow)")
+            return out
+
+        if not torch.equal(pow_run(), fk.inv_batch(a)):
+            raise AssertionError("air_probe: K6 with f128::pow differs from the production build")
+        gcd = time_ms(lambda: fk.inv_batch(a), 50, 7, queued=True)
+        chain = time_ms(pow_run, 50, 7, queued=True)
+        print(f"K6 at 2^{log_n}: binary Euclid {gcd:.4f} ms, square-and-multiply {chain:.4f} ms",
+              flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("air_probe: no CUDA device is available")
+    print(f"device: {card_line()}", flush=True)
+    probe_k4()
+    probe_k6()
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,10 @@ operation, with its time and the time per butterfly, element or row:
                    its result must equal tiles.ntt's
   mul              one K2 multiply of n elements
   power_series     the n powers of the domain root (K2 launches)
-  inv_batch        the Fermat inverse of n elements (K2 exp_const)
+  inv_batch        the batch inverse of n elements (K6, Montgomery's trick);
+                   its result must equal exp_const's
+  exp_const        n elements to the power M - 2 (K2 exp_const, the
+                   per-element Fermat inverse)
   blake3           K3 over n/4 rows of 64 bytes
   air_transition   K4 over a random (20, n, 4) domain (the bench program's
                    20 registers)
@@ -102,7 +105,10 @@ def bench(log2_sizes, device="cuda"):
         line(log_n, "mul", timer(lambda: ft.mul(x, y)), n, "element")
         line(log_n, "power_series", timer(lambda: tiles.power_series(root, n, device)),
              n, "element")
+        if not torch.equal(ft.inv_batch(x), ft.exp_const(x, ft.M - 2)):
+            raise AssertionError(f"2^{log_n}: inv_batch and exp_const(M - 2) differ")
         line(log_n, "inv_batch", timer(lambda: ft.inv_batch(x)), n, "element")
+        line(log_n, "exp_const", timer(lambda: ft.exp_const(x, ft.M - 2)), n, "element")
         leaves = x.view(n // 4, 4, 4)
         line(log_n, f"blake3 {n // 4}x64B", timer(lambda: blake3_torch.hash_rows(leaves)),
              n // 4, "row")

@@ -1,9 +1,11 @@
 """distaff_torch transition AIR on the CPU: TorchCol and its batched
 helpers against Python ints, and K4's plain version (device_eval.
-transition_plain) and its per-row evaluator (csrc/air_row.cuh built with
-g++) against the JAX package's host columnar AIR, the path of
-distaff_tpu/stark/prover.py's fallback sweep: exact equality, since this is
-integer field arithmetic.  No JAX jit compile of the AIR runs here."""
+transition_plain) and its per-row evaluator (csrc/air_row.cuh, a template
+over the trace's depths, built with g++ at the triples of
+csrc/air_row_host.cpp) against the JAX package's host columnar AIR, the
+path of distaff_tpu/stark/prover.py's fallback sweep: exact equality,
+since this is integer field arithmetic.  No JAX jit compile of the AIR
+runs here."""
 
 import numpy as np
 import pytest
@@ -201,9 +203,35 @@ def test_kernel_row_evaluator_matches_plain_on_random_domain(depths):
     assert torch.equal(air_kernels.air_rows_host(wide[:, ::2], tables), want)
 
 
+def test_host_build_instantiates_the_test_triples():
+    # every random domain's depths, the bench program's and the golden one's
+    assert set(DEPTHS) | {(1, 0, 4), (0, 0, 2)} <= set(air_kernels.host_triples())
+    with pytest.raises(ValueError, match="no instantiation"):
+        air_kernels.air_ops_per_row((2, 2, 2))
+
+
+@pytest.mark.parametrize("depths", DEPTHS)
+def test_kernel_degree_table_matches_evaluator(depths):
+    # air_row.cuh folds each constraint at a coefficient position and into a
+    # degree group fixed at compile time by its constexpr degree table
+    port, _, _ = _random_case(depths)
+    degrees = air_kernels.air_degrees_host(depths)
+    assert degrees == port.transition_degrees()
+    assert air_kernels.degree_groups(degrees) == air_tables(port, "cpu").groups
+    assert air_kernels.degree_groups(degrees) == tuple(
+        tuple(cs) for _, cs in port.t_degree_groups)
+
+
+def test_kernel_library_refuses_depths_out_of_range():
+    # raises before any build: no generic kernel stands behind the triples
+    for depths in ((17, 0, 4), (1, 9, 4), (1, 0, 33), (-1, 0, 4)):
+        with pytest.raises(ValueError, match="out of range"):
+            air_kernels.air_lib(depths)
+
+
 def _ops(depths):
     port, _, _ = _random_case(depths)
-    return air_kernels.air_ops_per_row(air_tables(port, "cpu")), port
+    return air_kernels.air_ops_per_row(depths), port
 
 
 def test_kernel_row_operation_count():

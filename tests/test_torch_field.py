@@ -6,6 +6,7 @@ Every JAX call here uses one operand shape, (128, 4), so that the file
 costs only a handful of XLA compiles."""
 
 import random
+import re
 import subprocess
 from pathlib import Path
 
@@ -73,6 +74,9 @@ def test_exp_const_matches_field_jax(e):
 
 
 def test_inv_batch_matches_field_jax_zero_to_zero():
+    # K6's wrapper (its plain version on the CPU) against field_jax.inv_batch:
+    # inv_batch_scan, the function K6 ports, takes about a minute of XLA:CPU
+    # compile even at 16 elements, and inverses are unique
     a, _ = _edge_pairs()                          # the first 11 are zero
     got = ft.inv_batch(_port(a))
     assert _same(got, fj.inv_batch(a))
@@ -169,6 +173,7 @@ def test_wrapper_on_cpu_uses_plain_version():
     a, b = (_port(x) for x in _edge_pairs())
     assert torch.equal(fk.mul(a, b), fk.mul_plain(a, b))
     assert torch.equal(fk.exp_const(a, 9), fk.exp_const_plain(a, 9))
+    assert torch.equal(fk.inv_batch(a), fk.exp_const_plain(a, M - 2))
 
 
 _HARNESS = r"""
@@ -189,7 +194,7 @@ int main() {
         u128 x = parse(a), y = parse(b);
         if (f128::from_limbs(f128::to_limbs(x)) != x) return 1;
         put(f128::add(x, y)); put(f128::sub(x, y)); put(f128::mul(x, y));
-        put(f128::pow(x, parse(e)));
+        put(f128::pow(x, parse(e))); put(f128::inv(x));
         printf("\n");
     }
 }
@@ -197,8 +202,9 @@ int main() {
 
 
 def test_kernel_arithmetic_header_matches_host_ints(tmp_path):
-    # csrc/field128.cuh, the arithmetic of kernels K1 and K2, compiles as
-    # plain C++: check it against Python integers on the host
+    # csrc/field128.cuh, the arithmetic of the kernels, compiles as plain
+    # C++: check its host branch against Python integers (inv: the binary
+    # extended Euclid that K6 runs once a block)
     csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
     (tmp_path / "harness.cpp").write_text(_HARNESS)
     subprocess.run(["g++", "-O1", "-std=c++17", "-I", str(csrc), str(tmp_path / "harness.cpp"),
@@ -212,4 +218,105 @@ def test_kernel_arithmetic_header_matches_host_ints(tmp_path):
     assert len(out) == len(cases)
     for (x, y, e), line in zip(cases, out):
         assert [int(v, 16) for v in line.split()] == [
-            (x + y) % M, (x - y) % M, x * y % M, pow(x, e, M)], (x, y, e)
+            (x + y) % M, (x - y) % M, x * y % M, pow(x, e, M), pow(x, M - 2, M)], (x, y, e)
+
+
+# ------------------------------------------------------------------------------------------------
+# the device multiply: field128.cuh's PTX run by an interpreter of its instructions
+# ------------------------------------------------------------------------------------------------
+
+def _ptx_mul_limbs():
+    """The instructions of field128.cuh's mul_limbs and its operand names,
+    in order (%0-%3 the result, then a and b)."""
+    src = (Path(distaff_torch.__file__).resolve().parent / "csrc" / "field128.cuh").read_text()
+    body = src[src.index("mul_limbs(uint4 a, uint4 b)"):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("asm("):body.index(");")])
+    template, operands = body.split(":", 1)
+    text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
+    text = text.replace("\\n", "\n").replace("\\t", " ")
+    names = re.findall(r'"=?r"\(([\w.]+)\)', operands)
+    lines = [ln.strip() for ln in text.replace("{", "").replace("}", "").split(";")]
+    return [ln for ln in lines if ln and not ln.startswith(".reg")], names
+
+
+def _run_ptx(instructions, operands):
+    """Run u32 PTX arithmetic with the carry flag; operands maps %k to values."""
+    mask = 0xFFFFFFFF
+    regs, cf = {}, None
+
+    def val(tok):
+        if tok.startswith("%"):
+            return operands[int(tok[1:])]
+        if tok[0].isdigit():
+            return int(tok.rstrip("U"), 0) & mask
+        return regs[tok]
+
+    for ins in instructions:
+        op, args = ins.split(None, 1)
+        dst, *src = [t.strip() for t in args.split(",")]
+        parts = op.split(".")
+        name, cc = parts[0], "cc" in parts
+        carry_in = name in ("addc", "madc", "subc")
+        if carry_in and cf is None:
+            raise AssertionError(f"{ins}: reads the carry flag before any instruction sets it")
+        c_in = cf if carry_in else 0
+        if name in ("mov",):
+            result = val(src[0])
+        elif name == "setp":
+            assert parts[1] == "ne"
+            result = val(src[0]) != val(src[1])
+        elif name == "selp":
+            result = val(src[0]) if regs[src[2]] else val(src[1])
+        elif name in ("mul", "mad", "madc"):
+            prod = val(src[0]) * val(src[1])
+            half = prod & mask if parts[1] == "lo" else prod >> 32
+            total = half + (val(src[2]) if name != "mul" else 0) + c_in
+            result = total & mask
+            if cc:
+                cf = total >> 32
+        elif name in ("add", "addc"):
+            total = val(src[0]) + val(src[1]) + c_in
+            result = total & mask
+            if cc:
+                cf = total >> 32
+        elif name in ("sub", "subc"):
+            total = val(src[0]) - val(src[1]) - c_in
+            result = total & mask
+            if cc:
+                cf = int(total < 0)
+        else:
+            raise AssertionError(f"instruction not modelled: {ins}")
+        if dst.startswith("%"):
+            operands[int(dst[1:])] = result
+        else:
+            regs[dst] = result
+    return operands
+
+
+def test_device_multiply_ptx_matches_host_ints():
+    # the PTX carry chain of field128.cuh's mul_limbs (the multiply of every
+    # kernel on the card) against Python integers, on the edge values, limbs
+    # of all ones below M and random elements
+    instructions, names = _ptx_mul_limbs()
+    assert names == ["r.x", "r.y", "r.z", "r.w", "a.x", "a.y", "a.z", "a.w",
+                     "b.x", "b.y", "b.z", "b.w"]
+    assert len(instructions) > 80
+    rng = random.Random(1)
+    values = EDGE + [M - 3, 2**64 + 1, 2**128 - 2**96 - 1, 2**96 - 1, (1 << 127) - 1]
+    values += [rng.randrange(M) for _ in range(20)]
+    cases = [(x, y) for x in values for y in values]
+    # products 2^127 y whose first fold t = p_lo + p_hi R lies less than
+    # 2^93 below a multiple of 2^128, so that the second fold carries into
+    # bit 128 (1 in 2^35 of random products): y = 2h with h R = 2^128 - d
+    # mod 2^128 for d of every size up to 2^93
+    r = (45 << 40) - 1
+    for bits in range(1, 94):
+        h = (-rng.randrange(1 << (bits - 1), 1 << bits)) * pow(r, -1, 1 << 128) % (1 << 128)
+        if 2 * h < M:
+            cases.append((1 << 127, 2 * h))
+    assert len(cases) > len(values) ** 2 + 30
+    for x, y in cases:
+        limbs = [(v >> (32 * k)) & 0xFFFFFFFF for v in (x, y) for k in range(4)]
+        out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
+        got = sum(out[k] << (32 * k) for k in range(4))
+        assert got == x * y % M, (hex(x), hex(y))
