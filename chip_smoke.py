@@ -13,9 +13,12 @@ Phases, in order; any failure raises and exits non-zero:
                once for each depth triple of AIR_TRIPLES (its library is
                built per geometry); g++ builds native/*.cpp and K4's host
                row evaluator (all into distaff_torch/_build/); prints each
-               build's seconds, ptxas' register and spill lines for K4 at
-               each triple and for K6, and the card's name and power limit
-  2. kernels - K1 ntt_leaf at (2048, 1024, 4) and the packed small leaves,
+               build's seconds, ptxas' register and spill lines for K1, for
+               K4 at each triple and for K6, and the card's name and power
+               limit
+  2. kernels - K1 ntt_pass at every pass the 2^16 proof launches (its NTTs
+               run on random inputs of their shapes, each pass recorded and
+               launched again), one row each,
                K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
                edge values (the PTX multiply's carries) and on the broadcast
                operands of the main path, K3 blake3_rows at 2^21 rows of 320
@@ -35,11 +38,12 @@ Phases, in order; any failure raises and exits non-zero:
                [1, 0], default ProofOptions) proved on cuda and verified,
                with its time, peak device memory and the launches of every
                kernel: K1-K4 and K6 must launch (K4 and K6 exactly once, K2's
-               exp_const never); then proved with per-step times, and once
-               more without
+               exp_const never), K1 exactly at the passes phase 2 checked
+               and none of two points; then proved with per-step times
+               (step 1's and step 3's parts too), and once more without
   5. bench   - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
-               tiles.ntt (K1, K2) at each size; K5, K2's exp_const, K6 and
+               tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
                K1-K3 must launch
 
 The last two lines are the kernel table as JSON and the contract line
@@ -52,6 +56,7 @@ import logging
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -70,7 +75,8 @@ SEED = 20261016
 # cycle, x SM count x maximum SM clock, both read from the card.  (The
 # integer-only pipe has 64 lanes per SM, but IMAD and shifts also issue to
 # the FMA pipe; the BLAKE3 kernel runs faster than 64 lanes would allow.)
-# Instruction counts per operation, from the algorithms at their leanest:
+# Instruction counts per operation, from the algorithms at their leanest
+# (K1's butterflies and multiplies counted from this run's data, dif_work):
 # a modular add or sub is 4 carry-chained adds, 4 trial subtractions and 4
 # selects; a modular multiply is 16 wide 32x32->64 multiply-adds with 16
 # carry adds, the fold of the high half through the 46-bit R (8 + 8), the
@@ -93,9 +99,9 @@ KERNEL_TRIALS = 7
 # kernels of each path: the proof launches K1-K4 and K6, the kernel bench
 # K5 and K2's exp_const with K1-K3 and K6 (the bench also times K4, on a
 # random domain)
-MAIN_PATH = ("ntt_leaf", "field_ew.add", "field_ew.sub", "field_ew.mul", "inv_batch",
+MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.sub", "field_ew.mul", "inv_batch",
              "blake3_rows", "blake3_rows.parents", "air_transition")
-BENCH_PATH = ("ntt_leaf", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
+BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
 # K4's geometries on this run's paths: the bench program's (also the kernel
@@ -151,39 +157,20 @@ def check_kernel(name, shape, kernel, plain, reps, plain_reps, bound_bytes, boun
 
 def phase_kernels(ops_rate):
     """Each kernel at the main path's shapes, equal to its plain version.
-    The first check of each kernel entry gives its row of the JSON table;
-    the others hold the broadcast layouts and leaf packings that the 2^16
-    proof also launches."""
+    K1 gives a row for each of the proof's passes; for the other kernels
+    the first check of each entry gives its row of the JSON table, and the
+    others hold the broadcast layouts that the 2^16 proof also launches."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import field_kernels as fk
-    from distaff_torch.ops import tiles
     from distaff_torch.tools.timing import random_elements
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    rows = []
-    k1 = ("distaff_torch/csrc/ntt_leaf.cu", "distaff_tpu/ops/field_pallas.py:252")
     k2 = "distaff_torch/csrc/field_ew.cu"
     k3 = "distaff_torch/csrc/blake3_rows.cu"
-
-    # K1: step 5's leaf launch (the constraint LDE's 2048 leaves of 1024),
-    # then the packed small leaves of the four-step recursion: the 2^21
-    # LDE's last columns (8 x 2^20 leaves of 2), the 2^16 interpolation's
-    # (20 x 1024 of 64) and the 2^19 constraint interpolation's (3 x 1024 of 512)
-    for b, n in ((2048, 1024), (8 << 20, 2), (20480, 64), (3072, 512)):
-        leaves = random_elements(gen, (b, n))
-        tw = tiles.power_series(hostfield.get_root_of_unity(n), n // 2, "cuda")
-        butterflies = b * (n // 2) * (n.bit_length() - 1)
-        row = check_kernel(
-            "ntt_leaf", f"({b}, {n}, 4)", lambda: fk.ntt_leaf(leaves, tw),
-            lambda: fk.ntt_leaf_plain(leaves, tw), 20, 1 if rows else 2,
-            2 * b * n * 16 + (n // 2) * 16, butterflies * (ADD_OPS + SUB_OPS + MUL_OPS),
-            ops_rate, *k1)
-        if not rows:
-            rows.append(row)
-        del leaves
+    rows = check_passes(gen, ops_rate)
 
     # K2 at the LDE domain of the 2^16 rung: 2^21 elements
     count = 1 << 21
@@ -227,8 +214,7 @@ def phase_kernels(ops_rate):
 
     # K2's broadcasts on the main path: a constant operand (tiles.scale and
     # the weighted register sums over the LDE), neg (a zero scalar minus a
-    # column), the four-step twiddle table repeated over a chunk of 8
-    # registers, and a register of the LDE's stride-4 slice (step 3's
+    # column), and a register of the LDE's stride-4 slice (step 3's
     # boundary sums) times its weight
     scalar = ft.constant(0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321, "cuda")
     zero = ft.zeros((), "cuda")
@@ -236,10 +222,6 @@ def phase_kernels(ops_rate):
         ("mul", f"{count} x (4,)", a, scalar, count, 2 * count + 1),
         ("sub", f"(4,) x {count}", zero, a, count, 2 * count + 1),
     ]
-    chunk = random_elements(gen, (8, 2048, 1024))
-    table = random_elements(gen, (2048, 1024))
-    variants.append(("mul", "(8, 2048, 1024) x (2048, 1024)", chunk, table, 8 * count,
-                     2 * 8 * count + count))
     lde = random_elements(gen, (20, count))
     variants.append(("mul", f"(20, {count})[3, ::4] x (4,)", lde[3, ::4], scalar, count // 4,
                      2 * (count // 4)))
@@ -248,7 +230,6 @@ def phase_kernels(ops_rate):
         check_kernel(f"field_ew.{op}", shape, lambda k=kern, x=x, y=y: k(x, y),
                      lambda p=plain, x=x, y=y: p(x, y), 50, 1, elements * 16,
                      n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate, k2, "")
-    del chunk, table
 
     # K3: trace rows of the 2^16 rung (20 registers = 320 bytes) hashed in
     # place from the (R, D, 4) LDE, and one Merkle level 2^21 -> 2^20
@@ -268,6 +249,114 @@ def phase_kernels(ops_rate):
     del lde, trace_rows, level
     rows.append(check_air(gen, ops_rate))
     rows.append(check_butterfly(gen, ops_rate))
+    return rows
+
+
+class PassRecorder:
+    """Within its `with`, records the arguments of every K1 pass that
+    ops/tiles launches (field_kernels.ntt_pass) and launches it."""
+
+    def __enter__(self):
+        from distaff_torch.ops import field_kernels as fk
+
+        self.fk, self.real, self.calls = fk, fk.ntt_pass, []
+        fk.ntt_pass = self.record
+        return self
+
+    def record(self, *args):
+        self.calls.append(args)
+        return self.real(*args)
+
+    def __exit__(self, *exc):
+        self.fk.ntt_pass = self.real
+
+    def keys(self):
+        return [pass_key(*args) for args in self.calls]
+
+
+def pass_key(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None):
+    """A K1 pass's shape: its geometry and which store factors it takes."""
+    factors = "" if lo is None else " x lo" if hi is None else " x lo x hi"
+    return (f"({batch}, {cols}, {2 * tw.shape[0]}) in {tuple(src_strides)} n_in {n_in} "
+            f"out {tuple(dst_strides)}{factors}")
+
+
+def main_path_transforms(gen):
+    """The 2^16 proof's NTTs on random inputs of their shapes: step 1's
+    interpolation (20, 2^16) and LDE (20, 2^16 -> 2^21), step 4's
+    interpolation (3, 2^19) and step 5's constraint LDE (2^19 -> 2^21)."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import tiles
+    from distaff_torch.tools.timing import random_elements
+
+    n, ev, domain = 1 << MAIN_LOG2_TRACE, 1 << (MAIN_LOG2_TRACE + 3), 1 << (MAIN_LOG2_TRACE + 5)
+    root = hostfield.get_root_of_unity
+    regs, comb, poly = (random_elements(gen, s) for s in ((20, n), (3, ev), (ev,)))
+    return [("step 1 interpolation", lambda: tiles.intt_batched(regs, root(n))),
+            ("step 1 LDE", lambda: tiles.ntt_batched(regs, root(domain), n=domain)),
+            ("step 4 interpolation", lambda: tiles.intt_batched(comb, root(ev))),
+            ("step 5 constraint LDE", lambda: tiles.ntt(poly, root(domain), n=domain))]
+
+
+def dif_work(m, valid):
+    """(butterflies, multiplies) of a size-m transform whose first `valid`
+    points are nonzero and the rest zero, at the least the data needs: a
+    butterfly of two zeros is no work, one with twiddle 1 no multiply (a
+    DIF transform; its stage of span h has twiddle 1 at i mod h = 0)."""
+    import numpy as np
+
+    nonzero = np.arange(m) < valid
+    butterflies = multiplies = 0
+    h = m // 2
+    while h >= 1:
+        pairs = nonzero.reshape(-1, 2, h)
+        active = pairs[:, 0] | pairs[:, 1]
+        butterflies += int(active.sum())
+        multiplies += int(active[:, 1:].sum())
+        nonzero = np.stack([active, active], 1).reshape(m)
+        h //= 2
+    return butterflies, multiplies
+
+
+def check_passes(gen, ops_rate):
+    """K1 at every pass the 2^16 proof launches, one row each: the proof's
+    NTTs run on random inputs of their shapes with each pass recorded, then
+    each pass is launched again into fresh outputs, held equal to its plain
+    version on the same inputs and timed."""
+    from distaff_torch.ops import field_kernels as fk
+
+    rows = []
+    for what, transform in main_path_transforms(gen):
+        with PassRecorder() as rec:
+            transform()
+        for args in rec.calls:
+            src, dst, tw, batch, cols, ss, ds, n_in, lo, hi = (args + (None, None))[:10]
+            m = 2 * tw.shape[0]
+            outs = [torch.zeros_like(dst) for _ in range(2)]
+            pass_args = lambda out: (src, out, tw, batch, cols, ss, ds, n_in, lo, hi)
+            in_row = (torch.arange(cols)[:, None] * ss[1] + torch.arange(m)[None, :] * ss[2])
+            valid = (in_row < n_in).sum(1).tolist()
+            reads = batch * sum(valid)
+            points = batch * cols * m
+            butterflies = multiplies = 0
+            for v, count in Counter(valid).items():
+                bf, mul = dif_work(m, v)
+                butterflies += batch * count * bf
+                multiplies += batch * count * mul
+            if lo is not None:
+                multiplies += points                 # the four-step twiddle or 1/n
+            tables = m // 2 + sum(t.shape[0] for t in (lo, hi) if t is not None)
+            row = check_kernel(
+                "ntt_pass", f"{what}: {pass_key(*pass_args(dst))}",
+                lambda: fk.ntt_pass(*pass_args(outs[0])),
+                lambda: fk.ntt_pass_plain(*pass_args(outs[1])), 20, 1,
+                (reads + points + tables) * 16,
+                butterflies * (ADD_OPS + SUB_OPS) + multiplies * MUL_OPS, ops_rate,
+                "distaff_torch/csrc/ntt_pass.cu", "distaff_tpu/ops/field_pallas.py:252")
+            row["key"] = pass_key(*args)
+            rows.append(row)
+            del outs
+        del rec
     return rows
 
 
@@ -412,12 +501,14 @@ def timed_execute(program, inputs, options, stepped):
         package_log.setLevel(logging.NOTSET)
 
 
-def phase_main():
+def phase_main(pass_keys):
     """The 2^16 proof three times: as a user runs it (no step logging, so
-    no synchronize between steps), with the launch counts and peak memory
-    read around it; with DEBUG step logging for the per-step times; and
-    unstepped again, so that the cost of the step synchronizes shows beside
-    the drift from one proof to the next."""
+    no synchronize between steps), with the launch counts, K1's passes and
+    peak memory read around it; with DEBUG step logging for the per-step
+    times; and unstepped again, so that the cost of the step synchronizes
+    shows beside the drift from one proof to the next.  K1's passes must be
+    exactly `pass_keys`, those phase 2 held and timed, and none a two-point
+    transform.  Returns the launches and K1's passes."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import cuda_lib
@@ -428,8 +519,10 @@ def phase_main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
+    with PassRecorder() as rec:
+        outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
     launches = dict(cuda_lib.LAUNCHES)
+    proof_keys = rec.keys()
     peak = torch.cuda.max_memory_allocated()
 
     if proof.trace_length() != 1 << MAIN_LOG2_TRACE:
@@ -444,9 +537,19 @@ def phase_main():
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    for name, want in (("air_transition", 1), ("inv_batch", 1), ("field_ew.exp_const", 0)):
+    for name, want in (("air_transition", 1), ("inv_batch", 1), ("field_ew.exp_const", 0),
+                       ("ntt_pass", len(pass_keys))):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
+    for key in proof_keys:
+        print(f"2^{MAIN_LOG2_TRACE} K1 pass {key}", flush=True)
+    if Counter(proof_keys) != Counter(pass_keys):
+        raise AssertionError("the proof's K1 passes are not those phase 2 checked")
+    small = [args for args in rec.calls if args[2].shape[0] < 2]
+    if small:
+        raise AssertionError(f"{len(small)} two-point K1 passes in the proof")
+    print(f"2^{MAIN_LOG2_TRACE} K1 launched {launches['ntt_pass']} times, no two-point "
+          f"transform; field_ew.mul launched {launches['field_ew.mul']} times", flush=True)
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -456,7 +559,7 @@ def phase_main():
         print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
     print(f"2^{MAIN_LOG2_TRACE} execute: stepped (synchronized at each step's end) "
           f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
-    return launches
+    return launches, proof_keys
 
 
 def phase_bench():
@@ -512,13 +615,18 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
+    for line in cuda_lib.ptxas_report("ntt_pass"):
+        print(f"K1 {line.strip()}", flush=True)
     rows = phase_kernels(int32_ops_per_s())
     phase_golden()
-    launches = phase_main()
+    launches, proof_keys = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
     for row in rows:
         name = row["name"]
-        row["launches"] = launches[name] if name in MAIN_PATH else bench_launches[name]
+        if "key" in row:
+            row["launches"] = proof_keys.count(row.pop("key"))
+        else:
+            row["launches"] = launches[name] if name in MAIN_PATH else bench_launches[name]
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {
-    "ntt_leaf": 0,
+    "ntt_pass": 0,
     "field_ew.add": 0,
     "field_ew.sub": 0,
     "field_ew.mul": 0,
@@ -102,7 +102,8 @@ def lib():
         handle = ctypes.CDLL(str(path))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         llp = ctypes.POINTER(ctypes.c_longlong)
-        handle.distaff_ntt_leaf.argtypes = [vp, vp, vp, ll, i32, vp]
+        handle.distaff_ntt_pass.argtypes = [
+            vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
         handle.distaff_field_binary.argtypes = [
             i32, i32, vp, vp, vp, ll, llp, llp, llp, vp]
         handle.distaff_field_exp.argtypes = [
@@ -110,7 +111,7 @@ def lib():
         handle.distaff_blake3_rows.argtypes = [vp, vp, ll, i32, ll, ll, vp]
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
-        for fn in (handle.distaff_ntt_leaf, handle.distaff_field_binary,
+        for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch):
             fn.restype = i32

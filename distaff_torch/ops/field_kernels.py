@@ -1,11 +1,14 @@
-"""Field kernels K1 (ntt_leaf), K2 (field_ew), K5 (butterfly) and K6
+"""Field kernels K1 (ntt_pass), K2 (field_ew), K5 (butterfly) and K6
 (inv_batch): wrappers and plain versions.
 
-K1 `ntt_leaf` (csrc/ntt_leaf.cu) replaces the TPU kernel
+K1 `ntt_pass` (csrc/ntt_pass.cu, ntt_pass.cuh) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_leaf_ntt_kernel (launched by
-_leaf_ntt_planes, wrapped by leaf_ntt_bm): a batch of natural-order NTTs of
-size n <= 1024, all stages in on-chip memory.  Bound by operations; see the
-source for the design.
+_leaf_ntt_planes, wrapped by leaf_ntt_bm) and the four-step glue around it:
+a batch of natural-order NTTs of size m <= 2048 over strided columns, with
+zero extension and the four-step twiddle (or a constant) on the store, all
+stages in on-chip memory.  ops/tiles.ntt_batched runs a transform of up to
+2048^2 points as two launches.  Bound by operations; see the source for the
+design.
 
 K2 `field_ew` (csrc/field_ew.cu) replaces the in-kernel limb arithmetic of
 both Pallas kernels (field_pallas.py _add_limbs, _sub_limbs, _mul_limbs)
@@ -47,7 +50,7 @@ _M_LIMBS = tuple((M >> (32 * k)) & _MASK32 for k in range(4))
 # R = 2^128 mod M = 45*2^40 - 1 as three 16-bit halfwords
 _R_HALFWORDS = tuple((((45 << 40) - 1) >> (16 * k)) & _MASK16 for k in range(3))
 
-MAX_LEAF = 1024
+MAX_LEAF = 2048
 
 
 # ------------------------------------------------------------------------------------------------
@@ -320,29 +323,95 @@ def inv_batch(a):
 
 
 # ------------------------------------------------------------------------------------------------
-# K1 ntt_leaf
+# K1 ntt_pass
 # ------------------------------------------------------------------------------------------------
 
-def ntt_leaf(values, tw):
-    """(B, n, 4) uint32 limbs, n a power of two in [2, 1024], and tw = the
-    (n/2, 4) power series of the size-n root -> natural-order NTT along
-    axis 1."""
-    b, n = values.shape[0], values.shape[1]
-    if values.dim() != 3 or n < 2 or n > MAX_LEAF or n & (n - 1):
-        raise ValueError(f"ntt_leaf: expected (B, n <= {MAX_LEAF}, 4), got {tuple(values.shape)}")
-    if tuple(tw.shape) != (n // 2, 4):
-        raise ValueError(f"ntt_leaf: expected ({n // 2}, 4) twiddles, got {tuple(tw.shape)}")
-    if _on_cpu(values, tw):
-        return ntt_leaf_plain(values, tw)
-    cuda_lib.require_limbs("ntt_leaf", values, tw)
-    values, tw = values.contiguous(), tw.contiguous()
-    out = torch.empty_like(values)
-    code = cuda_lib.lib().distaff_ntt_leaf(
-        cuda_lib.ptr(values), cuda_lib.ptr(out), cuda_lib.ptr(tw), b,
-        n.bit_length() - 1, cuda_lib.stream(values))
-    cuda_lib.check(code, "ntt_leaf")
-    cuda_lib.LAUNCHES["ntt_leaf"] += 1
-    return out
+def _pass_offsets(batch, cols, m, strides, device):
+    """(batch, cols, m) element offsets of a pass's points, and the offsets
+    of each point in its batch row, for strides (batch, column, point)."""
+    bs, cs, ps = strides
+    in_row = (torch.arange(cols, device=device)[:, None] * cs
+              + torch.arange(m, device=device)[None, :] * ps)
+    return torch.arange(batch, device=device)[:, None, None] * bs + in_row[None], in_row
+
+
+def ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in,
+                   lo=None, hi=None):
+    """ntt_pass's function on int64 limbs: a gather of the transforms, the
+    Pease leaf of ntt_leaf64, the store factors and a scatter into dst."""
+    m = 2 * tw.shape[0]
+    device = src.device
+    idx, in_row = _pass_offsets(batch, cols, m, src_strides, device)
+    valid = in_row < n_in
+    idx = torch.where(valid[None], idx, 0).reshape(-1)
+    x = src.reshape(-1, 4).view(torch.int32).index_select(0, idx).to(torch.int64) & _MASK32
+    x = x.view(batch * cols, m, 4) * valid.repeat(batch, 1)[..., None]
+    y = ntt_leaf64(x, tw.to(torch.int64)).view(batch, cols, m, 4)
+    if lo is not None:
+        e = (torch.arange(cols, device=device)[:, None]
+             * torch.arange(m, device=device)[None, :]).reshape(-1)
+        log_lo = lo.shape[0].bit_length() - 1
+        f = lo.to(torch.int64).index_select(0, e & (lo.shape[0] - 1))
+        if hi is not None:
+            f = mul64(f, hi.to(torch.int64).index_select(0, e >> log_lo))
+        y = mul64(y, f.view(1, cols, m, 4))
+    out_idx, _ = _pass_offsets(batch, cols, m, dst_strides, device)
+    dst.view(-1, 4).view(torch.int32).index_copy_(
+        0, out_idx.reshape(-1), y.reshape(-1, 4).to(torch.uint32).view(torch.int32))
+    return dst
+
+
+def _pass_span(batch, cols, m, strides, limit):
+    """One more than the largest element offset a pass touches."""
+    bs, cs, ps = strides
+    return (batch - 1) * bs + min(limit, (cols - 1) * cs + (m - 1) * ps + 1)
+
+
+def ntt_pass(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None):
+    """One pass of the four-step NTT into dst: for b < batch and t < cols
+    (a power of two), the natural-order NTT of size m = 2 * len(tw) of the
+    points k of (b, t) at src element b*bs + t*cs + k*ps (src_strides =
+    (bs, cs, ps), in (4,)-limb elements of the contiguous src), points whose
+    offset t*cs + k*ps in their row is n_in or more counting as zero; output
+    point j goes to dst element b*bs + t*cs + j*ps (dst_strides), times
+    lo[e % len(lo)] * hi[e // len(lo)], e = t*j, where lo is given (times
+    lo[e] alone, e < len(lo), without hi).  tw holds the m/2 powers of the
+    size-m root; m is a power of two in [2, MAX_LEAF].  Returns dst."""
+    m = 2 * tw.shape[0]
+    if m < 2 or m > MAX_LEAF or m & (m - 1) or cols < 1 or cols & (cols - 1) or batch < 1:
+        raise ValueError(f"ntt_pass: m = {m} (a power of two in [2, {MAX_LEAF}]), "
+                         f"cols = {cols} (a power of two), batch = {batch}")
+    tensors = [t for t in (src, dst, tw, lo, hi) if t is not None]
+    for t in tensors:
+        if not t.is_contiguous() or t.shape[-1] != 4:
+            raise ValueError(f"ntt_pass: expected contiguous (..., 4) limbs, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if _pass_span(batch, cols, m, src_strides, n_in) > src.numel() // 4 or \
+            _pass_span(batch, cols, m, dst_strides, 1 << 62) > dst.numel() // 4:
+        raise ValueError("ntt_pass: the strides reach beyond src or dst")
+    if src.data_ptr() < dst.data_ptr() + dst.numel() * 4 and \
+            dst.data_ptr() < src.data_ptr() + src.numel() * 4:
+        raise ValueError("ntt_pass: src and dst overlap")
+    exponents = (cols - 1) * (m - 1) + 1
+    if lo is not None and exponents > lo.shape[0] * (hi.shape[0] if hi is not None else 1):
+        raise ValueError(f"ntt_pass: factor tables of {lo.shape[0]} x "
+                         f"{1 if hi is None else hi.shape[0]} cover fewer than {exponents} exponents")
+    if lo is not None and lo.shape[0] & (lo.shape[0] - 1):
+        raise ValueError(f"ntt_pass: lo must have a power-of-two length, got {lo.shape[0]}")
+    if hi is not None and lo is None:
+        raise ValueError("ntt_pass: hi needs lo")
+    if _on_cpu(*tensors):
+        return ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo, hi)
+    cuda_lib.require_limbs("ntt_pass", *tensors)
+    nul = ctypes.c_void_p(None)
+    code = cuda_lib.lib().distaff_ntt_pass(
+        cuda_lib.ptr(src), cuda_lib.ptr(dst), cuda_lib.ptr(tw),
+        cuda_lib.ptr(lo) if lo is not None else nul, cuda_lib.ptr(hi) if hi is not None else nul,
+        batch, cols.bit_length() - 1, m.bit_length() - 1, *src_strides, n_in, *dst_strides,
+        0 if lo is None else lo.shape[0].bit_length() - 1, cuda_lib.stream(dst))
+    cuda_lib.check(code, "ntt_pass")
+    cuda_lib.LAUNCHES["ntt_pass"] += 1
+    return dst
 
 
 # ------------------------------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """STARK prover: the 9-step pipeline (reference src/stark/prover.rs), with
 the domain-sized work on the device:
 
-1. trace LDE           - batched NTTs per register (kernels K1, K2)
+1. trace LDE           - batched NTTs per register (kernel K1)
 2. trace Merkle tree   - leaf rows and every level hashed on device (K3)
 3. constraint eval     - boundary columns as weighted register sums on
                          device; transition constraints in one launch of
@@ -15,9 +15,9 @@ the domain-sized work on the device:
 9. proof assembly      - device gathers, one batched copy to the host
 
 Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms"),
-and step 3's parts as "step 3 part <name>: <ms> ms"; while that level is
-enabled every step and part ends with a device synchronize, so the times
-are the device's and not the enqueue's.
+and the parts of steps 1 and 3 as "step <i> part <name>: <ms> ms"; while
+that level is enabled every step and part ends with a device synchronize,
+so the times are the device's and not the enqueue's.
 """
 
 import logging
@@ -80,7 +80,7 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     clock = _StepClock(device)
 
     # 1 ----- extend execution trace -------------------------------------------------------------
-    trace.extend(device)
+    trace.extend(device, part=lambda name: clock.part(1, name))
     domain_size = trace.domain_size()
     lde_root = field.get_root_of_unity(domain_size)
     clock.done(1, "extend trace")
@@ -104,9 +104,7 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     # 5 ----- commit to constraint polynomial evaluations ----------------------------------------
     from ..ops import tiles
 
-    padded = ft.zeros((domain_size,), device)
-    padded[: constraint_poly.shape[0]] = constraint_poly
-    constraint_lde = tiles.ntt(padded, lde_root)
+    constraint_lde = tiles.ntt(constraint_poly, lde_root, n=domain_size)
     constraint_tree = _build_constraint_tree(constraint_lde)
     clock.done(5, "constraint tree")
 

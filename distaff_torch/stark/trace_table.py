@@ -1,7 +1,7 @@
 """Execution-trace table with a device-resident low-degree extension.
 
 The trace arrives from the native VM as (R, n, 2) uint64 words; `extend()`
-runs the per-register iNTT -> zero-pad -> NTT pipeline on the device (the
+runs the per-register iNTT -> zero-extended NTT pipeline on the device (the
 dominant cost of proving, reference src/stark/trace/trace_table.rs:143-169)
 and keeps the whole (R, n * ext, 4) LDE there.  Row hashing for the Merkle
 commitment reads the limb layout directly: uint32 limbs in little-endian
@@ -18,9 +18,6 @@ from ..config import (
 )
 from ..interop import limbs_from_numpy
 from .trace_state import TraceState, compute_decoder_width
-
-_LDE_RCHUNK = 8
-
 
 class TraceTable:
     def __init__(self, registers_u64, ctx_depth, loop_depth, extension_factor):
@@ -77,46 +74,47 @@ class TraceTable:
 
     # low-degree extension ------------------------------------------------------------------------
 
-    def extend(self, device):
+    def extend(self, device, part=None):
         """Interpolate every register and evaluate it over the extended
-        domain, on `device`."""
+        domain, on `device`.  `part`, if given, is called with the name of
+        each part as it ends (the prover's step-1 part log)."""
         if self.is_extended():
             raise RuntimeError("trace table has already been extended")
         device = torch.device(device)
         n = self.trace_length
         domain = self.domain_size()
         r_count = self._register_count
-        lde_bytes = r_count * domain * 16
+        # the LDE and the NTT's scratch of its size (and one more above
+        # tiles.LEAF^2 points, where the second pass recurses)
+        from ..ops import tiles
+        lde_bytes = r_count * domain * 16 * (2 if domain <= tiles.LEAF ** 2 else 3)
         if device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(device)
             if lde_bytes > free:
                 raise MemoryError(
-                    f"the extended trace needs {lde_bytes} bytes of device memory, "
-                    f"{free} are free")
+                    f"the extended trace needs {lde_bytes} bytes of device memory "
+                    f"with the NTT's scratch, {free} are free")
 
         # LE u64 halves are LE u32 limbs: a view, no per-element conversion
         regs = limbs_from_numpy(
             np.ascontiguousarray(self.registers_u64).view(np.uint32).reshape(r_count, n, 4),
             device)
-        self.polys_dev, self.lde_dev = self._extend_tiled(regs, n, domain)
+        if part:
+            part("upload")
+        self.polys_dev, self.lde_dev = self._extend_tiled(regs, n, domain, part)
 
-    def _extend_tiled(self, regs, n, domain):
-        """iNTT of all registers at once, then the domain-sized NTTs
-        _LDE_RCHUNK registers at a time, so that the four-step temporaries
-        stay a few times one chunk's LDE."""
+    def _extend_tiled(self, regs, n, domain, part=None):
+        """iNTT of all registers at once (two K1 passes, 1/n on the first
+        one's store), then the domain-sized NTT of all of them, zero
+        extended from n points inside K1, its second pass writing the LDE."""
         from ..ops import tiles
 
-        r_count = regs.shape[0]
-        root_n = field.get_root_of_unity(n)
-        root_d = field.get_root_of_unity(domain)
-        polys = tiles.intt_batched(regs, root_n)
-        lde = torch.empty((r_count, domain, 4), dtype=torch.uint32, device=regs.device)
-        for lo in range(0, r_count, _LDE_RCHUNK):
-            chunk = polys[lo : lo + _LDE_RCHUNK]
-            padded = torch.zeros((chunk.shape[0], domain, 4), dtype=torch.uint32,
-                                 device=regs.device)
-            padded[:, :n] = chunk
-            lde[lo : lo + _LDE_RCHUNK] = tiles.ntt_batched(padded, root_d)
+        polys = tiles.intt_batched(regs, field.get_root_of_unity(n))
+        if part:
+            part("interpolation")
+        lde = tiles.ntt_batched(polys, field.get_root_of_unity(domain), n=domain)
+        if part:
+            part("LDE")
         return polys, lde
 
     def build_merkle_tree(self, hash_name):

@@ -8,7 +8,8 @@ Usage (from the root of the repository):
 (default sizes 14 18 20, on cuda).  At each size n it prints one line per
 operation, with its time and the time per butterfly, element or row:
 
-  tiles.ntt        the four-step NTT (K1 leaves, K2 twiddles) of n points
+  tiles.ntt        the NTT of n points: one K1 pass up to 2048 points,
+                   two above (the four-step, twiddles on the first store)
   ntt_stagewise    the stage-by-stage NTT, one K5 butterfly launch a stage;
                    its result must equal tiles.ntt's
   mul              one K2 multiply of n elements
@@ -23,8 +24,9 @@ operation, with its time and the time per butterfly, element or row:
 
 On cuda the times come from CUDA events around calls queued behind a
 spin kernel (median of 3 trials), checked to have been queued in full
-before the card reached them: they are the card's times, twiddle and
-power-series set-up included (host constants go up by queued copies);
+before the card reached them: they are the card's times, power-series
+set-up included (host constants go up by queued copies) except K1's power
+tables, which tiles builds once per size and root and keeps;
 with --device cpu they are host-clock times of the plain versions.  Any
 failure raises.
 """

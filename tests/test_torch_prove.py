@@ -84,11 +84,13 @@ def test_serde_roundtrip_verifies(golden_proof):
 def test_step_log_times_every_step_and_step_three_parts(golden_proof):
     lines = golden_proof[4]
     steps = [line.split(":")[0] for line in lines if line.startswith("step ")]
-    assert steps[:5] == ["step 0 execute program", "step 1 extend trace", "step 2 trace tree",
-                         "step 3 part evaluator (host)", "step 3 part boundary columns"]
-    assert steps[5:7] == ["step 3 part transition (K4 tables and launch)",
-                          "step 3 evaluate constraints"]
-    assert [s.split()[1] for s in steps[7:]] == ["4", "5", "6", "7", "8", "9"]
+    assert steps[:5] == ["step 0 execute program", "step 1 part upload",
+                         "step 1 part interpolation", "step 1 part LDE", "step 1 extend trace"]
+    assert steps[5:8] == ["step 2 trace tree", "step 3 part evaluator (host)",
+                          "step 3 part boundary columns"]
+    assert steps[8:10] == ["step 3 part transition (K4 tables and launch)",
+                           "step 3 evaluate constraints"]
+    assert [s.split()[1] for s in steps[10:]] == ["4", "5", "6", "7", "8", "9"]
 
 
 def test_package_imports_neither_jax_nor_distaff_tpu():
