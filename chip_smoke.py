@@ -9,13 +9,13 @@ Usage (from the root of the repository, on a machine with the card):
 
 Phases, in order; any failure raises and exits non-zero:
   1. build   - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-               K4's (K1-K3, K5, K6) in its own call and links them, and K4
+               K4's (K1-K3, K5-K8) in its own call and links them, and K4
                once for each depth triple of AIR_TRIPLES (its library is
                built per geometry); g++ builds native/*.cpp and K4's host
                row evaluator (all into distaff_torch/_build/); prints each
                build's seconds, ptxas' register and spill lines for K1, for
-               K4 at each triple and for K6, and the card's name and power
-               limit
+               K4 at each triple and for K6, K7 and K8, and the card's name
+               and power limit
   2. kernels - K1 ntt_pass at every pass the 2^16 proof launches (its NTTs
                run on random inputs of their shapes, each pass recorded and
                launched again), one row each,
@@ -27,20 +27,26 @@ Phases, in order; any failure raises and exits non-zero:
                Fibonacci LDE (bad steps 0), on a copy with one value altered
                (bad steps > 0) and on random registers, K5 butterfly at 2^19
                pairs, K6 inv_batch at 2^21 elements with zeros and edge
-               values and on a ragged length, each equal (tolerance zero:
-               integer field arithmetic and hashing) to its plain version on
-               the same inputs; times from CUDA events
+               values and on a ragged length, K7 deep_compose over the 2^16
+               proof's LDE domain ((20, 2^21), its tables and exponent) on
+               random inputs and with x - z and x - zg vanishing at two
+               points, K8 poly_eval at the proof's point evaluations ((20,
+               2^16) at two points, (1, 2^19) at one), each equal (tolerance
+               zero: integer field arithmetic and hashing) to its plain
+               version on the same inputs; times from CUDA events
   3. golden  - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
                proved on cuda (step 3 through K4 at depths (0, 0, 2), step 6
-               through K6) must serialize to the bytes pinned in
+               through K7 and K8) must serialize to the bytes pinned in
                tests/test_determinism.py
   4. main    - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                [1, 0], default ProofOptions) proved on cuda and verified,
                with its time, peak device memory and the launches of every
-               kernel: K1-K4 and K6 must launch (K4 and K6 exactly once, K2's
-               exp_const never), K1 exactly at the passes phase 2 checked
-               and none of two points; then proved with per-step times
-               (step 1's and step 3's parts too), and once more without
+               kernel: K1-K4, K7 and K8 must launch (K4 and K7 exactly once,
+               K6 and K2's exp_const never), K1 exactly at the passes phase
+               2 checked and none of two points, K8 exactly at the
+               evaluations phase 2 checked, each its number of passes; then
+               proved with per-step times (steps 1, 3 and 6 in parts too),
+               and once more without
   5. bench   - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
                tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
@@ -88,7 +94,11 @@ SEED = 20261016
 # bound: one read and one write of 16 bytes an element (2^21 elements: 67
 # MB, 0.020 ms) against 3 multiplies an element, Montgomery's least; its
 # floor in practice is the latency of a block's one dependent inversion
-# chain.
+# chain.  K7's operations per point are counted from its code
+# (deep_kernels.deep_compose_ops: 2R + 13 multiplies), its bytes are the LDE
+# and the constraint evaluations read once, the output written once and its
+# tables; K8 does one multiply and one add per coefficient and point and
+# reads each coefficient once.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
@@ -96,11 +106,11 @@ MUL_OPS = 64
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# kernels of each path: the proof launches K1-K4 and K6, the kernel bench
-# K5 and K2's exp_const with K1-K3 and K6 (the bench also times K4, on a
+# kernels of each path: the proof launches K1-K4, K7 and K8, the kernel
+# bench K5, K6 and K2's exp_const with K1-K3 (the bench also times K4, on a
 # random domain)
-MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.sub", "field_ew.mul", "inv_batch",
-             "blake3_rows", "blake3_rows.parents", "air_transition")
+MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.sub", "field_ew.mul", "blake3_rows",
+             "blake3_rows.parents", "air_transition", "deep_compose", "poly_eval")
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
@@ -249,6 +259,8 @@ def phase_kernels(ops_rate):
     del lde, trace_rows, level
     rows.append(check_air(gen, ops_rate))
     rows.append(check_butterfly(gen, ops_rate))
+    rows.append(check_deep_compose(gen, ops_rate))
+    rows.extend(check_poly_eval(gen, ops_rate))
     return rows
 
 
@@ -353,7 +365,7 @@ def check_passes(gen, ops_rate):
                 (reads + points + tables) * 16,
                 butterflies * (ADD_OPS + SUB_OPS) + multiplies * MUL_OPS, ops_rate,
                 "distaff_torch/csrc/ntt_pass.cu", "distaff_tpu/ops/field_pallas.py:252")
-            row["key"] = pass_key(*args)
+            row["key"] = ("ntt_pass", pass_key(*args))
             rows.append(row)
             del outs
         del rec
@@ -447,6 +459,85 @@ def check_butterfly(gen, ops_rate):
         "distaff_torch/csrc/butterfly.cu", "distaff_tpu/ops/field_pallas.py:171")
 
 
+def check_deep_compose(gen, ops_rate):
+    """K7 over the 2^16 proof's LDE domain: random (20, 2^21) registers,
+    constraint evaluations and weights at the proof's root and x^incr
+    exponent (so that phase 4 finds their power tables built), with random
+    scalars, then with z = w^k and zg = z g (g the trace domain's root, w^32),
+    so that x - z and x - zg vanish at points k and k + 32 and the output
+    must be 0 there.  The first check gives K7's row of the JSON table."""
+    import random
+
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.stark import utils
+    from distaff_torch.tools.timing import random_elements
+
+    regs, trace_length, blowup = 20, 1 << MAIN_LOG2_TRACE, 32
+    n = trace_length * blowup
+    root = hostfield.get_root_of_unity(n)
+    incr = utils.get_incremental_trace_degree(trace_length)
+    lde, w1, w2 = (random_elements(gen, shape) for shape in ((regs, n), (regs,), (regs,)))
+    c_lde = random_elements(gen, (n,))
+    rng = random.Random(SEED)
+    scalars = [rng.randrange(hostfield.M) for _ in range(8)]
+    k = n // 3
+    z = pow(root, k, hostfield.M)
+    vanishing = [z, z * pow(root, blowup, hostfield.M) % hostfield.M] + scalars[2:]
+    muls, adds, subs = dk.deep_compose_ops(regs)
+    tables = 2 * (1024 + n // 1024)
+    bound_bytes = ((regs + 2) * n + 2 * regs + tables) * 16
+    bound_ops = n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS)
+
+    def run(values, plain=False):
+        f = dk.deep_compose_plain if plain else dk.deep_compose
+        return lambda: f(lde, c_lde, w1, w2, root, incr, values)
+
+    row = check_kernel("deep_compose", f"({regs}, {n}), random scalars", run(scalars),
+                       run(scalars, True), 20, 1, bound_bytes, bound_ops, ops_rate,
+                       "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
+    got, _ = check_equal("deep_compose", f"({regs}, {n}), x - z and x - zg vanishing",
+                         run(vanishing), run(vanishing, True))
+    at = got.view(torch.int32).index_select(0, torch.tensor([k, k + blowup], device="cuda"))
+    if int((at != 0).sum()):
+        raise AssertionError("deep_compose: nonzero where x - z or x - zg vanishes")
+    print(f"kernel deep_compose at ({regs}, {n}) with x - z and x - zg vanishing at points "
+          f"{k} and {k + blowup}: equal to plain, 0 there", flush=True)
+    return row
+
+
+def eval_key(polys, points):
+    """A K8 call's shape: rows, their length and the number of points."""
+    return f"({polys.shape[0]}, {polys.shape[1]}) at {len(points)} points"
+
+
+def check_poly_eval(gen, ops_rate):
+    """K8 at the 2^16 proof's point evaluations, on random coefficients and
+    points: the trace polynomials (20, 2^16) at two points and the
+    constraint polynomial (1, 2^19) at one; a row each."""
+    import random
+
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.tools.timing import random_elements
+
+    rng = random.Random(SEED + 1)
+    rows = []
+    for regs, length, count in ((20, 1 << MAIN_LOG2_TRACE, 2), (1, 1 << (MAIN_LOG2_TRACE + 3), 1)):
+        polys = random_elements(gen, (regs, length))
+        points = [rng.randrange(hostfield.M) for _ in range(count)]
+        squarings = count * dk.POLY_EVAL_LOG_SPAN * dk.poly_eval_passes(length)
+        row = check_kernel(
+            "poly_eval", eval_key(polys, points), lambda: dk.poly_eval(polys, points),
+            lambda: dk.poly_eval_plain(polys, points), 20, 1,
+            (regs * length + count * regs + squarings) * 16,
+            count * regs * length * (MUL_OPS + ADD_OPS), ops_rate,
+            "distaff_torch/csrc/poly_eval.cu", "distaff_tpu/stark/prover.py:636")
+        row["key"] = ("poly_eval", eval_key(polys, points))
+        rows.append(row)
+    return rows
+
+
 def phase_golden():
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
@@ -501,14 +592,41 @@ def timed_execute(program, inputs, options, stepped):
         package_log.setLevel(logging.NOTSET)
 
 
-def phase_main(pass_keys):
+class EvalRecorder:
+    """Within its `with`, records each K8 call of the prover
+    (deep_kernels.poly_eval): its shape and the launches it made."""
+
+    def __enter__(self):
+        from distaff_torch.ops import cuda_lib
+        from distaff_torch.ops import deep_kernels as dk
+
+        self.dk, self.cuda_lib, self.real = dk, cuda_lib, dk.poly_eval
+        self.calls, self.launches = [], Counter()
+        dk.poly_eval = self.record
+        return self
+
+    def record(self, polys, points):
+        before = self.cuda_lib.LAUNCHES["poly_eval"]
+        out = self.real(polys, points)
+        key = eval_key(polys, points)
+        self.calls.append((key, self.dk.poly_eval_launches(polys.shape[1], len(points))))
+        self.launches[("poly_eval", key)] += self.cuda_lib.LAUNCHES["poly_eval"] - before
+        return out
+
+    def __exit__(self, *exc):
+        self.dk.poly_eval = self.real
+
+
+def phase_main(checked_keys):
     """The 2^16 proof three times: as a user runs it (no step logging, so
-    no synchronize between steps), with the launch counts, K1's passes and
-    peak memory read around it; with DEBUG step logging for the per-step
-    times; and unstepped again, so that the cost of the step synchronizes
-    shows beside the drift from one proof to the next.  K1's passes must be
-    exactly `pass_keys`, those phase 2 held and timed, and none a two-point
-    transform.  Returns the launches and K1's passes."""
+    no synchronize between steps), with the launch counts, K1's passes, K8's
+    calls and peak memory read around it; with DEBUG step logging for the
+    per-step times; and unstepped again, so that the cost of the step
+    synchronizes shows beside the drift from one proof to the next.  K1's
+    passes must be exactly the ("ntt_pass", key)s of `checked_keys`, those
+    phase 2 held and timed, and none a two-point transform; K8's calls
+    exactly its ("poly_eval", key)s, each launching its number of passes.
+    Returns the launches and a Counter of launches by (kernel, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import cuda_lib
@@ -519,7 +637,7 @@ def phase_main(pass_keys):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    with PassRecorder() as rec:
+    with PassRecorder() as rec, EvalRecorder() as evals:
         outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
     launches = dict(cuda_lib.LAUNCHES)
     proof_keys = rec.keys()
@@ -537,8 +655,11 @@ def phase_main(pass_keys):
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    for name, want in (("air_transition", 1), ("inv_batch", 1), ("field_ew.exp_const", 0),
-                       ("ntt_pass", len(pass_keys))):
+    pass_keys = [key for kernel, key in checked_keys if kernel == "ntt_pass"]
+    eval_keys = [key for kernel, key in checked_keys if kernel == "poly_eval"]
+    for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
+                       ("field_ew.exp_const", 0), ("ntt_pass", len(pass_keys)),
+                       ("poly_eval", sum(passes for _, passes in evals.calls))):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
     for key in proof_keys:
@@ -548,8 +669,14 @@ def phase_main(pass_keys):
     small = [args for args in rec.calls if args[2].shape[0] < 2]
     if small:
         raise AssertionError(f"{len(small)} two-point K1 passes in the proof")
+    for key, passes in evals.calls:
+        print(f"2^{MAIN_LOG2_TRACE} K8 call {key}: {passes} launches", flush=True)
+    if sorted(key for key, _ in evals.calls) != sorted(eval_keys):
+        raise AssertionError("the proof's K8 calls are not those phase 2 checked")
+    field_ew = {k.split(".")[1]: v for k, v in launches.items() if k.startswith("field_ew.")}
     print(f"2^{MAIN_LOG2_TRACE} K1 launched {launches['ntt_pass']} times, no two-point "
-          f"transform; field_ew.mul launched {launches['field_ew.mul']} times", flush=True)
+          f"transform; K7 {launches['deep_compose']}, K8 {launches['poly_eval']}, K6 "
+          f"{launches['inv_batch']}; field_ew by operation {json.dumps(field_ew)}", flush=True)
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -559,7 +686,8 @@ def phase_main(pass_keys):
         print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
     print(f"2^{MAIN_LOG2_TRACE} execute: stepped (synchronized at each step's end) "
           f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
-    return launches, proof_keys
+    keyed = Counter(("ntt_pass", key) for key in proof_keys) + evals.launches
+    return launches, keyed
 
 
 def phase_bench():
@@ -598,7 +726,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5, K6": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K8": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -610,8 +738,9 @@ def main():
     for d in AIR_TRIPLES:
         for line in air_kernels.ptxas_report(d):
             print(f"K4 {d} {line.strip()}", flush=True)
-    for line in cuda_lib.ptxas_report("inv_batch"):
-        print(f"K6 {line.strip()}", flush=True)
+    for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval")):
+        for line in cuda_lib.ptxas_report(stem):
+            print(f"{name} {line.strip()}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
@@ -619,12 +748,12 @@ def main():
         print(f"K1 {line.strip()}", flush=True)
     rows = phase_kernels(int32_ops_per_s())
     phase_golden()
-    launches, proof_keys = phase_main([row["key"] for row in rows if "key" in row])
+    launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
     for row in rows:
         name = row["name"]
         if "key" in row:
-            row["launches"] = proof_keys.count(row.pop("key"))
+            row["launches"] = keyed[row.pop("key")]
         else:
             row["launches"] = launches[name] if name in MAIN_PATH else bench_launches[name]
 

@@ -4,7 +4,9 @@
 // Replaces distaff_tpu/math/field_jax.py::inv_batch_scan, the XLA batch
 // inversion that the JAX prover's DEEP composition takes on an accelerator
 // (prover.py, `use_scan_inv`): a log-depth prefix and suffix product over
-// the whole batch and one Fermat chain on its total.  On this card nothing
+// the whole batch and one Fermat chain on its total.  The port's proof no
+// longer calls it (K7 deep_compose inverts inside its own blocks on the
+// same product tree); the kernel bench does.  On this card nothing
 // carries across blocks, so each block inverts its own range of tiles with
 // one chain, and the grid holds no more blocks than the card keeps resident
 // at once, so that the chains of all blocks run together:
@@ -14,16 +16,15 @@
 //     at the end, as inv_batch_scan does;
 //   - a thread runs through its elements of the block's tiles keeping the
 //     running product, and writes each prefix to `out` as scratch;
-//   - the threads' totals are scanned from both sides with warp shuffles on
-//     the four limbs, and across the block's warps in shared memory, which
-//     gives each thread the product of every other thread's total;
-//   - one thread inverts the block's total (field128.cuh's inv, binary
-//     extended Euclid: half the latency of a 147-multiply addition chain
-//     for M - 2 here, PERF.md), and each thread's inverse of its own total
-//     is that times the others' product;
+//   - the block's threads meet in inv_block.cuh's product tree (shared
+//     with K7 deep_compose), which inverts the block's product once
+//     (field128.cuh's inv, binary extended Euclid: K6 takes 0.084 ms at
+//     2^21 with it and 0.116 ms with square-and-multiply's 250 dependent
+//     multiplies, tools/air_probe.py, PERF.md) and gives each thread the
+//     inverse of its own product;
 //   - a thread then walks back through its elements: inv(a_e) = inv(q_e)
 //     q_(e-1) and inv(q_(e-1)) = inv(q_e) a_e, q the prefixes it wrote.
-// That is Montgomery's 3 multiplies an element, 14 more a thread and one
+// That is Montgomery's 3 multiplies an element, about 3 more a thread and one
 // chain a block, against the 250 multiplies of a Fermat chain for every
 // element (K2's exp_const).  The inverse is unique, so every result equals
 // exp_const(a, M - 2).
@@ -38,6 +39,7 @@
 #include <cstdint>
 
 #include "field128.cuh"
+#include "inv_block.cuh"
 
 namespace {
 
@@ -46,35 +48,13 @@ using f128::u128;
 constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kAll = 0xFFFFFFFFu;
-
-__device__ __forceinline__ u128 shfl_up(u128 v, int d) {
-    uint4 x = f128::to_limbs(v);
-    x.x = __shfl_up_sync(kAll, x.x, d);
-    x.y = __shfl_up_sync(kAll, x.y, d);
-    x.z = __shfl_up_sync(kAll, x.z, d);
-    x.w = __shfl_up_sync(kAll, x.w, d);
-    return f128::from_limbs(x);
-}
-
-__device__ __forceinline__ u128 shfl_down(u128 v, int d) {
-    uint4 x = f128::to_limbs(v);
-    x.x = __shfl_down_sync(kAll, x.x, d);
-    x.y = __shfl_down_sync(kAll, x.y, d);
-    x.z = __shfl_down_sync(kAll, x.z, d);
-    x.w = __shfl_down_sync(kAll, x.w, d);
-    return f128::from_limbs(x);
-}
 
 // block b inverts tiles [b P, (b + 1) P) of a into out, P = tiles_per_block
 __global__ void __launch_bounds__(kThreads)
 inv_batch_kernel(const uint4* __restrict__ a, uint4* __restrict__ out, long long n,
                  long long tiles_per_block) {
-    __shared__ u128 warp_total[kWarps];
-    __shared__ u128 warps_before[kWarps], warps_after[kWarps];
-    __shared__ u128 block_inv;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    __shared__ u128 tree[2 * kThreads];
+    const int tid = threadIdx.x;
     const long long first = (long long)blockIdx.x * tiles_per_block * kTile + tid;
     const long long last = first + tiles_per_block * kTile;     // past the thread's last element
 
@@ -93,41 +73,9 @@ inv_batch_kernel(const uint4* __restrict__ a, uint4* __restrict__ out, long long
         }
     }
 
-    // inclusive products of the warp's totals from the left and the right
-    u128 left = run, right = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const u128 l = shfl_up(left, d), r = shfl_down(right, d);
-        if (lane >= d) left = f128::mul(left, l);
-        if (lane + d < 32) right = f128::mul(right, r);
-    }
-    if (lane == 31) warp_total[warp] = left;
-    u128 before = shfl_up(left, 1), after = shfl_down(right, 1);
-    if (lane == 0) before = 1;
-    if (lane == 31) after = 1;
-    __syncthreads();
-
-    // across the warps, and the block total's inverse
-    if (tid == 0) {
-        u128 acc = 1;
-        for (int w = 0; w < kWarps; w++) {
-            warps_before[w] = acc;
-            acc = f128::mul(acc, warp_total[w]);
-        }
-        block_inv = f128::inv(acc);
-        acc = 1;
-        for (int w = kWarps - 1; w >= 0; w--) {
-            warps_after[w] = acc;
-            acc = f128::mul(acc, warp_total[w]);
-        }
-    }
-    __syncthreads();
-
-    // 1 / (the thread's total) = 1 / (block total) x (every other thread's
-    // total); then back through the elements, last first
-    const u128 others = f128::mul(f128::mul(warps_before[warp], before),
-                                  f128::mul(after, warps_after[warp]));
-    u128 inv_q = f128::mul(block_inv, others);
+    // 1 / (the thread's product) from the block's tree; then back through
+    // the elements, last first
+    u128 inv_q = inv_block::inverse_of_total<kThreads>(tree, run);
     for (long long t = first + (tiles_per_block - 1) * kTile; t >= first; t -= kTile) {
 #pragma unroll
         for (int k = kPerThread - 1; k >= 0; k--) {

@@ -38,6 +38,8 @@ LAUNCHES = {
     "air_transition": 0,
     "butterfly": 0,
     "inv_batch": 0,
+    "deep_compose": 0,
+    "poly_eval": 0,
 }
 
 _lib = None
@@ -111,9 +113,14 @@ def lib():
         handle.distaff_blake3_rows.argtypes = [vp, vp, ll, i32, ll, ll, vp]
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
+        handle.distaff_deep_compose.argtypes = [
+            vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, ctypes.POINTER(ctypes.c_uint32),
+            vp, vp]
+        handle.distaff_poly_eval.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, i32, i32, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
-                   handle.distaff_butterfly, handle.distaff_inv_batch):
+                   handle.distaff_butterfly, handle.distaff_inv_batch,
+                   handle.distaff_deep_compose, handle.distaff_poly_eval):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,228 @@
+"""Step 6's kernels, K7 (deep_compose) and K8 (poly_eval): wrappers and
+plain versions.
+
+K7 `deep_compose` (csrc/deep_compose.cu, deep_compose.cuh) replaces the
+JAX package's distaff_tpu/stark/prover.py::_compose_tiles_batched with the
+power series and weighted register sums (distaff_tpu/ops/tiles.py::
+_wsum_tile) that feed it: the DEEP composition over the LDE domain in one
+launch, reading the LDE in place, x and x^incr from K1's cached power
+tables, and the inverses of (x - z)(x - zg) by Montgomery's trick inside
+each block.  Bound by bytes and operations about alike.
+
+K8 `poly_eval` (csrc/poly_eval.cu, poly_eval.cuh) replaces
+distaff_tpu/stark/prover.py::_ps_points and _poly_eval_tile_multi (driven
+by _poly_eval_rows_multi): rows of coefficients at a few points, each pass
+a Horner sum a thread and a tree a block that shortens a row 4096 times.
+Bound by the depth of its dependent multiplies.
+
+Each wrapper takes its plain version for tensors on the CPU, and launches
+the kernel for tensors on the card, or raises.  The plain versions are the
+chain the port ran before these kernels (power series, products and sums,
+the composition over a batch inverse), on K2's and K6's plain versions, so
+they launch nothing on any device: chip_smoke.py holds the kernels against
+them on the card.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..math import field as hostfield
+from ..math import field_torch as ft
+from . import cuda_lib
+from . import field_kernels as fk
+from . import tiles
+
+M = hostfield.M
+POLY_EVAL_LOG_SPAN = 12        # poly_eval.cuh kLogSpan: a pass shortens a row 4096 times
+POLY_EVAL_MAX_POINTS = 4       # poly_eval.cuh kMaxPoints
+LOG_LO = tiles._LOG_LO         # K1's power tables (tiles._store_factors): lo holds 2^LOG_LO
+
+
+def power_series_plain(x_int, n, device):
+    """[x^0 .. x^(n-1)] as (n, 4) limbs by doubling on K2's plain multiply."""
+    out = ft.constant(1, device)[None]
+    p = ft.constant(x_int, device)
+    while out.shape[0] < n:
+        out = torch.cat([out, fk.mul_plain(out, p)])
+        if out.shape[0] < n:
+            p = fk.mul_plain(p, p)
+    return out[:n]
+
+
+def sum_plain(a, axis):
+    """Modular sum along an axis, a log-depth tree of K2's plain add."""
+    x = a.movedim(axis, 0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        s = fk.add_plain(x[:half], x[half : 2 * half])
+        if x.shape[0] % 2:
+            s = torch.cat([s, x[2 * half :]])
+        x = s
+    return x[0]
+
+
+# ------------------------------------------------------------------------------------------------
+# K8 poly_eval
+# ------------------------------------------------------------------------------------------------
+
+def poly_eval_plain(polys, points):
+    """(P, R, 4) values at each host-int point of the rows of (R, L, 4)
+    coefficients: each point's power series times the rows, summed."""
+    length = polys.shape[1]
+    ps = torch.stack([power_series_plain(x, length, polys.device) for x in points])
+    return sum_plain(fk.mul_plain(polys[None], ps[:, None]), axis=2)
+
+
+def poly_eval_passes(length):
+    """K8 launches for one group of points over rows of `length`."""
+    passes = 1
+    while length > 1 << POLY_EVAL_LOG_SPAN:
+        length = -(-length >> POLY_EVAL_LOG_SPAN)
+        passes += 1
+    return passes
+
+
+def poly_eval_launches(length, points):
+    """K8 launches of poly_eval over rows of `length` at `points` points."""
+    return poly_eval_passes(length) * -(-points // POLY_EVAL_MAX_POINTS)
+
+
+def _squarings(points, count):
+    """(P, count) host ints x_p^(2^k)."""
+    rows = []
+    for x in points:
+        row, v = [], int(x) % M
+        for _ in range(count):
+            row.append(v)
+            v = v * v % M
+        rows.append(row)
+    return rows
+
+
+def run_passes(polys, points, launch):
+    """K8's passes for up to POLY_EVAL_MAX_POINTS points: launch(src, dst,
+    sq, length, out_len, rows, points, row_period, sq_len, sq_off) runs one
+    pass.  The first pass reads each row once for all points; later passes
+    have one point a row, row b's point b mod P.  Returns (P, R, 4)."""
+    r, length = polys.shape[0], polys.shape[1]
+    count = len(points)
+    passes = poly_eval_passes(length)
+    sq_len = POLY_EVAL_LOG_SPAN * passes
+    sq = ft.from_ints(np.array(_squarings(points, sq_len), dtype=object), polys.device)
+    src, rows, per_row, period = polys, r, count, 1
+    for k in range(passes):
+        out_len = -(-length >> POLY_EVAL_LOG_SPAN)
+        dst = torch.empty((rows * per_row, out_len, 4), dtype=torch.uint32, device=polys.device)
+        launch(src, dst, sq, length, out_len, rows, per_row, period, sq_len,
+               POLY_EVAL_LOG_SPAN * k)
+        src, rows, per_row, period, length = dst, rows * per_row, 1, count, out_len
+    return src.view(r, count, 4).transpose(0, 1)
+
+
+def _launch_pass(src, dst, sq, length, out_len, rows, points, row_period, sq_len, sq_off):
+    code = cuda_lib.lib().distaff_poly_eval(
+        cuda_lib.ptr(src), cuda_lib.ptr(dst), cuda_lib.ptr(sq), length, out_len, rows, points,
+        row_period, sq_len, sq_off, cuda_lib.stream(dst))
+    cuda_lib.check(code, "poly_eval")
+    cuda_lib.LAUNCHES["poly_eval"] += 1
+
+
+def poly_eval(polys, points):
+    """T_r(x_p) for the rows of (R, L, 4) uint32 coefficients (low degree
+    first) at host-int points: (P, R, 4) limbs on the device of polys."""
+    points = [int(x) % M for x in points]
+    if polys.dim() != 3 or polys.shape[1] < 1 or not points:
+        raise ValueError(f"poly_eval: expected (R, L, 4) coefficients and a point, got "
+                         f"{tuple(polys.shape)} and {len(points)} points")
+    if fk._on_cpu(polys):
+        return poly_eval_plain(polys, points)
+    cuda_lib.require_limbs("poly_eval", polys)
+    polys = polys.contiguous()
+    groups = [run_passes(polys, points[k : k + POLY_EVAL_MAX_POINTS], _launch_pass)
+              for k in range(0, len(points), POLY_EVAL_MAX_POINTS)]
+    return groups[0] if len(groups) == 1 else torch.cat(groups)
+
+
+# ------------------------------------------------------------------------------------------------
+# K7 deep_compose
+# ------------------------------------------------------------------------------------------------
+
+def deep_compose_ops(regs):
+    """(multiplies, adds, subtractions) a point of K7 at its leanest, from
+    its code: the two weighted sums (2R multiplies, 2(R - 1) adds), x and
+    x^incr (2), d = (x - z)(x - zg) (1 and 2 subtractions), the numerator
+    (6 multiplies, 3 adds, 3 subtractions), Montgomery's 3 and N / d (1)."""
+    return 2 * regs + 13, 2 * (regs - 1) + 3, 5
+
+
+def _weighted_sum_plain(lde, weights):
+    total = fk.mul_plain(lde[0], weights[0])
+    for r in range(1, lde.shape[0]):
+        total = fk.add_plain(total, fk.mul_plain(lde[r], weights[r]))
+    return total
+
+
+def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars):
+    """deep_compose's function on plain tensors: the weighted sums, the
+    power series of x and x^incr and the composition over one batch
+    inverse of (x - z)(x - zg), on K2's and K6's plain versions."""
+    n, device = lde.shape[1], lde.device
+    z, zg, s1, s2, c_at_z, k1, k2, kc = (ft.constant(v, device) for v in scalars)
+    a1 = _weighted_sum_plain(lde, w1)
+    a2 = _weighted_sum_plain(lde, w2)
+    xs = power_series_plain(root, n, device)
+    x_incr = power_series_plain(pow(int(root), int(incr), M), n, device)
+    mul, add, sub = fk.mul_plain, fk.add_plain, fk.sub_plain
+
+    xz = sub(xs, z)
+    xzg = sub(xs, zg)
+    w = fk.inv_batch_plain(mul(xz, xzg))
+    u = mul(w, xzg)
+    v = mul(w, xz)
+    base = add(mul(sub(a1, s1), u), mul(sub(a2, s2), v))
+    composed = add(mul(base, k1), mul(mul(base, x_incr), k2))
+    return add(composed, mul(mul(sub(c_lde, c_at_z), u), kc))
+
+
+def compose_args(lde, root, incr, scalars):
+    """K7's arguments after the pointers' tensors: (lde stride, regs, n,
+    tables (x lo, x hi, x^incr lo, x^incr hi; hi None up to 1024 points),
+    the scalars as 32 host words)."""
+    n = lde.shape[1]
+    x_lo, x_hi = tiles._store_factors(n, int(root), 1, lde.device)
+    i_lo, i_hi = tiles._store_factors(n, pow(int(root), int(incr), M), 1, lde.device)
+    words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in scalars for k in range(4)]
+    return lde.stride(0) // 4, lde.shape[0], n, (x_lo, x_hi, i_lo, i_hi), words
+
+
+def deep_compose(lde, c_lde, w1, w2, root, incr, scalars):
+    """The DEEP composition over the n = lde.shape[1] points x = root^i of
+    the LDE domain (n a power of two): lde (R, n, 4) register evaluations, c_lde (n, 4) the
+    constraint polynomial's, w1 and w2 (R, 4) the weights of A1 and A2,
+    incr the exponent of x's degree adjustment and scalars the host ints
+    (z, zg, s1, s2, c(z), k1, k2, kc).  Returns (n, 4) limbs."""
+    if len(scalars) != 8 or lde.dim() != 3 or c_lde.shape != lde.shape[1:] or \
+            w1.shape != (lde.shape[0], 4) or w2.shape != w1.shape:
+        raise ValueError(f"deep_compose: shapes {tuple(lde.shape)}, {tuple(c_lde.shape)}, "
+                         f"{tuple(w1.shape)}, {tuple(w2.shape)} and {len(scalars)} scalars")
+    n = lde.shape[1]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"deep_compose: the domain's size must be a power of two, got {n}")
+    if fk._on_cpu(lde, c_lde, w1, w2):
+        return deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars)
+    cuda_lib.require_limbs("deep_compose", lde, c_lde, w1, w2)
+    c_lde, w1, w2 = c_lde.contiguous(), w1.contiguous(), w2.contiguous()
+    if lde.stride(1) != 4:
+        raise ValueError("deep_compose: each register's points must be contiguous")
+    stride, regs, n, tables, words = compose_args(lde, root, incr, scalars)
+    out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
+    nul = ctypes.c_void_p(None)
+    code = cuda_lib.lib().distaff_deep_compose(
+        cuda_lib.ptr(lde), stride, regs, n, cuda_lib.ptr(c_lde), cuda_lib.ptr(w1),
+        cuda_lib.ptr(w2), *[nul if t is None else cuda_lib.ptr(t) for t in tables], LOG_LO,
+        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), cuda_lib.stream(out))
+    cuda_lib.check(code, "deep_compose")
+    cuda_lib.LAUNCHES["deep_compose"] += 1
+    return out

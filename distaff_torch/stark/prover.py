@@ -8,14 +8,14 @@ the domain-sized work on the device:
                          the AIR kernel over the LDE slice (K4)
 4. constraint poly     - device iNTT + suffix-sum synthetic divisions
 5. constraint commit   - device NTT over the LDE domain + device tree
-6. DEEP composition    - pointwise over the evaluation domain with one
-                         batch inversion (K6, Montgomery's trick)
+6. DEEP composition    - point evaluations (K8) and the composition over
+                         the LDE domain in one launch (K7)
 7. FRI                 - device radix-4 folds + device layer trees
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
 
 Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms"),
-and the parts of steps 1 and 3 as "step <i> part <name>: <ms> ms"; while
+and the parts of steps 1, 3 and 6 as "step <i> part <name>: <ms> ms"; while
 that level is enabled every step and part ends with a device synchronize,
 so the times are the device's and not the enqueue's.
 """
@@ -30,7 +30,6 @@ from ..math import field
 from ..math import field_torch as ft
 from ..config import MAX_CONSTRAINT_DEGREE
 from ..crypto import hashes
-from ..interop import limbs_to_numpy
 from .constraints.evaluator import Evaluator
 from . import utils, fri
 from .proof import StarkProof, DeepValues
@@ -112,8 +111,9 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     seed = constraint_tree.root()
     z = utils.draw_z(seed)
     cc = utils.CompositionCoefficients(seed)
+    clock.part(6, "coefficients (host)")
     composed, deep_values = _build_composition_evaluations(
-        trace, constraint_poly, constraint_lde, z, cc)
+        trace, constraint_poly, constraint_lde, z, cc, lambda name: clock.part(6, name))
     clock.done(6, "DEEP composition")
 
     # 7 ----- FRI --------------------------------------------------------------------------------
@@ -272,83 +272,38 @@ def _build_constraint_tree(constraint_lde):
 # step 6: DEEP composition in the evaluation domain
 # ------------------------------------------------------------------------------------------------
 
-def _poly_eval_rows_multi(polys, x_ints):
-    """T_r(x_p) for every register row r of (R, n, 4) coefficients and every
-    point p, as (P, R) host ints."""
-    from ..ops import tiles
-
-    device = polys.device
-    length = polys.shape[1]
-    ps = torch.stack([tiles.power_series(x, length, device) for x in x_ints])  # (P, n, 4)
-    totals = ft.sum_reduce(ft.mul(polys[None], ps[:, None]), axis=2)          # (P, R, 4)
-    return [[int(v) for v in row] for row in ft.to_ints(limbs_to_numpy(totals))]
-
-
-def polynom_eval_dev(poly_dev, x_int):
-    """Evaluate an (n, 4) device coefficient vector at a host int."""
-    return _poly_eval_rows_multi(poly_dev[None], [x_int])[0][0]
-
-
-def _compose_tiles_batched(a1, a2, c_t, xs, x_incr, z, nz, s1, s2, c_at_z, k1, k2, kc):
-    """The DEEP composition over the domain, pointwise.  (x-z) and (x-zg)
-    are inverted through one batch inversion (K6) of their product:
-    1/(x-z) = (x-zg) * w and 1/(x-zg) = (x-z) * w with
-    w = 1/((x-z)(x-zg))."""
-    xz = ft.sub(xs, z)
-    xnz = ft.sub(xs, nz)
-    w = ft.inv_batch(ft.mul(xz, xnz))
-    u = ft.mul(w, xnz)
-    v = ft.mul(w, xz)
-
-    t1 = ft.mul(ft.sub(a1, s1), u)
-    t2 = ft.mul(ft.sub(a2, s2), v)
-    base = ft.add(t1, t2)
-
-    part1 = ft.mul(base, k1)
-    part2 = ft.mul(ft.mul(base, x_incr), k2)
-    composed = ft.add(part1, part2)
-
-    c_part = ft.mul(ft.mul(ft.sub(c_t, c_at_z), u), kc)
-    return ft.add(composed, c_part)
-
-
-def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc):
-    """Step 6, computed pointwise over the evaluation domain (reference
+def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc, part):
+    """Step 6, computed pointwise over the LDE domain (reference
     trace_table.rs:206-261 / constraint_poly.rs:39-52 build the same values
-    by coefficient-space synthetic division)."""
-    from ..ops import tiles
+    by coefficient-space synthetic division): the point evaluations T_i(z),
+    T_i(zg) and C(z) (kernel K8, both queued before one copy to the host),
+    then the composition in one launch of kernel K7.  `part` is called with
+    the name of each part as it ends."""
+    from ..ops import deep_kernels
+    from ..ops.hostsync import TransferBatch
 
     device = trace.lde_dev.device
-    n = trace.domain_size()
     trace_length = trace.unextended_length()
-    g = field.get_root_of_unity(trace_length)
-    next_z = field.mul(z, g)
+    next_z = field.mul(z, field.get_root_of_unity(trace_length))
 
-    # weighted register sums A1(x) = sum_i cc1_i T_i(x), A2 likewise
+    # T_i(z), T_i(zg) (the proof's DeepValues) and C(z)
+    batch = TransferBatch()
+    states = batch.add(deep_kernels.poly_eval(trace.polys_dev, [z, next_z]))
+    at_z = batch.add(deep_kernels.poly_eval(constraint_poly[None], [z]))
+    trace_state1, trace_state2 = ([int(v) for v in row] for row in ft.to_ints(batch.get(states)))
+    c_at_z = int(ft.to_ints(batch.get(at_z))[0, 0])
+    part("point evaluations (K8)")
+
+    # the scalar DEEP terms, then A1(x) = sum_i cc1_i T_i(x), A2 likewise,
+    # and the composition
     r_count = trace.register_count()
+    s1 = sum(v * c for v, c in zip(trace_state1, cc.trace1[:r_count])) % M
+    s2 = sum(v * c for v, c in zip(trace_state2, cc.trace2[:r_count])) % M
     w1 = ft.from_ints(np.array(cc.trace1[:r_count], dtype=object), device)
     w2 = ft.from_ints(np.array(cc.trace2[:r_count], dtype=object), device)
-    a1 = tiles.weighted_register_sum(trace.lde_dev, w1)
-    a2 = tiles.weighted_register_sum(trace.lde_dev, w2)
-
-    # T_i(z), T_i(zg) and the scalar DEEP terms (the proof's DeepValues)
-    trace_state1, trace_state2 = _poly_eval_rows_multi(trace.polys_dev, [z, next_z])
-    s1 = 0
-    s2 = 0
-    for i in range(r_count):
-        s1 = (s1 + trace_state1[i] * cc.trace1[i]) % M
-        s2 = (s2 + trace_state2[i] * cc.trace2[i]) % M
-    c_at_z = polynom_eval_dev(constraint_poly, z)
-
-    root = field.get_root_of_unity(n)
-    incr = utils.get_incremental_trace_degree(trace_length)
-    xs = tiles.power_series(root, n, device)
-    x_incr = tiles.power_series(field.exp(root, incr), n, device)
-
-    def const(v):
-        return ft.constant(v, device)
-
-    composed = _compose_tiles_batched(
-        a1, a2, constraint_lde, xs, x_incr, const(z), const(next_z), const(s1), const(s2),
-        const(c_at_z), const(cc.t1_degree), const(cc.t2_degree), const(cc.constraints))
+    composed = deep_kernels.deep_compose(
+        trace.lde_dev, constraint_lde, w1, w2, field.get_root_of_unity(trace.domain_size()),
+        utils.get_incremental_trace_degree(trace_length),
+        (z, next_z, s1, s2, c_at_z, cc.t1_degree, cc.t2_degree, cc.constraints))
+    part("composition (K7)")
     return composed, DeepValues(trace_state1, trace_state2)

@@ -1,9 +1,11 @@
-"""K4's and K6's design choices measured on the card, each against the
-kernel with that one choice undone.
+"""K4's, K6's and K7's design choices measured on the card, each against
+the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7]
+
+(all three by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -19,7 +21,11 @@ of distaff_torch/csrc and held equal to the production build:
 
 and K6 at 2^14, 2^20 and 2^21 with the block total inverted by the binary
 extended Euclid (production) and by square-and-multiply (f128::pow, 250
-dependent multiplies).  Times come from CUDA events around calls queued
+dependent multiplies); and K7 over the 2^16 proof's LDE domain ((20, 2^21)
+random registers) with other tiles and occupancies (DEEP_THREADS threads a
+block, DEEP_PER_THREAD points a thread, __launch_bounds__ for
+DEEP_MIN_BLOCKS blocks an SM; production 256, 2 and 4).  Times come from
+CUDA events around calls queued
 behind a spin kernel (tools/timing.time_ms); ptxas' spill line of each
 build is printed.  Any difference from the production build raises.
 """
@@ -47,22 +53,32 @@ K4_VARIANTS = {
     "u128-multiply": ("field128.cuh", MUL_DEVICE, "#if 0\n#else"),
     "128-registers": ("air_transition.cu", BOUNDS, "__launch_bounds__(kThreads, 4)"),
 }
-K6_VARIANT = ("inv_batch.cu", "block_inv = f128::inv(acc);",
-              "block_inv = f128::pow(acc, f128::modulus() - 2);")
+K7_VARIANTS = {
+    "256 threads x 2 points, 3 blocks an SM": ("DEEP_MIN_BLOCKS=3",),
+    "256 threads x 1 point, 4 blocks an SM": ("DEEP_PER_THREAD=1",),
+    "256 threads x 4 points, 2 blocks an SM": ("DEEP_PER_THREAD=4", "DEEP_MIN_BLOCKS=2"),
+    "256 threads x 4 points, 3 blocks an SM": ("DEEP_PER_THREAD=4", "DEEP_MIN_BLOCKS=3"),
+    "256 threads x 8 points, 1 block an SM": ("DEEP_PER_THREAD=8", "DEEP_MIN_BLOCKS=1"),
+    "128 threads x 4 points, 4 blocks an SM": ("DEEP_THREADS=128", "DEEP_PER_THREAD=4"),
+    "128 threads x 2 points, 6 blocks an SM": ("DEEP_THREADS=128", "DEEP_MIN_BLOCKS=6"),
+}
+K6_VARIANT = ("inv_block.cuh", "tree[1] = f128::inv(tree[1]);",
+              "tree[1] = f128::pow(tree[1], f128::modulus() - 2);")
 
 
 def _build(name, source, patch, defines=()):
-    """A copy of csrc with `patch` applied, `source` built into a library:
-    (ctypes handle, ptxas' spill lines)."""
+    """A copy of csrc with `patch` (or None) applied, `source` built into a
+    library: (ctypes handle, ptxas' spill lines)."""
     work = Path(tempfile.mkdtemp(prefix=f"air_probe-{name}-"))
     try:
         for f in cuda_lib.CSRC.glob("*.cu*"):
             shutil.copy(f, work)
-        file, old, new = patch
-        text = (work / file).read_text()
-        if old not in text:
-            raise RuntimeError(f"air_probe: {name}: the text to patch is not in {file}")
-        (work / file).write_text(text.replace(old, new))
+        if patch is not None:
+            file, old, new = patch
+            text = (work / file).read_text()
+            if old not in text:
+                raise RuntimeError(f"air_probe: {name}: the text to patch is not in {file}")
+            (work / file).write_text(text.replace(old, new))
         command = cuda_lib.compile_command(work / source)
         command = command[:command.index("-c")] + [f"-D{d}" for d in defines] + [
             "-shared", str(work / source), "-o", str(work / "lib.so")]
@@ -158,12 +174,60 @@ def probe_k6():
               flush=True)
 
 
-def main():
+def probe_k7():
+    from ..math import field as hostfield
+    from ..ops import deep_kernels as dk
+    from ..stark import utils
+
+    regs, trace_length = 20, 1 << 16
+    n = 32 * trace_length
+    root, incr = hostfield.get_root_of_unity(n), utils.get_incremental_trace_degree(trace_length)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    lde, w1, w2 = (random_elements(gen, shape) for shape in ((regs, n), (regs,), (regs,)))
+    c_lde = random_elements(gen, (n,))
+    scalars = [int.from_bytes(bytes([k + 1] * 16), "little") % hostfield.M for k in range(8)]
+    want = dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars)
+    ms = time_ms(lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars), 20, 7,
+                 queued=True)
+    spills = [line.strip() for line in cuda_lib.ptxas_report("deep_compose")
+              if "spill" in line or "registers" in line]
+    print(f"K7 production (256 threads x 2 points, 4 blocks an SM): {'; '.join(spills)}; "
+          f"{ms:.4f} ms", flush=True)
+    with ThreadPoolExecutor(len(K7_VARIANTS)) as pool:
+        built = dict(zip(K7_VARIANTS, pool.map(
+            lambda kv: _build(kv[0].replace(" ", "-"), "deep_compose.cu", None, kv[1]),
+            K7_VARIANTS.items())))
+    stride, _, _, tables, words = dk.compose_args(lde, root, incr, scalars)
+    p, nul = cuda_lib.ptr, ctypes.c_void_p(None)
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_deep_compose
+        fn.argtypes = cuda_lib.lib().distaff_deep_compose.argtypes
+        fn.restype = ctypes.c_int
+
+        def run():
+            out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
+            cuda_lib.check(fn(p(lde), stride, regs, n, p(c_lde), p(w1), p(w2),
+                              *[nul if t is None else p(t) for t in tables], dk.LOG_LO,
+                              (ctypes.c_uint32 * 32)(*words), p(out), cuda_lib.stream(out)), name)
+            return out
+
+        if not torch.equal(run(), want):
+            raise AssertionError(f"air_probe: K7 {name} differs from the production build")
+        ms = time_ms(run, 20, 7, queued=True)
+        print(f"K7 {name}: {'; '.join(spills)}; {ms:.4f} ms", flush=True)
+
+
+def main(argv=None):
+    import sys
+
+    probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7}
+    names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")
     print(f"device: {card_line()}", flush=True)
-    probe_k4()
-    probe_k6()
+    for name in names:
+        probes[name]()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,251 @@
+"""distaff_torch step 6 on the CPU: kernel K7's plain version (the DEEP
+composition) against the JAX package's _compose_tiles_batched, kernel K8's
+plain version (point evaluations) against its _poly_eval_rows_multi, both
+kernels' bodies built with g++ from their headers and run a block and a
+thread at a time against the plain versions, and step 6's calls counted.
+Exact equality throughout (integer field arithmetic)."""
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distaff_tpu.math import field as jax_host_field
+from distaff_tpu.math import field_jax as fj
+from distaff_tpu.stark import prover as jax_prover
+from distaff_torch import assembly, native, ProgramInputs
+from distaff_torch.interop import limbs_from_numpy
+from distaff_torch.math import field_torch as ft
+from distaff_torch.ops import deep_kernels as dk
+from distaff_torch.ops import field_kernels as fk
+from distaff_torch.stark import prover, utils
+from distaff_torch.stark.trace_table import TraceTable
+
+M = jax_host_field.M
+CSRC = Path(fk.__file__).resolve().parent.parent / "csrc"
+
+
+def _ints(count, rng):
+    return [int.from_bytes(rng.bytes(16), "little") % M for _ in range(count)]
+
+
+def _limbs(ints):
+    return ft.from_ints(np.array(ints, dtype=object), "cpu")
+
+
+def _case(regs, n, seed, zero=None):
+    """A random LDE (regs, n), constraint evaluations, weights and the eight
+    scalars, from a numpy seed; with zero = (k, j), z = w^k and zg = w^j, so
+    that x - z and x - zg vanish at points k and j."""
+    rng = np.random.default_rng(seed)
+    lde = [_ints(n, rng) for _ in range(regs)]
+    c_lde, w1, w2 = _ints(n, rng), _ints(regs, rng), _ints(regs, rng)
+    z, zg, s1, s2, cz, k1, k2, kc = _ints(8, rng)
+    root = jax_host_field.get_root_of_unity(n)
+    if zero is not None:
+        z, zg = pow(root, zero[0], M), pow(root, zero[1], M)
+    return lde, c_lde, w1, w2, root, (z, zg, s1, s2, cz, k1, k2, kc)
+
+
+def _port_case(case):
+    lde, c_lde, w1, w2, root, scalars = case
+    return _limbs(lde), _limbs(c_lde), _limbs(w1), _limbs(w2), root, scalars
+
+
+@pytest.mark.parametrize("zero", [None, (5, 77)])
+def test_deep_compose_plain_matches_jax_compose_tiles(zero):
+    # two tiles of 64 points, the JAX package's tile inputs (the weighted
+    # sums, the tile prefixes and the power series over a tile) built from
+    # host ints; with zero, x - z and x - zg vanish at points 5 and 77
+    regs, n, tile, incr = 3, 128, 64, 37
+    case = _case(regs, n, 11, zero)
+    lde, c_lde, w1, w2, root, scalars = case
+    z, zg, s1, s2, cz, k1, k2, kc = scalars
+    a1 = [sum(w * row[i] for w, row in zip(w1, lde)) % M for i in range(n)]
+    a2 = [sum(w * row[i] for w, row in zip(w2, lde)) % M for i in range(n)]
+    base = pow(root, incr, M)
+
+    def tiles(values):
+        return fj.from_ints(np.array(values, dtype=object).reshape(n // tile, tile))
+
+    want = jax_prover._compose_tiles_batched(
+        tiles(a1), tiles(a2), tiles(c_lde),
+        fj.from_ints([pow(root, j, M) for j in range(tile)]),
+        fj.from_ints([pow(root, lo, M) for lo in range(0, n, tile)]),
+        *(fj.constant(v) for v in scalars),
+        fj.from_ints([pow(base, j, M) for j in range(tile)]),
+        fj.from_ints([pow(base, lo, M) for lo in range(0, n, tile)]), False)
+    got = dk.deep_compose(*_port_case(case)[:5], incr, scalars)
+    assert ft.to_ints(got).tolist() == fj.to_ints(want).reshape(n).tolist()
+    if zero is not None:
+        assert ft.to_ints(got)[list(zero)].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("regs,length,points", [(3, 256, 2), (1, 1024, 1)])
+def test_poly_eval_plain_matches_jax_rows_multi(regs, length, points):
+    rng = np.random.default_rng(length + points)
+    rows = [_ints(length, rng) for _ in range(regs)]
+    xs = _ints(points, rng)
+    want = jax_prover._poly_eval_rows_multi(fj.from_ints(np.array(rows, dtype=object)), xs)
+    got = dk.poly_eval(_limbs(rows), xs)
+    assert ft.to_ints(got).tolist() == want
+
+
+_HARNESS = r"""
+#include <cstring>
+#include <vector>
+#include "deep_compose.cuh"
+#include "poly_eval.cuh"
+
+// K7's and K8's kernel bodies on the CPU: each block's threads run one
+// after another between the kernel's barriers (the phases and tree levels
+// of the headers, in the kernels' order)
+extern "C" void deep_compose_host(const void* lde, long long lde_stride, int regs, long long n,
+                                  const void* c_lde, const void* w1, const void* w2,
+                                  const void* x_lo, const void* x_hi, const void* i_lo,
+                                  const void* i_hi, int log_lo, const uint32_t* scalars,
+                                  void* out) {
+    using namespace deep_compose;
+    Args a{(const uint4*)lde, lde_stride, regs, n, (const uint4*)c_lde, (const uint4*)w1,
+           (const uint4*)w2, (const uint4*)x_lo, (const uint4*)x_hi, (const uint4*)i_lo,
+           (const uint4*)i_hi, log_lo, {}, (uint4*)out};
+    std::memcpy(&a.s, scalars, sizeof(a.s));
+    std::vector<f128::u128> tree(2 * kThreads);
+    std::vector<Lane> lanes(kThreads);
+    for (long long block = 0; block < blocks(a); ++block) {
+        for (int tid = 0; tid < kThreads; ++tid)
+            tree[kThreads + tid] = numerators(a, a.w1, a.w2, block, tid, lanes[tid]);
+        for (int level = 0; (kThreads >> level) > 1; ++level)
+            for (int tid = 0; tid < kThreads; ++tid) inv_block::up(tree.data(), kThreads, tid, level);
+        inv_block::invert_root(tree.data());
+        for (int level = inv_block::Log2<kThreads>::value - 1; level >= 0; --level)
+            for (int tid = 0; tid < kThreads; ++tid)
+                inv_block::down(tree.data(), kThreads, tid, level);
+        for (int tid = 0; tid < kThreads; ++tid)
+            store(a, block, tid, lanes[tid], tree[kThreads + tid]);
+    }
+}
+
+extern "C" void poly_eval_host(const void* in, void* out, const void* sq, long long len,
+                               long long out_len, long long rows, int points, int row_period,
+                               int sq_len, int sq_off) {
+    using namespace poly_eval;
+    const Args a{(const uint4*)in, (uint4*)out, (const uint4*)sq, len, out_len, points,
+                 row_period, sq_len, sq_off};
+    std::vector<f128::u128> buf(kMaxPoints * kThreads);
+    for (long long row = 0; row < rows; ++row)
+        for (long long chunk = 0; chunk < out_len; ++chunk) {
+            for (int tid = 0; tid < kThreads; ++tid) horner(a, chunk, row, tid, buf.data());
+            for (int level = 0; level < kLogThreads; ++level)
+                for (int tid = 0; tid < kThreads; ++tid) reduce(a, row, tid, level, buf.data());
+            for (int tid = 0; tid < kThreads; ++tid) store(a, chunk, row, tid, buf.data());
+        }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_bodies(tmp_path_factory):
+    """csrc/deep_compose.cuh, inv_block.cuh and poly_eval.cuh built with g++
+    as host functions with the kernels' arguments."""
+    tmp = tmp_path_factory.mktemp("deep")
+    (tmp / "harness.cpp").write_text(_HARNESS)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC),
+                    str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")], check=True)
+    lib = ctypes.CDLL(str(tmp / "libharness.so"))
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.deep_compose_host.argtypes = [vp, ll, i32, ll] + [vp] * 7 + [
+        i32, ctypes.POINTER(ctypes.c_uint32), vp]
+    lib.poly_eval_host.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, i32, i32]
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@pytest.mark.parametrize("domain,n,zero", [
+    (4096, 4096, None),           # four whole tiles, x from the lo and hi tables
+    (4096, 3000, (7, 2999)),      # a partial last tile, zero factors in the first and last
+    (256, 256, (100, 101)),       # one partial tile, x from the lo table alone
+])
+def test_deep_compose_kernel_body_matches_plain(kernel_bodies, domain, n, zero):
+    incr = 1234
+    lde, c_lde, w1, w2, root, scalars = _port_case(_case(3, domain, domain + n, zero))
+    stride, regs, _, tables, words = dk.compose_args(lde, root, incr, scalars)
+    out = torch.zeros((n, 4), dtype=torch.uint32)
+    kernel_bodies.deep_compose_host(
+        _ptr(lde), stride, regs, n, _ptr(c_lde), _ptr(w1), _ptr(w2), *map(_ptr, tables),
+        dk.LOG_LO, (ctypes.c_uint32 * 32)(*words), _ptr(out))
+    want = dk.deep_compose_plain(lde[:, :n].contiguous(), c_lde[:n], w1, w2, root, incr, scalars)
+    assert torch.equal(out, want)
+    if zero is not None:
+        assert not out[list(zero)].to(torch.int64).any()
+
+
+@pytest.mark.parametrize("regs,length,points", [
+    (3, 256, 2),                  # one pass, one partial chunk
+    (2, 3 * 4096 + 100, 4),       # two passes, a partial last chunk, four points a read
+    (1, 70000, 1),                # two passes
+])
+def test_poly_eval_kernel_body_matches_plain(kernel_bodies, regs, length, points):
+    rng = np.random.default_rng(length)
+    polys = _limbs([_ints(length, rng) for _ in range(regs)])
+    xs = _ints(points, rng)
+
+    def launch(src, dst, sq, *geometry):
+        kernel_bodies.poly_eval_host(src.data_ptr(), dst.data_ptr(), sq.data_ptr(), *geometry)
+
+    got = dk.run_passes(polys, xs, launch)
+    assert torch.equal(got, dk.poly_eval_plain(polys, xs))
+
+
+def test_step_six_is_one_composition_and_two_evaluations(monkeypatch):
+    # step 6 on the CPU calls K7's plain version once, K8's twice (the trace
+    # polynomials at z and zg, the constraint polynomial at z) and no other
+    # field operation; on the card that is one K7 launch and two K8 passes
+    # each at the 2^16 proof's lengths
+    program = assembly.compile("begin push.3 push.5 add end")
+    regs, ctx, loop = native.execute_u64(program, ProgramInputs.none())
+    trace = TraceTable(regs, ctx, loop, 16)
+    trace.extend("cpu")
+    n, ev = trace.domain_size(), trace.unextended_length() * 8
+    rng = np.random.default_rng(6)
+    constraint_poly, constraint_lde = _limbs(_ints(ev, rng)), _limbs(_ints(n, rng))
+    calls = {"deep_compose": 0, "poly_eval": 0}
+
+    def counted(name, real):
+        def call(*args):
+            calls[name] += 1
+            return real(*args)
+        return call
+
+    def other(*args):
+        raise AssertionError("a field operation outside step 6's kernels")
+
+    monkeypatch.setattr(dk, "deep_compose_plain", counted("deep_compose", dk.deep_compose_plain))
+    monkeypatch.setattr(dk, "poly_eval_plain", counted("poly_eval", dk.poly_eval_plain))
+    for name in ("mul", "add", "sub", "inv_batch", "exp_const"):
+        monkeypatch.setattr(ft, name, other)
+        monkeypatch.setattr(fk, name, other)
+    parts = []
+    composed, deep = prover._build_composition_evaluations(
+        trace, constraint_poly, constraint_lde, 12345, utils.CompositionCoefficients(b"\x06" * 32),
+        parts.append)
+    assert calls == {"deep_compose": 1, "poly_eval": 2}
+    assert parts == ["point evaluations (K8)", "composition (K7)"]
+    assert composed.shape == (n, 4) and len(deep.trace_at_z1) == regs.shape[0]
+    assert dk.poly_eval_launches(1 << 16, 2) == 2 and dk.poly_eval_launches(1 << 19, 1) == 2
+
+
+def test_wrappers_refuse_what_they_cannot_take():
+    x = limbs_from_numpy(np.zeros((2, 8, 4), dtype=np.uint32), "cpu")
+    with pytest.raises(ValueError, match="point"):
+        dk.poly_eval(x, [])
+    with pytest.raises(ValueError, match="shapes"):
+        dk.deep_compose(x, x[0, :4], x[:, 0], x[:, 0], 1, 1, (0,) * 8)
+    with pytest.raises(ValueError, match="power of two"):
+        dk.deep_compose(x[:, :6], x[0, :6], x[:, 0], x[:, 0], 1, 1, (0,) * 8)

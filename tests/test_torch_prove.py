@@ -90,7 +90,11 @@ def test_step_log_times_every_step_and_step_three_parts(golden_proof):
                           "step 3 part boundary columns"]
     assert steps[8:10] == ["step 3 part transition (K4 tables and launch)",
                            "step 3 evaluate constraints"]
-    assert [s.split()[1] for s in steps[10:]] == ["4", "5", "6", "7", "8", "9"]
+    assert steps[10:12] == ["step 4 constraint polynomial", "step 5 constraint tree"]
+    assert steps[12:16] == ["step 6 part coefficients (host)",
+                            "step 6 part point evaluations (K8)",
+                            "step 6 part composition (K7)", "step 6 DEEP composition"]
+    assert [s.split()[1] for s in steps[16:]] == ["7", "8", "9"]
 
 
 def test_package_imports_neither_jax_nor_distaff_tpu():
