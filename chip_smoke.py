@@ -1,61 +1,93 @@
 """Smoke run of distaff_torch on one NVIDIA H100: builds the kernels, holds
 each against its plain PyTorch version at the main path's shapes, proves
-and verifies the bench's Fibonacci program on the card, and runs the
-kernel bench.
+and verifies the bench's Fibonacci program on the card, runs the kernel
+bench, proves the six examples and the CLI on the card, and proves the
+bench's larger rungs.
 
 Usage (from the root of the repository, on a machine with the card):
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build   - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-               K4's (K1-K3, K5-K8) in its own call and links them, and K4
-               once for each depth triple of AIR_TRIPLES (its library is
-               built per geometry); g++ builds native/*.cpp and K4's host
-               row evaluator (all into distaff_torch/_build/); prints each
-               build's seconds, ptxas' register and spill lines for K1, for
-               K4 at each triple and for K6, K7 and K8, and the card's name
-               and power limit
-  2. kernels - K1 ntt_pass at every pass the 2^16 proof launches (its NTTs
-               run on random inputs of their shapes, each pass recorded and
-               launched again), one row each,
-               K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
-               edge values (the PTX multiply's carries) and on the broadcast
-               operands of the main path, K3 blake3_rows at 2^21 rows of 320
-               bytes and a Merkle level of 2^21 -> 2^20 nodes, K4
-               air_transition at (20, 2^19) on the stride slice of the 2^16
-               Fibonacci LDE (bad steps 0), on a copy with one value altered
-               (bad steps > 0) and on random registers, K5 butterfly at 2^19
-               pairs, K6 inv_batch at 2^21 elements with zeros and edge
-               values and on a ragged length, K7 deep_compose over the 2^16
-               proof's LDE domain ((20, 2^21), its tables and exponent) on
-               random inputs and with x - z and x - zg vanishing at two
-               points, K8 poly_eval at the proof's point evaluations ((20,
-               2^16) at two points, (1, 2^19) at one), each equal (tolerance
-               zero: integer field arithmetic and hashing) to its plain
-               version on the same inputs; times from CUDA events
-  3. golden  - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
-               proved on cuda (step 3 through K4 at depths (0, 0, 2), step 6
-               through K7 and K8) must serialize to the bytes pinned in
-               tests/test_determinism.py
-  4. main    - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
-               [1, 0], default ProofOptions) proved on cuda and verified,
-               with its time, peak device memory and the launches of every
-               kernel: K1-K4, K7 and K8 must launch (K4 and K7 exactly once,
-               K6 and K2's exp_const never), K1 exactly at the passes phase
-               2 checked and none of two points, K8 exactly at the
-               evaluations phase 2 checked, each its number of passes; then
-               proved with per-step times (steps 1, 3 and 6 in parts too),
-               and once more without
-  5. bench   - the kernel bench (distaff_torch/tools/kernel_bench.py) at
-               2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
-               tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
-               K1-K3 must launch
+  1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
+                K4's (K1-K3, K5-K8) in its own call and links them, and K4
+                once for each depth triple of AIR_TRIPLES (its library is
+                built per geometry); g++ builds native/*.cpp and K4's host
+                row evaluator (all into distaff_torch/_build/); prints each
+                build's seconds, ptxas' register and spill lines for K1, for
+                K4 at each triple and for K6, K7 and K8, and the card's name
+                and power limit
+  2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
+                NTTs run on random inputs of their shapes, each pass
+                recorded and launched again), one row each,
+                K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
+                edge values (the PTX multiply's carries) and on the broadcast
+                operands of the main path, K3 blake3_rows at 2^21 rows of 320
+                bytes and a Merkle level of 2^21 -> 2^20 nodes, K4
+                air_transition at (20, 2^19) on the stride slice of the 2^16
+                Fibonacci LDE (bad steps 0), on a copy with one value altered
+                (bad steps > 0) and on random registers, K5 butterfly at 2^19
+                pairs, K6 inv_batch at 2^21 elements with zeros and edge
+                values and on a ragged length, K7 deep_compose over the 2^16
+                proof's LDE domain ((20, 2^21), its tables and exponent) on
+                random inputs and with x - z and x - zg vanishing at two
+                points, K8 poly_eval at the proof's point evaluations ((20,
+                2^16) at two points, (1, 2^19) at one), each equal (tolerance
+                zero: integer field arithmetic and hashing) to its plain
+                version on the same inputs; times from CUDA events
+  3. golden   - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
+                proved on cuda (step 3 through K4 at depths (0, 0, 2), step 6
+                through K7 and K8) must serialize to the bytes pinned in
+                tests/test_determinism.py
+  4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
+                [1, 0], default ProofOptions) proved on cuda and verified,
+                with its time, peak device memory and the launches of every
+                kernel: K1-K4, K7 and K8 must launch (K4 and K7 exactly once,
+                K6 and K2's exp_const never), K1 exactly at the passes phase
+                2 checked and none of two points, K8 exactly at the
+                evaluations phase 2 checked, each its number of passes; then
+                proved with per-step times (steps 1, 3 and 6 in parts too),
+                and once more without
+  5. bench    - the kernel bench (distaff_torch/tools/kernel_bench.py) at
+                2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
+                tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
+                K1-K3 must launch
+  6. examples - K4 at each example's depths and evaluation domain (at its
+                defaults) on random registers, equal to its plain version,
+                a row each; then the six examples of distaff_torch/
+                examples.py at their CLI defaults proved on cuda with the
+                default ProofOptions: the expected outputs, verified, a
+                tampered output rejected, the path's kernels launched (K4
+                once, at the example's depths); `python -m distaff_torch
+                fibonacci` on the card must exit 0; the golden case with
+                hash_fn="sha3" must give the JAX package's bytes
+  7. ladder   - K1 through two levels of its recursion above leaf^2 points
+                (a zero-extended transform of 2^SMALL_LOG2 points at leaf
+                SMALL_LEAF and its inverse) against the plain passes on the
+                host; then for each rung of LADDER (2^18 and 2^20 steps):
+                every K1 pass and K8 call of the bench's Fibonacci proof
+                held against its plain version, a row each (but the other
+                rung's K1 passes: held by their last piece of 2^LAST_PIECE
+                points, at the largest offsets they write, and printed);
+                the proof on cuda unstepped and verified, with its
+                time, step 0, peak device memory, LDE size and K1 passes
+                (the LDE must take K1's recursion; its K1 passes and K8
+                calls must be exactly those held); every call it made of
+                K2 (each layout, on random operands laid out so), K3, K4
+                and K7 (on the proof's own inputs) held against the plain
+                versions, run a piece of 2^LAST_PIECE rows or points at a
+                time (the other rung: the last piece of each call), with a
+                row for each class of call at 2^LADDER_HELD; then the
+                2^LADDER_HELD rung once more with the step log
+
+The new paths run after the 2^16 proof, so that what they build and
+cache on the card leaves phase 4's peak memory as it was.
 
 The last two lines are the kernel table as JSON and the contract line
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import hashlib
 import json
 import logging
@@ -115,8 +147,27 @@ BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "bl
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
 # K4's geometries on this run's paths: the bench program's (also the kernel
-# bench's AIR_DEPTHS) and the golden program's
-AIR_TRIPLES = ((1, 0, 4), (0, 0, 2))
+# bench's AIR_DEPTHS and the fibonacci example's), the golden program's, and
+# those of the other examples at their defaults (collatz, comparison,
+# conditional, merkle, rangecheck)
+AIR_TRIPLES = ((1, 0, 4), (0, 0, 2), (2, 1, 8), (1, 0, 12), (1, 0, 3), (0, 0, 11), (0, 0, 6))
+# the bench's rungs above the main path: their LDEs (2^23 and 2^25 points)
+# take K1's recursion above tiles.LEAF^2 points
+LADDER = (18, 20)
+# the rung whose K1 passes and K8 calls phase 7 holds at their shapes; the
+# other rung's passes must be of the kinds held
+LADDER_HELD = 18
+# phase 7 runs the plain versions over the 2^LADDER_HELD rung's domains a
+# piece of 2^LAST_PIECE points (rows) at a time; at the other rung it holds
+# the last piece of each call alone, at the largest offsets the call reaches
+LAST_PIECE = 21
+# the leaf and size of the recursive transform phase 7 holds against its
+# plain version: two levels of recursion, 16^2 < 2^10 < 2^14
+SMALL_LEAF, SMALL_LOG2 = 16, 14
+# the golden case with hash_fn="sha3": the JAX package's proof bytes before
+# the options (tests/test_torch_prove.py pins them and says how they were made)
+SHA3_BODY_SHA256 = "73fd09242cd8ffc781def7cd68416ea83fd41c59d63a94c570d15a03340ba74b"
+SHA3_BODY_LEN = 13794
 
 
 def int32_ops_per_s():
@@ -167,9 +218,10 @@ def check_kernel(name, shape, kernel, plain, reps, plain_reps, bound_bytes, boun
 
 def phase_kernels(ops_rate):
     """Each kernel at the main path's shapes, equal to its plain version.
-    K1 gives a row for each of the proof's passes; for the other kernels
-    the first check of each entry gives its row of the JSON table, and the
-    others hold the broadcast layouts that the 2^16 proof also launches."""
+    K1 and K8 give a row for each of the proof's passes and calls; for the
+    other kernels the first check of each entry gives its row of the JSON
+    table, and the others hold the broadcast layouts that the 2^16 proof
+    also launches."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import blake3_torch as b3
@@ -180,7 +232,7 @@ def phase_kernels(ops_rate):
     gen.manual_seed(SEED)
     k2 = "distaff_torch/csrc/field_ew.cu"
     k3 = "distaff_torch/csrc/blake3_rows.cu"
-    rows = check_passes(gen, ops_rate)
+    rows, _ = check_passes(gen, ops_rate, MAIN_LOG2_TRACE)
 
     # K2 at the LDE domain of the 2^16 rung: 2^21 elements
     count = 1 << 21
@@ -260,30 +312,39 @@ def phase_kernels(ops_rate):
     rows.append(check_air(gen, ops_rate))
     rows.append(check_butterfly(gen, ops_rate))
     rows.append(check_deep_compose(gen, ops_rate))
-    rows.extend(check_poly_eval(gen, ops_rate))
+    rows.extend(check_poly_eval(gen, ops_rate, MAIN_LOG2_TRACE))
     return rows
 
 
 class PassRecorder:
-    """Within its `with`, records the arguments of every K1 pass that
-    ops/tiles launches (field_kernels.ntt_pass) and launches it."""
+    """Within its `with`, records the key and kind of every K1 pass that
+    ops/tiles launches (field_kernels.ntt_pass) and launches it; with
+    `keep`, its arguments too (which keeps their tensors alive)."""
+
+    def __init__(self, keep=True):
+        self.keep = keep
 
     def __enter__(self):
         from distaff_torch.ops import field_kernels as fk
 
-        self.fk, self.real, self.calls = fk, fk.ntt_pass, []
+        self.fk, self.real, self.calls, self.records = fk, fk.ntt_pass, [], []
         fk.ntt_pass = self.record
         return self
 
     def record(self, *args):
-        self.calls.append(args)
+        if self.keep:
+            self.calls.append(args)
+        self.records.append((pass_key(*args), pass_kind(*args), 2 * args[2].shape[0]))
         return self.real(*args)
 
     def __exit__(self, *exc):
         self.fk.ntt_pass = self.real
 
     def keys(self):
-        return [pass_key(*args) for args in self.calls]
+        return [key for key, _, _ in self.records]
+
+    def kinds(self):
+        return {kind for _, kind, _ in self.records}
 
 
 def pass_key(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None):
@@ -293,15 +354,30 @@ def pass_key(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None,
             f"out {tuple(dst_strides)}{factors}")
 
 
-def main_path_transforms(gen):
-    """The 2^16 proof's NTTs on random inputs of their shapes: step 1's
-    interpolation (20, 2^16) and LDE (20, 2^16 -> 2^21), step 4's
-    interpolation (3, 2^19) and step 5's constraint LDE (2^19 -> 2^21)."""
+def pass_kind(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None):
+    """A K1 pass's kind, its shape without its sizes: how it reads and
+    writes (one transform a row, strided columns, or rows of points),
+    whether it zero-extends and which store factors it takes."""
+    m = 2 * tw.shape[0]
+
+    def layout(strides):
+        return "row" if cols == 1 else "columns" if strides[1] == 1 else "rows"
+
+    reach = (cols - 1) * src_strides[1] + (m - 1) * src_strides[2] + 1
+    factors = "" if lo is None else " x lo" if hi is None else " x lo x hi"
+    return (f"{layout(src_strides)}{' zero extended' if n_in < reach else ''} -> "
+            f"{layout(dst_strides)}{factors}")
+
+
+def main_path_transforms(gen, log2_trace):
+    """The NTTs of the bench's 2^log2_trace proof on random inputs of their
+    shapes: step 1's interpolation (20, n) and LDE (20, n -> 32 n), step 4's
+    interpolation (3, 8 n) and step 5's constraint LDE (8 n -> 32 n)."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.ops import tiles
     from distaff_torch.tools.timing import random_elements
 
-    n, ev, domain = 1 << MAIN_LOG2_TRACE, 1 << (MAIN_LOG2_TRACE + 3), 1 << (MAIN_LOG2_TRACE + 5)
+    n, ev, domain = 1 << log2_trace, 1 << (log2_trace + 3), 1 << (log2_trace + 5)
     root = hostfield.get_root_of_unity
     regs, comb, poly = (random_elements(gen, s) for s in ((20, n), (3, ev), (ev,)))
     return [("step 1 interpolation", lambda: tiles.intt_batched(regs, root(n))),
@@ -330,46 +406,141 @@ def dif_work(m, valid):
     return butterflies, multiplies
 
 
-def check_passes(gen, ops_rate):
-    """K1 at every pass the 2^16 proof launches, one row each: the proof's
-    NTTs run on random inputs of their shapes with each pass recorded, then
-    each pass is launched again into fresh outputs, held equal to its plain
-    version on the same inputs and timed."""
+def pass_pieces(args, points):
+    """The pieces of at most `points` points in which pass_plain runs K1's
+    plain version of a pass (the int64 temporaries of a whole LDE would not
+    fit the card): groups of whole batch rows, or where one batch row holds
+    more, ranges of its columns.  Each is (first batch row, rows, first
+    column, stop column)."""
+    src, dst, tw, batch, cols, ss, ds, n_in, lo, hi = args
+    m = 2 * tw.shape[0]
+    if cols * m <= points:
+        rows = points // (cols * m)
+        return [(b, min(rows, batch - b), 0, cols) for b in range(0, batch, rows)]
+    step = max(1, points // m)
+    return [(b, 1, c, min(c + step, cols)) for b in range(batch) for c in range(0, cols, step)]
+
+
+def pass_plain(args, points=1 << 23, last=False):
+    """K1's plain version of one pass, a piece at a time (pass_pieces);
+    with `last`, the last piece alone."""
     from distaff_torch.ops import field_kernels as fk
 
-    rows = []
-    for what, transform in main_path_transforms(gen):
+    src, dst, tw, batch, cols, ss, ds, n_in, lo, hi = args
+    flat_src, flat_dst = src.reshape(-1, 4), dst.reshape(-1, 4)
+    pieces = pass_pieces(args, points)
+    for b, rows, first, stop in pieces[-1:] if last else pieces:
+        fk.ntt_pass_plain(flat_src[b * ss[0]:], flat_dst[b * ds[0]:], tw, rows, cols, ss, ds,
+                          n_in, lo, hi, columns=(first, stop))
+    return dst
+
+
+def pass_bound(args):
+    """A K1 pass's least bytes and operations on this run's data: the
+    points it reads (those below n_in), the points it writes and its tables,
+    and the butterflies and multiplies its data needs (dif_work), with the
+    store's factor multiply."""
+    src, dst, tw, batch, cols, ss, ds, n_in, lo, hi = args
+    m = 2 * tw.shape[0]
+    in_row = (torch.arange(cols)[:, None] * ss[1] + torch.arange(m)[None, :] * ss[2])
+    valid = (in_row < n_in).sum(1).tolist()
+    reads = batch * sum(valid)
+    points = batch * cols * m
+    butterflies = multiplies = 0
+    for v, count in Counter(valid).items():
+        bf, mul = dif_work(m, v)
+        butterflies += batch * count * bf
+        multiplies += batch * count * mul
+    if lo is not None:
+        multiplies += points                 # the four-step twiddle or 1/n
+    tables = m // 2 + sum(t.shape[0] for t in (lo, hi) if t is not None)
+    return ((reads + points + tables) * 16,
+            butterflies * (ADD_OPS + SUB_OPS) + multiplies * MUL_OPS)
+
+
+def check_passes(gen, ops_rate, log2_trace, last=False):
+    """K1 at every pass the bench's 2^log2_trace proof launches: the
+    proof's NTTs run on random inputs of their shapes with each pass
+    recorded, then each pass is launched again into a fresh output and held
+    equal to its plain version on the same inputs, and timed, a row each.
+    With `last`, only the pass's last piece (pass_pieces, of 2^LAST_PIECE
+    points: at the largest offsets the pass writes) is held, and its time
+    is printed, not made a row.  Returns the rows and the keys of the
+    passes."""
+    from distaff_torch.ops import field_kernels as fk
+
+    rows, keys = [], []
+    for what, transform in main_path_transforms(gen, log2_trace):
         with PassRecorder() as rec:
             transform()
         for args in rec.calls:
-            src, dst, tw, batch, cols, ss, ds, n_in, lo, hi = (args + (None, None))[:10]
-            m = 2 * tw.shape[0]
-            outs = [torch.zeros_like(dst) for _ in range(2)]
-            pass_args = lambda out: (src, out, tw, batch, cols, ss, ds, n_in, lo, hi)
-            in_row = (torch.arange(cols)[:, None] * ss[1] + torch.arange(m)[None, :] * ss[2])
-            valid = (in_row < n_in).sum(1).tolist()
-            reads = batch * sum(valid)
-            points = batch * cols * m
-            butterflies = multiplies = 0
-            for v, count in Counter(valid).items():
-                bf, mul = dif_work(m, v)
-                butterflies += batch * count * bf
-                multiplies += batch * count * mul
-            if lo is not None:
-                multiplies += points                 # the four-step twiddle or 1/n
-            tables = m // 2 + sum(t.shape[0] for t in (lo, hi) if t is not None)
-            row = check_kernel(
-                "ntt_pass", f"{what}: {pass_key(*pass_args(dst))}",
-                lambda: fk.ntt_pass(*pass_args(outs[0])),
-                lambda: fk.ntt_pass_plain(*pass_args(outs[1])), 20, 1,
-                (reads + points + tables) * 16,
-                butterflies * (ADD_OPS + SUB_OPS) + multiplies * MUL_OPS, ops_rate,
-                "distaff_torch/csrc/ntt_pass.cu", "distaff_tpu/ops/field_pallas.py:252")
-            row["key"] = ("ntt_pass", pass_key(*args))
-            rows.append(row)
-            del outs
+            args = (args + (None, None))[:10]
+            key = pass_key(*args)
+            keys.append(key)
+            shape = f"2^{log2_trace} {what}: {key}"
+            out = torch.zeros_like(args[1])
+            launch = lambda: fk.ntt_pass(args[0], out, *args[2:])
+            bound_bytes, bound_ops = pass_bound(args)
+            source = ("distaff_torch/csrc/ntt_pass.cu", "distaff_tpu/ops/field_pallas.py:252")
+            if not last:
+                want = torch.zeros_like(out)
+                row = check_kernel("ntt_pass", shape, launch,
+                                   lambda: pass_plain(args[:1] + (want,) + args[2:]), 20, 1,
+                                   bound_bytes, bound_ops, ops_rate, *source)
+                row["key"] = ("ntt_pass", log2_trace, key)
+                rows.append(row)
+                del want
+            else:
+                launch()
+                want = out.clone()
+                pass_plain(args[:1] + (want,) + args[2:], 1 << LAST_PIECE, last=True)
+                b, count, first, stop = pass_pieces(args, 1 << LAST_PIECE)[-1]
+                ds, m = args[6], 2 * args[2].shape[0]
+                reach = 4 * ((b + count - 1) * ds[0] + (stop - 1) * ds[1] + (m - 1) * ds[2]) + 3
+                differ = int(out.view(torch.int32).ne(want.view(torch.int32)).sum())
+                if differ:
+                    raise AssertionError(f"ntt_pass at {shape}: {differ} words of the last piece "
+                                         f"differ from the plain version")
+                ms = time_ms(launch, 3, 3, queued=True)
+                bound = max(bound_bytes / HBM_BYTES_PER_S, bound_ops / ops_rate) * 1e3
+                print(f"kernel ntt_pass at {shape}: the last piece (batch rows {b}-"
+                      f"{b + count - 1}, columns {first}-{stop - 1}, words written up to "
+                      f"{reach}) equal to plain; {ms:.4f} ms (bound {bound:.4f} ms)", flush=True)
+                del want
+            del out
         del rec
-    return rows
+    return rows, keys
+
+
+def check_recursion(gen):
+    """K1's recursion above leaf^2 points at a small leaf: one zero-extended
+    transform of 2^SMALL_LOG2 points (two levels of recursion) and its
+    inverse on the card, equal to the same transforms of the plain passes
+    on the host and to the card's transform at the full leaf.  Returns the
+    kinds of its passes."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import tiles
+    from distaff_torch.tools.timing import random_elements
+
+    n = 1 << SMALL_LOG2
+    root = hostfield.get_root_of_unity(n)
+    x = random_elements(gen, (3, n // 32))
+    with PassRecorder(keep=False) as rec:
+        got = tiles.ntt_batched(x, root, SMALL_LEAF, n=n)
+        back = tiles.intt_batched(got, root, SMALL_LEAF)
+    want = tiles.ntt_batched(x.cpu(), root, SMALL_LEAF, n=n)
+    full = tiles.ntt_batched(x, root, n=n)
+    torch.cuda.synchronize()
+    zero = torch.zeros((3, n - n // 32, 4), dtype=torch.uint32, device="cuda")
+    errors = (max_abs_err(got.cpu(), want), max_abs_err(got, full),
+              max_abs_err(back, torch.cat([x, zero], 1)))
+    if any(errors):
+        raise AssertionError(f"K1 recursion at leaf {SMALL_LEAF}: max abs errors {errors}")
+    levels = tiles.ntt_buffers(n, SMALL_LEAF) - 2
+    print(f"kernel ntt_pass: recursive transform of 2^{SMALL_LOG2} points at leaf {SMALL_LEAF} "
+          f"({levels} levels of recursion, {len(rec.records)} passes for it and its inverse), "
+          f"equal to the plain passes on the host, to the full leaf's transform, and its "
+          f"inverse to the input", flush=True)
 
 
 def edge_pairs(ft):
@@ -417,10 +588,7 @@ def check_air(gen, ops_rate):
     muls, adds, subs = air_kernels.air_ops_per_row(tables.depths())
     print(f"K4 at {r} registers, depths {tables.depths()}: "
           f"{muls} multiplies, {adds} adds, {subs} subtractions a row", flush=True)
-    table_bytes = sum(t.numel() * t.element_size() for t in (
-        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc))
-    bound_bytes = (r + tables.xp.shape[0] + 1) * n * 16 + table_bytes
-    bound_ops = n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS)
+    bound_bytes, bound_ops = air_bounds(tables, r, n)
     source = ("distaff_torch/csrc/air_transition.cu",
               "distaff_tpu/stark/constraints/device_eval.py:121")
 
@@ -443,6 +611,52 @@ def check_air(gen, ops_rate):
     if bad[0] != 0 or bad[1] == 0:
         raise AssertionError(f"K4 bad-step counts {bad[:2]}: expected 0 and > 0")
     return row
+
+
+def air_bounds(tables, r, n):
+    """K4's bound in bytes and operations at (r, n) with these tables."""
+    from distaff_torch.ops import air_kernels
+
+    muls, adds, subs = air_kernels.air_ops_per_row(tables.depths())
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc))
+    return ((r + tables.xp.shape[0] + 1) * n * 16 + table_bytes,
+            n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
+
+
+def check_air_examples(gen, ops_rate):
+    """K4 at each example's geometry (its depths and evaluation domain at
+    its defaults, read from one VM run), on random registers and random
+    transcript tables, equal to transition_plain; a row each."""
+    import numpy as np
+
+    from distaff_torch import examples, native
+    from distaff_torch.ops import air_kernels
+    from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain
+    from distaff_torch.stark.constraints.evaluator import Evaluator
+    from distaff_torch.tools.timing import random_elements
+
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for name, example in examples.EXAMPLES.items():
+        program, inputs, _, _ = example()
+        regs, ctx, loop = native.execute_u64(program, inputs)
+        depths = (ctx, loop, regs.shape[0] - 15 - ctx - loop)
+        n = regs.shape[1] * air_kernels.STEP_ROWS                   # D_ev
+        evaluator = Evaluator(regs.shape[1], air_kernels.STEP_ROWS, *depths, rng.bytes(32),
+                              [0, 0], 0, [], [])
+        tables = air_tables(evaluator, "cuda")
+        lde = random_elements(gen, (regs.shape[0], n))
+        row = check_kernel(
+            "air_transition", f"example {name}: depths {depths}, ({regs.shape[0]}, {n}) "
+            f"random registers", lambda: air_kernels.air_transition(lde, tables),
+            lambda: transition_plain(lde, tables), 20, 1,
+            *air_bounds(tables, regs.shape[0], n), ops_rate,
+            "distaff_torch/csrc/air_transition.cu",
+            "distaff_tpu/stark/constraints/device_eval.py:121")
+        row["key"] = ("air_transition", "example", name)
+        rows.append(row)
+    return rows
 
 
 def check_butterfly(gen, ops_rate):
@@ -511,10 +725,10 @@ def eval_key(polys, points):
     return f"({polys.shape[0]}, {polys.shape[1]}) at {len(points)} points"
 
 
-def check_poly_eval(gen, ops_rate):
-    """K8 at the 2^16 proof's point evaluations, on random coefficients and
-    points: the trace polynomials (20, 2^16) at two points and the
-    constraint polynomial (1, 2^19) at one; a row each."""
+def check_poly_eval(gen, ops_rate, log2_trace):
+    """K8 at the point evaluations of the bench's 2^log2_trace proof, on
+    random coefficients and points: the trace polynomials (20, n) at two
+    points and the constraint polynomial (1, 8 n) at one; a row each."""
     import random
 
     from distaff_torch.math import field as hostfield
@@ -523,7 +737,7 @@ def check_poly_eval(gen, ops_rate):
 
     rng = random.Random(SEED + 1)
     rows = []
-    for regs, length, count in ((20, 1 << MAIN_LOG2_TRACE, 2), (1, 1 << (MAIN_LOG2_TRACE + 3), 1)):
+    for regs, length, count in ((20, 1 << log2_trace, 2), (1, 1 << (log2_trace + 3), 1)):
         polys = random_elements(gen, (regs, length))
         points = [rng.randrange(hostfield.M) for _ in range(count)]
         squarings = count * dk.POLY_EVAL_LOG_SPAN * dk.poly_eval_passes(length)
@@ -533,7 +747,7 @@ def check_poly_eval(gen, ops_rate):
             (regs * length + count * regs + squarings) * 16,
             count * regs * length * (MUL_OPS + ADD_OPS), ops_rate,
             "distaff_torch/csrc/poly_eval.cu", "distaff_tpu/stark/prover.py:636")
-        row["key"] = ("poly_eval", eval_key(polys, points))
+        row["key"] = ("poly_eval", log2_trace, eval_key(polys, points))
         rows.append(row)
     return rows
 
@@ -571,25 +785,38 @@ def fibonacci_program(assembly, log2_trace):
     return assembly.compile(f"begin repeat.{n_iter} swap dup.2 drop add end end")
 
 
-def timed_execute(program, inputs, options, stepped):
-    """One 2^16 proof on cuda and its wall time.  With `stepped`, DEBUG
-    step logging is on, which synchronizes the card at each step's end, and
-    the step lines come back too."""
+def timed_execute(program, inputs, options, stepped, num_outputs=1):
+    """One proof on cuda and its wall time, with the log lines of the
+    package.  With `stepped`, the prover's DEBUG step logging is on, which
+    synchronizes the card at each step's end; without, only the line of
+    step 0 (the VM, before the prover) comes back."""
     import distaff_torch
 
     steps = _StepLog()
     package_log = logging.getLogger("distaff_torch")
-    if stepped:
-        package_log.addHandler(steps)
-        package_log.setLevel(logging.DEBUG)
+    prover_log = logging.getLogger("distaff_torch.stark.prover")
+    package_log.addHandler(steps)
+    package_log.setLevel(logging.DEBUG)
+    if not stepped:
+        prover_log.setLevel(logging.INFO)
     try:
         t0 = time.perf_counter()
-        outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cuda")
+        outputs, proof = distaff_torch.execute(program, inputs, num_outputs, options,
+                                               device="cuda")
         torch.cuda.synchronize()
         return outputs, proof, time.perf_counter() - t0, steps.lines
     finally:
         package_log.removeHandler(steps)
         package_log.setLevel(logging.NOTSET)
+        prover_log.setLevel(logging.NOTSET)
+
+
+def step_ms(lines, name):
+    """The time of one logged step, in ms."""
+    for line in lines:
+        if line.startswith(name + ":"):
+            return float(line.split(":")[1].split()[0])
+    raise AssertionError(f"no log line for {name}")
 
 
 class EvalRecorder:
@@ -610,7 +837,7 @@ class EvalRecorder:
         out = self.real(polys, points)
         key = eval_key(polys, points)
         self.calls.append((key, self.dk.poly_eval_launches(polys.shape[1], len(points))))
-        self.launches[("poly_eval", key)] += self.cuda_lib.LAUNCHES["poly_eval"] - before
+        self.launches[key] += self.cuda_lib.LAUNCHES["poly_eval"] - before
         return out
 
     def __exit__(self, *exc):
@@ -623,10 +850,11 @@ def phase_main(checked_keys):
     calls and peak memory read around it; with DEBUG step logging for the
     per-step times; and unstepped again, so that the cost of the step
     synchronizes shows beside the drift from one proof to the next.  K1's
-    passes must be exactly the ("ntt_pass", key)s of `checked_keys`, those
-    phase 2 held and timed, and none a two-point transform; K8's calls
-    exactly its ("poly_eval", key)s, each launching its number of passes.
-    Returns the launches and a Counter of launches by (kernel, key)."""
+    passes must be exactly the ("ntt_pass", rung, key)s of `checked_keys`,
+    those phase 2 held and timed, and none a two-point transform; K8's calls
+    exactly its ("poly_eval", rung, key)s, each launching its number of
+    passes.  Returns the launches and a Counter of launches by (kernel,
+    rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import cuda_lib
@@ -655,8 +883,8 @@ def phase_main(checked_keys):
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    pass_keys = [key for kernel, key in checked_keys if kernel == "ntt_pass"]
-    eval_keys = [key for kernel, key in checked_keys if kernel == "poly_eval"]
+    pass_keys = [key for kernel, _, key in checked_keys if kernel == "ntt_pass"]
+    eval_keys = [key for kernel, _, key in checked_keys if kernel == "poly_eval"]
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                        ("field_ew.exp_const", 0), ("ntt_pass", len(pass_keys)),
                        ("poly_eval", sum(passes for _, passes in evals.calls))):
@@ -686,8 +914,416 @@ def phase_main(checked_keys):
         print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
     print(f"2^{MAIN_LOG2_TRACE} execute: stepped (synchronized at each step's end) "
           f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
-    keyed = Counter(("ntt_pass", key) for key in proof_keys) + evals.launches
+    keyed = Counter(("ntt_pass", MAIN_LOG2_TRACE, key) for key in proof_keys)
+    keyed.update({("poly_eval", MAIN_LOG2_TRACE, key): n for key, n in evals.launches.items()})
     return launches, keyed
+
+
+def phase_examples(ops_rate):
+    """K4 at each example's geometry held against its plain version (a
+    row each); then each example at its CLI defaults proved on cuda with
+    the default ProofOptions, its outputs checked against the example's,
+    verified, and a tampered output rejected; every kernel of the path
+    must launch, K4 once.  Then the CLI once on the card, and the golden
+    case with sha3, whose bytes must be the JAX package's.  Returns the
+    rows and a Counter of K4's launches by ("air_transition", "example",
+    name)."""
+    import distaff_torch
+    from distaff_torch import assembly, examples, ProgramInputs, ProofOptions
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import cuda_lib
+    from distaff_torch.stark import serde
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    rows = check_air_examples(gen, ops_rate)
+    keyed = Counter()
+    for name, example in examples.EXAMPLES.items():
+        program, inputs, num_outputs, expected = example()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        outputs, proof, prove_s, _ = timed_execute(program, inputs, ProofOptions(),
+                                                   stepped=False, num_outputs=num_outputs)
+        launches = dict(cuda_lib.LAUNCHES)
+        public = inputs.get_public_inputs()
+        if outputs != expected:
+            raise AssertionError(f"example {name}: outputs {outputs}, expected {expected}")
+        if not distaff_torch.verify(program.hash, public, outputs, proof):
+            raise AssertionError(f"example {name}: the proof does not verify")
+        tampered = [(outputs[0] + 1) % hostfield.M] + outputs[1:]
+        try:
+            distaff_torch.verify(program.hash, public, tampered, proof)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"example {name}: a tampered output verifies")
+        idle = [k for k in MAIN_PATH if launches[k] == 0]
+        if idle or launches["air_transition"] != 1:
+            raise AssertionError(f"example {name}: kernels not launched {idle}, K4 launched "
+                                 f"{launches['air_transition']} times")
+        info = proof.trace_info
+        keyed[("air_transition", "example", name)] += launches["air_transition"]
+        print(f"example {name}: trace length {proof.trace_length()}, depths "
+              f"({info.ctx_depth}, {info.loop_depth}, {info.stack_depth}), execute "
+              f"{prove_s:.3f} s, K4 launches {launches['air_transition']}, outputs {outputs} "
+              f"as expected, verified, a tampered output rejected", flush=True)
+
+    cli = subprocess.run([sys.executable, "-m", "distaff_torch", "fibonacci"],
+                         capture_output=True, text=True, timeout=300)
+    for line in cli.stdout.splitlines():
+        print(f"cli: {line}", flush=True)
+    if cli.returncode != 0:
+        raise AssertionError(f"python -m distaff_torch fibonacci exited {cli.returncode}:\n"
+                             f"{cli.stderr[-2000:]}")
+    print("cli: python -m distaff_torch fibonacci exited 0 on the card", flush=True)
+
+    program = assembly.compile("begin push.3 push.5 add end")
+    inputs = ProgramInputs.none()
+    outputs, proof = distaff_torch.execute(
+        program, inputs, 1, ProofOptions(16, 10, 2, "sha3"), device="cuda")
+    body = serde.serialize_body(proof)
+    digest = hashlib.sha256(body).hexdigest()
+    if len(body) != SHA3_BODY_LEN or digest != SHA3_BODY_SHA256:
+        raise AssertionError(f"sha3 golden proof differs: {len(body)} bytes, sha256 {digest}")
+    if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+        raise AssertionError("sha3 golden proof does not verify")
+    print(f"golden proof with sha3 on cuda: {len(body)} bytes before the options, sha256 "
+          f"{digest} (the JAX package's), verified", flush=True)
+    return rows, keyed
+
+
+class ProofCalls:
+    """Within its `with`, records the calls that the prover makes of K2
+    (each binary operation's layout as K2 indexes it: the operation, the
+    sizes and the operands' element strides), K3 (the rows it hashes and
+    the launch's counter), K4 and K7 (their arguments), and lets each
+    launch."""
+
+    def __enter__(self):
+        from distaff_torch.ops import air_kernels, blake3_torch, deep_kernels
+        from distaff_torch.ops import field_kernels as fk
+
+        self.fk = fk
+        self.layouts, self.hashes, self.airs, self.composes = Counter(), [], [], []
+        self.patches = [(fk, "_binary", self.binary), (blake3_torch, "_launch", self.hash),
+                        (air_kernels, "air_transition", self.air),
+                        (deep_kernels, "deep_compose", self.compose)]
+        self.real = {}
+        for module, name, fn in self.patches:
+            self.real[name] = getattr(module, name)
+            setattr(module, name, fn)
+        return self
+
+    def binary(self, name, a, b):
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if shape.numel():
+            sizes, (sa, sb) = self.fk.collapse_dims(shape, a, b)
+            self.layouts[(name, tuple(sizes), tuple(sa), tuple(sb))] += 1
+        return self.real["_binary"](name, a, b)
+
+    def hash(self, rows, out, counter):
+        self.hashes.append((rows, counter))
+        return self.real["_launch"](rows, out, counter)
+
+    def air(self, lde, tables):
+        self.airs.append((lde, tables))
+        return self.real["air_transition"](lde, tables)
+
+    def compose(self, *args):
+        self.composes.append(args)
+        return self.real["deep_compose"](*args)
+
+    def __exit__(self, *exc):
+        for module, name, _ in self.patches:
+            setattr(module, name, self.real[name])
+        self.patches = None          # its bound methods would keep the calls alive in a cycle
+
+
+def pieces(n, make):
+    """[(start, stop, make(start, stop))] over [0, n) in pieces of at most
+    2^LAST_PIECE."""
+    step = 1 << LAST_PIECE
+    return [(a, min(a + step, n), make(a, min(a + step, n))) for a in range(0, n, step)]
+
+
+def hold_pieces(name, shape, kernel, parts, last):
+    """Hold kernel()'s output against its plain version computed a piece at
+    a time: parts lists (start, stop, plain) with plain() the output's rows
+    [start, stop); with `last`, the last piece alone.  Returns the kernel's
+    output and the time of the plain pieces in ms (CUDA events)."""
+    got = kernel()
+    got = got[0] if isinstance(got, tuple) else got
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    wants = [(a, b, plain()) for a, b, plain in (parts[-1:] if last else parts)]
+    end_ev.record()
+    torch.cuda.synchronize()
+    for a, b, want in wants:
+        err = max_abs_err(got[a:b], want)
+        if err:
+            raise AssertionError(f"{name} at {shape}: rows {a}-{b - 1} differ from the plain "
+                                 f"version (max abs err {err})")
+    return got, start_ev.elapsed_time(end_ev)
+
+
+def piece_row(name, shape, kernel, parts, last, bound_bytes, bound_ops, ops_rate, source,
+              replaces, reps=20):
+    """hold_pieces, then the kernel timed: its row of the JSON table
+    (plain_ms the one run of the plain pieces), or with `last` a printed
+    line and no row."""
+    _, plain_ms = hold_pieces(name, shape, kernel, parts, last)
+    ms = time_ms(kernel, 3 if last else reps, 3 if last else KERNEL_TRIALS, queued=True)
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bound_ops / ops_rate * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    held = f"its last {parts[-1][1] - parts[-1][0]} rows" if last else f"{len(parts)} piece(s)"
+    print(f"kernel {name} at {shape}: equal to plain over {held}; {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by})", flush=True)
+    if last:
+        return None
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by, "library_ms": None}
+
+
+def operand_kind(sizes, strides):
+    """How a K2 operand is laid out: one element broadcast ("scalar"),
+    dense ("contiguous") or otherwise ("strided")."""
+    if not any(strides):
+        return "scalar"
+    dense, step = [], 1
+    for size in reversed(sizes):
+        dense.insert(0, step)
+        step *= size
+    return "contiguous" if list(strides) == dense else "strided"
+
+
+def strided_operand(gen, sizes, strides):
+    """Random elements viewed through K2's sizes and element strides (a
+    span of at least four starts with 0, 1, M - 2 and M - 1)."""
+    from distaff_torch.tools.timing import random_elements
+
+    span = 1 + sum((n - 1) * st for n, st in zip(sizes, strides))
+    base = random_elements(gen, (span + 4,))[4 if span < 4 else 0:]
+    return base.as_strided(tuple(sizes) + (4,), tuple(4 * st for st in strides) + (1,))
+
+
+def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
+    """Every call of K2, K3, K4 and K7 that a proof made (a ProofCalls),
+    held against the plain versions: K2 at each layout on random operands
+    laid out so, K3, K4 and K7 on the proof's own inputs, a piece of
+    2^LAST_PIECE rows or points at a time (with `last`, the last piece of
+    each call alone).  Without `last` a row for each class of call (K2: its
+    operation and its operands' kinds, operand_kind, timed at the class's
+    largest layout; K3: the trace rows,
+    the FRI layer rows, the Merkle levels; K4; K7), keyed by (kernel, rung,
+    class), and a Counter of the proof's launches by those keys."""
+    from distaff_torch.ops import air_kernels
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.stark.constraints.device_eval import transition_plain_rows
+
+    tag = f"2^{log2_trace} proof"
+    rows, keyed = [], Counter()
+
+    def add(row, kernel, cls, launches):
+        if row is not None:
+            row["key"] = (kernel, log2_trace, cls)
+            rows.append(row)
+            keyed[row["key"]] += launches
+
+    # K2: every layout held; per class (operation and strides) the largest timed
+    classes = {}
+    for (op, sizes, sa, sb), count in calls.layouts.items():
+        a, b = strided_operand(gen, sizes, sa), strided_operand(gen, sizes, sb)
+        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
+        check_equal(f"field_ew.{op}", f"{tag} layout {sizes} strides {sa} x {sb}",
+                    lambda: kern(a, b), lambda: plain(a, b))
+        n = 1
+        for size in sizes:
+            n *= size
+        cls = (op, f"{operand_kind(sizes, sa)} x {operand_kind(sizes, sb)}")
+        best = classes.get(cls)
+        classes[cls] = (max(best[0], (n, sizes, sa, sb)) if best else (n, sizes, sa, sb),
+                        (best[1] if best else 0) + count)
+        del a, b
+    print(f"kernel field_ew: {tag}'s {len(calls.layouts)} layouts "
+          f"({sum(calls.layouts.values())} launches) equal to plain on random operands",
+          flush=True)
+    lines = {"mul": 248, "add": 123, "sub": 137}
+    for (op, kinds), ((n, sizes, sa, sb), count) in sorted(classes.items()):
+        if last:
+            break
+        a, b = strided_operand(gen, sizes, sa), strided_operand(gen, sizes, sb)
+        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
+        reads = 0                       # the distinct elements of each operand
+        for strides in (sa, sb):
+            distinct = 1
+            for size, st in zip(sizes, strides):
+                distinct *= size if st else 1
+            reads += distinct
+        row = check_kernel(
+            f"field_ew.{op}", f"{tag} {kinds}, {count} launches, the largest {sizes} strides "
+            f"{sa} x {sb}", lambda: kern(a, b), lambda: plain(a, b),
+            50, 1, (reads + n) * 16, n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate,
+            "distaff_torch/csrc/field_ew.cu", f"distaff_tpu/math/field_jax.py:{lines[op]}")
+        add(row, f"field_ew.{op}", kinds, count)
+        del a, b
+
+    # K3: each call on the proof's rows
+    k3 = "distaff_torch/csrc/blake3_rows.cu"
+    groups = {}
+    for rows_in, counter in calls.hashes:
+        k = rows_in.shape[1]
+        cls = ("Merkle levels" if counter == "blake3_rows.parents"
+               else "trace rows" if k > 4 else "FRI layer rows")
+        groups.setdefault((counter, cls), []).append(rows_in)
+    for (counter, cls), group in groups.items():
+        group.sort(key=lambda t: -t.shape[0])
+        for i, rows_in in enumerate(group):
+            count, k = rows_in.shape[0], rows_in.shape[1]
+            parts = pieces(count, lambda a, b, r=rows_in: lambda: b3.hash_rows_plain(r[a:b]))
+            kernel = lambda r=rows_in: b3._launch(
+                r, torch.empty((r.shape[0], 8), dtype=torch.uint32, device=r.device), counter)
+            shape = f"{tag} {cls}: {count} rows x {k * 16} B"
+            if i:
+                hold_pieces(counter, shape, kernel, parts, last)
+                continue
+            replaces = ("distaff_tpu/crypto/merkle_dev.py:34" if counter == "blake3_rows.parents"
+                        else "distaff_tpu/ops/blake3_jax.py:95")
+            row = piece_row(counter, shape, kernel, parts, last, count * (k * 16 + 32),
+                            count * ((k * 16 + 63) // 64) * COMPRESS_OPS, ops_rate, k3, replaces)
+            add(row, counter, cls, len(group))
+        print(f"kernel {counter}: {tag}'s {len(group)} calls of {cls} equal to plain", flush=True)
+
+    # K4 on the proof's LDE slice and tables: no bad step
+    for lde, tables in calls.airs:
+        r, n = lde.shape[0], lde.shape[1]
+        parts = pieces(n, lambda a, b: lambda: transition_plain_rows(lde, tables, a, b))
+        kernel = lambda: air_kernels.air_transition(lde, tables)
+        if int(kernel()[1]):
+            raise AssertionError(f"air_transition at {tag}: bad steps on an honest trace")
+        row = piece_row("air_transition", f"{tag} ({r}, {n}) LDE slice, strides "
+                        f"{tuple(lde.stride())}", kernel, parts, last, *air_bounds(tables, r, n),
+                        ops_rate, "distaff_torch/csrc/air_transition.cu",
+                        "distaff_tpu/stark/constraints/device_eval.py:121")
+        add(row, "air_transition", "LDE slice", 1)
+
+    # K7 on the proof's LDE, constraint evaluations, weights and scalars
+    for lde, c_lde, w1, w2, root, incr, scalars in calls.composes:
+        regs, n = lde.shape[0], lde.shape[1]
+        parts = pieces(n, lambda a, b: lambda: dk.deep_compose_plain(
+            lde[:, a:b], c_lde[a:b], w1, w2, root, incr, scalars, start=a))
+        muls, adds, subs = dk.deep_compose_ops(regs)
+        tables = 2 * (1024 + n // 1024)
+        row = piece_row(
+            "deep_compose", f"{tag} ({regs}, {n})",
+            lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars), parts, last,
+            ((regs + 2) * n + 2 * regs + tables) * 16,
+            n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS), ops_rate,
+            "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
+        add(row, "deep_compose", "LDE", 1)
+    return rows, keyed
+
+
+def phase_ladder(ops_rate):
+    """K1's recursion at a small leaf; then for each rung of LADDER, the
+    bench's Fibonacci program (bench.py sizing, default options): every K1
+    pass and K8 call of its proof held against the plain versions (at the
+    2^LADDER_HELD rung in full, a row each; at the other rung K1's last
+    piece of each pass), the proof made on cuda unstepped and verified,
+    with its wall time, step 0, peak device memory, LDE size and K1
+    passes (the LDE must take K1's recursion, the passes and K8 calls must
+    be exactly those held), and every call it made of K2, K3, K4 and K7
+    held against the plain versions (check_proof_calls).  Then the
+    LADDER_HELD rung once more with the step log.  Returns the rows and a
+    Counter of launches by (kernel, rung, key)."""
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import cuda_lib, tiles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    check_recursion(gen)
+    inputs = ProgramInputs.from_public([1, 0])
+    options = ProofOptions()
+    rows, keyed = [], Counter()
+    for log2_trace in LADDER:
+        last = log2_trace != LADDER_HELD
+        pass_rows, pass_keys = check_passes(gen, ops_rate, log2_trace, last)
+        eval_rows = check_poly_eval(gen, ops_rate, log2_trace)
+        rows += pass_rows + eval_rows
+        program = fibonacci_program(assembly, log2_trace)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        with PassRecorder(keep=False) as rec, EvalRecorder() as evals, ProofCalls() as calls:
+            outputs, proof, prove_s, lines = timed_execute(program, inputs, options,
+                                                           stepped=False)
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        if proof.trace_length() != 1 << log2_trace:
+            raise AssertionError(f"trace length {proof.trace_length()}")
+        if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+            raise AssertionError(f"2^{log2_trace} proof does not verify")
+        verify_s = time.perf_counter() - t1
+        info = proof.trace_info
+        regs = 15 + info.ctx_depth + info.loop_depth + info.stack_depth
+        domain = proof.trace_length() * options.extension_factor()
+        print(f"2^{log2_trace} proof: execute {prove_s:.3f} s (step 0 "
+              f"{step_ms(lines, 'step 0 execute program'):.3f} ms), verify {verify_s:.3f} s, "
+              f"output {outputs}, peak device memory {peak} bytes, LDE ({regs}, {domain}) = "
+              f"{regs * domain * 16} bytes", flush=True)
+        print(f"2^{log2_trace} launches: {json.dumps(launches)}", flush=True)
+        for key in rec.keys():
+            print(f"2^{log2_trace} K1 pass {key}", flush=True)
+        idle = [k for k in MAIN_PATH if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched at 2^{log2_trace}: {idle}")
+        for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
+                           ("field_ew.exp_const", 0)):
+            if launches[name] != want:
+                raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
+        recorded = Counter(f"field_ew.{op}" for op, _, _, _ in calls.layouts.elements())
+        recorded.update(counter for _, counter in calls.hashes)
+        for name in ("field_ew.add", "field_ew.sub", "field_ew.mul", "blake3_rows",
+                     "blake3_rows.parents"):
+            if recorded[name] != launches[name]:
+                raise AssertionError(f"2^{log2_trace}: {recorded[name]} calls of {name} "
+                                     f"recorded, {launches[name]} launched")
+        if tiles.ntt_buffers(domain) < 3 or not any(
+                kind.startswith("columns zero extended -> columns x lo")
+                for kind in rec.kinds()):
+            raise AssertionError(f"2^{log2_trace}: the LDE did not take K1's recursion")
+        if any(m < 4 for _, _, m in rec.records):
+            raise AssertionError(f"2^{log2_trace}: a two-point K1 pass")
+        if Counter(rec.keys()) != Counter(pass_keys):
+            raise AssertionError(f"2^{log2_trace}: the K1 passes are not those held")
+        if sorted(key for key, _ in evals.calls) != sorted(row["key"][2] for row in eval_rows):
+            raise AssertionError(f"2^{log2_trace}: the K8 calls are not those held")
+        keyed.update(("ntt_pass", log2_trace, key) for key in rec.keys())
+        keyed.update({("poly_eval", log2_trace, key): n for key, n in evals.launches.items()})
+        print(f"2^{log2_trace} K1: {launches['ntt_pass']} passes of kinds "
+              f"{sorted(rec.kinds())}, the LDE through {tiles.ntt_buffers(domain) - 2} level(s) "
+              f"of recursion, each held; K8 {launches['poly_eval']} launches, each held",
+              flush=True)
+        del outputs, proof
+        call_rows, call_keyed = check_proof_calls(gen, ops_rate, log2_trace, calls, last)
+        rows += call_rows
+        keyed += call_keyed
+        del calls
+        torch.cuda.empty_cache()
+
+    program = fibonacci_program(assembly, LADDER_HELD)
+    _, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
+    for line in lines:
+        print(f"2^{LADDER_HELD} {line}", flush=True)
+    print(f"2^{LADDER_HELD} execute, stepped: {stepped_s:.3f} s", flush=True)
+    return rows, keyed
 
 
 def phase_bench():
@@ -746,10 +1382,15 @@ def main():
 
     for line in cuda_lib.ptxas_report("ntt_pass"):
         print(f"K1 {line.strip()}", flush=True)
-    rows = phase_kernels(int32_ops_per_s())
+    ops_rate = int32_ops_per_s()
+    rows = phase_kernels(ops_rate)
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
+    for phase in (phase_examples, phase_ladder):
+        phase_rows, phase_keyed = phase(ops_rate)
+        rows += phase_rows
+        keyed += phase_keyed
     for row in rows:
         name = row["name"]
         if "key" in row:

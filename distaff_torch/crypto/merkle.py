@@ -17,16 +17,22 @@ from .blake3 import blake3_batch
 from . import hashes as _hashes
 
 
+def hash_leaves(rows: np.ndarray, hash_name: str) -> np.ndarray:
+    """(N, k) byte rows -> (N, 32) leaf digests, one host hash call a row
+    (the reference hashes each row with the proof's hash function)."""
+    hash_fn = _hashes.HASH_FUNCTIONS[hash_name]
+    out = np.empty((rows.shape[0], 32), dtype=np.uint8)
+    for i in range(rows.shape[0]):
+        out[i] = np.frombuffer(hash_fn(rows[i].tobytes()), dtype=np.uint8)
+    return out
+
+
 def _hash_pairs(level: np.ndarray, hash_name: str) -> np.ndarray:
     """Hash (N, 64) byte rows -> (N/2, 32): parents of a level of nodes."""
     pairs = level.reshape(-1, 64)
     if hash_name == "blake3":
         return blake3_batch(pairs)
-    hash_fn = _hashes.HASH_FUNCTIONS[hash_name]
-    out = np.empty((pairs.shape[0], 32), dtype=np.uint8)
-    for i in range(pairs.shape[0]):
-        out[i] = np.frombuffer(hash_fn(pairs[i].tobytes()), dtype=np.uint8)
-    return out
+    return hash_leaves(pairs, hash_name)
 
 
 def build_merkle_nodes(leaves: np.ndarray, hash_name: str) -> np.ndarray:

@@ -8,12 +8,29 @@ children at 2i and 2i+1.  Here that array is one (N, 8) uint32 tensor;
 each level is hashed straight into its slice.
 """
 
+import numpy as np
 import torch
 
-from .merkle import BatchMerkleProof, _map_indexes, _normalize_indexes
-from ..ops.blake3_torch import hash_level
+from .merkle import BatchMerkleProof, MerkleTree, _map_indexes, _normalize_indexes, hash_leaves
+from ..ops.blake3_torch import hash_level, hash_rows
 from ..ops.gather import gather_rows_dev
 from ..ops.hostsync import TransferBatch
+
+
+def commit(rows, hash_name, leaves=False):
+    """The Merkle tree of one of the prover's commitments, over device
+    rows: (N, K, 4) limb rows, each hashed to its leaf, or with `leaves`
+    (N, 8) words, the 32-byte leaves themselves.  With blake3 the tree is
+    hashed on the device (kernel K3) and stays there; with any other hash
+    the rows' bytes (the u128 LE bytes of their limbs) go to the host and
+    are hashed there into a crypto.merkle.MerkleTree, as the JAX package
+    does (an arithmetic hash takes at most 64 bytes, so it raises on a
+    trace row, there as here)."""
+    if hash_name == "blake3":
+        return DeviceMerkleTree(rows if leaves else hash_rows(rows))
+    data = rows.contiguous().cpu().numpy()
+    data = data.reshape(data.shape[0], -1).view(np.uint8)
+    return MerkleTree(data if leaves else hash_leaves(data, hash_name), hash_name)
 
 
 def build_flat_nodes(leaves_u32):

@@ -17,9 +17,12 @@ long long op_counts[3];
 }
 
 // (ctx, loop, stack) depths: those of the CPU tests' random domains, the
-// bench program's (1, 0, 4) and the golden program's (0, 0, 2)
+// bench program's (1, 0, 4), the golden program's (0, 0, 2) and the
+// examples' (collatz (2, 1, 8), comparison (1, 0, 12), conditional
+// (1, 0, 3), merkle (0, 0, 11), rangecheck (0, 0, 6))
 #define AIR_TRIPLES(X) \
-    X(0, 0, 1) X(0, 0, 2) X(1, 0, 4) X(1, 0, 8) X(1, 1, 8) X(16, 8, 32)
+    X(0, 0, 1) X(0, 0, 2) X(1, 0, 4) X(1, 0, 8) X(1, 1, 8) X(16, 8, 32) \
+    X(2, 1, 8) X(1, 0, 12) X(1, 0, 3) X(0, 0, 11) X(0, 0, 6)
 
 namespace {
 

@@ -164,16 +164,21 @@ def _weighted_sum_plain(lde, weights):
     return total
 
 
-def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars):
+def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):
     """deep_compose's function on plain tensors: the weighted sums, the
     power series of x and x^incr and the composition over one batch
-    inverse of (x - z)(x - zg), on K2's and K6's plain versions."""
+    inverse of (x - z)(x - zg), on K2's and K6's plain versions.  With
+    `start`, the inputs are the points x = root^(start + i) of a larger
+    domain, and the result is deep_compose's there."""
     n, device = lde.shape[1], lde.device
     z, zg, s1, s2, c_at_z, k1, k2, kc = (ft.constant(v, device) for v in scalars)
     a1 = _weighted_sum_plain(lde, w1)
     a2 = _weighted_sum_plain(lde, w2)
-    xs = power_series_plain(root, n, device)
-    x_incr = power_series_plain(pow(int(root), int(incr), M), n, device)
+    root_incr = pow(int(root), int(incr), M)
+    xs = fk.mul_plain(power_series_plain(root, n, device),
+                      ft.constant(pow(int(root), start, M), device))
+    x_incr = fk.mul_plain(power_series_plain(root_incr, n, device),
+                          ft.constant(pow(root_incr, start, M), device))
     mul, add, sub = fk.mul_plain, fk.add_plain, fk.sub_plain
 
     xz = sub(xs, z)

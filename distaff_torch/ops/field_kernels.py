@@ -326,36 +326,40 @@ def inv_batch(a):
 # K1 ntt_pass
 # ------------------------------------------------------------------------------------------------
 
-def _pass_offsets(batch, cols, m, strides, device):
-    """(batch, cols, m) element offsets of a pass's points, and the offsets
-    of each point in its batch row, for strides (batch, column, point)."""
+def _pass_offsets(batch, columns, m, strides, device):
+    """(batch, len(columns), m) element offsets of a pass's points in these
+    columns, and the offsets of each point in its batch row, for strides
+    (batch, column, point)."""
     bs, cs, ps = strides
-    in_row = (torch.arange(cols, device=device)[:, None] * cs
-              + torch.arange(m, device=device)[None, :] * ps)
+    in_row = (columns[:, None] * cs + torch.arange(m, device=device)[None, :] * ps)
     return torch.arange(batch, device=device)[:, None, None] * bs + in_row[None], in_row
 
 
 def ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in,
-                   lo=None, hi=None):
+                   lo=None, hi=None, columns=None):
     """ntt_pass's function on int64 limbs: a gather of the transforms, the
-    Pease leaf of ntt_leaf64, the store factors and a scatter into dst."""
+    Pease leaf of ntt_leaf64, the store factors and a scatter into dst.
+    With `columns` = (first, stop), the transforms of those columns alone
+    (so that a wide pass can be held a piece at a time)."""
     m = 2 * tw.shape[0]
     device = src.device
-    idx, in_row = _pass_offsets(batch, cols, m, src_strides, device)
+    first, stop = columns or (0, cols)
+    col = torch.arange(first, stop, device=device)
+    k = stop - first
+    idx, in_row = _pass_offsets(batch, col, m, src_strides, device)
     valid = in_row < n_in
     idx = torch.where(valid[None], idx, 0).reshape(-1)
     x = src.reshape(-1, 4).view(torch.int32).index_select(0, idx).to(torch.int64) & _MASK32
-    x = x.view(batch * cols, m, 4) * valid.repeat(batch, 1)[..., None]
-    y = ntt_leaf64(x, tw.to(torch.int64)).view(batch, cols, m, 4)
+    x = x.view(batch * k, m, 4) * valid.repeat(batch, 1)[..., None]
+    y = ntt_leaf64(x, tw.to(torch.int64)).view(batch, k, m, 4)
     if lo is not None:
-        e = (torch.arange(cols, device=device)[:, None]
-             * torch.arange(m, device=device)[None, :]).reshape(-1)
+        e = (col[:, None] * torch.arange(m, device=device)[None, :]).reshape(-1)
         log_lo = lo.shape[0].bit_length() - 1
         f = lo.to(torch.int64).index_select(0, e & (lo.shape[0] - 1))
         if hi is not None:
             f = mul64(f, hi.to(torch.int64).index_select(0, e >> log_lo))
-        y = mul64(y, f.view(1, cols, m, 4))
-    out_idx, _ = _pass_offsets(batch, cols, m, dst_strides, device)
+        y = mul64(y, f.view(1, k, m, 4))
+    out_idx, _ = _pass_offsets(batch, col, m, dst_strides, device)
     dst.view(-1, 4).view(torch.int32).index_copy_(
         0, out_idx.reshape(-1), y.reshape(-1, 4).to(torch.uint32).view(torch.int32))
     return dst

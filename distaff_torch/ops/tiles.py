@@ -12,9 +12,9 @@ extended where the input is shorter than n), transforms them over k2 and
 multiplies by w^(k1*j2) on its store, from two small power tables; pass B
 transforms the columns j2 of that into the caller's output.  No transpose,
 no twiddle table of n entries, no K2 launch; the inverse transform's 1/n
-rides on the first pass's store.  Above leaf^2 points pass B recurses (with
-one transpose).  An NTT has a unique result, so the values are those of the
-JAX package's Pease kernels bit for bit.
+rides on the first pass's store.  Above leaf^2 points pass B recurses, in
+place, with one transpose.  An NTT has a unique result, so the values are
+those of the JAX package's Pease kernels bit for bit.
 """
 
 import torch
@@ -115,13 +115,25 @@ def _ntt_into(values, n_in, dst, n, root_int, c_int, leaf):
         return fk.ntt_pass(scratch, dst, _stage_twiddles(n1, pow(root_int, n2, M), device),
                            b, n2, (n, 1, n2), (ds, 1, n2), n)
     # pass A stores [j2][k1], whose rows the size-n1 transforms take by
-    # recursion; one transpose puts j1*n2 + j2 in place
+    # recursion, in place: the inner transform writes its result over its
+    # input once its first pass has read it, so the recursion holds one
+    # scratch of n points a level.  One transpose puts j1*n2 + j2 in place
     fk.ntt_pass(values, scratch, tw2, b, n1, (vs, 1, n1), (n, 1, n1), n_in, lo, hi)
-    inner = _ntt_into(scratch.view(b * n2, n1, 4), n1,
-                      torch.empty((b * n2, n1, 4), dtype=torch.uint32, device=device),
-                      n1, pow(root_int, n2, M), 1, leaf)
+    rows = scratch.view(b * n2, n1, 4)
+    inner = _ntt_into(rows, n1, rows, n1, pow(root_int, n2, M), 1, leaf)
     dst.view(b, n1, n2, 4).copy_(inner.view(b, n2, n1, 4).transpose(1, 2))
     return dst
+
+
+def ntt_buffers(n, leaf=LEAF):
+    """How many (B, n, 4) buffers a transform of n points holds at once:
+    its output, and one scratch for each level of the four-step (the
+    device-memory check of the LDE counts them)."""
+    if n <= leaf:
+        return 1
+    n1 = n // min(leaf, 1 << (n.bit_length() // 2))
+    # the inner transform's output is this level's scratch
+    return 2 if n1 <= leaf else 1 + ntt_buffers(n1, leaf)
 
 
 def ntt_batched(values, root_int, leaf=LEAF, n=None):

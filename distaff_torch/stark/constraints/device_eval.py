@@ -15,6 +15,7 @@ Unlike the JAX package, the port runs this at every domain size and in one
 piece: there is no compile to amortize and no chunking.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -155,6 +156,21 @@ def transition_plain(lde, tables):
         result = (result + weighted_sum(cols, odd) * TorchCol(tables.xp[g])) % M
     combined = result.t.expand(n, 4).contiguous()
     return combined, _nonzero_step_rows(combined)
+
+
+def transition_plain_rows(lde, tables, start, stop):
+    """transition_plain's combined column at rows [start, stop) of the
+    slice alone, from those rows and the cycle of rows after them (wrapping
+    at the end), so that a long slice can be held a window at a time;
+    start and stop are multiples of the tables' cycle."""
+    n, cycle = lde.shape[1], tables.dec_ark.shape[1]
+    if start % cycle or stop % cycle or not 0 <= start < stop <= n:
+        raise ValueError(f"transition_plain_rows: rows [{start}, {stop}) of {n} in whole "
+                         f"cycles of {cycle}")
+    rows = torch.arange(start, stop + cycle, device=lde.device) % n
+    window = dataclasses.replace(tables, xp=tables.xp.index_select(1, rows))
+    combined, _ = transition_plain(lde.index_select(1, rows), window)
+    return combined[:stop - start]
 
 
 def transition(lde, tables):

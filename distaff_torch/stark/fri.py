@@ -1,5 +1,6 @@
-"""Radix-4 FRI (reference src/stark/fri/): device folds and device layer
-trees for the prover, host-side verification.
+"""Radix-4 FRI (reference src/stark/fri/): device folds and layer trees
+(on the device for blake3, on the host for any other hash) for the
+prover, host-side verification.
 """
 
 from ..math import field, quartic, polynom
@@ -27,14 +28,13 @@ class FriProof:
         self.rem_values = rem_values
 
 
-def _build_layer_tree(rows_dev):
+def _build_layer_tree(rows_dev, hash_name):
     """Commit to (q, 4, 4limbs) rows: each row's 64 bytes are the u128 LE
-    concatenation, which the limb layout already is; the leaves and every
-    tree level are hashed on the device (kernel K3)."""
-    from ..ops.blake3_torch import hash_rows
-    from ..crypto.merkle_dev import DeviceMerkleTree
+    concatenation, which the limb layout already is (crypto.merkle_dev.
+    commit: on the device with blake3, else on the host)."""
+    from ..crypto.merkle_dev import commit
 
-    return DeviceMerkleTree(hash_rows(rows_dev))
+    return commit(rows_dev, hash_name)
 
 
 def reduce(evaluations_dev, domain_root, options):
@@ -59,7 +59,7 @@ def reduce(evaluations_dev, domain_root, options):
     value_results = []
 
     p_values = fri_torch.transpose_quartic(evaluations_dev, 1)
-    p_tree = _build_layer_tree(p_values)
+    p_tree = _build_layer_tree(p_values, options.hash_fn)
 
     while p_values.shape[0] * 4 > MAX_REMAINDER_LENGTH:
         special_x = rand.prng(p_tree.root(), field.M)
@@ -68,7 +68,7 @@ def reduce(evaluations_dev, domain_root, options):
         x0_inv3 = x0_inv3[::4]
 
         c_values = fri_torch.transpose_quartic(column, 1)
-        c_tree = _build_layer_tree(c_values)
+        c_tree = _build_layer_tree(c_values, options.hash_fn)
 
         tree_results.append(p_tree)
         value_results.append(p_values)

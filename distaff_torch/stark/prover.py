@@ -2,7 +2,9 @@
 the domain-sized work on the device:
 
 1. trace LDE           - batched NTTs per register (kernel K1)
-2. trace Merkle tree   - leaf rows and every level hashed on device (K3)
+2. trace Merkle tree   - leaf rows and every level hashed on device (K3);
+                         with another hash than blake3 the trees of
+                         steps 2, 5 and 7 are hashed on the host
 3. constraint eval     - boundary columns as weighted register sums on
                          device; transition constraints in one launch of
                          the AIR kernel over the LDE slice (K4)
@@ -74,8 +76,6 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove(device='cuda'): no CUDA device is available")
-    if options.hash_fn != "blake3":
-        raise ValueError(f"the prover commits with blake3 only, not {options.hash_fn}")
     clock = _StepClock(device)
 
     # 1 ----- extend execution trace -------------------------------------------------------------
@@ -104,7 +104,7 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     from ..ops import tiles
 
     constraint_lde = tiles.ntt(constraint_poly, lde_root, n=domain_size)
-    constraint_tree = _build_constraint_tree(constraint_lde)
+    constraint_tree = _build_constraint_tree(constraint_lde, options.hash_fn)
     clock.done(5, "constraint tree")
 
     # 6 ----- DEEP composition -------------------------------------------------------------------
@@ -259,13 +259,13 @@ def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length
 # step 5: constraint commitment
 # ------------------------------------------------------------------------------------------------
 
-def _build_constraint_tree(constraint_lde):
+def _build_constraint_tree(constraint_lde, hash_name):
     """Two evaluations (32 raw bytes) per leaf - unlike the trace tree, the
     leaves are the evaluation bytes themselves (reference prover.rs:84-86)."""
-    from ..crypto.merkle_dev import DeviceMerkleTree
+    from ..crypto.merkle_dev import commit
 
     d = constraint_lde.shape[0]
-    return DeviceMerkleTree(constraint_lde.reshape(d // 2, 8))
+    return commit(constraint_lde.reshape(d // 2, 8), hash_name, leaves=True)
 
 
 # ------------------------------------------------------------------------------------------------

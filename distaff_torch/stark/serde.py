@@ -85,8 +85,17 @@ def _read_nodes(r):
 
 
 def serialize(proof: StarkProof) -> bytes:
-    w = _Writer()
+    opt = proof.options
+    assert opt.hash_fn == "blake3", "only blake3 proofs are serializable"
+    return serialize_body(proof) + struct.pack(
+        "<BBBB", opt._ext_log2, opt.num_queries(), opt.grinding_factor(), 0)
 
+
+def serialize_body(proof: StarkProof) -> bytes:
+    """Every field of the proof before its options, as `serialize` writes
+    them: the bytes by which a proof under a hash other than blake3, which
+    has no serialized form, is compared with another."""
+    w = _Writer()
     w.bytes_fixed(proof.trace_root)
 
     ti = proof.trace_info
@@ -137,14 +146,6 @@ def serialize(proof: StarkProof) -> bytes:
         w.u128(v)
 
     w.u64(proof.pow_nonce)
-
-    opt = proof.options
-    w.u8(opt._ext_log2)
-    w.u8(opt.num_queries())
-    w.u8(opt.grinding_factor())
-    assert opt.hash_fn == "blake3", "only blake3 proofs are serializable"
-    w.u8(0)
-
     return w.getvalue()
 
 

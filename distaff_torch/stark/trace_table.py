@@ -74,6 +74,14 @@ class TraceTable:
 
     # low-degree extension ------------------------------------------------------------------------
 
+    def extend_bytes(self):
+        """Device bytes the LDE holds at once at its size: the LDE and the
+        NTT's scratch buffers of its size (one, and one more for each
+        level of recursion above tiles.LEAF^2 points)."""
+        from ..ops import tiles
+        return self._register_count * self.domain_size() * 16 * tiles.ntt_buffers(
+            self.domain_size())
+
     def extend(self, device, part=None):
         """Interpolate every register and evaluate it over the extended
         domain, on `device`.  `part`, if given, is called with the name of
@@ -84,10 +92,7 @@ class TraceTable:
         n = self.trace_length
         domain = self.domain_size()
         r_count = self._register_count
-        # the LDE and the NTT's scratch of its size (and one more above
-        # tiles.LEAF^2 points, where the second pass recurses)
-        from ..ops import tiles
-        lde_bytes = r_count * domain * 16 * (2 if domain <= tiles.LEAF ** 2 else 3)
+        lde_bytes = self.extend_bytes()
         if device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(device)
             if lde_bytes > free:
@@ -118,13 +123,11 @@ class TraceTable:
         return polys, lde
 
     def build_merkle_tree(self, hash_name):
-        """Leaf digests and every tree level hashed on the device (kernel
-        K3); only the root and the eventual openings reach the host."""
-        if hash_name != "blake3":
-            raise ValueError(f"the device trace commitment is blake3 only, not {hash_name}")
-        from ..ops.blake3_torch import hash_trace_rows_dev
-        from ..crypto.merkle_dev import DeviceMerkleTree
-        return DeviceMerkleTree(hash_trace_rows_dev(self.lde_dev))
+        """The trace commitment: a leaf for each point of the LDE, the
+        digest of every register's value there (crypto.merkle_dev.commit:
+        on the device with blake3, else on the host)."""
+        from ..crypto.merkle_dev import commit
+        return commit(self.lde_dev.permute(1, 0, 2), hash_name)
 
     def get_register_values_at_async(self, positions, batch):
         """Enqueue the extended-trace rows at the given positions on the

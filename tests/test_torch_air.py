@@ -24,7 +24,7 @@ from distaff_torch.math.torch_col import (
 from distaff_torch.ops import air_kernels
 from distaff_torch import assembly, ProgramInputs
 from distaff_torch.stark.constraints.device_eval import (
-    air_tables, evaluate_transition_device, transition, transition_plain)
+    air_tables, evaluate_transition_device, transition, transition_plain, transition_plain_rows)
 from distaff_torch.stark.constraints.evaluator import Evaluator
 from distaff_torch.stark.trace_table import TraceTable
 
@@ -43,9 +43,12 @@ PROGRAMS = [
     ("begin read rc.16 end", ProgramInputs([], [42], [])),
 ]
 # (ctx, loop, stack) depths of the random domains: the smallest, the bench
-# program's (a stack shorter than its window of 8), a typical one and the
-# largest the kernel takes
-DEPTHS = [(0, 0, 1), (1, 0, 4), (1, 1, 8), (16, 8, 32)]
+# program's (a stack shorter than its window of 8), a typical one, the
+# largest the kernel takes, and those of the examples that the bench
+# program does not share (distaff_torch/examples.py at their defaults:
+# collatz, comparison, conditional, merkle, rangecheck)
+DEPTHS = [(0, 0, 1), (1, 0, 4), (1, 1, 8), (16, 8, 32),
+          (2, 1, 8), (1, 0, 12), (1, 0, 3), (0, 0, 11), (0, 0, 6)]
 
 
 def _ints(rng, shape):
@@ -201,6 +204,19 @@ def test_kernel_row_evaluator_matches_plain_on_random_domain(depths):
     wide = torch.zeros((lde.shape[0], 2 * lde.shape[1], 4), dtype=torch.uint32)
     wide[:, ::2] = lde
     assert torch.equal(air_kernels.air_rows_host(wide[:, ::2], tables), want)
+
+
+def test_transition_plain_rows_matches_the_whole_slice():
+    # the windows of chip_smoke.py's long slices, the last one wrapping
+    port, _, limbs = _random_case((1, 0, 4), n=1024, seed=3)
+    tables = air_tables(port, "cpu")
+    lde = limbs_from_numpy(limbs, "cpu")
+    want, _ = transition_plain(lde, tables)
+    cycle = tables.dec_ark.shape[1]
+    for start, stop in ((0, 2 * cycle), (2 * cycle, 1024), (1024 - cycle, 1024)):
+        assert torch.equal(transition_plain_rows(lde, tables, start, stop), want[start:stop])
+    with pytest.raises(ValueError):
+        transition_plain_rows(lde, tables, 1, cycle + 1)
 
 
 def test_host_build_instantiates_the_test_triples():

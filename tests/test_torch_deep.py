@@ -84,6 +84,17 @@ def test_deep_compose_plain_matches_jax_compose_tiles(zero):
         assert ft.to_ints(got)[list(zero)].tolist() == [0, 0]
 
 
+def test_deep_compose_plain_at_an_offset_matches_the_whole_domain():
+    # chip_smoke.py holds K7 over long domains a window of points at a time
+    incr = 99
+    lde, c_lde, w1, w2, root, scalars = _port_case(_case(2, 512, 8, (300, 301)))
+    want = dk.deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars)
+    for start, stop in ((0, 128), (128, 512), (296, 304)):
+        got = dk.deep_compose_plain(lde[:, start:stop], c_lde[start:stop], w1, w2, root, incr,
+                                    scalars, start=start)
+        assert torch.equal(got, want[start:stop])
+
+
 @pytest.mark.parametrize("regs,length,points", [(3, 256, 2), (1, 1024, 1)])
 def test_poly_eval_plain_matches_jax_rows_multi(regs, length, points):
     rng = np.random.default_rng(length + points)

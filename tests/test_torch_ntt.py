@@ -126,6 +126,26 @@ def test_plain_passes_match_jax_tiles(inverse):
     assert np.array_equal(limbs_to_numpy(out), inv if inverse else fwd)
 
 
+@pytest.mark.parametrize("columns", [(0, 8), (8, 32), (31, 32)])
+def test_plain_pass_over_a_range_of_columns(columns):
+    # chip_smoke.py holds K1's widest passes a piece at a time: pass A of
+    # the n = 512 four-step above (zero extended from 300 points), over
+    # some of its 32 columns, writes those columns' points of the whole pass
+    n, n1, n2 = 512, 32, 16
+    w = jax_host_field.get_root_of_unity(n)
+    lo = _powers(w, 16)
+    hi = _powers(pow(w, 16, M), n // 16)
+    src = _port(_elements((3, n), 7))
+    tw = _powers(pow(w, n1, M), n2 // 2)
+    args = (tw, 3, n1, (n, 1, n1), (n, n2, 1), 300, lo, hi)
+    want = fk.ntt_pass_plain(src, torch.zeros_like(src), *args)
+    got = fk.ntt_pass_plain(src, torch.zeros_like(src), *args, columns=columns)
+    first, stop = columns
+    part = want.view(3, n1, n2, 4)[:, first:stop]
+    assert torch.equal(got.view(3, n1, n2, 4)[:, first:stop], part)
+    assert int(got.view(torch.int32).ne(0).sum()) == int(part.view(torch.int32).ne(0).sum())
+
+
 def test_zero_extension_matches_padded_jax_transform():
     # 300 of 512 points given: the rest count as zero inside the first pass
     n, n_in = 512, 300
@@ -146,6 +166,47 @@ def test_ntt_batched_leaf_sizes_match_host_fft(leaf, log_n):
     rows = ft.to_ints(x).tolist()
     got = tiles.ntt_batched(_port(x), jax_host_field.get_root_of_unity(n), leaf)
     assert ft.to_ints(got).tolist() == [polynom.eval_fft(r) for r in rows]
+
+
+@pytest.mark.parametrize("leaf,log_n,buffers", [
+    (16, 4, 1), (16, 8, 2), (16, 12, 3), (4, 4, 2), (4, 6, 3), (4, 8, 4)])
+def test_ntt_buffers_counts_what_the_transform_allocates(monkeypatch, leaf, log_n, buffers):
+    # one pass, two passes (n <= leaf^2) and one or more levels of recursion:
+    # each level holds one scratch of the transform's size, the inner
+    # transform writing its result over its input
+    n, b = 1 << log_n, 3
+    real, sizes = torch.empty, []
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        sizes.append(out.numel())
+        return out
+
+    x = _port(_elements((b, n // 4), 500 + leaf + log_n))
+    monkeypatch.setattr(torch, "empty", counted)
+    got = tiles.ntt_batched(x, jax_host_field.get_root_of_unity(n), leaf, n=n)
+    monkeypatch.undo()
+    assert sizes.count(b * n * 4) == buffers == tiles.ntt_buffers(n, leaf)
+    rows = [r + [0] * (n - n // 4) for r in ft.to_ints(x).tolist()]
+    assert ft.to_ints(got).tolist() == [polynom.eval_fft(r) for r in rows]
+
+
+@pytest.mark.parametrize("log_trace,buffers", [(10, 2), (16, 2), (18, 3), (20, 3)])
+def test_lde_memory_check_counts_the_transforms_buffers(monkeypatch, log_trace, buffers):
+    # the check in front of the LDE reckons the LDE and the NTT's scratch
+    # buffers of its size: below tiles.LEAF^2 = 2^22 points one scratch, at
+    # the bench's 2^18 and 2^20 steps (2^23 and 2^25 points) a second one
+    from distaff_torch.stark.trace_table import TraceTable
+
+    regs = 20
+    table = TraceTable(np.zeros((regs, 1 << log_trace, 2), dtype=np.uint64), 1, 0, 32)
+    domain = table.domain_size()
+    assert tiles.ntt_buffers(domain) == buffers
+    need = regs * domain * 16 * buffers
+    assert table.extend_bytes() == need
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (need - 1, need))
+    with pytest.raises(MemoryError, match=f"needs {need} bytes"):
+        table.extend("cuda")
 
 
 @pytest.mark.parametrize("n,passes", [(16, 1), (256, 2), (4096, 3)])

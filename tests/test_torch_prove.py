@@ -7,6 +7,7 @@ that path too."""
 
 import hashlib
 import logging
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -95,6 +96,53 @@ def test_step_log_times_every_step_and_step_three_parts(golden_proof):
                             "step 6 part point evaluations (K8)",
                             "step 6 part composition (K7)", "step 6 DEEP composition"]
     assert [s.split()[1] for s in steps[16:]] == ["7", "8", "9"]
+
+
+# The golden case proved with sha3 by the JAX package: its proof's bytes
+# before the options (serde.serialize_body; the reference serializes the
+# options of blake3 proofs only).  Produced once, from the repository root:
+#   JAX_PLATFORMS=cpu python -c "import hashlib, distaff_tpu as d; \
+#     from distaff_tpu.stark import serde; \
+#     p = d.assembly.compile('begin push.3 push.5 add end'); \
+#     o, proof = d.execute(p, d.ProgramInputs.none(), 1, d.ProofOptions(16, 10, 2, 'sha3')); \
+#     proof.options.hash_fn = 'blake3'; b = serde.serialize(proof)[:-4]; \
+#     print(len(b), hashlib.sha256(b).hexdigest())"
+SHA3_BODY_SHA256 = "73fd09242cd8ffc781def7cd68416ea83fd41c59d63a94c570d15a03340ba74b"
+SHA3_BODY_LEN = 13794
+
+
+def test_sha3_proof_gives_the_jax_packages_bytes(golden_proof):
+    # the trace, constraint and FRI trees are hashed on the host with sha3
+    program, inputs, options = _golden_case()
+    options = ProofOptions(16, 10, 2, "sha3")
+    outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cpu")
+    body = serde.serialize_body(proof)
+    assert len(body) == SHA3_BODY_LEN
+    assert hashlib.sha256(body).hexdigest() == SHA3_BODY_SHA256
+    assert distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof)
+    with pytest.raises(ValueError):
+        distaff_torch.verify(program.hash, inputs.get_public_inputs(), [9], proof)
+    # a blake3 proof's body is its serialization less the options
+    blob = serde.serialize(golden_proof[3])
+    assert serde.serialize_body(golden_proof[3]) == blob[:-4]
+
+
+@pytest.mark.parametrize("hash_name", ["poseidon", "rescue", "gmimc"])
+def test_arithmetic_hashes_raise_as_the_jax_packages_do(hash_name):
+    # they take at most 64 bytes; the golden trace's rows are 17 registers
+    # of 16 bytes, so both packages raise when step 2 hashes the first row
+    from distaff_tpu.crypto import hashes as jax_hashes
+
+    with pytest.raises(Exception) as jax_error:
+        jax_hashes.HASH_FUNCTIONS[hash_name](bytes(17 * 16))
+    program, inputs, _ = _golden_case()
+    with pytest.raises(jax_error.type, match=f"^{re.escape(str(jax_error.value))}$") as error:
+        distaff_torch.execute(program, inputs, 1, ProofOptions(16, 10, 2, hash_name),
+                              device="cpu")
+    # raised by the hash's input check, as the trace tree's leaves are hashed
+    frames = [entry.name for entry in error.traceback]
+    assert frames[-3:] == ["hash_leaves", hash_name, "_state_from_bytes"]
+    assert "build_merkle_tree" in frames
 
 
 def test_package_imports_neither_jax_nor_distaff_tpu():
