@@ -7,16 +7,21 @@ bench's larger rungs.
 Usage (from the root of the repository, on a machine with the card):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-times 16 18
+
+The second form only prints step times (step_times below): a copy of this
+file placed at the root of another checkout times that checkout's port, so
+that two versions compare on one card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-                K4's (K1-K3, K5-K8) in its own call and links them, and K4
+                K4's (K1-K3, K5-K10) in its own call and links them, and K4
                 once for each depth triple of AIR_TRIPLES (its library is
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6, K7 and K8, and the card's name
-                and power limit
+                K4 at each triple and for K6-K10, and the card's name and
+                power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
                 recorded and launched again), one row each,
@@ -32,39 +37,51 @@ Phases, in order; any failure raises and exits non-zero:
                 proof's LDE domain ((20, 2^21), its tables and exponent) on
                 random inputs and with x - z and x - zg vanishing at two
                 points, K8 poly_eval at the proof's point evaluations ((20,
-                2^16) at two points, (1, 2^19) at one), each equal (tolerance
-                zero: integer field arithmetic and hashing) to its plain
-                version on the same inputs; times from CUDA events
+                2^16) at two points, (1, 2^19) at one), K9 fri_fold at every
+                layer the 2^16 proof folds (2^19 ... 2^7 rows, each at the
+                LDE domain's root and the layer's stride, random values and
+                special_x), K10 boundary_columns at (20, 2^19) point stride 4
+                on the 2^16 Fibonacci LDE's slice and on random registers,
+                each equal (tolerance zero: integer field arithmetic and
+                hashing) to its plain version on the same inputs; times from
+                CUDA events
   3. golden   - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
-                proved on cuda (step 3 through K4 at depths (0, 0, 2), step 6
-                through K7 and K8) must serialize to the bytes pinned in
-                tests/test_determinism.py
+                proved on cuda (step 3 through K10 at point stride 2 and K4
+                at depths (0, 0, 2), step 6 through K7 and K8, step 7
+                through K9 once: its LDE of 1024 points folds one layer)
+                must serialize to the bytes pinned in
+                tests/test_determinism.py; its K9 and K10 calls are held
+                against the plain versions
   4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                 [1, 0], default ProofOptions) proved on cuda and verified,
                 with its time, peak device memory and the launches of every
-                kernel: K1-K4, K7 and K8 must launch (K4 and K7 exactly once,
-                K6 and K2's exp_const never), K1 exactly at the passes phase
-                2 checked and none of two points, K8 exactly at the
-                evaluations phase 2 checked, each its number of passes; then
-                proved with per-step times (steps 1, 3 and 6 in parts too),
-                and once more without
+                kernel: K1-K4 and K7-K10 must launch (K4, K7 and K10 exactly
+                once, K6, K2's exp_const and sub never, K2's mul at most
+                MAX_MUL times and add at most MAX_ADD), K1 exactly at the
+                passes phase 2 checked and none of two points, K8 exactly at
+                the evaluations phase 2 checked, each its number of passes,
+                K9 once at each layer phase 2 checked and K10 at the slice
+                it checked; then proved with per-step times (steps 1, 3, 6
+                and 7 in parts too), and once more without
   5. bench    - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                 2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
                 tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
                 K1-K3 must launch
   6. examples - K4 at each example's depths and evaluation domain (at its
-                defaults) on random registers, equal to its plain version,
-                a row each; then the six examples of distaff_torch/
+                defaults) and K10 at its register count and domain (point
+                stride 4) on random registers, equal to their plain
+                versions, a row each; then the six examples of distaff_torch/
                 examples.py at their CLI defaults proved on cuda with the
                 default ProofOptions: the expected outputs, verified, a
                 tampered output rejected, the path's kernels launched (K4
-                once, at the example's depths); `python -m distaff_torch
+                and K10 once, at the example's depths and registers); `python -m distaff_torch
                 fibonacci` on the card must exit 0; the golden case with
                 hash_fn="sha3" must give the JAX package's bytes
   7. ladder   - K1 through two levels of its recursion above leaf^2 points
                 (a zero-extended transform of 2^SMALL_LOG2 points at leaf
                 SMALL_LEAF and its inverse) against the plain passes on the
-                host; then for each rung of LADDER (2^18 and 2^20 steps):
+                host, the transform timed; then for each rung of LADDER
+                (2^18 and 2^20 steps):
                 every K1 pass and K8 call of the bench's Fibonacci proof
                 held against its plain version, a row each (but the other
                 rung's K1 passes: held by their last piece of 2^LAST_PIECE
@@ -72,9 +89,10 @@ Phases, in order; any failure raises and exits non-zero:
                 the proof on cuda unstepped and verified, with its
                 time, step 0, peak device memory, LDE size and K1 passes
                 (the LDE must take K1's recursion; its K1 passes and K8
-                calls must be exactly those held); every call it made of
-                K2 (each layout, on random operands laid out so), K3, K4
-                and K7 (on the proof's own inputs) held against the plain
+                calls must be exactly those held; K9 once a layer, K10
+                once, K2's sub never); every call it made of K2 (each
+                layout, on random operands laid out so), K3, K4, K7, K9 and
+                K10 (on the proof's own inputs) held against the plain
                 versions, run a piece of 2^LAST_PIECE rows or points at a
                 time (the other rung: the last piece of each call), with a
                 row for each class of call at 2^LADDER_HELD; then the
@@ -87,6 +105,7 @@ The last two lines are the kernel table as JSON and the contract line
 {"ok": true, "device": {...}}.
 """
 
+import argparse
 import gc
 import hashlib
 import json
@@ -138,11 +157,16 @@ MUL_OPS = 64
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# kernels of each path: the proof launches K1-K4, K7 and K8, the kernel
-# bench K5, K6 and K2's exp_const with K1-K3 (the bench also times K4, on a
-# random domain)
-MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.sub", "field_ew.mul", "blake3_rows",
-             "blake3_rows.parents", "air_transition", "deep_compose", "poly_eval")
+# kernels of each path: the proof launches K1-K4 and K7-K10 (K2's sub no
+# more, since K9 folds the FRI layers), the kernel bench K5, K6 and K2's
+# exp_const with K1-K3 (the bench also times K4, on a random domain)
+MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.mul", "blake3_rows",
+             "blake3_rows.parents", "air_transition", "deep_compose", "poly_eval", "fri_fold",
+             "boundary_columns")
+# K2's launches in the 2^16 proof may not exceed these: the chains that K9
+# and K10 replaced launched 200 multiplies, 21 adds and 28 subtractions (step
+# 7) and 119 multiplies and 82 adds (step 3) of the 619/147/28 before them
+MAX_MUL, MAX_ADD = 300, 44
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
@@ -274,10 +298,10 @@ def phase_kernels(ops_rate):
                 lambda: fk.inv_batch_plain(ragged))
     print(f"kernel inv_batch at {ragged.shape[0]}: equal to plain", flush=True)
 
-    # K2's broadcasts on the main path: a constant operand (tiles.scale and
-    # the weighted register sums over the LDE), neg (a zero scalar minus a
-    # column), and a register of the LDE's stride-4 slice (step 3's
-    # boundary sums) times its weight
+    # K2's broadcasts: a constant operand (the power series' doublings on
+    # the main path), and neg (a zero scalar minus a column) and a register
+    # of the LDE's stride-4 slice times its weight (the layouts of step 3's
+    # and step 7's chains before K10 and K9)
     scalar = ft.constant(0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321, "cuda")
     zero = ft.zeros((), "cuda")
     variants = [
@@ -309,10 +333,14 @@ def phase_kernels(ops_rate):
         20, 1, count * 32 + count // 2 * 32, count // 2 * COMPRESS_OPS, ops_rate,
         k3, "distaff_tpu/crypto/merkle_dev.py:34"))
     del lde, trace_rows, level
-    rows.append(check_air(gen, ops_rate))
+    trace, evaluator = fibonacci_case()
+    rows.append(check_air(gen, ops_rate, trace, evaluator))
+    rows.append(check_boundary(gen, ops_rate, trace, evaluator))
+    del trace, evaluator
     rows.append(check_butterfly(gen, ops_rate))
     rows.append(check_deep_compose(gen, ops_rate))
     rows.extend(check_poly_eval(gen, ops_rate, MAIN_LOG2_TRACE))
+    rows.extend(check_fri_fold(gen, ops_rate, MAIN_LOG2_TRACE))
     return rows
 
 
@@ -512,12 +540,14 @@ def check_passes(gen, ops_rate, log2_trace, last=False):
     return rows, keys
 
 
-def check_recursion(gen):
+def check_recursion(gen, ops_rate):
     """K1's recursion above leaf^2 points at a small leaf: one zero-extended
     transform of 2^SMALL_LOG2 points (two levels of recursion) and its
     inverse on the card, equal to the same transforms of the plain passes
-    on the host and to the card's transform at the full leaf.  Returns the
-    kinds of its passes."""
+    on the host and to the card's transform at the full leaf.  Then the
+    forward transform is timed; its bound is the sum of its passes'
+    (pass_bound), its plain time the host's.  Returns its row of the JSON
+    table (0 launches a proof)."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.ops import tiles
     from distaff_torch.tools.timing import random_elements
@@ -525,10 +555,14 @@ def check_recursion(gen):
     n = 1 << SMALL_LOG2
     root = hostfield.get_root_of_unity(n)
     x = random_elements(gen, (3, n // 32))
-    with PassRecorder(keep=False) as rec:
+    with PassRecorder() as rec:
         got = tiles.ntt_batched(x, root, SMALL_LEAF, n=n)
+    forward = len(rec.calls)
+    with PassRecorder(keep=False) as rec_inverse:
         back = tiles.intt_batched(got, root, SMALL_LEAF)
+    t0 = time.perf_counter()
     want = tiles.ntt_batched(x.cpu(), root, SMALL_LEAF, n=n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
     full = tiles.ntt_batched(x, root, n=n)
     torch.cuda.synchronize()
     zero = torch.zeros((3, n - n // 32, 4), dtype=torch.uint32, device="cuda")
@@ -536,11 +570,24 @@ def check_recursion(gen):
               max_abs_err(back, torch.cat([x, zero], 1)))
     if any(errors):
         raise AssertionError(f"K1 recursion at leaf {SMALL_LEAF}: max abs errors {errors}")
+    bounds = [pass_bound((args + (None, None))[:10]) for args in rec.calls]
+    t_bytes = sum(b for b, _ in bounds) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(o for _, o in bounds) / ops_rate * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = time_ms(lambda: tiles.ntt_batched(x, root, SMALL_LEAF, n=n), 20, KERNEL_TRIALS,
+                 queued=True)
     levels = tiles.ntt_buffers(n, SMALL_LEAF) - 2
     print(f"kernel ntt_pass: recursive transform of 2^{SMALL_LOG2} points at leaf {SMALL_LEAF} "
-          f"({levels} levels of recursion, {len(rec.records)} passes for it and its inverse), "
-          f"equal to the plain passes on the host, to the full leaf's transform, and its "
-          f"inverse to the input", flush=True)
+          f"({levels} levels of recursion, {forward} passes for it and "
+          f"{len(rec_inverse.records)} for its inverse), equal to the plain passes on the host, "
+          f"to the full leaf's transform, and its inverse to the input; the transform "
+          f"{ms:.4f} ms (plain on the host {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"by {bound_by})", flush=True)
+    return {"name": "ntt_pass", "route": "cuda", "source": "distaff_torch/csrc/ntt_pass.cu",
+            "replaces": "distaff_tpu/ops/field_pallas.py:252", "launches": None,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": bound_by, "library_ms": None,
+            "key": ("ntt_pass", "recursion", f"leaf {SMALL_LEAF}")}
 
 
 def edge_pairs(ft):
@@ -562,26 +609,32 @@ def edge_pairs(ft):
     return ft.from_ints(xs, "cuda"), ft.from_ints(ys, "cuda")
 
 
-def check_air(gen, ops_rate):
-    """K4 at (20, 2^19): on the stride slice of the 2^16 Fibonacci LDE (no
-    bad steps), on a copy with one value altered (bad steps), and on random
-    registers, which set every op flag and so reach every constraint arm.
-    The first check gives K4's row of the JSON table."""
+def fibonacci_case():
+    """The 2^16 Fibonacci trace extended on the card (ext 32) and its
+    Evaluator, as the proof's step 3 sees them."""
     from distaff_torch import assembly, native, ProgramInputs
-    from distaff_torch.math import field_torch as ft
-    from distaff_torch.ops import air_kernels
-    from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain
     from distaff_torch.stark.constraints.evaluator import Evaluator
     from distaff_torch.stark.trace_table import TraceTable
-    from distaff_torch.tools.timing import random_elements
 
     inputs = ProgramInputs.from_public([1, 0])
     regs, ctx, loop = native.execute_u64(fibonacci_program(assembly, MAIN_LOG2_TRACE), inputs)
     trace = TraceTable(regs, ctx, loop, 32)
     trace.extend("cuda")
     root = trace.build_merkle_tree("blake3").root()
-    evaluator = Evaluator.from_trace(trace, root, inputs.get_public_inputs(),
-                                     trace.get_last_state().user_stack[:1])
+    return trace, Evaluator.from_trace(trace, root, inputs.get_public_inputs(),
+                                       trace.get_last_state().user_stack[:1])
+
+
+def check_air(gen, ops_rate, trace, evaluator):
+    """K4 at (20, 2^19): on the stride slice of the 2^16 Fibonacci LDE (no
+    bad steps), on a copy with one value altered (bad steps), and on random
+    registers, which set every op flag and so reach every constraint arm.
+    The first check gives K4's row of the JSON table."""
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import air_kernels
+    from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain
+    from distaff_torch.tools.timing import random_elements
+
     lde = trace.lde_dev[:, ::4]                                  # D_ev = 2^19 rows
     tables = air_tables(evaluator, "cuda")
     r, n = lde.shape[0], lde.shape[1]
@@ -627,11 +680,16 @@ def air_bounds(tables, r, n):
 def check_air_examples(gen, ops_rate):
     """K4 at each example's geometry (its depths and evaluation domain at
     its defaults, read from one VM run), on random registers and random
-    transcript tables, equal to transition_plain; a row each."""
+    transcript tables, equal to transition_plain; and K10 at its register
+    count and domain, point stride 4 (extension 32), on random registers
+    with the evaluator's weights, equal to boundary_columns_plain; a row
+    each."""
     import numpy as np
 
     from distaff_torch import examples, native
+    from distaff_torch.math import field as hostfield
     from distaff_torch.ops import air_kernels
+    from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain
     from distaff_torch.stark.constraints.evaluator import Evaluator
     from distaff_torch.tools.timing import random_elements
@@ -655,6 +713,17 @@ def check_air_examples(gen, ops_rate):
             "distaff_torch/csrc/air_transition.cu",
             "distaff_tpu/stark/constraints/device_eval.py:121")
         row["key"] = ("air_transition", "example", name)
+        rows.append(row)
+        slice_ = random_elements(gen, (regs.shape[0], 4 * n))[:, ::4]
+        i_parts, f_parts = evaluator.boundary_weight_vectors(regs.shape[0])
+        root = pow(hostfield.get_root_of_unity(n), evaluator.b_degree_adj, hostfield.M)
+        row = check_kernel(
+            "boundary_columns", f"example {name}: {boundary_key(slice_)} random registers",
+            lambda: bk.boundary_columns(slice_, i_parts, f_parts, root),
+            lambda: bk.boundary_columns_plain(slice_, i_parts, f_parts, root), 20, 1,
+            *boundary_bound(regs.shape[0], n), ops_rate, "distaff_torch/csrc/boundary_columns.cu",
+            "distaff_tpu/stark/prover.py:385")
+        row["key"] = ("boundary_columns", "example", name)
         rows.append(row)
     return rows
 
@@ -720,6 +789,106 @@ def check_deep_compose(gen, ops_rate):
     return row
 
 
+def power_tables(n):
+    """Entries of the two power tables of an n-point domain
+    (tiles._store_factors)."""
+    return min(n, 1024) + (n // 1024 if n > 1024 else 0)
+
+
+def boundary_key(lde):
+    """A K10 call's shape: registers, points and point stride."""
+    return f"({lde.shape[0]}, {lde.shape[1]}) point stride {lde.stride(1) // 4}"
+
+
+def boundary_bound(regs, n):
+    """K10's bound in bytes and operations: the slice's values read once,
+    the two columns written, the weights and x^b's tables; its multiplies
+    and adds from its code (boundary_kernels.boundary_ops)."""
+    from distaff_torch.ops import boundary_kernels as bk
+
+    muls, adds = bk.boundary_ops(regs)
+    return ((regs + 2) * n + 4 * regs + power_tables(n)) * 16, n * (muls * MUL_OPS + adds * ADD_OPS)
+
+
+def check_boundary(gen, ops_rate, trace, evaluator):
+    """K10 at (20, 2^19), point stride 4: on the 2^16 Fibonacci LDE's slice
+    with its evaluator's weights (the row of the JSON table), and on random
+    registers with the same weights.  Then x^b's tables leave the cache, so
+    that phase 4's proof builds them at step 3 as a first proof does."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import boundary_kernels as bk
+    from distaff_torch.ops import tiles
+    from distaff_torch.tools.timing import random_elements
+
+    lde = trace.lde_dev[:, ::4]
+    regs, n = lde.shape[0], lde.shape[1]
+    i_parts, f_parts = evaluator.boundary_weight_vectors(regs)
+    root = hostfield.exp(hostfield.get_root_of_unity(n), evaluator.b_degree_adj)
+    source = ("distaff_torch/csrc/boundary_columns.cu", "distaff_tpu/stark/prover.py:385")
+
+    def run(x, plain=False):
+        f = bk.boundary_columns_plain if plain else bk.boundary_columns
+        return lambda: f(x, i_parts, f_parts, root)
+
+    row = check_kernel("boundary_columns", f"{boundary_key(lde)} Fibonacci LDE slice", run(lde),
+                       run(lde, True), 20, 1, *boundary_bound(regs, n), ops_rate, *source)
+    row["key"] = ("boundary_columns", MAIN_LOG2_TRACE, boundary_key(lde))
+    noise = random_elements(gen, (regs, 4 * n))[:, ::4]
+    check_equal("boundary_columns", f"{boundary_key(noise)} random registers", run(noise),
+                run(noise, True))
+    print(f"kernel boundary_columns at {boundary_key(noise)} random registers: equal to plain",
+          flush=True)
+    tiles._TABLES.pop(("factors", str(lde.device), n, root, 1))
+    return row
+
+
+def fold_key(column, stride):
+    """A K9 call's shape: the layer's rows and its table stride."""
+    return f"{column.shape[0] // 4} rows, stride {stride}"
+
+
+def fold_bound(q, order):
+    """K9's bound over q rows in bytes and operations: the layer's 4q
+    values read once, the q outputs written, the power tables of the
+    order-point domain; its operations from its code (fri_torch.
+    fri_fold_ops)."""
+    from distaff_torch.ops import fri_torch
+
+    muls, adds, subs = fri_torch.fri_fold_ops(order)
+    return ((5 * q + power_tables(order)) * 16,
+            q * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
+
+
+def check_fri_fold(gen, ops_rate, log2_trace):
+    """K9 at every layer the bench's 2^log2_trace proof folds: a random
+    column of the layer's points at the LDE domain's root and the layer's
+    stride, folded at a random special_x; a row each."""
+    import random
+
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import fri_torch
+    from distaff_torch.stark import fri
+    from distaff_torch.tools.timing import random_elements
+
+    n = 1 << (log2_trace + 5)
+    root = hostfield.get_root_of_unity(n)
+    rng = random.Random(SEED + 4)
+    rows, length, stride = [], n, 1
+    while length > fri.MAX_REMAINDER_LENGTH:
+        column = random_elements(gen, (length,))
+        special_x = rng.randrange(hostfield.M)
+        row = check_kernel(
+            "fri_fold", f"2^{log2_trace} layer {fold_key(column, stride)}",
+            lambda: fri_torch.fri_fold(column, special_x, root, stride),
+            lambda: fri_torch.fri_fold_plain(column, special_x, root, stride), 20, 1,
+            *fold_bound(length // 4, n), ops_rate, "distaff_torch/csrc/fri_fold.cu",
+            "distaff_tpu/ops/fri_jax.py:53")
+        row["key"] = ("fri_fold", log2_trace, fold_key(column, stride))
+        rows.append(row)
+        length, stride = length // 4, stride * 4
+    return rows
+
+
 def eval_key(polys, points):
     """A K8 call's shape: rows, their length and the number of points."""
     return f"({polys.shape[0]}, {polys.shape[1]}) at {len(points)} points"
@@ -753,14 +922,24 @@ def check_poly_eval(gen, ops_rate, log2_trace):
 
 
 def phase_golden():
+    """The golden case on cuda: its bytes, verified; K10 launched once at
+    point stride 2 (extension 16) and K9 once a FRI layer (its LDE of 1024
+    points folds one), each call held against its plain version on the
+    proof's own inputs."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
-    from distaff_torch.stark import serde
+    from distaff_torch.ops import boundary_kernels as bk
+    from distaff_torch.ops import cuda_lib, fri_torch
+    from distaff_torch.stark import fri, serde
 
     program = assembly.compile("begin push.3 push.5 add end")
     inputs = ProgramInputs.none()
     options = ProofOptions(extension_factor=16, num_queries=10, grinding_factor=2)
-    outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with ProofCalls() as calls:
+        outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cuda")
+    launches = dict(cuda_lib.LAUNCHES)
     blob = serde.serialize(proof)
     digest = hashlib.sha256(blob).hexdigest()
     if len(blob) != GOLDEN_LEN or digest != GOLDEN_SHA256:
@@ -768,6 +947,23 @@ def phase_golden():
     if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
         raise AssertionError("golden proof does not verify")
     print(f"golden proof on cuda: {len(blob)} bytes, sha256 {digest}, verified", flush=True)
+    domain = proof.trace_length() * options.extension_factor()
+    (lde, i_parts, f_parts, root), = calls.boundaries
+    if launches["boundary_columns"] != 1 or lde.stride(1) != 8 or \
+            launches["fri_fold"] != fold_layers(domain):
+        raise AssertionError(f"golden: K10 launched {launches['boundary_columns']} times at "
+                             f"{boundary_key(lde)}, K9 {launches['fri_fold']} times")
+    check_equal("boundary_columns", f"golden {boundary_key(lde)}",
+                lambda: bk.boundary_columns(lde, i_parts, f_parts, root),
+                lambda: bk.boundary_columns_plain(lde, i_parts, f_parts, root))
+    for column, special_x, root, stride in calls.folds:
+        check_equal("fri_fold", f"golden layer {fold_key(column, stride)}",
+                    lambda: fri_torch.fri_fold(column, special_x, root, stride),
+                    lambda: fri_torch.fri_fold_plain(column, special_x, root, stride))
+    print(f"golden: K10 once at {boundary_key(lde)}; the LDE of {domain} points folds "
+          f"{launches['fri_fold']} FRI layer(s) ({', '.join(calls.keys['fri_fold'])}) down to at "
+          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each; each call equal to plain",
+          flush=True)
 
 
 class _StepLog(logging.Handler):
@@ -809,6 +1005,46 @@ def timed_execute(program, inputs, options, stepped, num_outputs=1):
         package_log.removeHandler(steps)
         package_log.setLevel(logging.NOTSET)
         prover_log.setLevel(logging.NOTSET)
+
+
+def step_times(sizes, runs=2):
+    """For each 2^k of `sizes`, the bench's Fibonacci proof on cuda once to
+    warm up, `runs` times with the step log (a synchronize at each step's
+    and part's end) and once without; prints each stepped run's step and
+    part lines, each run's wall time and K2's launches by operation, each
+    line tagged with the directory of the checkout whose package ran.  It
+    uses only what every version of the port has (execute, the step log,
+    cuda_lib's launch counts)."""
+    import os
+
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import cuda_lib
+
+    tag = os.path.basename(os.path.dirname(os.path.dirname(
+        os.path.abspath(distaff_torch.__file__))))
+    inputs, options = ProgramInputs.from_public([1, 0]), ProofOptions()
+
+    def prove(program, stepped):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        _, _, seconds, lines = timed_execute(program, inputs, options, stepped)
+        k2 = {k.split(".")[1]: v for k, v in cuda_lib.LAUNCHES.items()
+              if k.startswith("field_ew.")}
+        return seconds, lines, json.dumps(k2)
+
+    for log2_n in sizes:
+        program = fibonacci_program(assembly, log2_n)
+        prove(program, False)
+        for run in range(runs):
+            seconds, lines, k2 = prove(program, True)
+            for line in lines:
+                print(f"[{tag}] 2^{log2_n} run {run}: {line}", flush=True)
+            print(f"[{tag}] 2^{log2_n} run {run}: execute, stepped {seconds:.3f} s; field_ew "
+                  f"{k2}", flush=True)
+        seconds, _, k2 = prove(program, False)
+        print(f"[{tag}] 2^{log2_n}: execute, unstepped {seconds:.3f} s; field_ew {k2}",
+              flush=True)
 
 
 def step_ms(lines, name):
@@ -853,8 +1089,9 @@ def phase_main(checked_keys):
     passes must be exactly the ("ntt_pass", rung, key)s of `checked_keys`,
     those phase 2 held and timed, and none a two-point transform; K8's calls
     exactly its ("poly_eval", rung, key)s, each launching its number of
-    passes.  Returns the launches and a Counter of launches by (kernel,
-    rung, key)."""
+    passes; K9's and K10's calls exactly their ("fri_fold", ...) and
+    ("boundary_columns", ...) keys, each one launch.  Returns the launches
+    and a Counter of launches by (kernel, rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import cuda_lib
@@ -865,7 +1102,7 @@ def phase_main(checked_keys):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    with PassRecorder() as rec, EvalRecorder() as evals:
+    with PassRecorder() as rec, EvalRecorder() as evals, ProofCalls(keep=False) as calls:
         outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
     launches = dict(cuda_lib.LAUNCHES)
     proof_keys = rec.keys()
@@ -885,11 +1122,22 @@ def phase_main(checked_keys):
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     pass_keys = [key for kernel, _, key in checked_keys if kernel == "ntt_pass"]
     eval_keys = [key for kernel, _, key in checked_keys if kernel == "poly_eval"]
+    held = {name: [key for kernel, _, key in checked_keys if kernel == name]
+            for name in ProofCalls.KEYED}
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
-                       ("field_ew.exp_const", 0), ("ntt_pass", len(pass_keys)),
+                       ("field_ew.exp_const", 0), ("field_ew.sub", 0), ("boundary_columns", 1),
+                       ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
                        ("poly_eval", sum(passes for _, passes in evals.calls))):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
+    for name in ProofCalls.KEYED:
+        for key in calls.keys[name]:
+            print(f"2^{MAIN_LOG2_TRACE} {name} call {key}", flush=True)
+        if Counter(calls.keys[name]) != Counter(held[name]):
+            raise AssertionError(f"the proof's {name} calls are not those phase 2 checked")
+    if launches["field_ew.mul"] > MAX_MUL or launches["field_ew.add"] > MAX_ADD:
+        raise AssertionError(f"field_ew launched mul {launches['field_ew.mul']} and add "
+                             f"{launches['field_ew.add']} times, over {MAX_MUL} and {MAX_ADD}")
     for key in proof_keys:
         print(f"2^{MAIN_LOG2_TRACE} K1 pass {key}", flush=True)
     if Counter(proof_keys) != Counter(pass_keys):
@@ -903,7 +1151,8 @@ def phase_main(checked_keys):
         raise AssertionError("the proof's K8 calls are not those phase 2 checked")
     field_ew = {k.split(".")[1]: v for k, v in launches.items() if k.startswith("field_ew.")}
     print(f"2^{MAIN_LOG2_TRACE} K1 launched {launches['ntt_pass']} times, no two-point "
-          f"transform; K7 {launches['deep_compose']}, K8 {launches['poly_eval']}, K6 "
+          f"transform; K7 {launches['deep_compose']}, K8 {launches['poly_eval']}, K9 "
+          f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K6 "
           f"{launches['inv_batch']}; field_ew by operation {json.dumps(field_ew)}", flush=True)
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
@@ -916,6 +1165,8 @@ def phase_main(checked_keys):
           f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
     keyed = Counter(("ntt_pass", MAIN_LOG2_TRACE, key) for key in proof_keys)
     keyed.update({("poly_eval", MAIN_LOG2_TRACE, key): n for key, n in evals.launches.items()})
+    for name in ProofCalls.KEYED:
+        keyed.update((name, MAIN_LOG2_TRACE, key) for key in calls.keys[name])
     return launches, keyed
 
 
@@ -958,14 +1209,17 @@ def phase_examples(ops_rate):
         else:
             raise AssertionError(f"example {name}: a tampered output verifies")
         idle = [k for k in MAIN_PATH if launches[k] == 0]
-        if idle or launches["air_transition"] != 1:
+        if idle or launches["air_transition"] != 1 or launches["boundary_columns"] != 1:
             raise AssertionError(f"example {name}: kernels not launched {idle}, K4 launched "
-                                 f"{launches['air_transition']} times")
+                                 f"{launches['air_transition']} times, K10 "
+                                 f"{launches['boundary_columns']}")
         info = proof.trace_info
         keyed[("air_transition", "example", name)] += launches["air_transition"]
+        keyed[("boundary_columns", "example", name)] += launches["boundary_columns"]
         print(f"example {name}: trace length {proof.trace_length()}, depths "
               f"({info.ctx_depth}, {info.loop_depth}, {info.stack_depth}), execute "
-              f"{prove_s:.3f} s, K4 launches {launches['air_transition']}, outputs {outputs} "
+              f"{prove_s:.3f} s, K4 launches {launches['air_transition']}, K9 "
+              f"{launches['fri_fold']}, K10 {launches['boundary_columns']}, outputs {outputs} "
               f"as expected, verified, a tampered output rejected", flush=True)
 
     cli = subprocess.run([sys.executable, "-m", "distaff_torch", "fibonacci"],
@@ -996,23 +1250,39 @@ class ProofCalls:
     """Within its `with`, records the calls that the prover makes of K2
     (each binary operation's layout as K2 indexes it: the operation, the
     sizes and the operands' element strides), K3 (the rows it hashes and
-    the launch's counter), K4 and K7 (their arguments), and lets each
-    launch."""
+    the launch's counter), K4, K7, K9 and K10 (their arguments), and lets
+    each launch; K9's and K10's keys (fold_key, boundary_key) by name.
+    Without `keep`, it records the layouts and the keys alone and keeps no
+    tensor alive."""
+
+    KEYED = ("fri_fold", "boundary_columns")
+
+    def __init__(self, keep=True):
+        self.keep = keep
+        self.layouts, self.keys = Counter(), {name: [] for name in self.KEYED}
+        self.hashes, self.airs, self.composes, self.folds, self.boundaries = [], [], [], [], []
 
     def __enter__(self):
-        from distaff_torch.ops import air_kernels, blake3_torch, deep_kernels
+        from distaff_torch.ops import air_kernels, blake3_torch, boundary_kernels, deep_kernels
         from distaff_torch.ops import field_kernels as fk
+        from distaff_torch.ops import fri_torch
 
         self.fk = fk
-        self.layouts, self.hashes, self.airs, self.composes = Counter(), [], [], []
         self.patches = [(fk, "_binary", self.binary), (blake3_torch, "_launch", self.hash),
                         (air_kernels, "air_transition", self.air),
-                        (deep_kernels, "deep_compose", self.compose)]
+                        (deep_kernels, "deep_compose", self.compose),
+                        (fri_torch, "fri_fold", self.fold),
+                        (boundary_kernels, "boundary_columns", self.boundary)]
         self.real = {}
         for module, name, fn in self.patches:
             self.real[name] = getattr(module, name)
             setattr(module, name, fn)
         return self
+
+    def record(self, calls, name, args):
+        if self.keep:
+            calls.append(args)
+        return self.real[name](*args)
 
     def binary(self, name, a, b):
         shape = torch.broadcast_shapes(a.shape, b.shape)
@@ -1022,16 +1292,23 @@ class ProofCalls:
         return self.real["_binary"](name, a, b)
 
     def hash(self, rows, out, counter):
-        self.hashes.append((rows, counter))
+        if self.keep:
+            self.hashes.append((rows, counter))
         return self.real["_launch"](rows, out, counter)
 
     def air(self, lde, tables):
-        self.airs.append((lde, tables))
-        return self.real["air_transition"](lde, tables)
+        return self.record(self.airs, "air_transition", (lde, tables))
 
     def compose(self, *args):
-        self.composes.append(args)
-        return self.real["deep_compose"](*args)
+        return self.record(self.composes, "deep_compose", args)
+
+    def fold(self, column, special_x, root, stride=1):
+        self.keys["fri_fold"].append(fold_key(column, stride))
+        return self.record(self.folds, "fri_fold", (column, special_x, root, stride))
+
+    def boundary(self, lde, i_parts, f_parts, xb_root):
+        self.keys["boundary_columns"].append(boundary_key(lde))
+        return self.record(self.boundaries, "boundary_columns", (lde, i_parts, f_parts, xb_root))
 
     def __exit__(self, *exc):
         for module, name, _ in self.patches:
@@ -1108,20 +1385,34 @@ def strided_operand(gen, sizes, strides):
     return base.as_strided(tuple(sizes) + (4,), tuple(4 * st for st in strides) + (1,))
 
 
+def fold_layers(domain):
+    """The FRI layers a proof over an LDE of `domain` points folds
+    (stark/fri.reduce: down to at most MAX_REMAINDER_LENGTH points)."""
+    from distaff_torch.stark import fri
+
+    layers = 0
+    while domain > fri.MAX_REMAINDER_LENGTH:
+        domain, layers = domain // 4, layers + 1
+    return layers
+
+
 def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
-    """Every call of K2, K3, K4 and K7 that a proof made (a ProofCalls),
-    held against the plain versions: K2 at each layout on random operands
-    laid out so, K3, K4 and K7 on the proof's own inputs, a piece of
-    2^LAST_PIECE rows or points at a time (with `last`, the last piece of
-    each call alone).  Without `last` a row for each class of call (K2: its
-    operation and its operands' kinds, operand_kind, timed at the class's
-    largest layout; K3: the trace rows,
-    the FRI layer rows, the Merkle levels; K4; K7), keyed by (kernel, rung,
-    class), and a Counter of the proof's launches by those keys."""
+    """Every call of K2, K3, K4, K7, K9 and K10 that a proof made (a
+    ProofCalls), held against the plain versions: K2 at each layout on
+    random operands laid out so, K3, K4, K7, K9 and K10 on the proof's own
+    inputs, a piece of 2^LAST_PIECE rows or points at a time (with `last`,
+    the last piece of each call alone).  Without `last` a row for each
+    class of call (K2: its operation and its operands' kinds,
+    operand_kind, timed at the class's largest layout; K3: the trace rows,
+    the FRI layer rows, the Merkle levels; K4; K7; K9 timed at its largest
+    layer; K10), keyed by (kernel, rung, class), and a Counter of the
+    proof's launches by those keys."""
     from distaff_torch.ops import air_kernels
     from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.ops import deep_kernels as dk
     from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.ops import fri_torch
     from distaff_torch.stark.constraints.device_eval import transition_plain_rows
 
     tag = f"2^{log2_trace} proof"
@@ -1224,6 +1515,32 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS), ops_rate,
             "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
         add(row, "deep_compose", "LDE", 1)
+
+    # K9 on the proof's layers, the largest timed; K10 on the proof's slice
+    folds = sorted(calls.folds, key=lambda args: -args[0].shape[0])
+    for i, (column, special_x, root, stride) in enumerate(folds):
+        q = column.shape[0] // 4
+        parts = pieces(q, lambda a, b: lambda: fri_torch.fri_fold_plain(
+            column, special_x, root, stride, rows=(a, b)))
+        kernel = lambda: fri_torch.fri_fold(column, special_x, root, stride)
+        shape = f"{tag} layer {fold_key(column, stride)}"
+        if i:
+            hold_pieces("fri_fold", shape, kernel, parts, last)
+            continue
+        row = piece_row("fri_fold", shape, kernel, parts, last, *fold_bound(q, 4 * q * stride),
+                        ops_rate, "distaff_torch/csrc/fri_fold.cu", "distaff_tpu/ops/fri_jax.py:53")
+        add(row, "fri_fold", "layers", len(folds))
+    print(f"kernel fri_fold: {tag}'s {len(folds)} layers equal to plain", flush=True)
+    for lde, i_parts, f_parts, root in calls.boundaries:
+        regs, n = lde.shape[0], lde.shape[1]
+        parts = pieces(n, lambda a, b: lambda: torch.stack(bk.boundary_columns_plain(
+            lde[:, a:b], i_parts, f_parts, root, start=a), 1))
+        row = piece_row(
+            "boundary_columns", f"{tag} {boundary_key(lde)} LDE slice",
+            lambda: torch.stack(bk.boundary_columns(lde, i_parts, f_parts, root), 1), parts,
+            last, *boundary_bound(regs, n), ops_rate, "distaff_torch/csrc/boundary_columns.cu",
+            "distaff_tpu/stark/prover.py:385")
+        add(row, "boundary_columns", "LDE slice", 1)
     return rows, keyed
 
 
@@ -1235,8 +1552,8 @@ def phase_ladder(ops_rate):
     piece of each pass), the proof made on cuda unstepped and verified,
     with its wall time, step 0, peak device memory, LDE size and K1
     passes (the LDE must take K1's recursion, the passes and K8 calls must
-    be exactly those held), and every call it made of K2, K3, K4 and K7
-    held against the plain versions (check_proof_calls).  Then the
+    be exactly those held), and every call it made of K2, K3, K4, K7, K9
+    and K10 held against the plain versions (check_proof_calls).  Then the
     LADDER_HELD rung once more with the step log.  Returns the rows and a
     Counter of launches by (kernel, rung, key)."""
     import distaff_torch
@@ -1245,10 +1562,9 @@ def phase_ladder(ops_rate):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
-    check_recursion(gen)
     inputs = ProgramInputs.from_public([1, 0])
     options = ProofOptions()
-    rows, keyed = [], Counter()
+    rows, keyed = [check_recursion(gen, ops_rate)], Counter()
     for log2_trace in LADDER:
         last = log2_trace != LADDER_HELD
         pass_rows, pass_keys = check_passes(gen, ops_rate, log2_trace, last)
@@ -1285,7 +1601,8 @@ def phase_ladder(ops_rate):
         if idle:
             raise AssertionError(f"kernels not launched at 2^{log2_trace}: {idle}")
         for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
-                           ("field_ew.exp_const", 0)):
+                           ("field_ew.exp_const", 0), ("field_ew.sub", 0),
+                           ("boundary_columns", 1), ("fri_fold", fold_layers(domain))):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
         recorded = Counter(f"field_ew.{op}" for op, _, _, _ in calls.layouts.elements())
@@ -1309,7 +1626,8 @@ def phase_ladder(ops_rate):
         keyed.update({("poly_eval", log2_trace, key): n for key, n in evals.launches.items()})
         print(f"2^{log2_trace} K1: {launches['ntt_pass']} passes of kinds "
               f"{sorted(rec.kinds())}, the LDE through {tiles.ntt_buffers(domain) - 2} level(s) "
-              f"of recursion, each held; K8 {launches['poly_eval']} launches, each held",
+              f"of recursion, each held; K8 {launches['poly_eval']} launches, each held; K9 "
+              f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}",
               flush=True)
         del outputs, proof
         call_rows, call_keyed = check_proof_calls(gen, ops_rate, log2_trace, calls, last)
@@ -1347,9 +1665,19 @@ def phase_bench():
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--step-times", nargs="+", type=int, metavar="LOG2_N",
+                        help="only print the step times of the bench's proofs at these sizes")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.step_times:
+        from distaff_torch.tools.timing import card_line
+
+        print(card_line(), flush=True)
+        step_times(args.step_times)
+        return 0
     from distaff_torch import native
     from distaff_torch.ops import air_kernels, cuda_lib
     from distaff_torch.tools.timing import card_line
@@ -1362,7 +1690,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5-K8": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K10": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -1374,7 +1702,8 @@ def main():
     for d in AIR_TRIPLES:
         for line in air_kernels.ptxas_report(d):
             print(f"K4 {d} {line.strip()}", flush=True)
-    for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval")):
+    for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval"),
+                       ("K9", "fri_fold"), ("K10", "boundary_columns")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1396,7 +1725,8 @@ def main():
         if "key" in row:
             row["launches"] = keyed[row.pop("key")]
         else:
-            row["launches"] = launches[name] if name in MAIN_PATH else bench_launches[name]
+            row["launches"] = bench_launches[name] if name in BENCH_PATH and \
+                name not in MAIN_PATH else launches[name]
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

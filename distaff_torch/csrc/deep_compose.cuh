@@ -25,10 +25,12 @@
 //   point i of register r at r * D + i, a warp's lanes on consecutive i, so
 //   each register's load is one coalesced 512-byte row a warp; the loads
 //   are streaming (evict first), as nothing reads the LDE again here.  The
-//   (R, 4) weights sit in shared memory and are read as broadcasts.
+//   (R, 4) weights sit in shared memory and are read as broadcasts.  The
+//   sums are points.cuh's weighted_sums, which K10 shares.
 // - x and x^incr come from two pairs of small power tables, c w^e =
 //   lo[e mod 1024] hi[e >> 10] (the tables K1 keeps for the NTT, tiles.
-//   _store_factors): one multiply a point each, no power series.
+//   _store_factors; points.cuh's table_power): one multiply a point each,
+//   no power series.
 // - The eight scalars (z, zg, s1, s2, c(z), k1, k2, kc) are kernel
 //   arguments.
 // - The inverses are Montgomery's trick within the block on values that are
@@ -56,6 +58,7 @@
 
 #include "field128.cuh"
 #include "inv_block.cuh"
+#include "points.cuh"
 
 // The tile's shape; tools/air_probe.py builds other shapes to time them.
 #ifndef DEEP_THREADS
@@ -101,27 +104,6 @@ struct Lane {
     u128 d[kPerThread], num[kPerThread], prefix[kPerThread];
 };
 
-F128_FN uint4 load_ro(const uint4* p) {
-#ifdef __CUDA_ARCH__
-    return __ldg(p);
-#else
-    return *p;
-#endif
-}
-
-F128_FN uint4 load_stream(const uint4* p) {
-#ifdef __CUDA_ARCH__
-    return __ldcs(p);
-#else
-    return *p;
-#endif
-}
-
-F128_FN u128 table_power(const uint4* lo, const uint4* hi, int log_lo, long long i) {
-    const u128 low = f128::from_limbs(load_ro(lo + (i & ((1LL << log_lo) - 1))));
-    return hi ? f128::mul(low, f128::from_limbs(load_ro(hi + (i >> log_lo)))) : low;
-}
-
 F128_FN long long point(long long block, int tid, int k) {
     return block * kTile + (long long)k * kThreads + tid;
 }
@@ -130,21 +112,16 @@ F128_FN long long point(long long block, int tid, int k) {
 // not zero (returned).  w1, w2: the weights (shared memory on the card).
 F128_FN u128 numerators(const Args& a, const uint4* w1, const uint4* w2, long long block,
                         int tid, Lane& lane) {
-    u128 a1[kPerThread], a2[kPerThread];
-    for (int k = 0; k < kPerThread; ++k) a1[k] = a2[k] = 0;
-    for (int r = 0; r < a.regs; ++r) {
-        const u128 c1 = f128::from_limbs(w1[r]), c2 = f128::from_limbs(w2[r]);
-        const uint4* row = a.lde + (long long)r * a.lde_stride;
+    long long at[kPerThread];
+    bool valid[kPerThread];
 #pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-            const long long i = point(block, tid, k);
-            if (i < a.n) {
-                const u128 v = f128::from_limbs(load_stream(row + i));
-                a1[k] = f128::add(a1[k], f128::mul(c1, v));
-                a2[k] = f128::add(a2[k], f128::mul(c2, v));
-            }
-        }
+    for (int k = 0; k < kPerThread; ++k) {
+        at[k] = point(block, tid, k);
+        valid[k] = at[k] < a.n;
     }
+    const uint4* const w[2] = {w1, w2};
+    u128 acc[2][kPerThread];
+    points::weighted_sums<2, kPerThread>(a.lde, a.lde_stride, a.regs, w, at, valid, acc);
     const u128 z = f128::from_limbs(a.s.z), zg = f128::from_limbs(a.s.zg);
     const u128 s1 = f128::from_limbs(a.s.s1), s2 = f128::from_limbs(a.s.s2);
     const u128 cz = f128::from_limbs(a.s.cz), k1 = f128::from_limbs(a.s.k1);
@@ -152,17 +129,17 @@ F128_FN u128 numerators(const Args& a, const uint4* w1, const uint4* w2, long lo
     u128 run = 1;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
-        const long long i = point(block, tid, k);
+        const long long i = at[k];
         u128 d = 0, num = 0;
-        if (i < a.n) {
-            const u128 x = table_power(a.x_lo, a.x_hi, a.log_lo, i);
-            const u128 xi = table_power(a.i_lo, a.i_hi, a.log_lo, i);
+        if (valid[k]) {
+            const u128 x = points::table_power(a.x_lo, a.x_hi, a.log_lo, i);
+            const u128 xi = points::table_power(a.i_lo, a.i_hi, a.log_lo, i);
             const u128 xz = f128::sub(x, z), xzg = f128::sub(x, zg);
             d = f128::mul(xz, xzg);
-            const u128 t = f128::add(f128::mul(f128::sub(a1[k], s1), xzg),
-                                     f128::mul(f128::sub(a2[k], s2), xz));
+            const u128 t = f128::add(f128::mul(f128::sub(acc[0][k], s1), xzg),
+                                     f128::mul(f128::sub(acc[1][k], s2), xz));
             const u128 f = f128::add(k1, f128::mul(k2, xi));
-            const u128 c = f128::from_limbs(load_stream(a.c_lde + i));
+            const u128 c = f128::from_limbs(points::load_stream(a.c_lde + i));
             num = f128::add(f128::mul(f, t),
                             f128::mul(f128::mul(f128::sub(c, cz), kc), xzg));
         }

@@ -98,15 +98,23 @@ def sum_reduce(a, axis=0):
     return x[0]
 
 
-def power_series_dev(x, n):
-    """[x^0 .. x^(n-1)] as an (n, 4) tensor for a (4,) limb base x, by
-    doubling: the series so far times x^len, log2(n) multiply launches."""
-    out = constant(1, x.device)[None]
-    p = x
-    while out.shape[0] < n:
-        out = torch.cat([out, mul(out, p)])
-        if out.shape[0] < n:
-            p = mul(p, p)
+def power_series(x, n, device, c=1):
+    """[c x^0 .. c x^(n-1)] as an (n, 4) tensor for host ints x and c, by
+    doubling from [c, c x]: the series so far times x^len, log2(n) - 1
+    multiply launches.  The squarings x^(2^k) are computed on the host and
+    uploaded with c and c x as one tensor, so no launch multiplies one
+    element by another."""
+    if n <= 0:
+        return zeros((0,), device)
+    x, c = int(x) % M, int(c) % M
+    factors, v = [c, c * x % M], x * x % M
+    while len(factors) <= (n - 1).bit_length():
+        factors.append(v)
+        v = v * v % M
+    factors = from_ints(factors, device)
+    out = factors[:2]
+    for k in range(2, factors.shape[0]):
+        out = torch.cat([out, mul(out, factors[k])])
     return out[:n]
 
 

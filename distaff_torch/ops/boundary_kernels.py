@@ -1,0 +1,97 @@
+"""Step 3's boundary columns: kernel K10 (boundary_columns), its wrapper
+and plain version.
+
+K10 `boundary_columns` (csrc/boundary_columns.cu, boundary_columns.cuh)
+replaces the JAX package's distaff_tpu/stark/prover.py::
+_evaluate_boundaries_device with its weighted register sums (distaff_tpu/
+ops/tiles.py::_wsum_tile) and x^b power series: the first- and last-step
+boundary columns over the evaluation domain in one launch, reading the
+LDE's stride slice in place and x^b from K1's kind of power tables.  Bound
+by operations; see the source for the design.
+
+The wrapper takes the plain version for tensors on the CPU, and launches
+the kernel for tensors on the card, or raises.  The plain version is the
+chain the port ran before K10 (four weighted sums, the power series of x^b,
+the constants), on K2's plain versions, so it launches nothing on any
+device.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..math import field as hostfield
+from ..math import field_torch as ft
+from . import cuda_lib
+from . import field_kernels as fk
+from . import tiles
+from .deep_kernels import power_series_plain, weighted_sum_plain
+
+M = hostfield.M
+MAX_REGISTERS = 128          # boundary_columns.cuh kMaxRegisters
+
+
+def boundary_ops(regs):
+    """(multiplies, adds) a point of K10 at its leanest, from its code: the
+    four weighted sums (4R multiplies, 4(R - 1) adds), x^b's table lookup
+    and the two x^b products (3), the four constants and the two last sums
+    (6 adds)."""
+    return 4 * regs + 3, 4 * (regs - 1) + 6
+
+
+def boundary_columns_plain(lde, i_parts, f_parts, xb_root, start=0):
+    """boundary_columns' function on plain tensors: for each of i_parts and
+    f_parts = (w1, w2, c1, c2) host ints, sum_r w1_r lde[r] + c1 + x^b
+    (sum_r w2_r lde[r] + c2) with x^b = xb_root^k, on K2's plain versions.
+    With `start`, the points are k = start + i of a larger domain."""
+    n, device = lde.shape[1], lde.device
+    xb = fk.mul_plain(power_series_plain(xb_root, n, device),
+                      ft.constant(pow(int(xb_root), start, M), device))
+
+    def combine(parts):
+        w1, w2, c1, c2 = parts
+        s1 = weighted_sum_plain(lde, ft.from_ints(np.array(w1, dtype=object), device))
+        s2 = weighted_sum_plain(lde, ft.from_ints(np.array(w2, dtype=object), device))
+        base = fk.add_plain(s1, ft.constant(c1, device))
+        adj = fk.add_plain(s2, ft.constant(c2, device))
+        return fk.add_plain(base, fk.mul_plain(xb, adj))
+
+    return combine(i_parts), combine(f_parts)
+
+
+def boundary_args(lde, i_parts, f_parts, xb_root):
+    """K10's arguments beside the LDE: the (4, R) weights w1i, w2i, w1f,
+    w2f (one upload), x^b's tables (lo, hi; hi None up to 1024 points) and
+    the four constants as 16 host words."""
+    weights = ft.from_ints(np.array([list(i_parts[0]), list(i_parts[1]), list(f_parts[0]),
+                                     list(f_parts[1])], dtype=object), lde.device)
+    tables = tiles._store_factors(lde.shape[1], int(xb_root), 1, lde.device)
+    constants = (i_parts[2], i_parts[3], f_parts[2], f_parts[3])
+    words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in constants for k in range(4)]
+    return weights, tables, words
+
+
+def boundary_columns(lde, i_parts, f_parts, xb_root):
+    """The first- and last-step boundary columns over the n = lde.shape[1]
+    points k of D_ev (n a power of two): lde (R, n, 4) registers, any point
+    stride (the LDE's stride slice, read in place); i_parts and f_parts the
+    (w1, w2, c1, c2) host ints of evaluator.boundary_weight_vectors; x^b at
+    point k = xb_root^k.  Returns the two (n, 4) columns."""
+    regs, n = lde.shape[0], lde.shape[1]
+    if lde.dim() != 3 or n < 1 or n & (n - 1) or not 1 <= regs <= MAX_REGISTERS or any(
+            len(parts[0]) != regs or len(parts[1]) != regs for parts in (i_parts, f_parts)):
+        raise ValueError(f"boundary_columns: expected (R <= {MAX_REGISTERS}, n a power of two, "
+                         f"4) registers and R weights a sum, got {tuple(lde.shape)}")
+    if fk._on_cpu(lde):
+        return boundary_columns_plain(lde, i_parts, f_parts, xb_root)
+    cuda_lib.require_limbs("boundary_columns", lde)
+    weights, (lo, hi), words = boundary_args(lde, i_parts, f_parts, xb_root)
+    out = torch.empty((2, n, 4), dtype=torch.uint32, device=lde.device)
+    code = cuda_lib.lib().distaff_boundary_columns(
+        cuda_lib.ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n, cuda_lib.ptr(weights),
+        cuda_lib.ptr(lo), ctypes.c_void_p(None) if hi is None else cuda_lib.ptr(hi),
+        tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), cuda_lib.ptr(out), cuda_lib.stream(out))
+    cuda_lib.check(code, "boundary_columns")
+    cuda_lib.LAUNCHES["boundary_columns"] += 1
+    return out[0], out[1]

@@ -40,6 +40,8 @@ LAUNCHES = {
     "inv_batch": 0,
     "deep_compose": 0,
     "poly_eval": 0,
+    "fri_fold": 0,
+    "boundary_columns": 0,
 }
 
 _lib = None
@@ -104,6 +106,7 @@ def lib():
         handle = ctypes.CDLL(str(path))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         llp = ctypes.POINTER(ctypes.c_longlong)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
         handle.distaff_ntt_pass.argtypes = [
             vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
         handle.distaff_field_binary.argtypes = [
@@ -114,13 +117,16 @@ def lib():
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
         handle.distaff_deep_compose.argtypes = [
-            vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, ctypes.POINTER(ctypes.c_uint32),
-            vp, vp]
+            vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, u32p, vp, vp]
         handle.distaff_poly_eval.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, i32, i32, vp]
+        handle.distaff_fri_fold.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp, vp]
+        handle.distaff_boundary_columns.argtypes = [
+            vp, ll, ll, i32, ll, vp, vp, vp, i32, u32p, vp, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
-                   handle.distaff_deep_compose, handle.distaff_poly_eval):
+                   handle.distaff_deep_compose, handle.distaff_poly_eval,
+                   handle.distaff_fri_fold, handle.distaff_boundary_columns):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

@@ -157,7 +157,8 @@ def deep_compose_ops(regs):
     return 2 * regs + 13, 2 * (regs - 1) + 3, 5
 
 
-def _weighted_sum_plain(lde, weights):
+def weighted_sum_plain(lde, weights):
+    """sum_r weights[r] lde[r] over (R, n, 4) on K2's plain versions."""
     total = fk.mul_plain(lde[0], weights[0])
     for r in range(1, lde.shape[0]):
         total = fk.add_plain(total, fk.mul_plain(lde[r], weights[r]))
@@ -172,8 +173,8 @@ def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):
     domain, and the result is deep_compose's there."""
     n, device = lde.shape[1], lde.device
     z, zg, s1, s2, c_at_z, k1, k2, kc = (ft.constant(v, device) for v in scalars)
-    a1 = _weighted_sum_plain(lde, w1)
-    a2 = _weighted_sum_plain(lde, w2)
+    a1 = weighted_sum_plain(lde, w1)
+    a2 = weighted_sum_plain(lde, w2)
     root_incr = pow(int(root), int(incr), M)
     xs = fk.mul_plain(power_series_plain(root, n, device),
                       ft.constant(pow(int(root), start, M), device))

@@ -450,7 +450,7 @@ def ntt_stagewise(values, root=None):
     the twiddle of pair i at stage s being W[(i >> s) << s], the stages'
     outputs interleaved, and one bit-reversal at the end."""
     from ..math import field as hostfield
-    from . import tiles
+    from ..math import field_torch as ft
 
     n = values.shape[0]
     if n < 2 or n & (n - 1):
@@ -458,7 +458,7 @@ def ntt_stagewise(values, root=None):
     if root is None:
         root = hostfield.get_root_of_unity(n)
     half = n // 2
-    table = tiles.power_series(root, half, values.device)
+    table = ft.power_series(root, half, values.device)
     pair = torch.arange(half, device=values.device)
     x = values
     for s in range(n.bit_length() - 1):

@@ -1,16 +1,35 @@
-"""Radix-4 FRI layer folding on tensors.
+"""Radix-4 FRI layer folding: kernel K9 (fri_fold), its wrapper and plain
+version.
 
 The port's counterpart of distaff_tpu/ops/fri_jax.py: each 4-point row is
 evaluated at special_x in Lagrange form, which gives the field values of
 the reference's interpolate-then-evaluate (reference
 src/stark/fri/prover.rs:24-33).  The four nodes of row i are x*I^j with I
 the primitive 4th root of unity, so the Lagrange denominators are
-x^3 * K_k with global constants K_k; the caller passes x0^-3 as a power
-series, so no inversion runs here.  Every multiply and add is a K2 launch.
+x^3 * K_k with global constants K_k, and no inversion runs.
+
+K9 `fri_fold` (csrc/fri_fold.cu, fri_fold.cuh) folds one layer in one
+launch: it replaces fri_jax._fold_rows_impl (jitted as fold_rows, tiled as
+distaff_tpu/ops/tiles.py::_fold_tile) and the x0 and x0^-3 power series of
+distaff_tpu/stark/fri.py::reduce, taking both from K1's power tables of
+the LDE domain's root.  Bound by operations; see the source for the design.
+
+The wrapper takes the plain version for a column on the CPU, and launches
+the kernel for one on the card, or raises.  The plain version is the chain
+the port ran before K9 (the two power series and the fold on K2's plain
+versions), so it launches nothing on any device.
 """
+
+import ctypes
+
+import torch
 
 from ..math import field as hostfield
 from ..math import field_torch as ft
+from . import cuda_lib
+from . import field_kernels as fk
+from . import tiles
+from .deep_kernels import power_series_plain
 
 M = hostfield.M
 
@@ -30,19 +49,21 @@ _INV_K = [
 
 
 def fold_rows(ys, x0, inv_x0_cubed, special_x):
-    """ys: (q, 4, 4limbs) rows; x0: (q, 4limbs) first-column nodes;
-    inv_x0_cubed: (q, 4limbs) = x0^-3; special_x: (4,) limbs -> (q, 4limbs)."""
+    """The fold on K2's plain versions: ys (q, 4, 4limbs) rows; x0 (q,
+    4limbs) first-column nodes; inv_x0_cubed (q, 4limbs) = x0^-3;
+    special_x (4,) limbs -> (q, 4limbs)."""
+    mul, add, sub = fk.mul_plain, fk.add_plain, fk.sub_plain
     device = x0.device
-    xj = [x0] + [ft.mul(x0, ft.constant(_C[j], device)) for j in (1, 2, 3)]
-    d = [ft.sub(special_x, x) for x in xj]
-    d01, d23 = ft.mul(d[0], d[1]), ft.mul(d[2], d[3])
+    xj = [x0] + [mul(x0, ft.constant(_C[j], device)) for j in (1, 2, 3)]
+    d = [sub(special_x, x) for x in xj]
+    d01, d23 = mul(d[0], d[1]), mul(d[2], d[3])
     # numerators N_k = prod_{j != k} (special_x - x_j)
-    numer = [ft.mul(d[1], d23), ft.mul(d[0], d23), ft.mul(d01, d[3]), ft.mul(d01, d[2])]
+    numer = [mul(d[1], d23), mul(d[0], d23), mul(d01, d[3]), mul(d01, d[2])]
     acc = None
     for k in range(4):
-        term = ft.mul(ft.mul(ys[:, k], numer[k]), ft.constant(_INV_K[k], device))
-        acc = term if acc is None else ft.add(acc, term)
-    return ft.mul(acc, inv_x0_cubed)
+        term = mul(mul(ys[:, k], numer[k]), ft.constant(_INV_K[k], device))
+        acc = term if acc is None else add(acc, term)
+    return mul(acc, inv_x0_cubed)
 
 
 def transpose_quartic(values, stride):
@@ -52,3 +73,66 @@ def transpose_quartic(values, stride):
     row_count = n // (4 * stride)
     v = values[::stride] if stride > 1 else values
     return v.reshape(4, row_count, 4).transpose(0, 1)
+
+
+def fri_fold_ops(order):
+    """(multiplies, adds, subtractions) a row of K9 on an order-point
+    domain's tables, from its code: the two table lookups (one multiply
+    each where the domain has a hi table), x0^2, the four products of the
+    even and odd halves, B and A times them, x0^-3 and 1/4; B = sx^2 +
+    x0^2, y0 + y2, y1 + y3, the even half and the sum; A = sx^2 - x0^2,
+    y0 - y2, y1 - y3 and the odd half."""
+    return 9 + (2 if order > 1 << tiles._LOG_LO else 0), 5, 4
+
+
+def fri_fold_plain(column, special_x, root, stride=1, rows=None):
+    """fri_fold's function on plain tensors: the power series of x0 = w_L^i
+    and of x0^-3 = w_L^-3i (w_L = root^stride) and fold_rows, on K2's plain
+    versions.  With `rows` = (start, stop), the rows [start, stop) alone."""
+    q = column.shape[0] // 4
+    start, stop = rows or (0, q)
+    device = column.device
+    w = pow(int(root), stride, M)
+    inv3 = pow(hostfield.inv(w), 3, M)
+    x0 = fk.mul_plain(power_series_plain(w, stop - start, device),
+                      ft.constant(pow(w, start, M), device))
+    x0_inv3 = fk.mul_plain(power_series_plain(inv3, stop - start, device),
+                           ft.constant(pow(inv3, start, M), device))
+    ys = transpose_quartic(column, 1)[start:stop]
+    return fold_rows(ys, x0, x0_inv3, ft.constant(special_x, device))
+
+
+def fold_words(special_x):
+    """K9's constants as 16 host words: special_x, special_x^2, I special_x
+    and 1/4 (1/K_k = I^k / 4)."""
+    sx = int(special_x) % M
+    values = [sx, sx * sx % M, _I * sx % M, hostfield.inv(4)]
+    return [(v >> (32 * k)) & 0xFFFFFFFF for v in values for k in range(4)]
+
+
+def fri_fold(column, special_x, root, stride=1):
+    """One FRI layer folded at the host int special_x: column (4q, 4) limbs,
+    the layer's evaluations over the domain of w_L = root^stride (order 4q;
+    root's power tables, 4q*stride points, are K1's of the LDE domain).
+    Row i holds column[i + j q] at the nodes w_L^i I^j.  Returns the (q, 4)
+    folded column."""
+    n = column.shape[0]
+    if column.dim() != 2 or column.shape[1] != 4 or n < 4 or n & (n - 1) or stride < 1 or \
+            stride & (stride - 1):
+        raise ValueError(f"fri_fold: expected a (4q, 4) column of a power of two points and a "
+                         f"power-of-two stride, got {tuple(column.shape)} and {stride}")
+    if fk._on_cpu(column):
+        return fri_fold_plain(column, special_x, root, stride)
+    cuda_lib.require_limbs("fri_fold", column)
+    column = column.contiguous()
+    q = n // 4
+    lo, hi = tiles._store_factors(n * stride, int(root), 1, column.device)
+    out = torch.empty((q, 4), dtype=torch.uint32, device=column.device)
+    code = cuda_lib.lib().distaff_fri_fold(
+        cuda_lib.ptr(column), q, cuda_lib.ptr(lo),
+        ctypes.c_void_p(None) if hi is None else cuda_lib.ptr(hi), tiles._LOG_LO, stride,
+        (ctypes.c_uint32 * 16)(*fold_words(special_x)), cuda_lib.ptr(out),
+        cuda_lib.stream(out))
+    cuda_lib.check(code, "fri_fold")
+    cuda_lib.LAUNCHES["fri_fold"] += 1
+    return out

@@ -1,4 +1,4 @@
-"""NTTs, power series and pointwise passes over whole tensors.
+"""NTTs and pointwise passes over whole tensors.
 
 The port's counterpart of distaff_tpu/ops/tiles.py.  The JAX module cut
 every pass into fixed-shape tiles so that one set of compiled XLA
@@ -28,28 +28,8 @@ LEAF = fk.MAX_LEAF
 
 
 # ------------------------------------------------------------------------------------------------
-# power series and pointwise helpers
+# pointwise helpers
 # ------------------------------------------------------------------------------------------------
-
-def power_series(x_int, n, device):
-    """[x^0 .. x^(n-1)] as an (n, 4) tensor for a host-int base."""
-    if n <= 0:
-        return ft.zeros((0,), device)
-    return ft.power_series_dev(ft.constant(int(x_int) % M, device), n)
-
-
-def scale(values, c_int):
-    """values * c for a host-int constant c."""
-    return ft.mul(values, ft.constant(int(c_int) % M, values.device))
-
-
-def weighted_register_sum(lde, weights):
-    """sum_i weights[i] * lde[i] over (R, D, 4) with (R, 4) weights -> (D, 4)."""
-    total = ft.mul(lde[0], weights[0])
-    for i in range(1, lde.shape[0]):
-        total = ft.add(total, ft.mul(lde[i], weights[i]))
-    return total
-
 
 def suffix_sums(w):
     """Inclusive modular suffix sums over axis 0 of (n, 4)."""
@@ -74,7 +54,7 @@ def _cached(key, build):
 def _stage_twiddles(m, root_int, device):
     """The m/2 powers of a size-m root: a pass's butterfly twiddles."""
     return _cached(("tw", str(device), m, root_int),
-                   lambda: power_series(root_int, m // 2, device))
+                   lambda: ft.power_series(root_int, m // 2, device))
 
 
 def _store_factors(n, root_int, c_int, device):
@@ -83,10 +63,10 @@ def _store_factors(n, root_int, c_int, device):
     is None for n <= 1024."""
     def build():
         size = min(n, 1 << _LOG_LO)
-        lo = scale(power_series(root_int, size, device), c_int)
+        lo = ft.power_series(root_int, size, device, c_int)
         if n <= size:
             return lo, None
-        return lo, power_series(pow(root_int, size, M), n // size, device)
+        return lo, ft.power_series(pow(root_int, size, M), n // size, device)
     return _cached(("factors", str(device), n, root_int, c_int), build)
 
 

@@ -185,8 +185,6 @@ def transition(lde, tables):
 def air_tables(evaluator, device):
     """The AirTables of an evaluator on `device`: periodic constants, MDS
     matrices, transcript coefficients, groups and xp series."""
-    from ...ops import tiles
-
     n_ev = evaluator.domain_size
     root_ev = field.get_root_of_unity(n_ev)
     groups = tuple(tuple(cs) for _, cs in evaluator.t_degree_groups)
@@ -201,7 +199,7 @@ def air_tables(evaluator, device):
         stk_ark=limbs(evaluator.stack.ark_rows),
         mds=limbs(SPONGE_MDS + SPONGE_INV_MDS + HASHER_MDS + HASHER_INV_MDS),
         cc=limbs(evaluator.coefficients.transition),
-        xp=torch.stack([tiles.power_series(field.exp(root_ev, incr), n_ev, device)
+        xp=torch.stack([ft.power_series(field.exp(root_ev, incr), n_ev, device)
                         for incr, _ in evaluator.t_degree_groups]))
 
 

@@ -1,4 +1,4 @@
-"""Radix-4 FRI (reference src/stark/fri/): device folds and layer trees
+"""Radix-4 FRI (reference src/stark/fri/): device folds (kernel K9) and layer trees
 (on the device for blake3, on the host for any other hash) for the
 prover, host-side verification.
 """
@@ -11,6 +11,8 @@ from ..crypto import hashes
 from ..ops import fri_torch
 
 MAX_REMAINDER_LENGTH = 256
+# the parts of reduce's work, as it reports them to its `part` callback
+PARTS = ("layer trees", "root draws", "folds (K9)")
 
 
 class FriLayer:
@@ -37,42 +39,42 @@ def _build_layer_tree(rows_dev, hash_name):
     return commit(rows_dev, hash_name)
 
 
-def reduce(evaluations_dev, domain_root, options):
+def reduce(evaluations_dev, domain_root, options, part=None):
     """Reduce composition evaluations down to <= 256 remainder values.
 
-    evaluations_dev: (n, 4limbs) device tensor over the LDE domain.
-    Returns (trees, row_values_dev) per layer; the Fiat-Shamir fold point of
-    each layer is drawn from that layer's Merkle root.
+    evaluations_dev: (n, 4limbs) device tensor over the LDE domain, whose
+    root is domain_root.  Returns (trees, row_values_dev) per layer; the
+    Fiat-Shamir fold point of each layer is drawn from that layer's Merkle
+    root, and the layer is folded in one launch of kernel K9.  `part`, if
+    given, is called with the name in PARTS of each piece of work as it
+    ends.
     """
-    from ..ops import tiles
-
-    device = evaluations_dev.device
-    n = evaluations_dev.shape[0]
-    # first-column node coordinates [x^0 .. x^(n/4 - 1)]; every later
-    # layer's nodes are a [::4] stride of these, and so are their inverse
-    # cubes, the power series of w^-3
-    x0 = tiles.power_series(domain_root, n // 4, device)
-    inv_root3 = field.exp(field.inv(domain_root), 3)
-    x0_inv3 = tiles.power_series(inv_root3, n // 4, device)
-
+    part = part or (lambda name: None)
     tree_results = []
     value_results = []
 
-    p_values = fri_torch.transpose_quartic(evaluations_dev, 1)
+    p_column = evaluations_dev
+    p_values = fri_torch.transpose_quartic(p_column, 1)
     p_tree = _build_layer_tree(p_values, options.hash_fn)
+    part("layer trees")
 
+    # layer L's nodes are powers of w^(4^L): K9 reads them from the power
+    # tables of the LDE domain's root w at that stride
+    stride = 1
     while p_values.shape[0] * 4 > MAX_REMAINDER_LENGTH:
         special_x = rand.prng(p_tree.root(), field.M)
-        column = fri_torch.fold_rows(p_values, x0, x0_inv3, ft.constant(special_x, device))
-        x0 = x0[::4]
-        x0_inv3 = x0_inv3[::4]
+        part("root draws")
+        column = fri_torch.fri_fold(p_column, special_x, domain_root, stride)
+        part("folds (K9)")
+        stride *= 4
 
         c_values = fri_torch.transpose_quartic(column, 1)
         c_tree = _build_layer_tree(c_values, options.hash_fn)
+        part("layer trees")
 
         tree_results.append(p_tree)
         value_results.append(p_values)
-        p_tree, p_values = c_tree, c_values
+        p_column, p_tree, p_values = column, c_tree, c_values
 
     tree_results.append(p_tree)
     value_results.append(p_values)

@@ -5,19 +5,21 @@ the domain-sized work on the device:
 2. trace Merkle tree   - leaf rows and every level hashed on device (K3);
                          with another hash than blake3 the trees of
                          steps 2, 5 and 7 are hashed on the host
-3. constraint eval     - boundary columns as weighted register sums on
-                         device; transition constraints in one launch of
-                         the AIR kernel over the LDE slice (K4)
+3. constraint eval     - boundary columns in one launch (K10) and
+                         transition constraints in one launch of the AIR
+                         kernel (K4), both over the LDE's stride slice
 4. constraint poly     - device iNTT + suffix-sum synthetic divisions
 5. constraint commit   - device NTT over the LDE domain + device tree
 6. DEEP composition    - point evaluations (K8) and the composition over
                          the LDE domain in one launch (K7)
-7. FRI                 - device radix-4 folds + device layer trees
+7. FRI                 - device radix-4 folds, one launch a layer (K9),
+                         + device layer trees
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
 
 Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms"),
-and the parts of steps 1, 3 and 6 as "step <i> part <name>: <ms> ms"; while
+and the parts of steps 1, 3, 6 and 7 as "step <i> part <name>: <ms> ms"
+(step 7's each summed over the FRI layers); while
 that level is enabled every step and part ends with a device synchronize,
 so the times are the device's and not the enqueue's.
 """
@@ -48,6 +50,7 @@ class _StepClock:
         self.device = device
         self.enabled = log.isEnabledFor(logging.DEBUG)
         self.now = self.part_now = time.perf_counter()
+        self.laps = {}
 
     def _synchronized_now(self):
         if self.device.type == "cuda":
@@ -62,9 +65,23 @@ class _StepClock:
         log.debug("step %d part %s: %.3f ms", index, name, (now - self.part_now) * 1000)
         self.part_now = now
 
-    def done(self, index, name):
+    def lap(self, name):
+        """Adds the time since the step's start or its last part to the part
+        `name`, whose sum over the step's laps `done` logs."""
         if not self.enabled:
             return
+        now = self._synchronized_now()
+        self.laps[name] = self.laps.get(name, 0.0) + now - self.part_now
+        self.part_now = now
+
+    def done(self, index, name, laps=()):
+        """Logs the step's time, after the sum of each part named in `laps`
+        (0 for a part that no lap reached)."""
+        if not self.enabled:
+            return
+        for part in laps:
+            log.debug("step %d part %s: %.3f ms", index, part, self.laps.get(part, 0.0) * 1000)
+        self.laps = {}
         now = self._synchronized_now()
         log.debug("step %d %s: %.3f ms", index, name, (now - self.now) * 1000)
         self.now = self.part_now = now
@@ -117,8 +134,8 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     clock.done(6, "DEEP composition")
 
     # 7 ----- FRI --------------------------------------------------------------------------------
-    fri_trees, fri_values = fri.reduce(composed, lde_root, options)
-    clock.done(7, "FRI layers")
+    fri_trees, fri_values = fri.reduce(composed, lde_root, options, clock.lap)
+    clock.done(7, "FRI layers", fri.PARTS)
 
     # 8 ----- proof of work + query positions ----------------------------------------------------
     fri_roots = b"".join(tree.root() for tree in fri_trees)
@@ -179,27 +196,16 @@ def _evaluate_boundaries_device(evaluator, trace, stride):
 
     The combined first/last-step boundary columns are weighted register sums
     plus transcript constants (evaluator.boundary_weight_vectors), and one
-    multiply by the x^b_degree_adj power series - bit-identical to the
-    reference's per-step loop (evaluator.rs:181-326)."""
-    from ..ops import tiles
+    multiply by x^b_degree_adj - bit-identical to the reference's per-step
+    loop (evaluator.rs:181-326).  One launch of kernel K10 over the LDE's
+    stride slice, read in place."""
+    from ..ops import boundary_kernels
 
     lde = trace.lde_dev[:, ::stride]                         # (R, n_ev, 4)
-    device = lde.device
-    n_ev = evaluator.domain_size
-    r_ev = field.get_root_of_unity(n_ev)
-    xp = tiles.power_series(field.exp(r_ev, evaluator.b_degree_adj), n_ev, device)
-
+    r_ev = field.get_root_of_unity(evaluator.domain_size)
     i_parts, f_parts = evaluator.boundary_weight_vectors(lde.shape[0])
-
-    def combine(parts):
-        w1, w2, c1, c2 = parts
-        s1 = tiles.weighted_register_sum(lde, ft.from_ints(np.array(w1, dtype=object), device))
-        s2 = tiles.weighted_register_sum(lde, ft.from_ints(np.array(w2, dtype=object), device))
-        base = ft.add(s1, ft.constant(c1, device))
-        adj = ft.add(s2, ft.constant(c2, device))
-        return ft.add(base, ft.mul(xp, adj))
-
-    return combine(i_parts), combine(f_parts)
+    return boundary_kernels.boundary_columns(
+        lde, i_parts, f_parts, field.exp(r_ev, evaluator.b_degree_adj))
 
 
 # ------------------------------------------------------------------------------------------------
@@ -216,10 +222,10 @@ def _syn_div_dev(poly, b):
     if b == 1:
         s = tiles.suffix_sums(poly)
         return torch.cat([s[1:], zero])
-    w = ft.mul(poly, tiles.power_series(b, n, poly.device))
+    w = ft.mul(poly, ft.power_series(b, n, poly.device))
     s_next = torch.cat([tiles.suffix_sums(w)[1:], zero])     # s_{i+1}
     b_inv = field.inv(b)
-    pbinv = tiles.scale(tiles.power_series(b_inv, n, poly.device), b_inv)  # b^{-(i+1)}
+    pbinv = ft.power_series(b_inv, n, poly.device, b_inv)            # b^{-(i+1)}
     return ft.mul(s_next, pbinv)
 
 

@@ -105,7 +105,7 @@ def bench(log2_sizes, device="cuda"):
         line(log_n, "ntt_stagewise", timer(lambda: field_kernels.ntt_stagewise(x, root)),
              butterflies, "butterfly")
         line(log_n, "mul", timer(lambda: ft.mul(x, y)), n, "element")
-        line(log_n, "power_series", timer(lambda: tiles.power_series(root, n, device)),
+        line(log_n, "power_series", timer(lambda: ft.power_series(root, n, device)),
              n, "element")
         if not torch.equal(ft.inv_batch(x), ft.exp_const(x, ft.M - 2)):
             raise AssertionError(f"2^{log_n}: inv_batch and exp_const(M - 2) differ")

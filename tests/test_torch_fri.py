@@ -1,0 +1,309 @@
+"""distaff_torch's FRI fold (kernel K9) and step 3's boundary columns
+(kernel K10) on the CPU: the wrappers' plain versions against the JAX
+package's fri_jax.fold_rows and prover._evaluate_boundaries_device,
+fri.reduce's layer roots against the JAX package's host FRI (quartic
+interpolation and host Merkle trees), and both kernels' bodies built with
+g++ from their headers and run a thread at a time against the plain
+versions.  Exact equality throughout (integer field arithmetic).  Each JAX
+function is compiled once, at one shape, for all of its cases."""
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distaff_tpu.crypto.blake3 import blake3_batch
+from distaff_tpu.crypto.merkle import MerkleTree
+from distaff_tpu.math import field as jax_host_field
+from distaff_tpu.math import field_jax as fj
+from distaff_tpu.math import quartic
+from distaff_tpu.ops import fri_jax
+from distaff_tpu.stark import prover as jax_prover
+from distaff_tpu.utils import rand as jax_rand
+from distaff_torch import ProofOptions
+from distaff_torch.math import field_torch as ft
+from distaff_torch.ops import boundary_kernels as bk
+from distaff_torch.ops import field_kernels as fk
+from distaff_torch.ops import fri_torch, tiles
+from distaff_torch.stark import fri, prover
+
+M = jax_host_field.M
+CSRC = Path(fk.__file__).resolve().parent.parent / "csrc"
+SPECIAL_X = 0x0BAD_CAFE_F00D_1234_5678_9ABC_DEF0_1357 % M
+
+
+def _ints(count, rng):
+    return [int.from_bytes(rng.bytes(16), "little") % M for _ in range(count)]
+
+
+def _limbs(ints):
+    return ft.from_ints(np.array(ints, dtype=object), "cpu")
+
+
+def _root(n):
+    return jax_host_field.get_root_of_unity(n)
+
+
+# ------------------------------------------------------------------------------------------------
+# K9 fri_fold
+# ------------------------------------------------------------------------------------------------
+
+# (q, root of the nodes x0 = w^i): a layer of 16 points at its own root, and
+# 300 rows at the nodes of a 2^11-point domain (not a layer: the wrapper
+# takes power-of-two layers only, the plain version any rows)
+FOLD_CASES = ((4, _root(16)), (300, _root(1 << 11)))
+
+
+@pytest.fixture(scope="module")
+def jax_folds():
+    """fri_jax.fold_rows over the rows of both FOLD_CASES at once (one XLA
+    compile), x0 = w^i and x0^-3 = w^-3i from the JAX package's power
+    series; returns [(column, folded rows as ints)] per case."""
+    rng = np.random.default_rng(9)
+    columns, ys, x0, inv3 = [], [], [], []
+    for q, w in FOLD_CASES:
+        column = _ints(4 * q, rng)
+        columns.append(column)
+        ys += [[column[i + j * q] for j in range(4)] for i in range(q)]
+        x0.append(fj.power_series(w, q))
+        inv3.append(fj.power_series(pow(jax_host_field.inv(w), 3, M), q))
+    got = fri_jax.fold_rows(fj.from_ints(np.array(ys, dtype=object)), jnp.concatenate(x0),
+                            jnp.concatenate(inv3), fj.constant(SPECIAL_X))
+    folded = fj.to_ints(got).tolist()
+    out, start = [], 0
+    for (q, _), column in zip(FOLD_CASES, columns):
+        out.append((column, folded[start:start + q]))
+        start += q
+    return out
+
+
+def test_fri_fold_matches_jax_fold_rows_at_the_layers_root(jax_folds):
+    # the wrapper at the layer's own root, and at a root of a 4x larger
+    # domain with stride 4 (as fri.reduce passes the LDE domain's root)
+    column, want = jax_folds[0]
+    got = fri_torch.fri_fold(_limbs(column), SPECIAL_X, FOLD_CASES[0][1])
+    assert ft.to_ints(got).tolist() == want
+    got = fri_torch.fri_fold(_limbs(column), SPECIAL_X, _root(64), stride=4)
+    assert ft.to_ints(got).tolist() == want
+
+
+def test_fri_fold_plain_matches_jax_fold_rows_over_300_rows(jax_folds):
+    column, want = jax_folds[1]
+    got = fri_torch.fri_fold_plain(_limbs(column), SPECIAL_X, FOLD_CASES[1][1])
+    assert ft.to_ints(got).tolist() == want
+    # a window of rows, as chip_smoke.py holds the kernel a piece at a time
+    part = fri_torch.fri_fold_plain(_limbs(column), SPECIAL_X, FOLD_CASES[1][1], rows=(100, 220))
+    assert ft.to_ints(part).tolist() == want[100:220]
+
+
+def _host_reduce(values, root):
+    """The JAX package's host FRI: each layer's rows hashed into a host
+    Merkle tree, and interpolated and evaluated at the point drawn from its
+    root (reference src/stark/fri/prover.rs).  Returns the layer roots and
+    the last layer's rows."""
+    roots = []
+    while True:
+        q = len(values) // 4
+        rows = [[values[i + j * q] for j in range(4)] for i in range(q)]
+        limbs = np.array([[(v >> (32 * k)) & 0xFFFFFFFF for v in row for k in range(4)]
+                          for row in rows], dtype=np.uint32)
+        tree = MerkleTree(blake3_batch(limbs.view(np.uint8)), "blake3")
+        roots.append(tree.root())
+        if len(values) <= fri.MAX_REMAINDER_LENGTH:
+            return roots, rows
+        xs = [[pow(root, i + j * q, M) for j in range(4)] for i in range(q)]
+        special_x = jax_rand.prng(tree.root(), M)
+        values = quartic.evaluate_batch(quartic.interpolate_batch(xs, rows), special_x)
+        root = pow(root, 4, M)
+
+
+def test_reduce_gives_the_jax_packages_host_layer_roots(monkeypatch):
+    n = 1 << 12
+    values = _ints(n, np.random.default_rng(12))
+    want_roots, want_rows = _host_reduce(values, _root(n))
+    folds, parts = [], []
+    real = fri_torch.fri_fold
+
+    def counted(*args):
+        folds.append(args[0].shape[0])
+        return real(*args)
+
+    monkeypatch.setattr(fri_torch, "fri_fold", counted)
+    trees, layers = fri.reduce(_limbs(values), _root(n), ProofOptions(), parts.append)
+    assert [tree.root() for tree in trees] == want_roots
+    assert ft.to_ints(layers[-1]).tolist() == want_rows
+    # one fold a layer, each over the previous layer's column; the parts in order
+    assert folds == [n, n // 4]
+    assert parts == ["layer trees"] + ["root draws", "folds (K9)", "layer trees"] * 2
+    assert set(parts) == set(fri.PARTS)
+
+
+# ------------------------------------------------------------------------------------------------
+# K10 boundary_columns
+# ------------------------------------------------------------------------------------------------
+
+N_EV = 64
+
+
+class _Evaluator:
+    """What both packages' _evaluate_boundaries_device read of an
+    evaluator, with seeded weights and constants."""
+
+    def __init__(self, regs, seed):
+        rng = np.random.default_rng(seed)
+        self.domain_size = N_EV
+        self.b_degree_adj = 37
+        self.parts = tuple((_ints(regs, rng), _ints(regs, rng), *_ints(2, rng)) for _ in range(2))
+
+    def boundary_weight_vectors(self, register_count):
+        assert register_count == len(self.parts[0][0])
+        return self.parts
+
+
+class _Trace:
+    def __init__(self, lde_dev):
+        self.lde_dev = lde_dev
+        self.streaming = False
+
+
+@pytest.mark.parametrize("regs,stride", [(5, 4), (11, 2)])
+def test_boundary_columns_match_jax_evaluate_boundaries(regs, stride):
+    # 5 and 11 registers: the JAX sums pad to groups of 8
+    evaluator = _Evaluator(regs, regs)
+    rng = np.random.default_rng(stride)
+    lde = [_ints(N_EV * stride, rng) for _ in range(regs)]
+    want = jax_prover._evaluate_boundaries_device(
+        evaluator, _Trace(fj.from_ints(np.array(lde, dtype=object))), stride)
+    got = prover._evaluate_boundaries_device(evaluator, _Trace(_limbs(lde)), stride)
+    for g, w in zip(got, want):
+        assert ft.to_ints(g).tolist() == fj.to_ints(w).tolist()
+
+
+def test_boundary_columns_plain_at_an_offset_matches_the_whole_domain():
+    evaluator = _Evaluator(3, 7)
+    rng = np.random.default_rng(7)
+    lde = _limbs([_ints(N_EV, rng) for _ in range(3)])
+    xb = pow(_root(N_EV), 5, M)
+    want = bk.boundary_columns_plain(lde, *evaluator.parts, xb)
+    for start, stop in ((0, 16), (16, 64), (40, 41)):
+        got = bk.boundary_columns_plain(lde[:, start:stop], *evaluator.parts, xb, start=start)
+        assert all(torch.equal(g, w[start:stop]) for g, w in zip(got, want))
+
+
+# ------------------------------------------------------------------------------------------------
+# the kernels' bodies on the CPU
+# ------------------------------------------------------------------------------------------------
+
+_HARNESS = r"""
+#include <cstring>
+#include <vector>
+#include "boundary_columns.cuh"
+#include "fri_fold.cuh"
+
+// K9's and K10's kernel bodies on the CPU, a thread at a time in the
+// kernels' order (K10: the weights staged as in shared memory first)
+extern "C" void fri_fold_host(const void* column, long long q, const void* lo, const void* hi,
+                              int log_lo, long long stride, const uint32_t* constants,
+                              void* out) {
+    fri_fold::Args a{(const uint4*)column, q, (const uint4*)lo, (const uint4*)hi, log_lo,
+                     stride, {}, (uint4*)out};
+    std::memcpy(&a.k, constants, sizeof(a.k));
+    for (long long block = 0; block < fri_fold::blocks(a); ++block)
+        for (int tid = 0; tid < fri_fold::kThreads; ++tid) {
+            const long long i = block * fri_fold::kThreads + tid;
+            if (i < a.q) fri_fold::fold(a, i);
+        }
+}
+
+extern "C" void boundary_columns_host(const void* lde, long long reg_stride,
+                                      long long point_stride, int regs, long long n,
+                                      const void* weights, const void* xb_lo, const void* xb_hi,
+                                      int log_lo, const uint32_t* constants, void* out) {
+    using namespace boundary_columns;
+    Args a{(const uint4*)lde, reg_stride, point_stride, regs, n, (const uint4*)weights,
+           (const uint4*)xb_lo, (const uint4*)xb_hi, log_lo, {}, (uint4*)out};
+    std::memcpy(a.c, constants, sizeof(a.c));
+    std::vector<uint4> shared(4 * kMaxRegisters);
+    for (int tid = 0; tid < kThreads; ++tid) stage_weights(a, shared.data(), tid);
+    const uint4* const w[4] = {&shared[0], &shared[kMaxRegisters], &shared[2 * kMaxRegisters],
+                               &shared[3 * kMaxRegisters]};
+    for (long long block = 0; block < blocks(a); ++block)
+        for (int tid = 0; tid < kThreads; ++tid) {
+            const long long k = block * kThreads + tid;
+            if (k < a.n) column(a, w, k);
+        }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_bodies(tmp_path_factory):
+    """csrc/fri_fold.cuh and boundary_columns.cuh built with g++ as host
+    functions with the kernels' arguments."""
+    tmp = tmp_path_factory.mktemp("fri")
+    (tmp / "harness.cpp").write_text(_HARNESS)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC),
+                    str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")], check=True)
+    lib = ctypes.CDLL(str(tmp / "libharness.so"))
+    vp, ll, i32, u32p = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(
+        ctypes.c_uint32)
+    lib.fri_fold_host.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp]
+    lib.boundary_columns_host.argtypes = [vp, ll, ll, i32, ll, vp, vp, vp, i32, u32p, vp]
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@pytest.mark.parametrize("points,stride", [
+    (16, 1),          # four rows, one partial block, x0 from the lo table alone
+    (1024, 4),        # 256 rows of a 4096-point domain: x0 and x0^-3 from lo and hi
+    (4096, 16),       # four blocks, 2^16-point tables
+])
+def test_fri_fold_kernel_body_matches_plain(kernel_bodies, points, stride):
+    column = _limbs(_ints(points, np.random.default_rng(points + stride)))
+    root = _root(points * stride)
+    lo, hi = tiles._store_factors(points * stride, root, 1, "cpu")
+    out = torch.zeros((points // 4, 4), dtype=torch.uint32)
+    kernel_bodies.fri_fold_host(
+        _ptr(column), points // 4, _ptr(lo), _ptr(hi), tiles._LOG_LO, stride,
+        (ctypes.c_uint32 * 16)(*fri_torch.fold_words(SPECIAL_X)), _ptr(out))
+    assert torch.equal(out, fri_torch.fri_fold_plain(column, SPECIAL_X, root, stride))
+
+
+@pytest.mark.parametrize("regs,n,stride", [
+    (3, 64, 4),       # one partial block, x^b from the lo table alone
+    (20, 2048, 2),    # eight blocks, x^b from lo and hi, the main path's register count
+    (7, 256, 1),
+])
+def test_boundary_columns_kernel_body_matches_plain(kernel_bodies, regs, n, stride):
+    rng = np.random.default_rng(regs + n)
+    lde = _limbs([_ints(n * stride, rng) for _ in range(regs)])[:, ::stride]
+    parts = tuple((_ints(regs, rng), _ints(regs, rng), *_ints(2, rng)) for _ in range(2))
+    xb_root = pow(_root(n), 11, M)
+    weights, (lo, hi), words = bk.boundary_args(lde, *parts, xb_root)
+    out = torch.zeros((2, n, 4), dtype=torch.uint32)
+    kernel_bodies.boundary_columns_host(
+        _ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n, _ptr(weights), _ptr(lo),
+        _ptr(hi), tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), _ptr(out))
+    want = bk.boundary_columns_plain(lde, *parts, xb_root)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_wrappers_refuse_what_they_cannot_take():
+    column = _limbs(list(range(24)))
+    with pytest.raises(ValueError, match="power of two"):
+        fri_torch.fri_fold(column, 1, _root(32))
+    with pytest.raises(ValueError, match="power-of-two stride"):
+        fri_torch.fri_fold(column[:16], 1, _root(32), stride=3)
+    lde = _limbs([list(range(8))] * 2)
+    parts = ([1, 2], [3, 4], 5, 6)
+    with pytest.raises(ValueError, match="weights"):
+        bk.boundary_columns(lde, parts, ([1], [2], 3, 4), 1)
+    with pytest.raises(ValueError, match="power of two"):
+        bk.boundary_columns(lde[:, :6], parts, parts, 1)

@@ -95,7 +95,9 @@ def test_step_log_times_every_step_and_step_three_parts(golden_proof):
     assert steps[12:16] == ["step 6 part coefficients (host)",
                             "step 6 part point evaluations (K8)",
                             "step 6 part composition (K7)", "step 6 DEEP composition"]
-    assert [s.split()[1] for s in steps[16:]] == ["7", "8", "9"]
+    assert steps[16:20] == ["step 7 part layer trees", "step 7 part root draws",
+                            "step 7 part folds (K9)", "step 7 FRI layers"]
+    assert [s.split()[1] for s in steps[20:]] == ["8", "9"]
 
 
 # The golden case proved with sha3 by the JAX package: its proof's bytes
