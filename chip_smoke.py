@@ -15,12 +15,12 @@ that two versions compare on one card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-                K4's (K1-K3, K5-K10) in its own call and links them, and K4
+                K4's (K1-K3, K5-K12) in its own call and links them, and K4
                 once for each depth triple of AIR_TRIPLES (its library is
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K10, and the card's name and
+                K4 at each triple and for K6-K12, and the card's name and
                 power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
@@ -42,27 +42,35 @@ Phases, in order; any failure raises and exits non-zero:
                 LDE domain's root and the layer's stride, random values and
                 special_x), K10 boundary_columns at (20, 2^19) point stride 4
                 on the 2^16 Fibonacci LDE's slice and on random registers,
-                each equal (tolerance zero: integer field arithmetic and
+                K11 syn_div at the proof's step 4 ((3, 2^19), degree 2^16,
+                x_last) on random and edge-value coefficients, K12
+                power_series at every table the 2^16 proof builds (the
+                proof run once with the table cache empty and each call
+                recorded), at one row, a ragged length and 2^20 rows, each
+                equal (tolerance zero: integer field arithmetic and
                 hashing) to its plain version on the same inputs; times from
                 CUDA events
   3. golden   - `begin push.3 push.5 add end` with ProofOptions(16, 10, 2)
                 proved on cuda (step 3 through K10 at point stride 2 and K4
                 at depths (0, 0, 2), step 6 through K7 and K8, step 7
-                through K9 once: its LDE of 1024 points folds one layer)
-                must serialize to the bytes pinned in
-                tests/test_determinism.py; its K9 and K10 calls are held
-                against the plain versions
+                through K9 once: its LDE of 1024 points folds one layer,
+                step 4 through K11) must serialize to the bytes pinned in
+                tests/test_determinism.py, with no K2 launch; its K9, K10
+                and K11 calls are held against the plain versions
   4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                 [1, 0], default ProofOptions) proved on cuda and verified,
                 with its time, peak device memory and the launches of every
-                kernel: K1-K4 and K7-K10 must launch (K4, K7 and K10 exactly
-                once, K6, K2's exp_const and sub never, K2's mul at most
-                MAX_MUL times and add at most MAX_ADD), K1 exactly at the
-                passes phase 2 checked and none of two points, K8 exactly at
-                the evaluations phase 2 checked, each its number of passes,
-                K9 once at each layer phase 2 checked and K10 at the slice
-                it checked; then proved with per-step times (steps 1, 3, 6
-                and 7 in parts too), and once more without
+                kernel, the table cache emptied first as for a first proof:
+                K1, K3, K4 and K7-K12 must launch (K4, K7, K10 and K11
+                exactly once, K6 and K2 never), K1 exactly at the passes
+                phase 2 checked and none of two points, K8 exactly at the
+                evaluations phase 2 checked, each its number of passes, K9
+                once at each layer phase 2 checked, K10 and K11 at the
+                shapes they were checked at, K12 once for each table that
+                the proof put in the cache and at calls phase 2 held; then
+                proved with per-step times (steps 1, 3, 6 and 7 in parts
+                too; step 4 and step 3's K4 part printed again), and once
+                more without
   5. bench    - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                 2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
                 tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
@@ -72,9 +80,11 @@ Phases, in order; any failure raises and exits non-zero:
                 stride 4) on random registers, equal to their plain
                 versions, a row each; then the six examples of distaff_torch/
                 examples.py at their CLI defaults proved on cuda with the
-                default ProofOptions: the expected outputs, verified, a
-                tampered output rejected, the path's kernels launched (K4
-                and K10 once, at the example's depths and registers); `python -m distaff_torch
+                default ProofOptions, each with the table cache emptied: the
+                expected outputs, verified, a tampered output rejected, the
+                path's kernels launched (K4, K10 and K11 once, at the
+                example's depths and registers, K2 never), the K11 call held
+                against its plain version; `python -m distaff_torch
                 fibonacci` on the card must exit 0; the golden case with
                 hash_fn="sha3" must give the JAX package's bytes
   7. ladder   - K1 through two levels of its recursion above leaf^2 points
@@ -89,14 +99,14 @@ Phases, in order; any failure raises and exits non-zero:
                 the proof on cuda unstepped and verified, with its
                 time, step 0, peak device memory, LDE size and K1 passes
                 (the LDE must take K1's recursion; its K1 passes and K8
-                calls must be exactly those held; K9 once a layer, K10
-                once, K2's sub never); every call it made of K2 (each
-                layout, on random operands laid out so), K3, K4, K7, K9 and
-                K10 (on the proof's own inputs) held against the plain
-                versions, run a piece of 2^LAST_PIECE rows or points at a
-                time (the other rung: the last piece of each call), with a
-                row for each class of call at 2^LADDER_HELD; then the
-                2^LADDER_HELD rung once more with the step log
+                calls must be exactly those held; K9 once a layer, K10 and
+                K11 once, K12 once a table built, K2 never); every call it
+                made of K3, K4, K7, K9, K10 and K11 held against the plain
+                versions on the proof's own inputs, run a piece of
+                2^LAST_PIECE rows or points at a time (the other rung: the
+                last piece of each call), with a row for each class of call
+                at 2^LADDER_HELD; then the 2^LADDER_HELD rung once more with
+                the step log
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -149,7 +159,11 @@ SEED = 20261016
 # (deep_kernels.deep_compose_ops: 2R + 13 multiplies), its bytes are the LDE
 # and the constraint evaluations read once, the output written once and its
 # tables; K8 does one multiply and one add per coefficient and point and
-# reads each coefficient once.
+# reads each coefficient once.  K11's bytes are the three columns read once,
+# the output written and b's and 1/b's power tables, its operations those of
+# the three divisions at their leanest (syndiv_kernels.syn_div_ops); K12's
+# bytes are its rows written and the host's squarings, its multiplies
+# counted from its code (field_kernels.power_series_ops).
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
@@ -157,16 +171,14 @@ MUL_OPS = 64
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# kernels of each path: the proof launches K1-K4 and K7-K10 (K2's sub no
-# more, since K9 folds the FRI layers), the kernel bench K5, K6 and K2's
-# exp_const with K1-K3 (the bench also times K4, on a random domain)
-MAIN_PATH = ("ntt_pass", "field_ew.add", "field_ew.mul", "blake3_rows",
-             "blake3_rows.parents", "air_transition", "deep_compose", "poly_eval", "fri_fold",
-             "boundary_columns")
-# K2's launches in the 2^16 proof may not exceed these: the chains that K9
-# and K10 replaced launched 200 multiplies, 21 adds and 28 subtractions (step
-# 7) and 119 multiplies and 82 adds (step 3) of the 619/147/28 before them
-MAX_MUL, MAX_ADD = 300, 44
+# kernels of each path: the proof launches K1, K3, K4 and K7-K12 (and K2
+# no more, since K11 divides step 4 and K12 builds the power tables), the
+# kernel bench K2, K5, K6 and K12 with K1, K3 (the bench also times K4, on a
+# random domain)
+MAIN_PATH = ("ntt_pass", "blake3_rows", "blake3_rows.parents", "air_transition", "deep_compose",
+             "poly_eval", "fri_fold", "boundary_columns", "syn_div", "power_series")
+# K2's operations: a proof launches none of them
+K2_OPS = ("field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const")
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
@@ -244,8 +256,8 @@ def phase_kernels(ops_rate):
     """Each kernel at the main path's shapes, equal to its plain version.
     K1 and K8 give a row for each of the proof's passes and calls; for the
     other kernels the first check of each entry gives its row of the JSON
-    table, and the others hold the broadcast layouts that the 2^16 proof
-    also launches."""
+    table, and the others hold K2's broadcast layouts (those of the chains
+    that K9-K12 replaced) and edge values."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import blake3_torch as b3
@@ -298,10 +310,10 @@ def phase_kernels(ops_rate):
                 lambda: fk.inv_batch_plain(ragged))
     print(f"kernel inv_batch at {ragged.shape[0]}: equal to plain", flush=True)
 
-    # K2's broadcasts: a constant operand (the power series' doublings on
-    # the main path), and neg (a zero scalar minus a column) and a register
-    # of the LDE's stride-4 slice times its weight (the layouts of step 3's
-    # and step 7's chains before K10 and K9)
+    # K2's broadcasts: a constant operand (the power series' doublings
+    # before K12), and neg (a zero scalar minus a column) and a register of
+    # the LDE's stride-4 slice times its weight (the layouts of step 3's and
+    # step 7's chains before K10 and K9)
     scalar = ft.constant(0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321, "cuda")
     zero = ft.zeros((), "cuda")
     variants = [
@@ -341,6 +353,8 @@ def phase_kernels(ops_rate):
     rows.append(check_deep_compose(gen, ops_rate))
     rows.extend(check_poly_eval(gen, ops_rate, MAIN_LOG2_TRACE))
     rows.extend(check_fri_fold(gen, ops_rate, MAIN_LOG2_TRACE))
+    rows.append(check_syn_div(gen, ops_rate))
+    rows.extend(check_power_series(ops_rate))
     return rows
 
 
@@ -672,8 +686,8 @@ def air_bounds(tables, r, n):
 
     muls, adds, subs = air_kernels.air_ops_per_row(tables.depths())
     table_bytes = sum(t.numel() * t.element_size() for t in (
-        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc))
-    return ((r + tables.xp.shape[0] + 1) * n * 16 + table_bytes,
+        tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc, *tables.x_tables()))
+    return ((r + 1) * n * 16 + table_bytes,
             n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
 
 
@@ -813,11 +827,9 @@ def boundary_bound(regs, n):
 def check_boundary(gen, ops_rate, trace, evaluator):
     """K10 at (20, 2^19), point stride 4: on the 2^16 Fibonacci LDE's slice
     with its evaluator's weights (the row of the JSON table), and on random
-    registers with the same weights.  Then x^b's tables leave the cache, so
-    that phase 4's proof builds them at step 3 as a first proof does."""
+    registers with the same weights."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.ops import boundary_kernels as bk
-    from distaff_torch.ops import tiles
     from distaff_torch.tools.timing import random_elements
 
     lde = trace.lde_dev[:, ::4]
@@ -838,7 +850,6 @@ def check_boundary(gen, ops_rate, trace, evaluator):
                 run(noise, True))
     print(f"kernel boundary_columns at {boundary_key(noise)} random registers: equal to plain",
           flush=True)
-    tiles._TABLES.pop(("factors", str(lde.device), n, root, 1))
     return row
 
 
@@ -921,15 +932,119 @@ def check_poly_eval(gen, ops_rate, log2_trace):
     return rows
 
 
+def syn_div_key(polys3, degree):
+    """A K11 call's shape: the coefficients' points and the degree."""
+    return f"(3, {polys3.shape[1]}) degree {degree}"
+
+
+def syn_div_bound(n, degree):
+    """K11's bound in bytes and operations: the three columns read once,
+    the output written, b's and 1/b's power tables; the divisions'
+    multiplies and adds at their leanest (syndiv_kernels.syn_div_ops)."""
+    from distaff_torch.ops import syndiv_kernels as sk
+
+    muls, adds = sk.syn_div_ops(n, degree)
+    return (4 * n + 2 * power_tables(n)) * 16, muls * MUL_OPS + adds * ADD_OPS
+
+
+def check_syn_div(gen, ops_rate):
+    """K11 at the 2^16 proof's step 4: random (3, 2^19) coefficients,
+    degree 2^16 and the trace's x_last (the row of the JSON table), then
+    with the edge values 0, 1, M - 1 and M - 2 at both ends of each row."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import syndiv_kernels as sk
+    from distaff_torch.tools.timing import random_elements
+
+    degree = 1 << MAIN_LOG2_TRACE
+    n = degree * 8
+    x_last = hostfield.exp(hostfield.get_root_of_unity(degree), degree - 1)
+    polys3 = random_elements(gen, (3, n))
+    row = check_kernel(
+        "syn_div", f"2^{MAIN_LOG2_TRACE} step 4 {syn_div_key(polys3, degree)}",
+        lambda: sk.syn_div(polys3, degree, x_last),
+        lambda: sk.syn_div_plain(polys3, degree, x_last), 20, 1, *syn_div_bound(n, degree),
+        ops_rate, "distaff_torch/csrc/syn_div.cu", "distaff_tpu/stark/prover.py:482")
+    row["key"] = ("syn_div", MAIN_LOG2_TRACE, syn_div_key(polys3, degree))
+    edge = ft.from_ints([0, 1, hostfield.M - 1, hostfield.M - 2], "cuda")
+    polys3[:, :4] = edge
+    polys3[:, -4:] = edge
+    check_equal("syn_div", f"{syn_div_key(polys3, degree)} edge values",
+                lambda: sk.syn_div(polys3, degree, x_last),
+                lambda: sk.syn_div_plain(polys3, degree, x_last))
+    print(f"kernel syn_div at {syn_div_key(polys3, degree)} with edge values at both ends: "
+          f"equal to plain", flush=True)
+    return row
+
+
+def series_key(x, n, c):
+    """A K12 call: its rows, base and constant."""
+    return f"{n} rows of {x:#x}^i times {c:#x}"
+
+
+def series_bound(x, n, c):
+    """K12's bound in bytes and operations: the rows written and the host's
+    factors read; its multiplies from its code (power_series_ops)."""
+    from distaff_torch.ops import field_kernels as fk
+
+    factors = len(fk.power_series_factors(x, n, c))
+    return (n + factors) * 16, fk.power_series_ops(n) * MUL_OPS
+
+
+def table_builds(keys):
+    """K12 launches that building these tiles._TABLES entries took: one for
+    a twiddle table, one or two for a pair of store-factor tables (hi above
+    1024 points)."""
+    return sum(1 if key[0] == "tw" or key[2] <= 1024 else 2 for key in keys)
+
+
+def check_power_series(ops_rate):
+    """K12 at every power table the 2^16 proof builds: the table cache
+    emptied, the proof run once with each K12 call recorded, then each call
+    held against the plain version and timed, a row each; then at one row,
+    at a length that leaves the last block ragged (c != 1) and at the
+    kernel bench's 2^20 rows."""
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.ops import tiles
+
+    tiles._TABLES.clear()
+    program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
+    with ProofCalls() as calls:
+        distaff_torch.execute(program, ProgramInputs.from_public([1, 0]), 1, ProofOptions(),
+                              device="cuda")
+    tiles._TABLES.clear()
+    rows = []
+    for x, n, c in sorted(set((x, n, c) for x, n, _, c in calls.series), key=lambda a: -a[1]):
+        row = check_kernel(
+            "power_series", f"2^{MAIN_LOG2_TRACE} proof table {series_key(x, n, c)}",
+            lambda: fk.power_series(x, n, "cuda", c),
+            lambda: fk.power_series_plain(x, n, "cuda", c), 20, 1, *series_bound(x, n, c),
+            ops_rate, "distaff_torch/csrc/power_series.cu", "distaff_tpu/ops/tiles.py:118")
+        row["key"] = ("power_series", MAIN_LOG2_TRACE, series_key(x, n, c))
+        rows.append(row)
+    root = hostfield.get_root_of_unity(1 << 20)
+    for x, n, c in ((root, 1, 7), (root, 3000, 0x1234_5678_9ABC_DEF0), (root, 1 << 20, 1)):
+        check_equal("power_series", series_key(x, n, c), lambda: fk.power_series(x, n, "cuda", c),
+                    lambda: fk.power_series_plain(x, n, "cuda", c))
+        print(f"kernel power_series at {n} rows (c = {c:#x}): equal to plain", flush=True)
+    print(f"kernel power_series: the 2^{MAIN_LOG2_TRACE} proof's {len(calls.series)} calls, "
+          f"{len(rows)} distinct, equal to plain", flush=True)
+    return rows
+
+
 def phase_golden():
-    """The golden case on cuda: its bytes, verified; K10 launched once at
-    point stride 2 (extension 16) and K9 once a FRI layer (its LDE of 1024
-    points folds one), each call held against its plain version on the
-    proof's own inputs."""
+    """The golden case on cuda: its bytes, verified, no K2 launch; K10 and
+    K11 launched once (K10 at point stride 2, extension 16) and K9 once a
+    FRI layer (its LDE of 1024 points folds one), each call held against
+    its plain version on the proof's own inputs."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.ops import cuda_lib, fri_torch
+    from distaff_torch.ops import syndiv_kernels as sk
     from distaff_torch.stark import fri, serde
 
     program = assembly.compile("begin push.3 push.5 add end")
@@ -950,9 +1065,15 @@ def phase_golden():
     domain = proof.trace_length() * options.extension_factor()
     (lde, i_parts, f_parts, root), = calls.boundaries
     if launches["boundary_columns"] != 1 or lde.stride(1) != 8 or \
-            launches["fri_fold"] != fold_layers(domain):
+            launches["fri_fold"] != fold_layers(domain) or launches["syn_div"] != 1 or \
+            any(launches[k] for k in K2_OPS):
         raise AssertionError(f"golden: K10 launched {launches['boundary_columns']} times at "
-                             f"{boundary_key(lde)}, K9 {launches['fri_fold']} times")
+                             f"{boundary_key(lde)}, K9 {launches['fri_fold']} times, K11 "
+                             f"{launches['syn_div']}, K2 {[launches[k] for k in K2_OPS]}")
+    (polys3, degree, x_last), = calls.syn_divs
+    check_equal("syn_div", f"golden {syn_div_key(polys3, degree)}",
+                lambda: sk.syn_div(polys3, degree, x_last),
+                lambda: sk.syn_div_plain(polys3, degree, x_last))
     check_equal("boundary_columns", f"golden {boundary_key(lde)}",
                 lambda: bk.boundary_columns(lde, i_parts, f_parts, root),
                 lambda: bk.boundary_columns_plain(lde, i_parts, f_parts, root))
@@ -960,10 +1081,11 @@ def phase_golden():
         check_equal("fri_fold", f"golden layer {fold_key(column, stride)}",
                     lambda: fri_torch.fri_fold(column, special_x, root, stride),
                     lambda: fri_torch.fri_fold_plain(column, special_x, root, stride))
-    print(f"golden: K10 once at {boundary_key(lde)}; the LDE of {domain} points folds "
+    print(f"golden: K10 once at {boundary_key(lde)}; K11 once at "
+          f"{syn_div_key(polys3, degree)}; the LDE of {domain} points folds "
           f"{launches['fri_fold']} FRI layer(s) ({', '.join(calls.keys['fri_fold'])}) down to at "
-          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each; each call equal to plain",
-          flush=True)
+          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each; each call equal to plain; K2 "
+          f"never", flush=True)
 
 
 class _StepLog(logging.Handler):
@@ -1011,10 +1133,11 @@ def step_times(sizes, runs=2):
     """For each 2^k of `sizes`, the bench's Fibonacci proof on cuda once to
     warm up, `runs` times with the step log (a synchronize at each step's
     and part's end) and once without; prints each stepped run's step and
-    part lines, each run's wall time and K2's launches by operation, each
-    line tagged with the directory of the checkout whose package ran.  It
-    uses only what every version of the port has (execute, the step log,
-    cuda_lib's launch counts)."""
+    part lines and each run's wall time with the launches of every kernel
+    that launched (K2 by operation), each line tagged with the directory of
+    the checkout whose package ran.  It uses only what every
+    version of the port has (execute, the step log, cuda_lib's launch
+    counts)."""
     import os
 
     import distaff_torch
@@ -1029,9 +1152,7 @@ def step_times(sizes, runs=2):
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
         _, _, seconds, lines = timed_execute(program, inputs, options, stepped)
-        k2 = {k.split(".")[1]: v for k, v in cuda_lib.LAUNCHES.items()
-              if k.startswith("field_ew.")}
-        return seconds, lines, json.dumps(k2)
+        return seconds, lines, json.dumps({k: v for k, v in cuda_lib.LAUNCHES.items() if v})
 
     for log2_n in sizes:
         program = fibonacci_program(assembly, log2_n)
@@ -1040,11 +1161,19 @@ def step_times(sizes, runs=2):
             seconds, lines, k2 = prove(program, True)
             for line in lines:
                 print(f"[{tag}] 2^{log2_n} run {run}: {line}", flush=True)
-            print(f"[{tag}] 2^{log2_n} run {run}: execute, stepped {seconds:.3f} s; field_ew "
+            print(f"[{tag}] 2^{log2_n} run {run}: execute, stepped {seconds:.3f} s; launches "
                   f"{k2}", flush=True)
         seconds, _, k2 = prove(program, False)
-        print(f"[{tag}] 2^{log2_n}: execute, unstepped {seconds:.3f} s; field_ew {k2}",
+        print(f"[{tag}] 2^{log2_n}: execute, unstepped {seconds:.3f} s; launches {k2}",
               flush=True)
+
+
+def print_step4(log2_trace, lines):
+    """Step 4 (the iNTT and K11) and step 3's K4 part from a stepped
+    proof's log lines."""
+    print(f"2^{log2_trace} step 4 (iNTT, K11): {step_ms(lines, 'step 4 constraint polynomial')}"
+          f" ms; step 3's K4 part (tables and launch): "
+          f"{step_ms(lines, 'step 3 part transition (K4 tables and launch)')} ms", flush=True)
 
 
 def step_ms(lines, name):
@@ -1089,16 +1218,19 @@ def phase_main(checked_keys):
     passes must be exactly the ("ntt_pass", rung, key)s of `checked_keys`,
     those phase 2 held and timed, and none a two-point transform; K8's calls
     exactly its ("poly_eval", rung, key)s, each launching its number of
-    passes; K9's and K10's calls exactly their ("fri_fold", ...) and
-    ("boundary_columns", ...) keys, each one launch.  Returns the launches
-    and a Counter of launches by (kernel, rung, key)."""
+    passes; K9's, K10's and K11's calls exactly their ("fri_fold", ...),
+    ("boundary_columns", ...) and ("syn_div", ...) keys, each one launch;
+    with the table cache emptied first, K12 once for each table the proof
+    builds, at the calls phase 2 held; K2 never.  Returns the launches and
+    a Counter of launches by (kernel, rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
-    from distaff_torch.ops import cuda_lib
+    from distaff_torch.ops import cuda_lib, tiles
 
     program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
     inputs = ProgramInputs.from_public([1, 0])
     options = ProofOptions()
+    tiles._TABLES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -1107,6 +1239,7 @@ def phase_main(checked_keys):
     launches = dict(cuda_lib.LAUNCHES)
     proof_keys = rec.keys()
     peak = torch.cuda.max_memory_allocated()
+    tables = table_builds(tiles._TABLES)
 
     if proof.trace_length() != 1 << MAIN_LOG2_TRACE:
         raise AssertionError(f"trace length {proof.trace_length()}")
@@ -1125,19 +1258,19 @@ def phase_main(checked_keys):
     held = {name: [key for kernel, _, key in checked_keys if kernel == name]
             for name in ProofCalls.KEYED}
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
-                       ("field_ew.exp_const", 0), ("field_ew.sub", 0), ("boundary_columns", 1),
+                       ("boundary_columns", 1), ("syn_div", 1), ("power_series", tables),
                        ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
-                       ("poly_eval", sum(passes for _, passes in evals.calls))):
+                       ("poly_eval", sum(passes for _, passes in evals.calls)),
+                       *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
     for name in ProofCalls.KEYED:
         for key in calls.keys[name]:
             print(f"2^{MAIN_LOG2_TRACE} {name} call {key}", flush=True)
-        if Counter(calls.keys[name]) != Counter(held[name]):
+        # each table is built once a proof, so K12's calls compare as a set
+        same = (set if name == "power_series" else Counter)
+        if same(calls.keys[name]) != same(held[name]):
             raise AssertionError(f"the proof's {name} calls are not those phase 2 checked")
-    if launches["field_ew.mul"] > MAX_MUL or launches["field_ew.add"] > MAX_ADD:
-        raise AssertionError(f"field_ew launched mul {launches['field_ew.mul']} and add "
-                             f"{launches['field_ew.add']} times, over {MAX_MUL} and {MAX_ADD}")
     for key in proof_keys:
         print(f"2^{MAIN_LOG2_TRACE} K1 pass {key}", flush=True)
     if Counter(proof_keys) != Counter(pass_keys):
@@ -1152,8 +1285,10 @@ def phase_main(checked_keys):
     field_ew = {k.split(".")[1]: v for k, v in launches.items() if k.startswith("field_ew.")}
     print(f"2^{MAIN_LOG2_TRACE} K1 launched {launches['ntt_pass']} times, no two-point "
           f"transform; K7 {launches['deep_compose']}, K8 {launches['poly_eval']}, K9 "
-          f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K6 "
-          f"{launches['inv_batch']}; field_ew by operation {json.dumps(field_ew)}", flush=True)
+          f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K11 "
+          f"{launches['syn_div']}, K12 {launches['power_series']} (the {len(tiles._TABLES)} "
+          f"tables the proof built), K6 {launches['inv_batch']}; field_ew by operation "
+          f"{json.dumps(field_ew)}", flush=True)
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -1161,6 +1296,7 @@ def phase_main(checked_keys):
         raise AssertionError("a repeated 2^16 proof's outputs differ")
     for line in lines:
         print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
+    print_step4(MAIN_LOG2_TRACE, lines)
     print(f"2^{MAIN_LOG2_TRACE} execute: stepped (synchronized at each step's end) "
           f"{stepped_s:.3f} s, then unstepped again {again_s:.3f} s", flush=True)
     keyed = Counter(("ntt_pass", MAIN_LOG2_TRACE, key) for key in proof_keys)
@@ -1173,16 +1309,18 @@ def phase_main(checked_keys):
 def phase_examples(ops_rate):
     """K4 at each example's geometry held against its plain version (a
     row each); then each example at its CLI defaults proved on cuda with
-    the default ProofOptions, its outputs checked against the example's,
-    verified, and a tampered output rejected; every kernel of the path
-    must launch, K4 once.  Then the CLI once on the card, and the golden
-    case with sha3, whose bytes must be the JAX package's.  Returns the
-    rows and a Counter of K4's launches by ("air_transition", "example",
-    name)."""
+    the default ProofOptions and the table cache emptied, its outputs
+    checked against the example's, verified, and a tampered output
+    rejected; every kernel of the path must launch, K4, K10 and K11 once,
+    K12 once a table built, K2 never, and the K11 call is held against its
+    plain version.  Then the CLI once on the card, and the golden case with
+    sha3, whose bytes must be the JAX package's.  Returns the rows and a
+    Counter of K4's and K10's launches by (kernel, "example", name)."""
     import distaff_torch
     from distaff_torch import assembly, examples, ProgramInputs, ProofOptions
     from distaff_torch.math import field as hostfield
-    from distaff_torch.ops import cuda_lib
+    from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.ops import syndiv_kernels as sk
     from distaff_torch.stark import serde
 
     gen = torch.Generator(device="cuda")
@@ -1191,10 +1329,12 @@ def phase_examples(ops_rate):
     keyed = Counter()
     for name, example in examples.EXAMPLES.items():
         program, inputs, num_outputs, expected = example()
+        tiles._TABLES.clear()
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
-        outputs, proof, prove_s, _ = timed_execute(program, inputs, ProofOptions(),
-                                                   stepped=False, num_outputs=num_outputs)
+        with ProofCalls() as calls:
+            outputs, proof, prove_s, _ = timed_execute(program, inputs, ProofOptions(),
+                                                       stepped=False, num_outputs=num_outputs)
         launches = dict(cuda_lib.LAUNCHES)
         public = inputs.get_public_inputs()
         if outputs != expected:
@@ -1209,17 +1349,24 @@ def phase_examples(ops_rate):
         else:
             raise AssertionError(f"example {name}: a tampered output verifies")
         idle = [k for k in MAIN_PATH if launches[k] == 0]
-        if idle or launches["air_transition"] != 1 or launches["boundary_columns"] != 1:
-            raise AssertionError(f"example {name}: kernels not launched {idle}, K4 launched "
-                                 f"{launches['air_transition']} times, K10 "
-                                 f"{launches['boundary_columns']}")
+        if idle or launches["air_transition"] != 1 or launches["boundary_columns"] != 1 or \
+                launches["syn_div"] != 1 or launches["power_series"] != table_builds(
+                    tiles._TABLES) or any(launches[k] for k in K2_OPS):
+            raise AssertionError(f"example {name}: kernels not launched {idle}, launches "
+                                 f"{json.dumps(launches)}, {len(tiles._TABLES)} tables built")
+        (polys3, degree, x_last), = calls.syn_divs
+        check_equal("syn_div", f"example {name} {syn_div_key(polys3, degree)}",
+                    lambda: sk.syn_div(polys3, degree, x_last),
+                    lambda: sk.syn_div_plain(polys3, degree, x_last))
+        del calls, polys3
         info = proof.trace_info
         keyed[("air_transition", "example", name)] += launches["air_transition"]
         keyed[("boundary_columns", "example", name)] += launches["boundary_columns"]
         print(f"example {name}: trace length {proof.trace_length()}, depths "
               f"({info.ctx_depth}, {info.loop_depth}, {info.stack_depth}), execute "
               f"{prove_s:.3f} s, K4 launches {launches['air_transition']}, K9 "
-              f"{launches['fri_fold']}, K10 {launches['boundary_columns']}, outputs {outputs} "
+              f"{launches['fri_fold']}, K10 {launches['boundary_columns']}, K11 "
+              f"{launches['syn_div']} (held), K12 {launches['power_series']}, outputs {outputs} "
               f"as expected, verified, a tampered output rejected", flush=True)
 
     cli = subprocess.run([sys.executable, "-m", "distaff_torch", "fibonacci"],
@@ -1247,32 +1394,33 @@ def phase_examples(ops_rate):
 
 
 class ProofCalls:
-    """Within its `with`, records the calls that the prover makes of K2
-    (each binary operation's layout as K2 indexes it: the operation, the
-    sizes and the operands' element strides), K3 (the rows it hashes and
-    the launch's counter), K4, K7, K9 and K10 (their arguments), and lets
-    each launch; K9's and K10's keys (fold_key, boundary_key) by name.
-    Without `keep`, it records the layouts and the keys alone and keeps no
-    tensor alive."""
+    """Within its `with`, records the calls that the prover makes of K3 (the
+    rows it hashes and the launch's counter), K4, K7, K9, K10, K11 and K12
+    (their arguments), and lets each launch; the keys of K9, K10, K11 and
+    K12 (fold_key, boundary_key, syn_div_key, series_key) by name.  Without
+    `keep`, it records the keys alone and keeps no tensor alive."""
 
-    KEYED = ("fri_fold", "boundary_columns")
+    KEYED = ("fri_fold", "boundary_columns", "syn_div", "power_series")
 
     def __init__(self, keep=True):
         self.keep = keep
-        self.layouts, self.keys = Counter(), {name: [] for name in self.KEYED}
+        self.keys = {name: [] for name in self.KEYED}
         self.hashes, self.airs, self.composes, self.folds, self.boundaries = [], [], [], [], []
+        self.syn_divs, self.series = [], []
 
     def __enter__(self):
         from distaff_torch.ops import air_kernels, blake3_torch, boundary_kernels, deep_kernels
         from distaff_torch.ops import field_kernels as fk
         from distaff_torch.ops import fri_torch
+        from distaff_torch.ops import syndiv_kernels
 
-        self.fk = fk
-        self.patches = [(fk, "_binary", self.binary), (blake3_torch, "_launch", self.hash),
+        self.patches = [(blake3_torch, "_launch", self.hash),
                         (air_kernels, "air_transition", self.air),
                         (deep_kernels, "deep_compose", self.compose),
                         (fri_torch, "fri_fold", self.fold),
-                        (boundary_kernels, "boundary_columns", self.boundary)]
+                        (boundary_kernels, "boundary_columns", self.boundary),
+                        (syndiv_kernels, "syn_div", self.syn_div),
+                        (fk, "power_series", self.power_series)]
         self.real = {}
         for module, name, fn in self.patches:
             self.real[name] = getattr(module, name)
@@ -1283,13 +1431,6 @@ class ProofCalls:
         if self.keep:
             calls.append(args)
         return self.real[name](*args)
-
-    def binary(self, name, a, b):
-        shape = torch.broadcast_shapes(a.shape, b.shape)
-        if shape.numel():
-            sizes, (sa, sb) = self.fk.collapse_dims(shape, a, b)
-            self.layouts[(name, tuple(sizes), tuple(sa), tuple(sb))] += 1
-        return self.real["_binary"](name, a, b)
 
     def hash(self, rows, out, counter):
         if self.keep:
@@ -1309,6 +1450,15 @@ class ProofCalls:
     def boundary(self, lde, i_parts, f_parts, xb_root):
         self.keys["boundary_columns"].append(boundary_key(lde))
         return self.record(self.boundaries, "boundary_columns", (lde, i_parts, f_parts, xb_root))
+
+    def syn_div(self, polys3, degree, x_last):
+        self.keys["syn_div"].append(syn_div_key(polys3, degree))
+        return self.record(self.syn_divs, "syn_div", (polys3, degree, x_last))
+
+    def power_series(self, x, n, device, c=1):
+        self.keys["power_series"].append(series_key(x, n, c))
+        self.series.append((x, n, device, c))             # host ints: nothing kept alive
+        return self.real["power_series"](x, n, device, c)
 
     def __exit__(self, *exc):
         for module, name, _ in self.patches:
@@ -1363,28 +1513,6 @@ def piece_row(name, shape, kernel, parts, last, bound_bytes, bound_ops, ops_rate
             "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by, "library_ms": None}
 
 
-def operand_kind(sizes, strides):
-    """How a K2 operand is laid out: one element broadcast ("scalar"),
-    dense ("contiguous") or otherwise ("strided")."""
-    if not any(strides):
-        return "scalar"
-    dense, step = [], 1
-    for size in reversed(sizes):
-        dense.insert(0, step)
-        step *= size
-    return "contiguous" if list(strides) == dense else "strided"
-
-
-def strided_operand(gen, sizes, strides):
-    """Random elements viewed through K2's sizes and element strides (a
-    span of at least four starts with 0, 1, M - 2 and M - 1)."""
-    from distaff_torch.tools.timing import random_elements
-
-    span = 1 + sum((n - 1) * st for n, st in zip(sizes, strides))
-    base = random_elements(gen, (span + 4,))[4 if span < 4 else 0:]
-    return base.as_strided(tuple(sizes) + (4,), tuple(4 * st for st in strides) + (1,))
-
-
 def fold_layers(domain):
     """The FRI layers a proof over an LDE of `domain` points folds
     (stark/fri.reduce: down to at most MAX_REMAINDER_LENGTH points)."""
@@ -1397,22 +1525,19 @@ def fold_layers(domain):
 
 
 def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
-    """Every call of K2, K3, K4, K7, K9 and K10 that a proof made (a
-    ProofCalls), held against the plain versions: K2 at each layout on
-    random operands laid out so, K3, K4, K7, K9 and K10 on the proof's own
-    inputs, a piece of 2^LAST_PIECE rows or points at a time (with `last`,
-    the last piece of each call alone).  Without `last` a row for each
-    class of call (K2: its operation and its operands' kinds,
-    operand_kind, timed at the class's largest layout; K3: the trace rows,
-    the FRI layer rows, the Merkle levels; K4; K7; K9 timed at its largest
-    layer; K10), keyed by (kernel, rung, class), and a Counter of the
-    proof's launches by those keys."""
+    """Every call of K3, K4, K7, K9, K10 and K11 that a proof made (a
+    ProofCalls), held against the plain versions on the proof's own inputs,
+    a piece of 2^LAST_PIECE rows or points at a time (with `last`, the last
+    piece of each call alone).  Without `last` a row for each class of call
+    (K3: the trace rows, the FRI layer rows, the Merkle levels; K4; K7; K9
+    timed at its largest layer; K10; K11), keyed by (kernel, rung, class),
+    and a Counter of the proof's launches by those keys."""
     from distaff_torch.ops import air_kernels
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.ops import deep_kernels as dk
-    from distaff_torch.ops import field_kernels as fk
     from distaff_torch.ops import fri_torch
+    from distaff_torch.ops import syndiv_kernels as sk
     from distaff_torch.stark.constraints.device_eval import transition_plain_rows
 
     tag = f"2^{log2_trace} proof"
@@ -1423,44 +1548,6 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             row["key"] = (kernel, log2_trace, cls)
             rows.append(row)
             keyed[row["key"]] += launches
-
-    # K2: every layout held; per class (operation and strides) the largest timed
-    classes = {}
-    for (op, sizes, sa, sb), count in calls.layouts.items():
-        a, b = strided_operand(gen, sizes, sa), strided_operand(gen, sizes, sb)
-        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
-        check_equal(f"field_ew.{op}", f"{tag} layout {sizes} strides {sa} x {sb}",
-                    lambda: kern(a, b), lambda: plain(a, b))
-        n = 1
-        for size in sizes:
-            n *= size
-        cls = (op, f"{operand_kind(sizes, sa)} x {operand_kind(sizes, sb)}")
-        best = classes.get(cls)
-        classes[cls] = (max(best[0], (n, sizes, sa, sb)) if best else (n, sizes, sa, sb),
-                        (best[1] if best else 0) + count)
-        del a, b
-    print(f"kernel field_ew: {tag}'s {len(calls.layouts)} layouts "
-          f"({sum(calls.layouts.values())} launches) equal to plain on random operands",
-          flush=True)
-    lines = {"mul": 248, "add": 123, "sub": 137}
-    for (op, kinds), ((n, sizes, sa, sb), count) in sorted(classes.items()):
-        if last:
-            break
-        a, b = strided_operand(gen, sizes, sa), strided_operand(gen, sizes, sb)
-        kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
-        reads = 0                       # the distinct elements of each operand
-        for strides in (sa, sb):
-            distinct = 1
-            for size, st in zip(sizes, strides):
-                distinct *= size if st else 1
-            reads += distinct
-        row = check_kernel(
-            f"field_ew.{op}", f"{tag} {kinds}, {count} launches, the largest {sizes} strides "
-            f"{sa} x {sb}", lambda: kern(a, b), lambda: plain(a, b),
-            50, 1, (reads + n) * 16, n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate,
-            "distaff_torch/csrc/field_ew.cu", f"distaff_tpu/math/field_jax.py:{lines[op]}")
-        add(row, f"field_ew.{op}", kinds, count)
-        del a, b
 
     # K3: each call on the proof's rows
     k3 = "distaff_torch/csrc/blake3_rows.cu"
@@ -1541,6 +1628,19 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             last, *boundary_bound(regs, n), ops_rate, "distaff_torch/csrc/boundary_columns.cu",
             "distaff_tpu/stark/prover.py:385")
         add(row, "boundary_columns", "LDE slice", 1)
+
+    # K11 on the proof's iNTT output: rows [a, b) of the plain version read
+    # the coefficients from a on
+    for polys3, degree, x_last in calls.syn_divs:
+        n = polys3.shape[1]
+        parts = pieces(n, lambda a, b: lambda: sk.syn_div_plain(
+            polys3, degree, x_last, start=a)[:b - a])
+        row = piece_row(
+            "syn_div", f"{tag} step 4 {syn_div_key(polys3, degree)}",
+            lambda: sk.syn_div(polys3, degree, x_last), parts, last,
+            *syn_div_bound(n, degree), ops_rate, "distaff_torch/csrc/syn_div.cu",
+            "distaff_tpu/stark/prover.py:482")
+        add(row, "syn_div", "constraint polynomial", 1)
     return rows, keyed
 
 
@@ -1552,8 +1652,9 @@ def phase_ladder(ops_rate):
     piece of each pass), the proof made on cuda unstepped and verified,
     with its wall time, step 0, peak device memory, LDE size and K1
     passes (the LDE must take K1's recursion, the passes and K8 calls must
-    be exactly those held), and every call it made of K2, K3, K4, K7, K9
-    and K10 held against the plain versions (check_proof_calls).  Then the
+    be exactly those held; the table cache emptied first, K12 once a table
+    built; K2 never), and every call it made of K3, K4, K7, K9, K10 and K11
+    held against the plain versions (check_proof_calls).  Then the
     LADDER_HELD rung once more with the step log.  Returns the rows and a
     Counter of launches by (kernel, rung, key)."""
     import distaff_torch
@@ -1571,6 +1672,7 @@ def phase_ladder(ops_rate):
         eval_rows = check_poly_eval(gen, ops_rate, log2_trace)
         rows += pass_rows + eval_rows
         program = fibonacci_program(assembly, log2_trace)
+        tiles._TABLES.clear()
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1601,14 +1703,13 @@ def phase_ladder(ops_rate):
         if idle:
             raise AssertionError(f"kernels not launched at 2^{log2_trace}: {idle}")
         for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
-                           ("field_ew.exp_const", 0), ("field_ew.sub", 0),
-                           ("boundary_columns", 1), ("fri_fold", fold_layers(domain))):
+                           ("boundary_columns", 1), ("fri_fold", fold_layers(domain)),
+                           ("syn_div", 1), ("power_series", table_builds(tiles._TABLES)),
+                           *((k, 0) for k in K2_OPS)):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
-        recorded = Counter(f"field_ew.{op}" for op, _, _, _ in calls.layouts.elements())
-        recorded.update(counter for _, counter in calls.hashes)
-        for name in ("field_ew.add", "field_ew.sub", "field_ew.mul", "blake3_rows",
-                     "blake3_rows.parents"):
+        recorded = Counter(counter for _, counter in calls.hashes)
+        for name in ("blake3_rows", "blake3_rows.parents"):
             if recorded[name] != launches[name]:
                 raise AssertionError(f"2^{log2_trace}: {recorded[name]} calls of {name} "
                                      f"recorded, {launches[name]} launched")
@@ -1627,8 +1728,9 @@ def phase_ladder(ops_rate):
         print(f"2^{log2_trace} K1: {launches['ntt_pass']} passes of kinds "
               f"{sorted(rec.kinds())}, the LDE through {tiles.ntt_buffers(domain) - 2} level(s) "
               f"of recursion, each held; K8 {launches['poly_eval']} launches, each held; K9 "
-              f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}",
-              flush=True)
+              f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K11 "
+              f"{launches['syn_div']}, K12 {launches['power_series']} ({len(tiles._TABLES)} "
+              f"tables built), K2 0", flush=True)
         del outputs, proof
         call_rows, call_keyed = check_proof_calls(gen, ops_rate, log2_trace, calls, last)
         rows += call_rows
@@ -1640,6 +1742,7 @@ def phase_ladder(ops_rate):
     _, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     for line in lines:
         print(f"2^{LADDER_HELD} {line}", flush=True)
+    print_step4(LADDER_HELD, lines)
     print(f"2^{LADDER_HELD} execute, stepped: {stepped_s:.3f} s", flush=True)
     return rows, keyed
 
@@ -1690,7 +1793,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5-K10": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K12": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -1703,7 +1806,8 @@ def main():
         for line in air_kernels.ptxas_report(d):
             print(f"K4 {d} {line.strip()}", flush=True)
     for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval"),
-                       ("K9", "fri_fold"), ("K10", "boundary_columns")):
+                       ("K9", "fri_fold"), ("K10", "boundary_columns"), ("K11", "syn_div"),
+                       ("K12", "power_series")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "

@@ -133,9 +133,15 @@ struct Layout {
     }
 };
 
+constexpr int kMaxGroups = 8;                // degree groups (the degrees are 2-4 and 6-8)
+
 // Everything a row reads besides the depths.  Element pointers are 16-byte
 // limbs; strides are in elements.  Periodic tables are (k, cycle)
-// row-major, xp is (groups, n) row-major.
+// row-major.  Group g's degree adjustment at row j is x^incr[g] with x =
+// r^j, r the root of the n-point domain (n a power of two): r^e with e =
+// incr[g] j mod n, read from r's two power tables as x_lo[e mod 2^log_lo]
+// x_hi[e >> log_lo] (ops/tiles._store_factors; x_hi null up to 2^log_lo
+// points).
 struct Inputs {
     const uint4* trace;
     long long n, reg_stride, row_stride;
@@ -145,7 +151,10 @@ struct Inputs {
     int cycle;
     const uint4* mds;          // sponge, sponge inverse (4x4), hasher, hasher inverse (6x6)
     const uint4* cc;           // coefficient pairs in consumption order
-    const uint4* xp;
+    long long incr[kMaxGroups];
+    const uint4* x_lo;
+    const uint4* x_hi;
+    int log_lo;
 };
 
 F128_FN u128 load(const uint4* p, long long i) { return f128::from_limbs(p[i]); }
@@ -204,10 +213,17 @@ struct Combination {
         result = fadd(result, fmul(e, load(cc, 2 * pos)));
         adj[g] = fadd(adj[g], fmul(e, load(cc, 2 * pos + 1)));
     }
-    // each group's adjusted sum times its degree-adjustment series at row j
-    F128_FN u128 finish(const uint4* xp, long long n, long long j) {
+    // each group's adjusted sum times its degree adjustment x^incr at row j,
+    // from the power tables: one multiply a group where there is x_hi
+    F128_FN u128 finish(const Inputs& in, long long j) {
+        static_assert(L::kGroups <= kMaxGroups, "too many degree groups");
 #pragma unroll
-        for (int g = 0; g < L::kGroups; g++) result = agg(result, adj[g], load(xp, g * n + j));
+        for (int g = 0; g < L::kGroups; g++) {
+            const long long e = (in.incr[g] * j) & (in.n - 1);
+            u128 x = load(in.x_lo, e & ((1LL << in.log_lo) - 1));
+            if (in.x_hi) x = fmul(x, load(in.x_hi, e >> in.log_lo));
+            result = agg(result, adj[g], x);
+        }
         return result;
     }
 };
@@ -630,7 +646,7 @@ F128_FN u128 eval_row(const Inputs& in, const uint4* cur_row, const uint4* nxt_r
     fold_flow_stacks(acc, cur, d, nxt);
     const StackFlags f = stack_flags(cur, d);
     fold_stack(acc, in, cur, d, f, nxt, stk_ark);
-    return acc.finish(in.xp, in.n, j);
+    return acc.finish(in, j);
 }
 
 }  // namespace air

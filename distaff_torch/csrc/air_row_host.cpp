@@ -29,7 +29,8 @@ namespace {
 air::Inputs make_inputs(const void* trace, long long n, long long reg_stride,
                         long long row_stride, const void* dec_ark, const void* masks,
                         const void* stk_ark, int cycle, const void* mds, const void* cc,
-                        const void* xp) {
+                        const long long* incr, int groups, const void* x_lo, const void* x_hi,
+                        int log_lo) {
     air::Inputs in;
     in.trace = (const uint4*)trace;
     in.n = n;
@@ -41,7 +42,10 @@ air::Inputs make_inputs(const void* trace, long long n, long long reg_stride,
     in.cycle = cycle;
     in.mds = (const uint4*)mds;
     in.cc = (const uint4*)cc;
-    in.xp = (const uint4*)xp;
+    for (int g = 0; g < air::kMaxGroups; g++) in.incr[g] = g < groups ? incr[g] : 0;
+    in.x_lo = (const uint4*)x_lo;
+    in.x_hi = (const uint4*)x_hi;
+    in.log_lo = log_lo;
     return in;
 }
 
@@ -60,20 +64,23 @@ void rows(const air::Inputs& in, uint4* out) {
 }
 
 // field multiplies, adds and subtractions of one row: the count depends on
-// the depths only, so one row of zeros gives it
+// the depths only, so one row of zeros gives it, counted with an x_hi table
+// (each group's x^incr one multiply), as over a domain of more than 2^log_lo
+// points
 template <int CTX, int LOOP, int STACK>
 void ops(long long* counts) {
     using L = air::Layout<CTX, LOOP, STACK>;
     const int regs = 15 + CTX + LOOP + STACK;
-    std::vector<uint4> trace(regs * air::kStepRows), tables(8 + 3 + 12 + 104);
-    std::vector<uint4> cc(2 * L::kCount), xp(L::kGroups * air::kStepRows);
+    std::vector<uint4> trace(regs * air::kStepRows), tables(8 + 3 + 12 + 104 + 2);
+    std::vector<uint4> cc(2 * L::kCount);
+    std::vector<long long> incr(L::kGroups, 1);
     std::memset(trace.data(), 0, trace.size() * sizeof(uint4));
     std::memset(tables.data(), 0, tables.size() * sizeof(uint4));
     std::memset(cc.data(), 0, cc.size() * sizeof(uint4));
-    std::memset(xp.data(), 0, xp.size() * sizeof(uint4));
     const air::Inputs in = make_inputs(trace.data(), air::kStepRows, air::kStepRows, 1,
                                        tables.data(), tables.data() + 8, tables.data() + 11, 1,
-                                       tables.data() + 23, cc.data(), xp.data());
+                                       tables.data() + 23, cc.data(), incr.data(), L::kGroups,
+                                       tables.data() + 127, tables.data() + 128, 0);
     air::op_counts[0] = air::op_counts[1] = air::op_counts[2] = 0;
     row<CTX, LOOP, STACK>(in, 0);
     for (int k = 0; k < 3; k++) counts[k] = air::op_counts[k];
@@ -107,9 +114,10 @@ int distaff_air_host_triples(int* triples) {
 int distaff_air_rows_host(int ctx, int loop, int stack, const void* trace, long long n,
                           long long reg_stride, long long row_stride, const void* dec_ark,
                           const void* masks, const void* stk_ark, int cycle, const void* mds,
-                          const void* cc, const void* xp, void* out) {
+                          const void* cc, const long long* incr, int groups, const void* x_lo,
+                          const void* x_hi, int log_lo, void* out) {
     const air::Inputs in = make_inputs(trace, n, reg_stride, row_stride, dec_ark, masks, stk_ark,
-                                       cycle, mds, cc, xp);
+                                       cycle, mds, cc, incr, groups, x_lo, x_hi, log_lo);
 #define AIR_ROWS(c, l, s) \
     if (is(ctx, loop, stack, c, l, s)) return rows<c, l, s>(in, (uint4*)out), 0;
     AIR_TRIPLES(AIR_ROWS)

@@ -8,13 +8,15 @@
 // it reads rows j and (j + 8) mod n of the stride-(ext/8) LDE slice (staged
 // in shared memory from the slice's strides), evaluates the decoder and
 // stack constraints, folds them with the transcript's coefficient pairs and
-// the degree-adjustment series, and writes one element.  The trace-step rows
+// each degree group's adjustment x^incr (a lookup in the domain root's two
+// small power tables, one multiply: no series of n values a group), and
+// writes one element.  The trace-step rows
 // (j % 8 == 0) other than the last step's, whose wrap-around transition is
 // legitimately nonzero, add one to `bad` where the result is nonzero.
 //
 // Bound on this card: operations.  A row does a few hundred 128-bit field
 // multiplies (air_kernels.air_ops_per_row counts them from this code)
-// against 16 bytes per register and per degree group read and 16 written.
+// against 16 bytes per register read and 16 written.
 // With 255 registers a thread, an SM holds 8 warps, too few to hide the
 // latency of the multiplies' dependent chains, so the design keeps what a
 // row holds at once small: the library is built for one geometry, the
@@ -26,8 +28,9 @@
 // constraint is folded into the combination as it is produced, with its
 // coefficient position and degree group fixed at compile time; and the
 // multiplies are field128.cuh's PTX carry chain.
-// Transcript-dependent inputs (coefficients, series) and the periodic
-// ARK/mask tables arrive as device tensors with each launch.
+// Transcript-dependent inputs (coefficients) and the periodic ARK/mask
+// tables arrive as device tensors with each launch, the groups' exponents
+// as kernel arguments.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -92,13 +95,17 @@ extern "C" int distaff_air_layout(int* depths, int* degrees) {
 }
 
 // trace: the (R, n) slice, element strides reg_stride and row_stride; the
-// tables as described in air_row.cuh::Inputs, xp with one row per degree
-// group; out: (n, 4) limbs; bad: one int32 counter, added to.
+// tables as described in air_row.cuh::Inputs, incr with one exponent per
+// degree group (groups of them, < n, n a power of two), x_hi may be null;
+// out: (n, 4) limbs; bad: one int32 counter, added to.
 extern "C" int distaff_air_transition(
     const void* trace, long long n, long long reg_stride, long long row_stride,
     const void* dec_ark, const void* masks, const void* stk_ark, int cycle, const void* mds,
-    const void* cc, const void* xp, void* out, void* bad, void* stream) {
-    if (n < air::kStepRows || cycle < 1) return (int)cudaErrorInvalidValue;
+    const void* cc, const long long* incr, int groups, const void* x_lo, const void* x_hi,
+    int log_lo, void* out, void* bad, void* stream) {
+    if (n < air::kStepRows || (n & (n - 1)) || cycle < 1 || groups != Geometry::kGroups ||
+        log_lo < 0 || log_lo > 30)
+        return (int)cudaErrorInvalidValue;
     air::Inputs in;
     in.trace = (const uint4*)trace;
     in.n = n;
@@ -110,7 +117,10 @@ extern "C" int distaff_air_transition(
     in.cycle = cycle;
     in.mds = (const uint4*)mds;
     in.cc = (const uint4*)cc;
-    in.xp = (const uint4*)xp;
+    for (int g = 0; g < air::kMaxGroups; g++) in.incr[g] = g < groups ? incr[g] : 0;
+    in.x_lo = (const uint4*)x_lo;
+    in.x_hi = (const uint4*)x_hi;
+    in.log_lo = log_lo;
     if (kStagedBytes > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             air_transition_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStagedBytes);

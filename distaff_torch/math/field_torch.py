@@ -5,9 +5,9 @@ is four little-endian uint32 limbs in the trailing axis of a
 ``torch.uint32`` tensor of shape ``(..., 4)``, the layout of the JAX
 arrays.  The elementwise arithmetic is kernel K2 (ops/field_kernels.py):
 on the card every add, sub, mul and exp_const is one launch, on the CPU
-it is the kernel's plain version; the batch inverse is kernel K6.  Scans
-and reductions here are log-depth sequences of those launches plus
-PyTorch data movement.
+it is the kernel's plain version; the batch inverse is kernel K6 and the
+power series kernel K12.  Scans and reductions here are log-depth
+sequences of K2 launches plus PyTorch data movement.
 
 Every function returns canonical values (< M), bit-identical to
 field_jax on the same inputs.
@@ -98,24 +98,8 @@ def sum_reduce(a, axis=0):
     return x[0]
 
 
-def power_series(x, n, device, c=1):
-    """[c x^0 .. c x^(n-1)] as an (n, 4) tensor for host ints x and c, by
-    doubling from [c, c x]: the series so far times x^len, log2(n) - 1
-    multiply launches.  The squarings x^(2^k) are computed on the host and
-    uploaded with c and c x as one tensor, so no launch multiplies one
-    element by another."""
-    if n <= 0:
-        return zeros((0,), device)
-    x, c = int(x) % M, int(c) % M
-    factors, v = [c, c * x % M], x * x % M
-    while len(factors) <= (n - 1).bit_length():
-        factors.append(v)
-        v = v * v % M
-    factors = from_ints(factors, device)
-    out = factors[:2]
-    for k in range(2, factors.shape[0]):
-        out = torch.cat([out, mul(out, factors[k])])
-    return out[:n]
+# [c x^0 .. c x^(n-1)] for host ints x and c: kernel K12, one launch
+power_series = fk.power_series
 
 
 def _bitrev_indices(n):

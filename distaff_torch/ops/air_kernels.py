@@ -24,7 +24,7 @@ columns, stark/constraints/device_eval.py `transition_plain`, and
 """
 
 import ctypes
-from dataclasses import dataclass
+import dataclasses
 
 import torch
 
@@ -35,7 +35,7 @@ MAX_CTX, MAX_LOOP, MAX_STACK = 16, 8, 32
 MAX_CONSTRAINTS = 22 + MAX_CTX + MAX_LOOP + MAX_STACK
 
 
-@dataclass
+@dataclasses.dataclass
 class AirTables:
     """Everything K4 reads besides the trace, for one evaluator.
 
@@ -43,8 +43,12 @@ class AirTables:
     the sponge MDS, its inverse, the hasher MDS and its inverse, row-major,
     as (104, 4); `cc` holds the coefficient pairs in consumption order (the
     stack's are sized for a stack of at least 8); `groups` lists the
-    constraint indices of each degree group, by ascending degree; `xp` is
-    the (G, n, 4) series x^p of each group's degree adjustment over D_ev."""
+    constraint indices of each degree group, by ascending degree; `incr`
+    holds each group's degree-adjustment exponent (mod n), so that the
+    group's adjustment at row j of D_ev is r^(incr j mod n), r the root of
+    D_ev; `x_lo` and `x_hi` are r's two power tables over D_ev
+    (tiles._store_factors: r^e = x_lo[e % 1024] x_hi[e // 1024], x_hi None
+    up to 1024 points)."""
     ctx_depth: int
     loop_depth: int
     stack_depth: int
@@ -54,10 +58,20 @@ class AirTables:
     stk_ark: torch.Tensor
     mds: torch.Tensor
     cc: torch.Tensor
-    xp: torch.Tensor
+    incr: tuple
+    x_lo: torch.Tensor
+    x_hi: torch.Tensor
 
     def depths(self):
         return (self.ctx_depth, self.loop_depth, self.stack_depth)
+
+    def domain(self):
+        """The points of D_ev that the power tables cover."""
+        return self.x_lo.shape[0] * (1 if self.x_hi is None else self.x_hi.shape[0])
+
+    def x_tables(self):
+        """The power tables that are present."""
+        return [t for t in (self.x_lo, self.x_hi) if t is not None]
 
     def constraint_count(self):
         return (20 + max(self.ctx_depth, 1) + max(self.loop_depth, 1)
@@ -83,15 +97,27 @@ def check_inputs(lde, t):
         raise ValueError(f"air_transition: expected ({15 + sum(depths)}, n, 4) registers, "
                          f"got {tuple(lde.shape)}")
     cycle = t.dec_ark.shape[1]
-    if n < STEP_ROWS or n % cycle or tuple(t.xp.shape) != (len(t.groups), n, 4):
-        raise ValueError(f"air_transition: domain {n} does not fit cycle {cycle} "
-                         f"or series {tuple(t.xp.shape)}")
+    if n < STEP_ROWS or n & (n - 1) or n % cycle or t.domain() != n or \
+            len(t.incr) != len(t.groups):
+        raise ValueError(f"air_transition: domain {n} (a power of two) does not fit cycle "
+                         f"{cycle}, power tables of {t.domain()} points or {len(t.incr)} "
+                         f"exponents")
     if (t.dec_ark.shape[0], t.masks.shape[0], t.stk_ark.shape[0]) != (8, 3, 12) or \
             t.masks.shape[1] != cycle or t.stk_ark.shape[1] != cycle or t.mds.shape[0] != 104:
         raise ValueError("air_transition: periodic or MDS tables of the wrong shape")
     count = t.constraint_count()
     if t.cc.shape[0] < 2 * count or sum(len(g) for g in t.groups) != count:
         raise ValueError(f"air_transition: expected {count} constraints in the groups")
+
+
+def series_args(tables):
+    """The degree adjustments' arguments of K4's entry points: the groups'
+    exponents (a host array), their count, r's power tables (x_hi null up
+    to 1024 points) and log2 of x_lo's length."""
+    incr = (ctypes.c_longlong * max(1, len(tables.incr)))(*tables.incr)
+    hi = ctypes.c_void_p(None) if tables.x_hi is None else cuda_lib.ptr(tables.x_hi)
+    return (incr, len(tables.incr), cuda_lib.ptr(tables.x_lo), hi,
+            tables.x_lo.shape[0].bit_length() - 1)
 
 
 # ------------------------------------------------------------------------------------------------
@@ -115,7 +141,8 @@ def air_lib(depths):
         handle = ctypes.CDLL(str(path))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         handle.distaff_air_transition.argtypes = [
-            vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp]
+            vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, ctypes.POINTER(ll), i32, vp, vp, i32, vp,
+            vp, vp]
         handle.distaff_air_transition.restype = i32
         handle.distaff_air_layout.argtypes = [vp, vp]
         handle.distaff_air_layout.restype = i32
@@ -139,21 +166,21 @@ def air_transition(lde, tables):
     check_inputs(lde, tables)
     t = tables
     cuda_lib.require_limbs("air_transition", lde, t.dec_ark, t.masks, t.stk_ark, t.mds,
-                           t.cc, t.xp)
+                           t.cc, *t.x_tables())
     handle, groups, _ = air_lib(t.depths())
     if tuple(tuple(g) for g in t.groups) != groups:
         raise ValueError(f"air_transition: the tables' degree groups are not those of the "
                          f"kernel built for depths {t.depths()}")
     dec_ark, masks, stk_ark = t.dec_ark.contiguous(), t.masks.contiguous(), t.stk_ark.contiguous()
-    mds, cc, xp = t.mds.contiguous(), t.cc.contiguous(), t.xp.contiguous()
+    mds, cc = t.mds.contiguous(), t.cc.contiguous()
     n = lde.shape[1]
     out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
     bad = torch.zeros((1,), dtype=torch.int32, device=lde.device)
     p = cuda_lib.ptr
     code = handle.distaff_air_transition(
         p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
-        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds),
-        p(cc), p(xp), p(out), p(bad), cuda_lib.stream(lde))
+        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds), p(cc),
+        *series_args(t), p(out), p(bad), cuda_lib.stream(lde))
     cuda_lib.check(code, "air_transition")
     cuda_lib.LAUNCHES["air_transition"] += 1
     return out, bad
@@ -183,7 +210,8 @@ def host_lib():
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         handle.distaff_air_host_triples.argtypes = [vp]
         handle.distaff_air_rows_host.argtypes = [
-            i32, i32, i32, vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, vp, vp]
+            i32, i32, i32, vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, ctypes.POINTER(ll), i32,
+            vp, vp, i32, vp]
         handle.distaff_air_ops_host.argtypes = [i32, i32, i32, ctypes.POINTER(ll)]
         handle.distaff_air_layout_host.argtypes = [i32, i32, i32, vp]
         for fn in (handle.distaff_air_host_triples, handle.distaff_air_rows_host,
@@ -214,21 +242,26 @@ def air_rows_host(lde, tables):
     if tuple(tuple(g) for g in t.groups) != degree_groups(air_degrees_host(t.depths())):
         raise ValueError("air_rows_host: the tables' degree groups are not the evaluator's")
     lde = lde.detach().cpu()
-    dec_ark, masks, stk_ark, mds, cc, xp = (
-        x.detach().cpu().contiguous() for x in (t.dec_ark, t.masks, t.stk_ark, t.mds, t.cc, t.xp))
+    t = dataclasses.replace(t, **{name: None if x is None else x.detach().cpu().contiguous()
+                                  for name, x in (("dec_ark", t.dec_ark), ("masks", t.masks),
+                                                  ("stk_ark", t.stk_ark), ("mds", t.mds),
+                                                  ("cc", t.cc), ("x_lo", t.x_lo),
+                                                  ("x_hi", t.x_hi))})
     n = lde.shape[1]
     out = torch.empty((n, 4), dtype=torch.uint32)
     p = cuda_lib.ptr
     _host_call(t.depths(), host_lib().distaff_air_rows_host(
         *t.depths(), p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
-        p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds), p(cc), p(xp), p(out)))
+        p(t.dec_ark), p(t.masks), p(t.stk_ark), t.dec_ark.shape[1], p(t.mds), p(t.cc),
+        *series_args(t), p(out)))
     return out
 
 
 def air_ops_per_row(depths):
     """(multiplies, adds, subtractions) in the field that air_row.cuh does
-    for one row at these (ctx, loop, stack) depths: the count is the same
-    for every row and every value."""
+    for one row at these (ctx, loop, stack) depths, over a domain of more
+    than 1024 points (each group's x^incr from the power tables is one
+    multiply there): the count is the same for every row and every value."""
     counts = (ctypes.c_longlong * 3)()
     _host_call(depths, host_lib().distaff_air_ops_host(*depths, counts))
     return tuple(counts)

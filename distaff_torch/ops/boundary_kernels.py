@@ -26,7 +26,7 @@ from ..math import field_torch as ft
 from . import cuda_lib
 from . import field_kernels as fk
 from . import tiles
-from .deep_kernels import power_series_plain, weighted_sum_plain
+from .deep_kernels import weighted_sum_plain
 
 M = hostfield.M
 MAX_REGISTERS = 128          # boundary_columns.cuh kMaxRegisters
@@ -46,8 +46,7 @@ def boundary_columns_plain(lde, i_parts, f_parts, xb_root, start=0):
     (sum_r w2_r lde[r] + c2) with x^b = xb_root^k, on K2's plain versions.
     With `start`, the points are k = start + i of a larger domain."""
     n, device = lde.shape[1], lde.device
-    xb = fk.mul_plain(power_series_plain(xb_root, n, device),
-                      ft.constant(pow(int(xb_root), start, M), device))
+    xb = fk.power_series_plain(xb_root, n, device, pow(int(xb_root), start, M))
 
     def combine(parts):
         w1, w2, c1, c2 = parts

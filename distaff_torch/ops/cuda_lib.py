@@ -42,6 +42,8 @@ LAUNCHES = {
     "poly_eval": 0,
     "fri_fold": 0,
     "boundary_columns": 0,
+    "syn_div": 0,
+    "power_series": 0,
 }
 
 _lib = None
@@ -122,11 +124,14 @@ def lib():
         handle.distaff_fri_fold.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp, vp]
         handle.distaff_boundary_columns.argtypes = [
             vp, ll, ll, i32, ll, vp, vp, vp, i32, u32p, vp, vp]
+        handle.distaff_syn_div.argtypes = [vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, vp, vp, vp]
+        handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
                    handle.distaff_deep_compose, handle.distaff_poly_eval,
-                   handle.distaff_fri_fold, handle.distaff_boundary_columns):
+                   handle.distaff_fri_fold, handle.distaff_boundary_columns,
+                   handle.distaff_syn_div, handle.distaff_power_series):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

@@ -40,17 +40,6 @@ POLY_EVAL_MAX_POINTS = 4       # poly_eval.cuh kMaxPoints
 LOG_LO = tiles._LOG_LO         # K1's power tables (tiles._store_factors): lo holds 2^LOG_LO
 
 
-def power_series_plain(x_int, n, device):
-    """[x^0 .. x^(n-1)] as (n, 4) limbs by doubling on K2's plain multiply."""
-    out = ft.constant(1, device)[None]
-    p = ft.constant(x_int, device)
-    while out.shape[0] < n:
-        out = torch.cat([out, fk.mul_plain(out, p)])
-        if out.shape[0] < n:
-            p = fk.mul_plain(p, p)
-    return out[:n]
-
-
 def sum_plain(a, axis):
     """Modular sum along an axis, a log-depth tree of K2's plain add."""
     x = a.movedim(axis, 0)
@@ -71,7 +60,7 @@ def poly_eval_plain(polys, points):
     """(P, R, 4) values at each host-int point of the rows of (R, L, 4)
     coefficients: each point's power series times the rows, summed."""
     length = polys.shape[1]
-    ps = torch.stack([power_series_plain(x, length, polys.device) for x in points])
+    ps = torch.stack([fk.power_series_plain(x, length, polys.device) for x in points])
     return sum_plain(fk.mul_plain(polys[None], ps[:, None]), axis=2)
 
 
@@ -176,10 +165,8 @@ def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):
     a1 = weighted_sum_plain(lde, w1)
     a2 = weighted_sum_plain(lde, w2)
     root_incr = pow(int(root), int(incr), M)
-    xs = fk.mul_plain(power_series_plain(root, n, device),
-                      ft.constant(pow(int(root), start, M), device))
-    x_incr = fk.mul_plain(power_series_plain(root_incr, n, device),
-                          ft.constant(pow(root_incr, start, M), device))
+    xs = fk.power_series_plain(root, n, device, pow(int(root), start, M))
+    x_incr = fk.power_series_plain(root_incr, n, device, pow(root_incr, start, M))
     mul, add, sub = fk.mul_plain, fk.add_plain, fk.sub_plain
 
     xz = sub(xs, z)

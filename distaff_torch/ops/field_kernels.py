@@ -1,5 +1,5 @@
-"""Field kernels K1 (ntt_pass), K2 (field_ew), K5 (butterfly) and K6
-(inv_batch): wrappers and plain versions.
+"""Field kernels K1 (ntt_pass), K2 (field_ew), K5 (butterfly), K6
+(inv_batch) and K12 (power_series): wrappers and plain versions.
 
 K1 `ntt_pass` (csrc/ntt_pass.cu, ntt_pass.cuh) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_leaf_ntt_kernel (launched by
@@ -21,6 +21,13 @@ distaff_tpu/math/field_jax.py::inv_batch_scan (Montgomery's trick): every
 element's inverse, zero to zero, with one Fermat chain a block.  Its plain
 version is `exp_const_plain(a, M - 2)`, another algorithm with the same
 results.  Bound by memory traffic.
+
+K12 `power_series` (csrc/power_series.cu, power_series.cuh) replaces the
+JAX package's distaff_tpu/ops/tiles.py::_ps_tile, _ps_tiles_batched and
+power_series on distaff_tpu/math/field_jax.py::power_series_dev: [c x^0 ..
+c x^(n-1)] for host ints x and c in one launch, each block doubling its
+tile of powers in shared memory from the host's squarings of x.  Bound by
+memory traffic.
 
 K5 `butterfly` (csrc/butterfly.cu) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_butterfly_kernel (launched by
@@ -323,6 +330,69 @@ def inv_batch(a):
 
 
 # ------------------------------------------------------------------------------------------------
+# K12 power_series
+# ------------------------------------------------------------------------------------------------
+
+POWER_SERIES_TILE = 1024        # power_series.cuh kTile: the rows of a block
+
+
+def power_series_factors(x, n, c=1):
+    """The host ints K12 takes for [c x^0 .. c x^(n-1)]: c, then the
+    squarings x^(2^k) for k < bits of n - 1."""
+    x, c = int(x) % M, int(c) % M
+    factors = [c]
+    for _ in range((n - 1).bit_length()):
+        factors.append(x)
+        x = x * x % M
+    return factors
+
+
+def power_series_plain(x, n, device, c=1):
+    """power_series' function by doubling on K2's plain multiply: from [c],
+    the series so far times each squaring x^(2^k) in turn."""
+    from ..math import field_torch as ft
+
+    if n <= 0:
+        return ft.zeros((0,), device)
+    factors = ft.from_ints(power_series_factors(x, n, c), device)
+    out = factors[:1]
+    for k in range(1, factors.shape[0]):
+        out = torch.cat([out, mul_plain(out, factors[k])])
+    return out[:n]
+
+
+def power_series_ops(n):
+    """K12's multiplies for n rows, from its code: each block's doublings
+    (one a row of its table but the first) and stores (one a row), and the
+    prefix's (one a set bit of the block's first row above the tile)."""
+    blocks = -(-n // POWER_SERIES_TILE)
+    table = min(n, POWER_SERIES_TILE)
+    prefix = sum(bin(b).count("1") for b in range(blocks))
+    return blocks * (table - 1) + n + prefix
+
+
+def power_series(x, n, device, c=1):
+    """[c x^0 .. c x^(n-1)] as an (n, 4) uint32 limb tensor on `device` for
+    host ints x and c: one K12 launch on the card, the plain version on the
+    CPU."""
+    from ..math import field_torch as ft
+
+    device = torch.device(device)
+    if n <= 0:
+        return ft.zeros((0,), device)
+    if device.type == "cpu":
+        return power_series_plain(x, n, device, c)
+    factors = ft.from_ints(power_series_factors(x, n, c), device)
+    cuda_lib.require_limbs("power_series", factors)
+    out = torch.empty((n, 4), dtype=torch.uint32, device=device)
+    code = cuda_lib.lib().distaff_power_series(
+        cuda_lib.ptr(factors), factors.shape[0], n, cuda_lib.ptr(out), cuda_lib.stream(out))
+    cuda_lib.check(code, "power_series")
+    cuda_lib.LAUNCHES["power_series"] += 1
+    return out
+
+
+# ------------------------------------------------------------------------------------------------
 # K1 ntt_pass
 # ------------------------------------------------------------------------------------------------
 
@@ -450,7 +520,6 @@ def ntt_stagewise(values, root=None):
     the twiddle of pair i at stage s being W[(i >> s) << s], the stages'
     outputs interleaved, and one bit-reversal at the end."""
     from ..math import field as hostfield
-    from ..math import field_torch as ft
 
     n = values.shape[0]
     if n < 2 or n & (n - 1):
@@ -458,7 +527,7 @@ def ntt_stagewise(values, root=None):
     if root is None:
         root = hostfield.get_root_of_unity(n)
     half = n // 2
-    table = ft.power_series(root, half, values.device)
+    table = power_series(root, half, values.device)
     pair = torch.arange(half, device=values.device)
     x = values
     for s in range(n.bit_length() - 1):

@@ -29,7 +29,6 @@ from ..math import field_torch as ft
 from . import cuda_lib
 from . import field_kernels as fk
 from . import tiles
-from .deep_kernels import power_series_plain
 
 M = hostfield.M
 
@@ -94,10 +93,8 @@ def fri_fold_plain(column, special_x, root, stride=1, rows=None):
     device = column.device
     w = pow(int(root), stride, M)
     inv3 = pow(hostfield.inv(w), 3, M)
-    x0 = fk.mul_plain(power_series_plain(w, stop - start, device),
-                      ft.constant(pow(w, start, M), device))
-    x0_inv3 = fk.mul_plain(power_series_plain(inv3, stop - start, device),
-                           ft.constant(pow(inv3, start, M), device))
+    x0 = fk.power_series_plain(w, stop - start, device, pow(w, start, M))
+    x0_inv3 = fk.power_series_plain(inv3, stop - start, device, pow(inv3, start, M))
     ys = transpose_quartic(column, 1)[start:stop]
     return fold_rows(ys, x0, x0_inv3, ft.constant(special_x, device))
 

@@ -1,0 +1,144 @@
+"""Step 4's synthetic divisions: kernel K11 (syn_div), its wrapper and
+plain version.
+
+K11 `syn_div` (csrc/syn_div.cu, syn_div.cuh) replaces the JAX package's
+distaff_tpu/stark/prover.py::_syn_div_dev, _syn_div_expanded_dev,
+_incl_suffix_sums and the sum of the three divisions (prover.py:568-572),
+with the scans and series they run on (distaff_tpu/ops/tiles.py::
+_suf_tile, suffix_sums, _ps_tile, _scale_tile; distaff_tpu/math/
+field_jax.py::cumsum, power_series_dev): the constraint polynomial from
+the batched iNTT's three rows in one call of three launches (tile totals,
+their carries, the tiles' suffix scans), b^j and b^-(j+1) from K1's kind
+of power tables.  Bound by memory traffic; see the source for the design.
+
+The wrapper takes the plain version for tensors on the CPU, and launches
+the kernel for tensors on the card, or raises.  The plain version is the
+chain the port ran before K11 (the JAX functions' suffix sums, power
+series and products), on K2's plain versions, so it launches nothing on
+any device.
+"""
+
+import ctypes
+
+import torch
+
+from ..math import field as hostfield
+from ..math import field_torch as ft
+from . import cuda_lib
+from . import field_kernels as fk
+from . import tiles
+
+M = hostfield.M
+TILE = 1024                  # syn_div.cuh kTile = kThreads x kPerThread
+
+
+def suffix_sums_plain(w, axis=0):
+    """Inclusive modular suffix sums along an axis: log2(n) doubling steps
+    (Hillis-Steele) of K2's plain add over the flipped axis."""
+    x = w.movedim(axis, 0).flip(0)
+    n, k = x.shape[0], 1
+    while k < n:
+        x = torch.cat([x[:k], fk.add_plain(x[k:], x[:-k])])
+        k <<= 1
+    return x.flip(0).movedim(0, axis)
+
+
+def _divide_plain(poly, b, start):
+    """Rows [start, start + len(poly)) of the division of a polynomial by
+    (x - b), from its coefficients from `start` on (prover._syn_div_dev):
+    out[i] = b^-(i+1) sum_{j > i} a_j b^j, a suffix sum of a_j b^j."""
+    n, device = poly.shape[0], poly.device
+    zero = ft.zeros((1,), device)
+    if b == 1:
+        return torch.cat([suffix_sums_plain(poly)[1:], zero])
+    w = fk.mul_plain(poly, fk.power_series_plain(b, n, device, pow(b, start, M)))
+    s_next = torch.cat([suffix_sums_plain(w)[1:], zero])               # s_{i+1}
+    b_inv = hostfield.inv(b)
+    return fk.mul_plain(s_next, fk.power_series_plain(b_inv, n, device,
+                                                      pow(b_inv, start + 1, M)))
+
+
+def _divide_expanded_plain(poly, degree, exception):
+    """The last len(poly) rows of the division by (x^degree - 1) / (x -
+    exception), from the polynomial's last len(poly) coefficients
+    (prover._syn_div_expanded_dev):
+    the quotient by x^degree - 1 is a stride-`degree` suffix sum (the slice
+    padded in front to whole strides), the (x - exception) factor one
+    shifted multiply-add."""
+    n, device = poly.shape[0], poly.device
+    pad = -n % degree
+    padded = torch.cat([ft.zeros((pad,), device), poly]).reshape(-1, degree, 4)
+    r = suffix_sums_plain(padded, axis=0).reshape(-1, 4)[pad:]
+    zero = ft.zeros((1,), device)
+    r_ext = torch.cat([r, zero])                             # length n + 1
+    r_shift = torch.cat([zero, r])
+    prod = fk.add_plain(fk.mul_plain(r_ext, ft.constant(hostfield.neg(exception), device)),
+                        r_shift)
+    count = n - degree + 1
+    out = ft.zeros((n,), device)
+    if count > 0:
+        out[:count] = prod[degree: degree + count]
+    return out
+
+
+def syn_div_plain(polys3, degree, x_last, start=0):
+    """syn_div's function on plain tensors: the divisions of the rows (a, f,
+    t) of polys3 by x - 1, x - x_last and (x^degree - 1)/(x - x_last),
+    summed, on K2's plain versions.  With `start`, rows [start, n) of the
+    result alone, which read the coefficients from `start` on."""
+    a, f, t = polys3[0, start:], polys3[1, start:], polys3[2, start:]
+    return fk.add_plain(fk.add_plain(_divide_plain(a, 1, start), _divide_plain(f, x_last, start)),
+                        _divide_expanded_plain(t, degree, x_last))
+
+
+def syn_div_ops(n, degree):
+    """(multiplies, adds) of the divisions at n points, at their leanest:
+    a_j b^j and b^-(i+1) F with one table lookup each (a multiply where the
+    tables have a hi part), e R at the n - degree + 1 points that take it;
+    the suffix sums of a, f b^j and t (stride degree), the two sums of out
+    and the subtraction of e R."""
+    muls = 2 * n + (2 * n if n > 1 << tiles._LOG_LO else 0) + (n - degree + 1)
+    adds = 2 * (n - 1) + (n - degree) + n + 2 * (n - degree + 1)
+    return muls, adds
+
+
+def syn_div_args(n, x_last, device):
+    """K11's arguments beside the polynomials: the power tables of b =
+    x_last (c = 1) and of 1/b (c = 1/b) at n points, cached (hi None up to
+    1024 points), and -x_last as 4 host words."""
+    b = int(x_last) % M
+    b_inv = hostfield.inv(b)
+    neg_e = hostfield.neg(b)
+    return (tiles._store_factors(n, b, 1, device), tiles._store_factors(n, b_inv, b_inv, device),
+            [(neg_e >> (32 * k)) & 0xFFFFFFFF for k in range(4)])
+
+
+def syn_div(polys3, degree, x_last):
+    """The constraint polynomial from the (3, n, 4) coefficients (a, f, t)
+    of the combined boundary and transition columns (n a power of two, rows
+    contiguous): a / (x - 1) + f / (x - x_last) + t (x - x_last) /
+    (x^degree - 1), as synthetic divisions with their remainders dropped,
+    x_last a power of the size-n root.  Returns (n, 4) limbs."""
+    n = polys3.shape[1] if polys3.dim() == 3 else 0
+    if polys3.dim() != 3 or polys3.shape[0] != 3 or n < 2 or n & (n - 1) or \
+            not 1 <= degree <= n:
+        raise ValueError(f"syn_div: expected (3, n, 4) coefficients, n a power of two and "
+                         f"1 <= degree <= n, got {tuple(polys3.shape)} and degree {degree}")
+    if fk._on_cpu(polys3):
+        return syn_div_plain(polys3, degree, x_last)
+    cuda_lib.require_limbs("syn_div", polys3)
+    if polys3.stride(1) != 4:
+        raise ValueError(f"syn_div: the rows must be contiguous, got strides {polys3.stride()}")
+    (b_lo, b_hi), (i_lo, i_hi), words = syn_div_args(n, x_last, polys3.device)
+    totals = torch.empty((2, -(-n // TILE), 4), dtype=torch.uint32, device=polys3.device)
+    out = torch.empty((n, 4), dtype=torch.uint32, device=polys3.device)
+    nul = ctypes.c_void_p(None)
+    code = cuda_lib.lib().distaff_syn_div(
+        cuda_lib.ptr(polys3), polys3.stride(0) // 4, n, degree, cuda_lib.ptr(b_lo),
+        nul if b_hi is None else cuda_lib.ptr(b_hi), cuda_lib.ptr(i_lo),
+        nul if i_hi is None else cuda_lib.ptr(i_hi), tiles._LOG_LO,
+        (ctypes.c_uint32 * 4)(*words), cuda_lib.ptr(totals), cuda_lib.ptr(out),
+        cuda_lib.stream(out))
+    cuda_lib.check(code, "syn_div")
+    cuda_lib.LAUNCHES["syn_div"] += 1
+    return out

@@ -1,4 +1,4 @@
-"""NTTs and pointwise passes over whole tensors.
+"""NTTs over whole tensors, and the power tables the kernels share.
 
 The port's counterpart of distaff_tpu/ops/tiles.py.  The JAX module cut
 every pass into fixed-shape tiles so that one set of compiled XLA
@@ -20,7 +20,6 @@ those of the JAX package's Pease kernels bit for bit.
 import torch
 
 from ..math import field as hostfield
-from ..math import field_torch as ft
 from . import field_kernels as fk
 
 M = hostfield.M
@@ -28,19 +27,11 @@ LEAF = fk.MAX_LEAF
 
 
 # ------------------------------------------------------------------------------------------------
-# pointwise helpers
-# ------------------------------------------------------------------------------------------------
-
-def suffix_sums(w):
-    """Inclusive modular suffix sums over axis 0 of (n, 4)."""
-    return ft.cumsum(w.flip(0)).flip(0)
-
-
-# ------------------------------------------------------------------------------------------------
 # NTT
 # ------------------------------------------------------------------------------------------------
 
-# K1's power tables, built once per device, size, root and constant
+# power tables (K1's, K4's, K7's, K9's, K10's, K11's), each built by K12
+# launches once per device, size, root and constant
 _TABLES = {}
 _LOG_LO = 10
 
@@ -54,7 +45,7 @@ def _cached(key, build):
 def _stage_twiddles(m, root_int, device):
     """The m/2 powers of a size-m root: a pass's butterfly twiddles."""
     return _cached(("tw", str(device), m, root_int),
-                   lambda: ft.power_series(root_int, m // 2, device))
+                   lambda: fk.power_series(root_int, m // 2, device))
 
 
 def _store_factors(n, root_int, c_int, device):
@@ -63,10 +54,10 @@ def _store_factors(n, root_int, c_int, device):
     is None for n <= 1024."""
     def build():
         size = min(n, 1 << _LOG_LO)
-        lo = ft.power_series(root_int, size, device, c_int)
+        lo = fk.power_series(root_int, size, device, c_int)
         if n <= size:
             return lo, None
-        return lo, ft.power_series(pow(root_int, size, M), n // size, device)
+        return lo, fk.power_series(pow(root_int, size, M), n // size, device)
     return _cached(("factors", str(device), n, root_int, c_int), build)
 
 

@@ -15,7 +15,6 @@ Unlike the JAX package, the port runs this at every domain size and in one
 piece: there is no compile to amortize and no chunking.
 """
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -26,7 +25,7 @@ from ...math import field_torch as ft
 from ...math.torch_col import TorchCol, stack_cols, unstack, weighted_sum
 from ...config import MAX_CONSTRAINT_DEGREE, NUM_CF_OPS, NUM_LD_OPS, NUM_HD_OPS
 from ...crypto.ark_constants import SPONGE_MDS, SPONGE_INV_MDS, HASHER_MDS, HASHER_INV_MDS
-from ...ops import air_kernels
+from ...ops import air_kernels, tiles
 from ...ops.air_kernels import AirTables
 from ...ops.field_kernels import sub_plain, mul_plain
 from ...programs.opcodes import OpCode
@@ -117,11 +116,30 @@ def _nonzero_step_rows(combined):
     return nonzero[:-1].sum().to(torch.int32).reshape(1)
 
 
-def transition_plain(lde, tables):
+def degree_adjustments(tables, rows):
+    """(G, len(rows), 4): each degree group's x^incr at these rows j of D_ev
+    (an int64 tensor), r^(incr j mod n) from r's power tables, as K4 looks
+    it up, on K2's plain multiply."""
+    n, log_lo = tables.domain(), tables.x_lo.shape[0].bit_length() - 1
+    out = []
+    for incr in tables.incr:
+        e = rows * incr % n
+        x = tables.x_lo.index_select(0, e & (tables.x_lo.shape[0] - 1))
+        if tables.x_hi is not None:
+            x = mul_plain(x, tables.x_hi.index_select(0, e >> log_lo))
+        out.append(x)
+    return torch.stack(out)
+
+
+def transition_plain(lde, tables, rows=None):
     """K4's plain version: (R, n, 4) slice over D_ev and its AirTables ->
     (combined (n, 4) column, count of trace-step rows other than the last
-    where it is nonzero, as a (1,) int32 tensor)."""
+    where it is nonzero, as a (1,) int32 tensor).  `rows` gives the rows of
+    D_ev that the slice holds, where it is a window of it (default all)."""
     r_count, n = lde.shape[0], lde.shape[1]
+    if rows is None:
+        rows = torch.arange(n, device=lde.device)
+    xp = degree_adjustments(tables, rows)
     nxt = torch.cat([lde[:, MAX_CONSTRAINT_DEGREE:], lde[:, :MAX_CONSTRAINT_DEGREE]], dim=1)
     current = _device_state(tables, [TorchCol(lde[i]) for i in range(r_count)])
     next_state = _device_state(tables, [TorchCol(nxt[i]) for i in range(r_count)])
@@ -153,7 +171,7 @@ def transition_plain(lde, tables):
         odd = tables.cc.index_select(0, pairs[1::2])
         i += len(constraints)
         result = (result + weighted_sum(cols, even)) % M
-        result = (result + weighted_sum(cols, odd) * TorchCol(tables.xp[g])) % M
+        result = (result + weighted_sum(cols, odd) * TorchCol(xp[g])) % M
     combined = result.t.expand(n, 4).contiguous()
     return combined, _nonzero_step_rows(combined)
 
@@ -168,8 +186,7 @@ def transition_plain_rows(lde, tables, start, stop):
         raise ValueError(f"transition_plain_rows: rows [{start}, {stop}) of {n} in whole "
                          f"cycles of {cycle}")
     rows = torch.arange(start, stop + cycle, device=lde.device) % n
-    window = dataclasses.replace(tables, xp=tables.xp.index_select(1, rows))
-    combined, _ = transition_plain(lde.index_select(1, rows), window)
+    combined, _ = transition_plain(lde.index_select(1, rows), tables, rows)
     return combined[:stop - start]
 
 
@@ -184,9 +201,11 @@ def transition(lde, tables):
 
 def air_tables(evaluator, device):
     """The AirTables of an evaluator on `device`: periodic constants, MDS
-    matrices, transcript coefficients, groups and xp series."""
+    matrices, transcript coefficients, groups, their degree-adjustment
+    exponents and the power tables of D_ev's root (cached by ops/tiles)."""
     n_ev = evaluator.domain_size
     root_ev = field.get_root_of_unity(n_ev)
+    x_lo, x_hi = tiles._store_factors(n_ev, root_ev, 1, device)
     groups = tuple(tuple(cs) for _, cs in evaluator.t_degree_groups)
 
     def limbs(rows):
@@ -199,8 +218,7 @@ def air_tables(evaluator, device):
         stk_ark=limbs(evaluator.stack.ark_rows),
         mds=limbs(SPONGE_MDS + SPONGE_INV_MDS + HASHER_MDS + HASHER_INV_MDS),
         cc=limbs(evaluator.coefficients.transition),
-        xp=torch.stack([ft.power_series(field.exp(root_ev, incr), n_ev, device)
-                        for incr, _ in evaluator.t_degree_groups]))
+        incr=tuple(incr % n_ev for incr, _ in evaluator.t_degree_groups), x_lo=x_lo, x_hi=x_hi)
 
 
 def evaluate_transition_device(evaluator, trace):

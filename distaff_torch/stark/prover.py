@@ -212,53 +212,15 @@ def _evaluate_boundaries_device(evaluator, trace, stride):
 # step 4: combine boundary/transition polynomials with their divisors
 # ------------------------------------------------------------------------------------------------
 
-def _syn_div_dev(poly, b):
-    """Division of a polynomial by (x - b), b a root-of-unity power:
-    T_i = b^{-i} * sum_{j >= i} a_j b^j and result[i] = T_{i+1}."""
-    from ..ops import tiles
-
-    n = poly.shape[0]
-    zero = ft.zeros((1,), poly.device)
-    if b == 1:
-        s = tiles.suffix_sums(poly)
-        return torch.cat([s[1:], zero])
-    w = ft.mul(poly, ft.power_series(b, n, poly.device))
-    s_next = torch.cat([tiles.suffix_sums(w)[1:], zero])     # s_{i+1}
-    b_inv = field.inv(b)
-    pbinv = ft.power_series(b_inv, n, poly.device, b_inv)            # b^{-(i+1)}
-    return ft.mul(s_next, pbinv)
-
-
-def _syn_div_expanded_dev(poly, degree, exception):
-    """Division by (x^degree - 1) / (x - exception): the quotient by
-    (x^degree - 1) is a stride-`degree` suffix sum; the (x - exception)
-    factor is restored with one shifted multiply-add."""
-    n = poly.shape[0]
-    m = n // degree
-    r = ft.cumsum(poly.reshape(m, degree, 4).flip(0), axis=0).flip(0).reshape(n, 4)
-    zero = ft.zeros((1,), poly.device)
-    r_ext = torch.cat([r, zero])                             # length n+1
-    r_shift = torch.cat([zero, r])
-    prod = ft.add(ft.mul(r_ext, ft.constant(field.neg(exception), poly.device)), r_shift)
-    count = n - degree + 1
-    out = ft.zeros((n,), poly.device)
-    out[:count] = prod[degree : degree + count]
-    return out
-
-
 def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length):
-    """iNTT the three combined columns in one batch, divide each by its
-    zero-polynomial, and sum.  Returns the constraint polynomial as
-    (n_ev, 4) limbs."""
-    from ..ops import tiles
+    """iNTT the three combined columns in one batch (K1), then divide each
+    by its zero-polynomial and sum, in one call of kernel K11.  Returns the
+    constraint polynomial as (n_ev, 4) limbs."""
+    from ..ops import syndiv_kernels, tiles
 
     ev_root = field.get_root_of_unity(evaluator.domain_size)
     polys3 = tiles.intt_batched(torch.stack([i_evals, f_evals, t_evals]), ev_root)
-    x_last = evaluator.get_x_at_last_step()
-    i_div = _syn_div_dev(polys3[0], 1)
-    f_div = _syn_div_dev(polys3[1], x_last)
-    t_div = _syn_div_expanded_dev(polys3[2], trace_length, x_last)
-    return ft.add(ft.add(i_div, f_div), t_div)
+    return syndiv_kernels.syn_div(polys3, trace_length, evaluator.get_x_at_last_step())
 
 
 # ------------------------------------------------------------------------------------------------

@@ -129,7 +129,9 @@ def probe_k4():
     for name, (handle, spills) in built.items():
         fn = handle.distaff_air_transition
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                       *[ctypes.c_void_p] * 3, ctypes.c_int, *[ctypes.c_void_p] * 6]
+                       *[ctypes.c_void_p] * 3, ctypes.c_int, *[ctypes.c_void_p] * 2,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, *[ctypes.c_void_p] * 2,
+                       ctypes.c_int, *[ctypes.c_void_p] * 3]
         fn.restype = ctypes.c_int
 
         def run(x):
@@ -137,7 +139,8 @@ def probe_k4():
             bad = torch.zeros((1,), dtype=torch.int32, device="cuda")
             cuda_lib.check(fn(p(x), n, x.stride(0) // 4, x.stride(1) // 4, p(t.dec_ark),
                               p(t.masks), p(t.stk_ark), t.dec_ark.shape[1], p(t.mds), p(t.cc),
-                              p(t.xp), p(out), p(bad), cuda_lib.stream(x)), name)
+                              *air_kernels.series_args(t), p(out), p(bad),
+                              cuda_lib.stream(x)), name)
             return out
 
         print(f"K4 {name}: {'; '.join(spills)}", flush=True)

@@ -13,7 +13,7 @@ operation, with its time and the time per butterfly, element or row:
   ntt_stagewise    the stage-by-stage NTT, one K5 butterfly launch a stage;
                    its result must equal tiles.ntt's
   mul              one K2 multiply of n elements
-  power_series     the n powers of the domain root (K2 launches)
+  power_series     the n powers of the domain root (one K12 launch)
   inv_batch        the batch inverse of n elements (K6, Montgomery's trick);
                    its result must equal exp_const's
   exp_const        n elements to the power M - 2 (K2 exp_const, the

@@ -24,7 +24,8 @@ from distaff_torch.math.torch_col import (
 from distaff_torch.ops import air_kernels
 from distaff_torch import assembly, ProgramInputs
 from distaff_torch.stark.constraints.device_eval import (
-    air_tables, evaluate_transition_device, transition, transition_plain, transition_plain_rows)
+    air_tables, degree_adjustments, evaluate_transition_device, transition, transition_plain,
+    transition_plain_rows)
 from distaff_torch.stark.constraints.evaluator import Evaluator
 from distaff_torch.stark.trace_table import TraceTable
 
@@ -284,3 +285,27 @@ def test_kernel_launch_refuses_cpu_tensors_and_wrapper_takes_plain_version():
         air_kernels.air_transition(lde, tables)
     got, want = transition(lde, tables), transition_plain(lde, tables)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_degree_adjustments_from_tables_match_the_series(n):
+    # K4 reads each group's x^incr as r^(incr j mod n) from r's two power
+    # tables (a hi table above 1024 points), where it read a series of n
+    port, _, _ = _random_case((1, 1, 8), n=n)
+    tables = air_tables(port, "cpu")
+    assert (tables.x_hi is None) == (n <= 1024) and tables.domain() == n
+    root = jax_field.get_root_of_unity(n)
+    got = degree_adjustments(tables, torch.arange(n))
+    assert len(port.t_degree_groups) == got.shape[0] > 1
+    for g, (incr, _) in enumerate(port.t_degree_groups):
+        assert torch.equal(got[g], ft.power_series(jax_field.exp(root, incr), n, "cpu"))
+
+
+def test_kernel_row_evaluator_reads_the_hi_table():
+    # above 1024 points each group's adjustment takes one more multiply
+    port, _, limbs = _random_case((0, 0, 1), n=2048, seed=5)
+    tables = air_tables(port, "cpu")
+    assert tables.x_hi is not None
+    lde = limbs_from_numpy(limbs, "cpu")
+    want, _ = transition_plain(lde, tables)
+    assert torch.equal(air_kernels.air_rows_host(lde, tables), want)

@@ -320,3 +320,72 @@ def test_device_multiply_ptx_matches_host_ints():
         out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
         got = sum(out[k] << (32 * k) for k in range(4))
         assert got == x * y % M, (hex(x), hex(y))
+
+
+# ------------------------------------------------------------------------------------------------
+# K12 power_series: its plain version and its kernel body against the JAX
+# package's tiled series (distaff_tpu/ops/tiles.py) and power_series_dev
+# ------------------------------------------------------------------------------------------------
+
+PS_X = 0x0BAD_CAFE_F00D_1234_5678_9ABC_DEF0_1357 % M
+PS_C = 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321 % M
+# one row, two, either side of K12's 1024-row block, and four blocks
+PS_SIZES = [1, 2, 1023, 1024, 1025, 1 << 12]
+
+
+@pytest.mark.parametrize("n", PS_SIZES)
+def test_power_series_plain_matches_jax_tiled_series(n):
+    from distaff_tpu.ops import tiles as jax_tiles
+
+    want = fj.to_ints(np.asarray(jax_tiles.scale(jax_tiles.power_series(PS_X, n), PS_C)))
+    got = fk.power_series_plain(PS_X, n, "cpu", PS_C)
+    assert ft.to_ints(got).tolist() == want.tolist()
+    assert torch.equal(fk.power_series(PS_X, n, "cpu", PS_C), got)
+
+
+@pytest.mark.parametrize("n", [2, 1 << 12])
+def test_power_series_plain_matches_jax_power_series_dev(n):
+    # power_series_dev's doubling scan (n <= 64) and its baby-step/giant-step
+    # branch
+    want = [v * PS_C % M for v in fj.to_ints(np.asarray(fj.power_series_dev(fj.constant(PS_X), n)))]
+    assert ft.to_ints(fk.power_series_plain(PS_X, n, "cpu", PS_C)).tolist() == want
+
+
+_PS_HARNESS = r"""
+#include <vector>
+#include "power_series.cuh"
+
+// K12 on the CPU, a block at a time, each phase for every thread before
+// the next phase
+extern "C" void power_series_host(const void* factors, int count, long long n, void* out) {
+    using namespace power_series;
+    const Args a{(const uint4*)factors, count, n, (uint4*)out};
+    std::vector<uint4> table(kTile);
+    uint4 prefix;
+    for (long long block = 0; block < blocks(a); ++block) {
+        for (int tid = 0; tid < kThreads; ++tid) start(a, table.data(), &prefix, block, tid);
+        for (int k = 0; k < steps(a); ++k)
+            for (int tid = 0; tid < kThreads; ++tid) double_step(a, table.data(), k, tid);
+        for (int tid = 0; tid < kThreads; ++tid) store(a, table.data(), &prefix, block, tid);
+    }
+}
+"""
+
+
+def test_power_series_kernel_body_matches_plain(tmp_path):
+    import ctypes
+
+    csrc = Path(fk.__file__).resolve().parent.parent / "csrc"
+    (tmp_path / "harness.cpp").write_text(_PS_HARNESS)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(csrc),
+                    str(tmp_path / "harness.cpp"), "-o", str(tmp_path / "libps.so")], check=True)
+    lib = ctypes.CDLL(str(tmp_path / "libps.so"))
+    lib.power_series_host.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_void_p]
+    root = jax_host_field.get_root_of_unity(1 << 12)
+    for x, c in ((PS_X, PS_C), (root, 1), (root, PS_C)):
+        for n in PS_SIZES:
+            factors = ft.from_ints(fk.power_series_factors(x, n, c), "cpu")
+            out = torch.zeros((n, 4), dtype=torch.uint32)
+            lib.power_series_host(factors.data_ptr(), factors.shape[0], n, out.data_ptr())
+            assert torch.equal(out, fk.power_series_plain(x, n, "cpu", c)), (x, n, c)
