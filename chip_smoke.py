@@ -8,10 +8,12 @@ Usage (from the root of the repository, on a machine with the card):
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-times 16 18
+    python3 chip_smoke.py --kernel-times
 
-The second form only prints step times (step_times below): a copy of this
-file placed at the root of another checkout times that checkout's port, so
-that two versions compare on one card in one call.
+The second form only prints step times (step_times below), the third only
+the times of K10 and K8 at the 2^16 proof's shapes (kernel_times below): a
+copy of this file placed at the root of another checkout times that
+checkout's port, so that two versions compare on one card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
@@ -20,8 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K12, and the card's name and
-                power limit
+                K4 at each triple and for K6-K12, the count of IMMA
+                (tensor-core) instructions in K10's SASS, which must not be
+                0, and the card's name and power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
                 recorded and launched again), one row each,
@@ -37,11 +40,15 @@ Phases, in order; any failure raises and exits non-zero:
                 proof's LDE domain ((20, 2^21), its tables and exponent) on
                 random inputs and with x - z and x - zg vanishing at two
                 points, K8 poly_eval at the proof's point evaluations ((20,
-                2^16) at two points, (1, 2^19) at one), K9 fri_fold at every
+                2^16) at two points, (1, 2^19) at one; one launch a call,
+                and no host-to-device copy where the profiler traces the
+                card), K9 fri_fold at every
                 layer the 2^16 proof folds (2^19 ... 2^7 rows, each at the
                 LDE domain's root and the layer's stride, random values and
                 special_x), K10 boundary_columns at (20, 2^19) point stride 4
                 on the 2^16 Fibonacci LDE's slice and on random registers,
+                at (128, 2^16) with every value, weight and constant M - 1
+                and at (20, 2^18) point stride 8,
                 K11 syn_div at the proof's step 4 ((3, 2^19), degree 2^16,
                 x_last) on random and edge-value coefficients, K12
                 power_series at every table the 2^16 proof builds (the
@@ -64,7 +71,7 @@ Phases, in order; any failure raises and exits non-zero:
                 K1, K3, K4 and K7-K12 must launch (K4, K7, K10 and K11
                 exactly once, K6 and K2 never), K1 exactly at the passes
                 phase 2 checked and none of two points, K8 exactly at the
-                evaluations phase 2 checked, each its number of passes, K9
+                evaluations phase 2 checked, each one launch, K9
                 once at each layer phase 2 checked, K10 and K11 at the
                 shapes they were checked at, K12 once for each table that
                 the proof put in the cache and at calls phase 2 held; then
@@ -159,15 +166,27 @@ SEED = 20261016
 # (deep_kernels.deep_compose_ops: 2R + 13 multiplies), its bytes are the LDE
 # and the constraint evaluations read once, the output written once and its
 # tables; K8 does one multiply and one add per coefficient and point and
-# reads each coefficient once.  K11's bytes are the three columns read once,
+# reads each coefficient once.  K10's bound (boundary_bound) is the larger
+# of its bytes (the slice's R values a point read once, the two columns
+# written, the weights and x^b's tables) at 3.35 TB/s, its int8 product
+# (2 x 128 x 16R byte operations a point, boundary_kernels.boundary_ops) at
+# the tensor cores' 1,979 TOP/s (H100 SXM data sheet, dense int8), and its
+# epilogue's 32-bit instructions at the issue width: a point's four digit
+# reductions at REDUCE_OPS each (31 digits added at their byte offsets into
+# a 9-limb sum, 3 each: a shift and a carried add of two limbs; the fold of
+# the bits from 2^256 up through R^2, 8; the 256-bit value's folds and
+# conditional subtraction as a multiply's, 32), 3 multiplies and 6 adds.
+# K11's bytes are the three columns read once,
 # the output written and b's and 1/b's power tables, its operations those of
 # the three divisions at their leanest (syndiv_kernels.syn_div_ops); K12's
 # bytes are its rows written and the host's squarings, its multiplies
 # counted from its code (field_kernels.power_series_ops).
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
 MUL_OPS = 64
+REDUCE_OPS = 31 * 3 + 8 + 32
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
@@ -235,21 +254,28 @@ def check_equal(name, shape, kernel, plain):
     return got, err
 
 
+def bound(bound_bytes, bound_ops, ops_rate, tensor_ops=0):
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes at
+    the memory rate, the 32-bit instructions at the issue rate and the int8
+    tensor-core operations at their dense rate."""
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(bound_ops / ops_rate, tensor_ops / INT8_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_kernel(name, shape, kernel, plain, reps, plain_reps, bound_bytes, bound_ops,
-                 ops_rate, source, replaces):
+                 ops_rate, source, replaces, tensor_ops=0):
     """Hold kernel() against plain() (tolerance zero), time both and return
     the kernel's row of the JSON table."""
     _, err = check_equal(name, shape, kernel, plain)
     ms = time_ms(kernel, reps, KERNEL_TRIALS, queued=True)
     plain_ms = time_ms(plain, plain_reps)
-    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = bound_ops / ops_rate * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(bound_bytes, bound_ops, ops_rate, tensor_ops)
     print(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-          f"bound {max(t_bytes, t_ops):.4f} ms by {bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms by {bound_by})", flush=True)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_kernels(ops_rate):
@@ -735,8 +761,8 @@ def check_air_examples(gen, ops_rate):
             "boundary_columns", f"example {name}: {boundary_key(slice_)} random registers",
             lambda: bk.boundary_columns(slice_, i_parts, f_parts, root),
             lambda: bk.boundary_columns_plain(slice_, i_parts, f_parts, root), 20, 1,
-            *boundary_bound(regs.shape[0], n), ops_rate, "distaff_torch/csrc/boundary_columns.cu",
-            "distaff_tpu/stark/prover.py:385")
+            ops_rate=ops_rate, source="distaff_torch/csrc/boundary_columns.cu",
+            replaces="distaff_tpu/stark/prover.py:385", **boundary_bound(regs.shape[0], n))
         row["key"] = ("boundary_columns", "example", name)
         rows.append(row)
     return rows
@@ -815,20 +841,26 @@ def boundary_key(lde):
 
 
 def boundary_bound(regs, n):
-    """K10's bound in bytes and operations: the slice's values read once,
-    the two columns written, the weights and x^b's tables; its multiplies
-    and adds from its code (boundary_kernels.boundary_ops)."""
+    """K10's bound as keywords of check_kernel and piece_row: bytes (the
+    slice's values read once, the two columns written, the weights and
+    x^b's tables), the epilogue's 32-bit instructions and the int8
+    product's operations, from its code (boundary_kernels.boundary_ops)."""
     from distaff_torch.ops import boundary_kernels as bk
 
-    muls, adds = bk.boundary_ops(regs)
-    return ((regs + 2) * n + 4 * regs + power_tables(n)) * 16, n * (muls * MUL_OPS + adds * ADD_OPS)
+    product, reductions, muls, adds = bk.boundary_ops(regs)
+    return {"bound_bytes": ((regs + 2) * n + 4 * regs + power_tables(n)) * 16,
+            "bound_ops": n * (reductions * REDUCE_OPS + muls * MUL_OPS + adds * ADD_OPS),
+            "tensor_ops": n * product}
 
 
 def check_boundary(gen, ops_rate, trace, evaluator):
     """K10 at (20, 2^19), point stride 4: on the 2^16 Fibonacci LDE's slice
     with its evaluator's weights (the row of the JSON table), and on random
-    registers with the same weights."""
+    registers with the same weights; then at (128, 2^16) with every value,
+    weight and constant M - 1 (four register groups, the largest digit
+    sums), and at (20, 2^18) point stride 8 with the evaluator's weights."""
     from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.tools.timing import random_elements
 
@@ -836,19 +868,36 @@ def check_boundary(gen, ops_rate, trace, evaluator):
     regs, n = lde.shape[0], lde.shape[1]
     i_parts, f_parts = evaluator.boundary_weight_vectors(regs)
     root = hostfield.exp(hostfield.get_root_of_unity(n), evaluator.b_degree_adj)
-    source = ("distaff_torch/csrc/boundary_columns.cu", "distaff_tpu/stark/prover.py:385")
 
-    def run(x, plain=False):
+    def run(x, plain=False, parts=(i_parts, f_parts), xb=root):
         f = bk.boundary_columns_plain if plain else bk.boundary_columns
-        return lambda: f(x, i_parts, f_parts, root)
+        return lambda: f(x, *parts, xb)
 
     row = check_kernel("boundary_columns", f"{boundary_key(lde)} Fibonacci LDE slice", run(lde),
-                       run(lde, True), 20, 1, *boundary_bound(regs, n), ops_rate, *source)
+                       run(lde, True), 20, 1, ops_rate=ops_rate,
+                       source="distaff_torch/csrc/boundary_columns.cu",
+                       replaces="distaff_tpu/stark/prover.py:385", **boundary_bound(regs, n))
     row["key"] = ("boundary_columns", MAIN_LOG2_TRACE, boundary_key(lde))
     noise = random_elements(gen, (regs, 4 * n))[:, ::4]
     check_equal("boundary_columns", f"{boundary_key(noise)} random registers", run(noise),
                 run(noise, True))
     print(f"kernel boundary_columns at {boundary_key(noise)} random registers: equal to plain",
+          flush=True)
+    del noise
+    top = hostfield.M - 1
+    wide = ft.constant(top, "cuda").expand(128, 1 << 16, 4).contiguous()
+    worst = ([top] * 128, [top] * 128, top, top)
+    xb = hostfield.exp(hostfield.get_root_of_unity(1 << 16), 11)
+    check_equal("boundary_columns", f"{boundary_key(wide)} every value, weight and constant M - 1",
+                run(wide, parts=(worst, worst), xb=xb), run(wide, True, (worst, worst), xb))
+    print(f"kernel boundary_columns at {boundary_key(wide)} with every value, weight and constant "
+          f"M - 1 (the largest digit sums): equal to plain", flush=True)
+    del wide
+    strided = random_elements(gen, (regs, 8 << 18))[:, ::8]
+    xb = hostfield.exp(hostfield.get_root_of_unity(1 << 18), evaluator.b_degree_adj)
+    check_equal("boundary_columns", f"{boundary_key(strided)} random registers",
+                run(strided, xb=xb), run(strided, True, xb=xb))
+    print(f"kernel boundary_columns at {boundary_key(strided)} random registers: equal to plain",
           flush=True)
     return row
 
@@ -905,13 +954,32 @@ def eval_key(polys, points):
     return f"({polys.shape[0]}, {polys.shape[1]}) at {len(points)} points"
 
 
+def host_copies(fn, kernel):
+    """The profiler's count of host-to-device copies in one fn() on the
+    card, or None where it saw no launch of `kernel` (its trace then says
+    nothing)."""
+    from torch.profiler import profile, ProfilerActivity
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [event.name for event in prof.events()]
+    if not any(kernel in name for name in names):
+        return None
+    return sum("HtoD" in name for name in names)
+
+
 def check_poly_eval(gen, ops_rate, log2_trace):
     """K8 at the point evaluations of the bench's 2^log2_trace proof, on
     random coefficients and points: the trace polynomials (20, n) at two
-    points and the constraint polynomial (1, 8 n) at one; a row each."""
+    points and the constraint polynomial (1, 8 n) at one; a row each.  Each
+    call must launch once, and queue no host-to-device copy where the
+    profiler traces the card."""
     import random
 
     from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import cuda_lib
     from distaff_torch.ops import deep_kernels as dk
     from distaff_torch.tools.timing import random_elements
 
@@ -920,15 +988,23 @@ def check_poly_eval(gen, ops_rate, log2_trace):
     for regs, length, count in ((20, 1 << log2_trace, 2), (1, 1 << (log2_trace + 3), 1)):
         polys = random_elements(gen, (regs, length))
         points = [rng.randrange(hostfield.M) for _ in range(count)]
-        squarings = count * dk.POLY_EVAL_LOG_SPAN * dk.poly_eval_passes(length)
         row = check_kernel(
             "poly_eval", eval_key(polys, points), lambda: dk.poly_eval(polys, points),
             lambda: dk.poly_eval_plain(polys, points), 20, 1,
-            (regs * length + count * regs + squarings) * 16,
+            (regs * length + count * regs + count * dk.POLY_EVAL_SQUARINGS) * 16,
             count * regs * length * (MUL_OPS + ADD_OPS), ops_rate,
             "distaff_torch/csrc/poly_eval.cu", "distaff_tpu/stark/prover.py:636")
         row["key"] = ("poly_eval", log2_trace, eval_key(polys, points))
         rows.append(row)
+        before = cuda_lib.LAUNCHES["poly_eval"]
+        copies = host_copies(lambda: dk.poly_eval(polys, points), "poly_eval")
+        launched = cuda_lib.LAUNCHES["poly_eval"] - before
+        if launched != dk.poly_eval_launches(count) or copies:
+            raise AssertionError(f"poly_eval at {eval_key(polys, points)}: {launched} launches "
+                                 f"and {copies} host-to-device copies in one call")
+        print(f"kernel poly_eval at {eval_key(polys, points)}: {launched} launch a call, "
+              + ("host-to-device copies not traced" if copies is None else
+                 f"{copies} host-to-device copies"), flush=True)
     return rows
 
 
@@ -1168,6 +1244,45 @@ def step_times(sizes, runs=2):
               flush=True)
 
 
+def kernel_times():
+    """K10 at (20, 2^19) point stride 4 (random registers, weights and
+    constants) and K8 at (20, 2^16) x 2 points and (1, 2^19) x 1 point
+    (random coefficients and points), the 2^16 proof's shapes, each timed as
+    phase 2 times it and printed with the directory of the checkout whose
+    package ran.  It uses only what every version of the port has."""
+    import os
+    import random
+
+    import distaff_torch
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import boundary_kernels as bk
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.tools.timing import random_elements
+
+    tag = os.path.basename(os.path.dirname(os.path.dirname(
+        os.path.abspath(distaff_torch.__file__))))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    rng = random.Random(SEED + 5)
+
+    def ints(count):
+        return [rng.randrange(hostfield.M) for _ in range(count)]
+
+    regs, n = 20, 1 << 19
+    lde = random_elements(gen, (regs, 4 * n))[:, ::4]
+    i_parts, f_parts = ((ints(regs), ints(regs), *ints(2)) for _ in range(2))
+    root = hostfield.exp(hostfield.get_root_of_unity(n), 37)
+    ms = time_ms(lambda: bk.boundary_columns(lde, i_parts, f_parts, root), 20, KERNEL_TRIALS,
+                 queued=True)
+    print(f"[{tag}] kernel boundary_columns at {boundary_key(lde)}: {ms:.4f} ms", flush=True)
+    del lde
+    for regs, length, count in ((20, 1 << 16, 2), (1, 1 << 19, 1)):
+        polys = random_elements(gen, (regs, length))
+        points = ints(count)
+        ms = time_ms(lambda: dk.poly_eval(polys, points), 20, KERNEL_TRIALS, queued=True)
+        print(f"[{tag}] kernel poly_eval at {eval_key(polys, points)}: {ms:.4f} ms", flush=True)
+
+
 def print_step4(log2_trace, lines):
     """Step 4 (the iNTT and K11) and step 3's K4 part from a stepped
     proof's log lines."""
@@ -1201,7 +1316,7 @@ class EvalRecorder:
         before = self.cuda_lib.LAUNCHES["poly_eval"]
         out = self.real(polys, points)
         key = eval_key(polys, points)
-        self.calls.append((key, self.dk.poly_eval_launches(polys.shape[1], len(points))))
+        self.calls.append((key, self.dk.poly_eval_launches(len(points))))
         self.launches[key] += self.cuda_lib.LAUNCHES["poly_eval"] - before
         return out
 
@@ -1217,8 +1332,8 @@ def phase_main(checked_keys):
     synchronizes shows beside the drift from one proof to the next.  K1's
     passes must be exactly the ("ntt_pass", rung, key)s of `checked_keys`,
     those phase 2 held and timed, and none a two-point transform; K8's calls
-    exactly its ("poly_eval", rung, key)s, each launching its number of
-    passes; K9's, K10's and K11's calls exactly their ("fri_fold", ...),
+    exactly its ("poly_eval", rung, key)s, each one launch (up to four
+    points); K9's, K10's and K11's calls exactly their ("fri_fold", ...),
     ("boundary_columns", ...) and ("syn_div", ...) keys, each one launch;
     with the table cache emptied first, K12 once for each table the proof
     builds, at the calls phase 2 held; K2 never.  Returns the launches and
@@ -1260,7 +1375,7 @@ def phase_main(checked_keys):
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                        ("boundary_columns", 1), ("syn_div", 1), ("power_series", tables),
                        ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
-                       ("poly_eval", sum(passes for _, passes in evals.calls)),
+                       ("poly_eval", sum(n for _, n in evals.calls)),
                        *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
@@ -1278,8 +1393,8 @@ def phase_main(checked_keys):
     small = [args for args in rec.calls if args[2].shape[0] < 2]
     if small:
         raise AssertionError(f"{len(small)} two-point K1 passes in the proof")
-    for key, passes in evals.calls:
-        print(f"2^{MAIN_LOG2_TRACE} K8 call {key}: {passes} launches", flush=True)
+    for key, n in evals.calls:
+        print(f"2^{MAIN_LOG2_TRACE} K8 call {key}: {n} launch(es)", flush=True)
     if sorted(key for key, _ in evals.calls) != sorted(eval_keys):
         raise AssertionError("the proof's K8 calls are not those phase 2 checked")
     field_ew = {k.split(".")[1]: v for k, v in launches.items() if k.startswith("field_ew.")}
@@ -1494,23 +1609,21 @@ def hold_pieces(name, shape, kernel, parts, last):
 
 
 def piece_row(name, shape, kernel, parts, last, bound_bytes, bound_ops, ops_rate, source,
-              replaces, reps=20):
+              replaces, reps=20, tensor_ops=0):
     """hold_pieces, then the kernel timed: its row of the JSON table
     (plain_ms the one run of the plain pieces), or with `last` a printed
     line and no row."""
     _, plain_ms = hold_pieces(name, shape, kernel, parts, last)
     ms = time_ms(kernel, 3 if last else reps, 3 if last else KERNEL_TRIALS, queued=True)
-    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = bound_ops / ops_rate * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(bound_bytes, bound_ops, ops_rate, tensor_ops)
     held = f"its last {parts[-1][1] - parts[-1][0]} rows" if last else f"{len(parts)} piece(s)"
     print(f"kernel {name} at {shape}: equal to plain over {held}; {ms:.4f} ms (plain "
-          f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by})", flush=True)
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by})", flush=True)
     if last:
         return None
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def fold_layers(domain):
@@ -1625,8 +1738,8 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
         row = piece_row(
             "boundary_columns", f"{tag} {boundary_key(lde)} LDE slice",
             lambda: torch.stack(bk.boundary_columns(lde, i_parts, f_parts, root), 1), parts,
-            last, *boundary_bound(regs, n), ops_rate, "distaff_torch/csrc/boundary_columns.cu",
-            "distaff_tpu/stark/prover.py:385")
+            last, ops_rate=ops_rate, source="distaff_torch/csrc/boundary_columns.cu",
+            replaces="distaff_tpu/stark/prover.py:385", **boundary_bound(regs, n))
         add(row, "boundary_columns", "LDE slice", 1)
 
     # K11 on the proof's iNTT output: rows [a, b) of the plain version read
@@ -1771,15 +1884,20 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--step-times", nargs="+", type=int, metavar="LOG2_N",
                         help="only print the step times of the bench's proofs at these sizes")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="only print the times of K10 and K8 at the 2^16 proof's shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.step_times:
+    if args.step_times or args.kernel_times:
         from distaff_torch.tools.timing import card_line
 
         print(card_line(), flush=True)
-        step_times(args.step_times)
+        if args.kernel_times:
+            kernel_times()
+        if args.step_times:
+            step_times(args.step_times)
         return 0
     from distaff_torch import native
     from distaff_torch.ops import air_kernels, cuda_lib
@@ -1810,6 +1928,14 @@ def main():
                        ("K12", "power_series")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
+    sass = cuda_lib.sass("boundary_columns")
+    if sass is None:
+        print("K10 SASS: no cuobjdump found, IMMA not counted", flush=True)
+    else:
+        imma = sum("IMMA" in line for line in sass.splitlines())
+        print(f"K10 SASS: {imma} IMMA instructions (the int8 tensor-core product)", flush=True)
+        if imma == 0:
+            raise AssertionError("boundary_columns: no IMMA instruction in its SASS")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 

@@ -1,5 +1,6 @@
 // K10 boundary_columns: step 3's two boundary columns over the evaluation
-// domain in one launch.
+// domain in one launch, the weighted register sums as one unsigned-byte
+// matrix product on the int8 tensor cores.
 //
 // Replaces the JAX package's distaff_tpu/stark/prover.py::
 // _evaluate_boundaries_device with the weighted register sums it runs
@@ -14,22 +15,63 @@
 // b = b_degree_adj: the combined first- and last-step boundary
 // constraints, bit for bit the JAX package's (integer field arithmetic).
 //
-// Bound on this card: operations (4R + 3 multiplies and 4R + 2 adds a
-// point; at (20, 2^19) ~0.10 ms), the stride-4 reads about alike (each
-// 16-byte value in its own 32-byte sector).  The design, K7's numerators
-// phase (deep_compose.cuh) with four sums instead of two:
-// - The slice is read where it lies, a warp's lanes on consecutive points,
-//   each register's value once, streaming, for all four sums
-//   (points.cuh's weighted_sums, which K7 shares); the (4, R) weights sit
-//   in shared memory and are read as broadcasts.
-// - x^b comes from the two small power tables of r_ev^b (tiles.
-//   _store_factors), one multiply a point, no power series.
-// - The four constants are kernel arguments.
-// - One point a thread, 256 threads with launch bounds for 4 blocks an SM
-//   (K7's 64 registers).  Indices are 64-bit.
+// The product.  Split into bytes, w v = sum_d 2^(8d) sum_q w_(d-q) v_q, so
+// the four sums S_s = sum_r w_(s,r) v_r of a point have 31 digits each,
+// D_(s,d) = sum_r sum_q byte(w_(s,r), d - q) byte(v_r, q), and for a tile of
+// points all of them are one product D = A B:
+// - A (128 x 16R bytes) is the Toeplitz expansion of the (4, R) weights:
+//   row 32 s + d, column 16 r + q holds byte d - q of w_(s,r) (0 outside
+//   0 <= d - q < 16; row 32 s + 31 is all 0);
+// - B (16R x 64) is the tile's values, 16 bytes a register, a point's K
+//   contiguous (mma's "col" operand);
+// - each digit is a sum of at most 16 R 255^2 < 2^27 byte products (R <=
+//   128): exact in the s32 sums of mma.sync.m16n8k32.row.col.s32.u8.u8.s32,
+//   the same mma the distaff_tpu/ops/mxu_ntt.py "bigmat" asks of the TPU's
+//   matrix unit (_bigmat, _matrices, its one _reduce_digits).
+// f128::reduce_digits then takes each (point, sum) from its digits to the
+// field once, in place of 4R modular multiplies and adds on the CUDA cores.
 //
-// This header compiles as plain C++ too: the tests run column() a point at
-// a time against the plain version.
+// Bound on this card at (20, 2^19), point stride 4: the larger of (a) the
+// slice's 16R bytes a point read once and the two 16-byte outputs
+// written, at 3.35 TB/s (0.055 ms); (b) the int8 product, 2 x 128 x 16R
+// byte operations a point, at 1,979 TOP/s (0.022 ms); (c) the epilogue's
+// 32-bit instructions (four digit reductions, x^b's table multiply, the
+// two x^b products, six adds) at the SM issue width (0.013 ms).  So it is
+// bound by bytes; but a 16-byte value every 64 bytes is a poor pattern
+// for the card's memory: PyTorch's own copy of the stride-4 slice takes
+// about five times (a) (tools/air_probe.py k10 times K10 beside that copy,
+// and K10 without its product or epilogue).  The design, for each:
+// - (a) The slice is read where it lies, at any point stride, by cp.async
+//   (16 bytes a thread, L1 bypassed) into a ring of slots in shared memory:
+//   a block loops over tiles (grid-strided, two blocks an SM at R = 20)
+//   and keeps the copies of the next stages - 1 tiles in flight while it
+//   multiplies and reduces this one's: with one block an SM, however deep
+//   its ring, the copies, product and epilogue ran in turn between its
+//   barriers.  TMA would take the copies off the threads, but its
+//   element strides stop at 8 and the point stride is 2, 4 or more, so
+//   cp.async is the general path.
+// - (b) Eight warps, warp w computes sum w & 3 over half w >> 2 of the
+//   tile's points: per 32-byte k-step it loads its two m16 tiles of A and
+//   four n8 tiles of B with ldmatrix.x4 (pitches an odd number of 16-byte
+//   units: no bank conflicts) and issues 8 mma.  A is built in shared
+//   memory from the (4, R) weights at the start of each block; the
+//   weights, like the constants, travel in the __grid_constant__ kernel
+//   parameter (at most 8 KB): no upload before the launch.  Above
+//   kMaxGroup registers the block loops over register groups and rebuilds
+//   A for each (A is 128 x 16R bytes: 40 KB at R = 20, 256 KB at R = 128);
+//   the digit sums accumulate across the groups.  wgmma would buy nothing:
+//   (b) is under (a).
+// - (c) The s32 digit tiles are staged to shared memory over the slot just
+//   consumed, and each thread takes one (point, sum): one reduce_digits and
+//   its constant; a pair of threads then makes a column's value, x^b from
+//   the two small power tables of r_ev^b (tiles._store_factors), one
+//   multiply and an add.  The constants are kernel arguments.  Indices are
+//   64-bit; the loop keeps its tile, group and slot as counters.
+//
+// This header compiles as plain C++ too: the tests build A and stage B with
+// the same functions, run the product through an emulation of ldmatrix and
+// mma.m16n8k32 on the fragment addresses below, and run the epilogue as the
+// card does, a block at a time.
 
 #pragma once
 #include <cstdint>
@@ -41,8 +83,18 @@ namespace boundary_columns {
 
 using f128::u128;
 
-constexpr int kThreads = 256;
-constexpr int kMaxRegisters = 128;       // config.MAX_REGISTER_COUNT
+constexpr int kThreads = 256;           // eight warps: warp w computes sum w & 3 at half w >> 2
+constexpr int kSums = 4;                // w1i, w2i, w1f, w2f
+constexpr int kTile = 64;               // points a tile: a (point, sum) a thread in the epilogue
+constexpr int kRows = 128;              // A's rows: sum s, digit d at 32 s + d
+constexpr int kDigitPitch = kTile + 8;  // words a digit row in the digits' stage
+constexpr int kSumGap = 24;             // words between two sums' digits: 16 banks apart
+constexpr int kMaxGroup = 32;           // registers a group
+constexpr int kSharedBytes = 232448;    // shared memory a block can have on the H100 (227 KB)
+constexpr int kSharedPerSM = 233472;    // an SM's (228 KB)
+constexpr int kReserved = 1024;         // the runtime's share of it a block
+constexpr int kMaxStages = 8;           // B stages: the copies of up to 7 tiles in flight
+constexpr int kMaxRegisters = 128;      // config.MAX_REGISTER_COUNT
 
 struct Args {
     const uint4* lde;        // the point k of register r at r reg_stride + k point_stride
@@ -50,36 +102,162 @@ struct Args {
     long long point_stride;
     int regs;
     long long n;             // points: out[0, n) and out[n, 2n)
-    const uint4* weights;    // (4, regs): w1i, w2i, w1f, w2f
     const uint4* xb_lo;      // x^b = xb_lo[k mod 2^log_lo] xb_hi[k >> log_lo]
     const uint4* xb_hi;
     int log_lo;
     uint4 c[4];              // c1i, c2i, c1f, c2f
     uint4* out;              // (2, n): i, then f
+    uint4 w[kSums * kMaxRegisters];   // w_(s,r) at s kMaxRegisters + r: w1i, w2i, w1f, w2f
 };
 
-// The kernel's first phase: thread tid's share of the (4, regs) weights
-// into shared memory, sum s at s kMaxRegisters.
-F128_FN void stage_weights(const Args& a, uint4* shared, int tid) {
-    for (int r = tid; r < 4 * a.regs; r += kThreads)
-        shared[(r / a.regs) * kMaxRegisters + r % a.regs] = a.weights[r];
+// Shared memory: A (kRows rows of `pitch` bytes), then a ring of `stages`
+// slots, each a tile's B stage (kTile points of `pitch` bytes) and, once
+// its product is done, the tile's digits (kDigits rows of kDigitPitch words
+// a sum, kSumGap words between sums).  Two blocks share an SM where two
+// slots a block fit in half of it (kSharedPerSM, less kReserved a block),
+// else one block takes as many as fit in kSharedBytes; at most kMaxStages.
+// The registers go in `groups` groups of `group` (the last may be
+// shorter); a row of A or B holds a group's 16-byte units, rounded up to a
+// 32-byte k-step, plus one unit so that the pitch is an odd number of
+// units.
+struct Layout {
+    int groups, group, pitch, a_bytes, stage_bytes, slot_bytes, stages;
+};
+
+F128_FN Layout layout(int regs) {
+    Layout l;
+    l.groups = (regs + kMaxGroup - 1) / kMaxGroup;
+    l.group = (regs + l.groups - 1) / l.groups;
+    l.pitch = 16 * (2 * ((l.group + 1) / 2) + 1);
+    l.a_bytes = kRows * l.pitch;
+    l.stage_bytes = kTile * l.pitch;
+    const int digits = kSums * (f128::kDigits * kDigitPitch + kSumGap) * 4;
+    l.slot_bytes = l.stage_bytes > digits ? l.stage_bytes : digits;
+    l.stages = (kSharedPerSM / 2 - kReserved - l.a_bytes) / l.slot_bytes;
+    if (l.stages < 2) l.stages = (kSharedBytes - l.a_bytes) / l.slot_bytes;
+    if (l.stages > kMaxStages) l.stages = kMaxStages;
+    return l;
 }
 
-// Point k of both columns.  w: the four weight vectors, w[s][r].
-F128_FN void column(const Args& a, const uint4* const (&w)[4], long long k) {
-    const long long at[1] = {k * a.point_stride};
-    const bool valid[1] = {true};
-    u128 acc[4][1];
-    points::weighted_sums<4, 1>(a.lde, a.reg_stride, a.regs, w, at, valid, acc);
-    const u128 xb = points::table_power(a.xb_lo, a.xb_hi, a.log_lo, k);
+F128_FN int shared_bytes(const Layout& l) { return l.a_bytes + l.stages * l.slot_bytes; }
+
+F128_FN long long tiles(const Args& a) { return (a.n + kTile - 1) / kTile; }
+
+// A block's stages (tile, group), in order: its tiles first + t stride, each
+// group of registers of each tile, the stage's slot in the ring of B stages
+struct Cursor {
+    long long tile;
+    int g, slot;
+};
+
+F128_FN void advance(Cursor& c, const Layout& l, long long stride) {
+    if (++c.g == l.groups) {
+        c.g = 0;
+        c.tile += stride;
+    }
+    if (++c.slot == l.stages) c.slot = 0;
+}
+
+// registers in group g
+F128_FN int group_regs(const Args& a, const Layout& l, int g) {
+    const int rest = a.regs - g * l.group;
+    return rest < l.group ? rest : l.group;
+}
+
+// 32-byte k-steps of a group of `count` registers
+F128_FN int ksteps(int count) { return (count + 1) / 2; }
+
+F128_FN uint32_t byte_of(uint4 w, int e) {
+    const uint32_t limb = e < 4 ? w.x : e < 8 ? w.y : e < 12 ? w.z : w.w;
+    return (limb >> (8 * (e & 3))) & 0xFF;
+}
+
+// A for group g into a_s: row 32 s + d, column 16 r + q holds byte d - q of
+// w_(s, g group + r), 0 where there is no such byte or register; thread tid
+// writes its share of the words.
+F128_FN void build_a(const Args& a, const Layout& l, int g, uint8_t* a_s, int tid) {
+    const int count = group_regs(a, l, g), words = l.pitch / 4;
+    for (int i = tid; i < kRows * words; i += kThreads) {
+        const int row = i / words, col = 4 * (i % words);
+        const int s = row >> 5, d = row & 31, r = col >> 4, q = col & 15;
+        uint32_t word = 0;
+        if (r < count) {
+            const uint4 w = a.w[s * kMaxRegisters + g * l.group + r];
 #pragma unroll
-    for (int col = 0; col < 2; ++col) {
-        const u128 base = f128::add(acc[2 * col][0], f128::from_limbs(a.c[2 * col]));
-        const u128 adj = f128::add(acc[2 * col + 1][0], f128::from_limbs(a.c[2 * col + 1]));
-        a.out[col * a.n + k] = f128::to_limbs(f128::add(base, f128::mul(xb, adj)));
+            for (int b = 0; b < 4; ++b) {
+                const int e = d - q - b;
+                if (e >= 0 && e < 16) word |= byte_of(w, e) << (8 * b);
+            }
+        }
+        *(uint32_t*)(a_s + row * l.pitch + col) = word;
     }
 }
 
-F128_FN long long blocks(const Args& a) { return (a.n + kThreads - 1) / kThreads; }
+// The values of group g at tile `tile`'s points into a B stage, one
+// 16-byte copy each (cp.async on the card): copy i of the copies() puts
+// src at byte dst of the stage, point p's register r at p pitch + 16 r,
+// consecutive copies on consecutive points.  Points past n read point n - 1
+// (their columns are not stored).
+F128_FN int copies(const Args& a, const Layout& l, int g) { return kTile * group_regs(a, l, g); }
+
+F128_FN const uint4* stage_copy(const Args& a, const Layout& l, long long tile, int g, int i,
+                                int& dst) {
+    const int p = i % kTile, r = i / kTile;
+    long long k = tile * kTile + p;
+    if (k >= a.n) k = a.n - 1;
+    dst = p * l.pitch + 16 * r;
+    return a.lde + (long long)(g * l.group + r) * a.reg_stride + k * a.point_stride;
+}
+
+// The fragments of warp (s, h)'s product: A's rows of sum s, B's points
+// 32 h to 32 h + 31.  ldmatrix.x4: lane l gives the row address (l & 7) of
+// matrix l >> 3, and receives in register j the word at bytes 4 (l & 3) of
+// row l >> 2 of matrix j.  Offsets in bytes into A or a B stage for k-step
+// kk:
+// - A's m16 tile at rows row0: matrices (rows 0-7, bytes 0-15), (8-15,
+//   0-15), (0-7, 16-31), (8-15, 16-31), mma's a0-a3;
+// - B's two n8 tiles at points p0 and p0 + 8: matrices (p0, bytes 0-15),
+//   (p0, 16-31), (p0 + 8, 0-15), (p0 + 8, 16-31), b0 and b1 of each.
+F128_FN int a_offset(const Layout& l, int row0, int kk, int lane) {
+    const int j = lane >> 3;
+    return (row0 + (lane & 7) + 8 * (j & 1)) * l.pitch + 32 * kk + 16 * (j >> 1);
+}
+
+F128_FN int b_offset(const Layout& l, int p0, int kk, int lane) {
+    const int j = lane >> 3;
+    return (p0 + (lane & 7) + 8 * (j >> 1)) * l.pitch + 32 * kk + 16 * (j & 1);
+}
+
+// Word of sum s's digit d at point p in the digits' stage: the two sums
+// that a pair of lanes reads at one point lie 16 banks apart
+F128_FN int digit_at(int s, int d, int p) {
+    return s * (f128::kDigits * kDigitPitch + kSumGap) + d * kDigitPitch + p;
+}
+
+// Where accumulator i of lane `lane` of warp (s, h) for m16 tile mt and
+// n8 tile nt (points 32 h + 8 nt on) goes in the digits' stage (mma's c_i:
+// row (lane >> 2) + 8 (i >> 1), column 2 (lane & 3) + (i & 1)), or -1 for
+// the digit d = 31, which is 0.
+F128_FN int digit_word(int s, int h, int mt, int nt, int lane, int i) {
+    const int d = 16 * mt + (lane >> 2) + 8 * (i >> 1);
+    return d < f128::kDigits ? digit_at(s, d, 32 * h + 8 * nt + 2 * (lane & 3) + (i & 1)) : -1;
+}
+
+// The epilogue: thread tid takes sum s = 2 (tid >> 7) + (tid & 1) at point
+// p = (tid >> 1) mod kTile, S_s + c_s from its digits; the pair of threads
+// 2 j, 2 j + 1 holds the base and the x^b term of a column (tid >> 7 = 0:
+// i, 1: f), and the even one stores base + x^b adj.
+F128_FN u128 sum_value(const Args& a, const uint32_t* digits, int tid) {
+    const int s = 2 * (tid >> 7) + (tid & 1), p = (tid >> 1) % kTile;
+    return f128::add(f128::reduce_digits(digits + digit_at(s, 0, p), kDigitPitch),
+                     f128::from_limbs(a.c[s]));
+}
+
+F128_FN void finish(const Args& a, long long tile, int tid, u128 base, u128 adj) {
+    const long long k = tile * kTile + (tid >> 1) % kTile;
+    if (k >= a.n) return;
+    const u128 xb = points::table_power(a.xb_lo, a.xb_hi, a.log_lo, k);
+    a.out[(tid >> 7) * a.n + k] = f128::to_limbs(f128::add(base, f128::mul(xb, adj)));
+}
 
 }  // namespace boundary_columns

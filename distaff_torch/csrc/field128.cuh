@@ -12,6 +12,10 @@
 // Field elements travel as four little-endian uint32 limbs (uint4), the
 // layout of the (..., 4) tensors on both sides of the port.
 //
+// reduce_digits takes a sum of byte-limb products (K10's int8 tensor-core
+// product, boundary_columns.cuh) back to the field: 31 digits of weight
+// 2^(8d), reassembled and reduced once.
+//
 // On the card the multiply is PTX on four 32-bit limbs (mul_limbs below), a
 // carry chain that the compiled u128 formulation is slower than (K2's
 // exp_const and K4 on the card, PERF.md).  The header also compiles as
@@ -188,27 +192,10 @@ __device__ __forceinline__ uint4 mul_limbs(uint4 a, uint4 b) {
 }
 #endif
 
-// 128x128 -> 256-bit product, then two folds of the high half through R and
-// a final conditional subtraction: the step that _reduce256_h ends with,
-// for results in [M, 2^128).
-F128_FN u128 mul(u128 a, u128 b) {
-#ifdef __CUDA_ARCH__
-    return from_limbs(mul_limbs(to_limbs(a), to_limbs(b)));
-#else
-    u64 a0 = (u64)a, a1 = (u64)(a >> 64);
-    u64 b0 = (u64)b, b1 = (u64)(b >> 64);
-
-    u128 ll = (u128)a0 * b0;
-    u128 lh = (u128)a0 * b1;
-    u128 hl = (u128)a1 * b0;
-    u128 hh = (u128)a1 * b1;
-
-    u128 mid = lh + hl;                              // may carry into bit 128
-    u128 carry_mid = (mid < lh) ? ((u128)1 << 64) : 0;
-    u128 lo = ll + (mid << 64);
-    u128 carry_lo = (lo < ll) ? 1 : 0;
-    u128 hi = hh + (mid >> 64) + carry_mid + carry_lo;
-
+// hi 2^128 + lo mod M for any 256-bit value: two folds of the high half
+// through R and a final conditional subtraction, the step that
+// _reduce256_h ends with, for results in [M, 2^128).
+F128_FN u128 reduce_wide(u128 lo, u128 hi) {
     // first fold: hi * R + lo, with hi * R < 2^174 held as fold_hi:fold_lo
     u64 r = fold_r();
     u64 h0 = (u64)hi, h1 = (u64)(hi >> 64);
@@ -227,7 +214,61 @@ F128_FN u128 mul(u128 a, u128 b) {
     if (res < acc_lo) res += r;                      // wrapped past 2^128
     if (res >= modulus()) res -= modulus();
     return res;
+}
+
+// 128x128 -> 256-bit product, then reduce_wide.
+F128_FN u128 mul(u128 a, u128 b) {
+#ifdef __CUDA_ARCH__
+    return from_limbs(mul_limbs(to_limbs(a), to_limbs(b)));
+#else
+    u64 a0 = (u64)a, a1 = (u64)(a >> 64);
+    u64 b0 = (u64)b, b1 = (u64)(b >> 64);
+
+    u128 ll = (u128)a0 * b0;
+    u128 lh = (u128)a0 * b1;
+    u128 hl = (u128)a1 * b0;
+    u128 hh = (u128)a1 * b1;
+
+    u128 mid = lh + hl;                              // may carry into bit 128
+    u128 carry_mid = (mid < lh) ? ((u128)1 << 64) : 0;
+    u128 lo = ll + (mid << 64);
+    u128 carry_lo = (lo < ll) ? 1 : 0;
+    u128 hi = hh + (mid >> 64) + carry_mid + carry_lo;
+    return reduce_wide(lo, hi);
 #endif
+}
+
+// The digits of a sum of byte-limb products: a product of two elements
+// split into 16 bytes each has 31 digits, digit d the sum of the byte
+// products of weight 2^(8d).
+constexpr int kDigits = 31;
+
+// sum_d digits[d stride] 2^(8d) mod M over the kDigits digits, each any
+// 32-bit value (K10's are below 2^27): the digits re-accumulated into eight
+// 32-bit limbs, four digits a limb at shifts 0, 8, 16 and 24 (each limb's
+// sum < 2^58 in 64 bits), in one carry sweep; the carry out of limb 7, the
+// bits from 2^256 up (< 2^16), folded in as carry R^2 (2^256 = R^2 mod M,
+// < 2^107); then the 256-bit value's reduce_wide.  Plain integer code, the
+// same on the card and in the host tests.
+F128_FN u128 reduce_digits(const uint32_t* digits, int stride) {
+    uint32_t limb[8];
+    u64 carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        u64 acc = carry;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+            if (4 * j + b < kDigits) acc += (u64)digits[(4 * j + b) * stride] << (8 * b);
+        limb[j] = (uint32_t)acc;
+        carry = acc >> 32;
+    }
+    u128 lo = ((u128)(((u64)limb[3] << 32) | limb[2]) << 64) | (((u64)limb[1] << 32) | limb[0]);
+    u128 hi = ((u128)(((u64)limb[7] << 32) | limb[6]) << 64) | (((u64)limb[5] << 32) | limb[4]);
+    const u128 r2 = (u128)fold_r() * fold_r();
+    const u128 top = (u128)carry * r2;
+    lo += top;
+    if (lo < top && ++hi == 0) lo += r2;   // past 2^256 once more: lo < 2^107 now
+    return reduce_wide(lo, hi);
 }
 
 // a^(-1) = a^(M-2) (0 for 0) by the binary extended Euclidean algorithm:

@@ -1,6 +1,6 @@
 // Reads of points and powers shared by K7 (deep_compose), K9 (fri_fold) and
 // K10 (boundary_columns): read-only and streaming loads, a power of a root
-// from two small tables, and weighted register sums over points of an
+// from two small tables, and K7's weighted register sums over points of an
 // (R, D) LDE.  Compiles as plain C++ too, like field128.cuh.
 
 #pragma once

@@ -6,8 +6,11 @@ replaces the JAX package's distaff_tpu/stark/prover.py::
 _evaluate_boundaries_device with its weighted register sums (distaff_tpu/
 ops/tiles.py::_wsum_tile) and x^b power series: the first- and last-step
 boundary columns over the evaluation domain in one launch, reading the
-LDE's stride slice in place and x^b from K1's kind of power tables.  Bound
-by operations; see the source for the design.
+LDE's stride slice in place and x^b from K1's kind of power tables.  The
+four weighted register sums of a tile of points are one unsigned-byte
+matrix product on the int8 tensor cores (the weights' Toeplitz byte
+expansion times the values' bytes), each sum's 31 digit sums reduced once.
+Bound by bytes; see the source for the design.
 
 The wrapper takes the plain version for tensors on the CPU, and launches
 the kernel for tensors on the card, or raises.  The plain version is the
@@ -33,11 +36,14 @@ MAX_REGISTERS = 128          # boundary_columns.cuh kMaxRegisters
 
 
 def boundary_ops(regs):
-    """(multiplies, adds) a point of K10 at its leanest, from its code: the
-    four weighted sums (4R multiplies, 4(R - 1) adds), x^b's table lookup
-    and the two x^b products (3), the four constants and the two last sums
-    (6 adds)."""
-    return 4 * regs + 3, 4 * (regs - 1) + 6
+    """K10's work a point at its leanest, from its code: (byte operations of
+    the int8 product, digit reductions, multiplies, adds).  The product is
+    A's 128 rows (four sums of 31 digits, one padding row each) by the
+    point's 16R value bytes, 2 operations a byte product; each of the four
+    sums is one f128::reduce_digits; x^b's table lookup and the two x^b
+    products are 3 multiplies, the four constants and the two last sums 6
+    adds."""
+    return 2 * 128 * 16 * regs, 4, 3, 6
 
 
 def boundary_columns_plain(lde, i_parts, f_parts, xb_root, start=0):
@@ -61,14 +67,16 @@ def boundary_columns_plain(lde, i_parts, f_parts, xb_root, start=0):
 
 def boundary_args(lde, i_parts, f_parts, xb_root):
     """K10's arguments beside the LDE: the (4, R) weights w1i, w2i, w1f,
-    w2f (one upload), x^b's tables (lo, hi; hi None up to 1024 points) and
-    the four constants as 16 host words."""
-    weights = ft.from_ints(np.array([list(i_parts[0]), list(i_parts[1]), list(f_parts[0]),
-                                     list(f_parts[1])], dtype=object), lde.device)
+    w2f as 16R host words (a kernel parameter, like the constants), x^b's
+    tables (lo, hi; hi None up to 1024 points) and the four constants as
+    16 host words."""
+    weights = (i_parts[0], i_parts[1], f_parts[0], f_parts[1])
+    weight_words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for row in weights for v in row
+                    for k in range(4)]
     tables = tiles._store_factors(lde.shape[1], int(xb_root), 1, lde.device)
     constants = (i_parts[2], i_parts[3], f_parts[2], f_parts[3])
     words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in constants for k in range(4)]
-    return weights, tables, words
+    return weight_words, tables, words
 
 
 def boundary_columns(lde, i_parts, f_parts, xb_root):
@@ -88,7 +96,8 @@ def boundary_columns(lde, i_parts, f_parts, xb_root):
     weights, (lo, hi), words = boundary_args(lde, i_parts, f_parts, xb_root)
     out = torch.empty((2, n, 4), dtype=torch.uint32, device=lde.device)
     code = cuda_lib.lib().distaff_boundary_columns(
-        cuda_lib.ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n, cuda_lib.ptr(weights),
+        cuda_lib.ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n,
+        (ctypes.c_uint32 * len(weights))(*weights),
         cuda_lib.ptr(lo), ctypes.c_void_p(None) if hi is None else cuda_lib.ptr(hi),
         tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), cuda_lib.ptr(out), cuda_lib.stream(out))
     cuda_lib.check(code, "boundary_columns")

@@ -17,6 +17,7 @@ wrapper adds one where it launches its kernel and nowhere else.
 
 import ctypes
 import shutil
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -98,6 +99,31 @@ def ptxas_report(stem):
     return ptxas_lines(obj.with_suffix(".log"))
 
 
+def _binary_tool(name):
+    """Path of a CUDA binary tool: the toolkit's, or the copy that Triton's
+    package carries; None where neither is installed."""
+    for candidate in (f"/usr/local/cuda/bin/{name}", shutil.which(name)):
+        if candidate and Path(candidate).exists():
+            return candidate
+    try:
+        import triton
+    except ImportError:
+        return None
+    bundled = Path(triton.__file__).resolve().parent / "backends" / "nvidia" / "bin" / name
+    return str(bundled) if bundled.exists() else None
+
+
+def sass(stem):
+    """The SASS of csrc/<stem>.cu's object (cuobjdump --dump-sass), or None
+    where no cuobjdump is installed."""
+    tool = _binary_tool("cuobjdump")
+    if tool is None:
+        return None
+    obj = next(o for o in _objects() if o.name.startswith(stem + "-"))
+    return subprocess.run([tool, "--dump-sass", str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def lib():
     """The loaded kernel library, built on first use."""
     global _lib
@@ -120,10 +146,10 @@ def lib():
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
         handle.distaff_deep_compose.argtypes = [
             vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, u32p, vp, vp]
-        handle.distaff_poly_eval.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, i32, i32, vp]
+        handle.distaff_poly_eval.argtypes = [vp, vp, vp, vp, ll, ll, i32, u32p, vp]
         handle.distaff_fri_fold.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp, vp]
         handle.distaff_boundary_columns.argtypes = [
-            vp, ll, ll, i32, ll, vp, vp, vp, i32, u32p, vp, vp]
+            vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp, vp]
         handle.distaff_syn_div.argtypes = [vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, vp, vp, vp]
         handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,

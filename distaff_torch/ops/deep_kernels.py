@@ -11,9 +11,11 @@ each block.  Bound by bytes and operations about alike.
 
 K8 `poly_eval` (csrc/poly_eval.cu, poly_eval.cuh) replaces
 distaff_tpu/stark/prover.py::_ps_points and _poly_eval_tile_multi (driven
-by _poly_eval_rows_multi): rows of coefficients at a few points, each pass
-a Horner sum a thread and a tree a block that shortens a row 4096 times.
-Bound by the depth of its dependent multiplies.
+by _poly_eval_rows_multi): rows of coefficients at up to four points in
+one launch, a Horner sum a thread and a tree a block over each span of
+2048 coefficients (16384 in calls from 2^22 coefficients on), scaled to its
+place, and the row's last block summing the spans.  Bound by bytes; the
+multiplies it issues and, in small calls, latency set its time.
 
 Each wrapper takes its plain version for tensors on the CPU, and launches
 the kernel for tensors on the card, or raises.  The plain versions are the
@@ -25,7 +27,6 @@ them on the card.
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..math import field as hostfield
@@ -35,8 +36,9 @@ from . import field_kernels as fk
 from . import tiles
 
 M = hostfield.M
-POLY_EVAL_LOG_SPAN = 12        # poly_eval.cuh kLogSpan: a pass shortens a row 4096 times
+POLY_EVAL_LOG_SPAN = 11        # poly_eval.cuh: a block's shortest span of a row, 2^(8 + 3)
 POLY_EVAL_MAX_POINTS = 4       # poly_eval.cuh kMaxPoints
+POLY_EVAL_SQUARINGS = 32       # poly_eval.cuh kSquarings: x^(2^k) for k < 32
 LOG_LO = tiles._LOG_LO         # K1's power tables (tiles._store_factors): lo holds 2^LOG_LO
 
 
@@ -64,56 +66,58 @@ def poly_eval_plain(polys, points):
     return sum_plain(fk.mul_plain(polys[None], ps[:, None]), axis=2)
 
 
-def poly_eval_passes(length):
-    """K8 launches for one group of points over rows of `length`."""
-    passes = 1
-    while length > 1 << POLY_EVAL_LOG_SPAN:
-        length = -(-length >> POLY_EVAL_LOG_SPAN)
-        passes += 1
-    return passes
+def poly_eval_launches(points):
+    """K8 launches of poly_eval at `points` points: one a group of up to
+    POLY_EVAL_MAX_POINTS, whatever the rows' length."""
+    return -(-points // POLY_EVAL_MAX_POINTS)
 
 
-def poly_eval_launches(length, points):
-    """K8 launches of poly_eval over rows of `length` at `points` points."""
-    return poly_eval_passes(length) * -(-points // POLY_EVAL_MAX_POINTS)
-
-
-def _squarings(points, count):
-    """(P, count) host ints x_p^(2^k)."""
-    rows = []
+def squaring_words(points):
+    """The host words of x_p^(2^k), k < POLY_EVAL_SQUARINGS, for each point:
+    K8's __grid_constant__ table."""
+    words = []
     for x in points:
-        row, v = [], int(x) % M
-        for _ in range(count):
-            row.append(v)
+        v = int(x) % M
+        for _ in range(POLY_EVAL_SQUARINGS):
+            words += [(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
             v = v * v % M
-        rows.append(row)
-    return rows
+    return words
 
 
-def run_passes(polys, points, launch):
-    """K8's passes for up to POLY_EVAL_MAX_POINTS points: launch(src, dst,
-    sq, length, out_len, rows, points, row_period, sq_len, sq_off) runs one
-    pass.  The first pass reads each row once for all points; later passes
-    have one point a row, row b's point b mod P.  Returns (P, R, 4)."""
-    r, length = polys.shape[0], polys.shape[1]
+_TICKETS = {}
+
+
+def _tickets(rows, device):
+    """K8's per-row counters on `device`, zero between launches (the row's
+    last block resets its own): allocated once, grown when needed."""
+    key = str(device)
+    if key not in _TICKETS or _TICKETS[key].shape[0] < rows:
+        _TICKETS[key] = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def evaluate_group(polys, points, launch):
+    """One K8 launch for up to POLY_EVAL_MAX_POINTS points over the rows of
+    polys (R, L, 4): launch(polys, out, partial, tickets, length, rows,
+    count, words) runs it, with out (R, count, 4), partial (R, count,
+    ceil(L / 2048), 4) the blocks' scratch (for the shortest span) and words
+    squaring_words(points).
+    Returns (count, R, 4)."""
+    rows, length = polys.shape[0], polys.shape[1]
     count = len(points)
-    passes = poly_eval_passes(length)
-    sq_len = POLY_EVAL_LOG_SPAN * passes
-    sq = ft.from_ints(np.array(_squarings(points, sq_len), dtype=object), polys.device)
-    src, rows, per_row, period = polys, r, count, 1
-    for k in range(passes):
-        out_len = -(-length >> POLY_EVAL_LOG_SPAN)
-        dst = torch.empty((rows * per_row, out_len, 4), dtype=torch.uint32, device=polys.device)
-        launch(src, dst, sq, length, out_len, rows, per_row, period, sq_len,
-               POLY_EVAL_LOG_SPAN * k)
-        src, rows, per_row, period, length = dst, rows * per_row, 1, count, out_len
-    return src.view(r, count, 4).transpose(0, 1)
+    blocks = -(-length >> POLY_EVAL_LOG_SPAN)
+    out = torch.empty((rows, count, 4), dtype=torch.uint32, device=polys.device)
+    partial = torch.empty((rows, count, blocks if blocks > 1 else 0, 4), dtype=torch.uint32,
+                          device=polys.device)
+    launch(polys, out, partial, _tickets(rows, polys.device), length, rows, count,
+           squaring_words(points))
+    return out.transpose(0, 1)
 
 
-def _launch_pass(src, dst, sq, length, out_len, rows, points, row_period, sq_len, sq_off):
+def _launch(polys, out, partial, tickets, length, rows, count, words):
     code = cuda_lib.lib().distaff_poly_eval(
-        cuda_lib.ptr(src), cuda_lib.ptr(dst), cuda_lib.ptr(sq), length, out_len, rows, points,
-        row_period, sq_len, sq_off, cuda_lib.stream(dst))
+        cuda_lib.ptr(polys), cuda_lib.ptr(out), cuda_lib.ptr(partial), cuda_lib.ptr(tickets),
+        length, rows, count, (ctypes.c_uint32 * len(words))(*words), cuda_lib.stream(out))
     cuda_lib.check(code, "poly_eval")
     cuda_lib.LAUNCHES["poly_eval"] += 1
 
@@ -129,7 +133,7 @@ def poly_eval(polys, points):
         return poly_eval_plain(polys, points)
     cuda_lib.require_limbs("poly_eval", polys)
     polys = polys.contiguous()
-    groups = [run_passes(polys, points[k : k + POLY_EVAL_MAX_POINTS], _launch_pass)
+    groups = [evaluate_group(polys, points[k : k + POLY_EVAL_MAX_POINTS], _launch)
               for k in range(0, len(points), POLY_EVAL_MAX_POINTS)]
     return groups[0] if len(groups) == 1 else torch.cat(groups)
 

@@ -1,11 +1,11 @@
-"""K4's, K6's and K7's design choices measured on the card, each against
-the kernel with that one choice undone.
+"""K4's, K6's, K7's and K10's design choices measured on the card, each
+against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k10]
 
-(all three by default).
+(all five by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -24,10 +24,15 @@ extended Euclid (production) and by square-and-multiply (f128::pow, 250
 dependent multiplies); and K7 over the 2^16 proof's LDE domain ((20, 2^21)
 random registers) with other tiles and occupancies (DEEP_THREADS threads a
 block, DEEP_PER_THREAD points a thread, __launch_bounds__ for
-DEEP_MIN_BLOCKS blocks an SM; production 256, 2 and 4).  Times come from
-CUDA events around calls queued
-behind a spin kernel (tools/timing.time_ms); ptxas' spill line of each
-build is printed.  Any difference from the production build raises.
+DEEP_MIN_BLOCKS blocks an SM; production 256, 2 and 4); K8 at the 2^16
+and 2^20 proofs' calls with 8 or 64 coefficients a thread at every size
+and without its ticket (probe_k8); and K10 at (20,
+2^19) at point strides 1-8 beside PyTorch's copy of each strided slice,
+and built without its product, its epilogue or both (probe_k10).  Times
+come from CUDA events around calls queued behind a spin kernel
+(tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
+difference from the production build raises (but K10's variants, which
+drop work by design).
 """
 
 import ctypes
@@ -46,7 +51,7 @@ BENCH_DEPTHS = (1, 0, 4)
 MUL_DEVICE = "#ifdef __CUDA_ARCH__\n    return from_limbs(mul_limbs(to_limbs(a), to_limbs(b)));\n#else"
 STAGE = "rows[e] = __ldcs(in.trace + row * in.row_stride + r * in.reg_stride);"
 BOUNDS = "__launch_bounds__(kThreads)"
-# variant: (file, text, replacement)
+# variant: a patch, (file, text, replacement)
 K4_VARIANTS = {
     "ordinary-loads": ("air_transition.cu", STAGE,
                        "rows[e] = in.trace[row * in.row_stride + r * in.reg_stride];"),
@@ -64,17 +69,39 @@ K7_VARIANTS = {
 }
 K6_VARIANT = ("inv_block.cuh", "tree[1] = f128::inv(tree[1]);",
               "tree[1] = f128::pow(tree[1], f128::modulus() - 2);")
+K10_PRODUCT = ("boundary_columns.cu",
+               "product(l, group_regs(a, l, at.g), shared_address(a_s),\n                "
+               "shared_address(b_s + at.slot * l.slot_bytes), warp & 3, warp >> 2, lane, acc);",
+               "")
+K10_EPILOGUE = ("boundary_columns.cu",
+                "if ((tid & 1) == 0) finish(a, at.tile, tid, value, f128::from_limbs(v));", "")
+K8_CHOICE = "const int log = log_per_thread(rows, len);"
+# variant: patches
+K8_VARIANTS = {
+    "8 coefficients a thread at every size": (
+        ("poly_eval.cu", K8_CHOICE, "const int log = kShortLog;"),),
+    "64 coefficients a thread at every size": (
+        ("poly_eval.cu", K8_CHOICE, "const int log = kLongLog;"),),
+    "no ticket": (("poly_eval.cu",
+                   "last = atomicAdd(a.tickets + row, 1u) == (unsigned)a.blocks - 1;",
+                   "last = 0;"),),
+}
+# variant: patches
+K10_VARIANTS = {
+    "copies only": (K10_PRODUCT, K10_EPILOGUE),
+    "copies and product": (K10_EPILOGUE,),
+    "copies and epilogue": (K10_PRODUCT,),
+}
 
 
-def _build(name, source, patch, defines=()):
-    """A copy of csrc with `patch` (or None) applied, `source` built into a
-    library: (ctypes handle, ptxas' spill lines)."""
+def _build(name, source, patches=(), defines=()):
+    """A copy of csrc with the (file, text, replacement) `patches` applied,
+    `source` built into a library: (ctypes handle, ptxas' spill lines)."""
     work = Path(tempfile.mkdtemp(prefix=f"air_probe-{name}-"))
     try:
         for f in cuda_lib.CSRC.glob("*.cu*"):
             shutil.copy(f, work)
-        if patch is not None:
-            file, old, new = patch
+        for file, old, new in patches:
             text = (work / file).read_text()
             if old not in text:
                 raise RuntimeError(f"air_probe: {name}: the text to patch is not in {file}")
@@ -124,7 +151,8 @@ def probe_k4():
     defines = [f"AIR_{k}={v}" for k, v in zip(("CTX", "LOOP", "STACK"), BENCH_DEPTHS)]
     with ThreadPoolExecutor(len(K4_VARIANTS)) as pool:
         built = dict(zip(K4_VARIANTS, pool.map(
-            lambda kv: _build(kv[0], "air_transition.cu", kv[1], defines), K4_VARIANTS.items())))
+            lambda kv: _build(kv[0], "air_transition.cu", (kv[1],), defines),
+            K4_VARIANTS.items())))
     p, n = cuda_lib.ptr, lde.shape[1]
     for name, (handle, spills) in built.items():
         fn = handle.distaff_air_transition
@@ -154,7 +182,7 @@ def probe_k4():
 def probe_k6():
     from ..ops import field_kernels as fk
 
-    handle, _ = _build("k6-pow", "inv_batch.cu", K6_VARIANT)
+    handle, _ = _build("k6-pow", "inv_batch.cu", (K6_VARIANT,))
     fn = handle.distaff_inv_batch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -199,7 +227,7 @@ def probe_k7():
           f"{ms:.4f} ms", flush=True)
     with ThreadPoolExecutor(len(K7_VARIANTS)) as pool:
         built = dict(zip(K7_VARIANTS, pool.map(
-            lambda kv: _build(kv[0].replace(" ", "-"), "deep_compose.cu", None, kv[1]),
+            lambda kv: _build(kv[0].replace(" ", "-"), "deep_compose.cu", (), kv[1]),
             K7_VARIANTS.items())))
     stride, _, _, tables, words = dk.compose_args(lde, root, incr, scalars)
     p, nul = cuda_lib.ptr, ctypes.c_void_p(None)
@@ -221,10 +249,119 @@ def probe_k7():
         print(f"K7 {name}: {'; '.join(spills)}; {ms:.4f} ms", flush=True)
 
 
+def probe_k10():
+    """K10 at (20, 2^19) on random registers and weights: the production
+    build at point strides 1, 2, 4 and 8 (the proof's is 4) beside
+    PyTorch's copy of the same strided slice to a contiguous tensor (the
+    card's rate for reading it), and at strides 4 and 1 the builds
+    K10_VARIANTS that drop phases of the kernel (their outputs are wrong by
+    design and are not held), so that the time splits into copies, product
+    and epilogue."""
+    import random
+
+    from ..math import field as hostfield
+    from ..ops import boundary_kernels as bk
+    from ..ops import tiles
+
+    regs, n = 20, 1 << 19
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    full = random_elements(gen, (regs, 8 * n))
+    rng = random.Random(10)
+    parts = [([rng.randrange(hostfield.M) for _ in range(regs)] for _ in range(2))
+             for _ in range(2)]
+    parts = [(*ws, rng.randrange(hostfield.M), rng.randrange(hostfield.M)) for ws in parts]
+    root = hostfield.exp(hostfield.get_root_of_unity(n), 37)
+    slices = {s: full[:, : s * n : s] for s in (1, 2, 4, 8)}
+    spills = [line.strip() for line in cuda_lib.ptxas_report("boundary_columns")
+              if "spill" in line or "registers" in line]
+    print(f"K10 production: {'; '.join(spills)}", flush=True)
+    for stride, x in slices.items():
+        ms = time_ms(lambda: bk.boundary_columns(x, *parts, root), 20, 7, queued=True)
+        copy = time_ms(lambda: x.contiguous(), 20, 7, queued=True)
+        print(f"K10 production, point stride {stride}: {ms:.4f} ms; PyTorch's copy of the "
+              f"slice {copy:.4f} ms", flush=True)
+    with ThreadPoolExecutor(len(K10_VARIANTS)) as pool:
+        built = dict(zip(K10_VARIANTS, pool.map(
+            lambda kv: _build(kv[0].replace(" ", "-"), "boundary_columns.cu", kv[1]),
+            K10_VARIANTS.items())))
+    p = cuda_lib.ptr
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_boundary_columns
+        fn.argtypes = cuda_lib.lib().distaff_boundary_columns.argtypes
+        fn.restype = ctypes.c_int
+        for stride in (4, 1):
+            x = slices[stride]
+            weights, (lo, hi), words = bk.boundary_args(x, *parts, root)
+
+            def run():
+                out = torch.empty((2, n, 4), dtype=torch.uint32, device="cuda")
+                cuda_lib.check(fn(p(x), x.stride(0) // 4, x.stride(1) // 4, regs, n,
+                                  (ctypes.c_uint32 * len(weights))(*weights), p(lo),
+                                  ctypes.c_void_p(None) if hi is None else p(hi), tiles._LOG_LO,
+                                  (ctypes.c_uint32 * 16)(*words), p(out),
+                                  cuda_lib.stream(out)), name)
+                return out
+
+            ms = time_ms(run, 20, 7, queued=True)
+            print(f"K10 {name}, point stride {stride}: {'; '.join(spills)}; {ms:.4f} ms",
+                  flush=True)
+
+
+def probe_k8():
+    """K8 at the 2^16 and 2^20 proofs' calls ((20, n) at two points, (1, 8n)
+    at one) on random coefficients and points, the production build (8
+    coefficients a thread under 2^22 coefficients a call, 64 from there on)
+    against K8_VARIANTS: one choice at every size, held equal, and the
+    production build without the ticket and the last block's sum (not
+    held)."""
+    import random
+
+    from ..math import field as hostfield
+    from ..ops import deep_kernels as dk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    rng = random.Random(8)
+    calls = [(random_elements(gen, (regs, length)),
+              [rng.randrange(hostfield.M) for _ in range(count)])
+             for regs, length, count in ((20, 1 << 16, 2), (1, 1 << 19, 1), (20, 1 << 20, 2),
+                                         (1, 1 << 23, 1))]
+    spills = [line.strip() for line in cuda_lib.ptxas_report("poly_eval")
+              if "spill" in line or "registers" in line]
+    print(f"K8 production: {'; '.join(spills)}", flush=True)
+    for polys, points in calls:
+        ms = time_ms(lambda: dk.poly_eval(polys, points), 20, 7, queued=True)
+        print(f"K8 production, {tuple(polys.shape[:2])} at {len(points)} points: {ms:.4f} ms",
+              flush=True)
+    with ThreadPoolExecutor(len(K8_VARIANTS)) as pool:
+        built = dict(zip(K8_VARIANTS, pool.map(
+            lambda kv: _build(kv[0].replace(" ", "-"), "poly_eval.cu", kv[1]),
+            K8_VARIANTS.items())))
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_poly_eval
+        fn.argtypes = cuda_lib.lib().distaff_poly_eval.argtypes
+        fn.restype = ctypes.c_int
+
+        def launch(polys, out, partial, tickets, length, rows, count, words):
+            cuda_lib.check(fn(cuda_lib.ptr(polys), cuda_lib.ptr(out), cuda_lib.ptr(partial),
+                              cuda_lib.ptr(tickets), length, rows, count,
+                              (ctypes.c_uint32 * len(words))(*words), cuda_lib.stream(out)), name)
+
+        for polys, points in calls:
+            run = lambda: dk.evaluate_group(polys, points, launch)
+            if "ticket" not in name and not torch.equal(run(), dk.poly_eval(polys, points)):
+                raise AssertionError(f"air_probe: K8 {name} differs from the production build")
+            ms = time_ms(run, 20, 7, queued=True)
+            print(f"K8 {name}, {tuple(polys.shape[:2])} at {len(points)} points: "
+                  f"{'; '.join(spills)}; {ms:.4f} ms", flush=True)
+
+
 def main(argv=None):
     import sys
 
-    probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7}
+    probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
+              "k10": probe_k10}
     names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")

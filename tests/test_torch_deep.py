@@ -106,6 +106,7 @@ def test_poly_eval_plain_matches_jax_rows_multi(regs, length, points):
 
 
 _HARNESS = r"""
+#include <array>
 #include <cstring>
 #include <vector>
 #include "deep_compose.cuh"
@@ -140,20 +141,55 @@ extern "C" void deep_compose_host(const void* lde, long long lde_stride, int reg
     }
 }
 
-extern "C" void poly_eval_host(const void* in, void* out, const void* sq, long long len,
-                               long long out_len, long long rows, int points, int row_period,
-                               int sq_len, int sq_off) {
+// K8's launch on the CPU at 2^log coefficients a thread: each row's blocks
+// in order (so that the last block to take its ticket is the last index),
+// each phase for every thread of the block before the next, a shuffle
+// level as lane t taking lane t + 2^k's value
+extern "C" void poly_eval_host(const void* in, void* out, void* partial, uint32_t* tickets,
+                               long long len, long long rows, int points,
+                               const uint32_t* squarings, int log) {
     using namespace poly_eval;
-    const Args a{(const uint4*)in, (uint4*)out, (const uint4*)sq, len, out_len, points,
-                 row_period, sq_len, sq_off};
-    std::vector<f128::u128> buf(kMaxPoints * kThreads);
+    using f128::u128;
+    const int log_span = kLogThreads + log;
+    Args a{(const uint4*)in, (uint4*)out, (uint4*)partial, tickets, len, log_span,
+           (int)((len + (1LL << log_span) - 1) >> log_span), points, {}};
+    std::memcpy(a.sq, squarings, sizeof(uint4) * kSquarings * points);
+    std::vector<std::array<u128, kMaxPoints>> h(kThreads);
+    auto at = [&](int t) -> u128 (&)[kMaxPoints] { return *(u128 (*)[kMaxPoints])h[t].data(); };
+    auto lanes = [&](int k, bool weighted) {           // a shuffle level in every warp
+        for (int t = 0; t < kThreads; t += 2 << k)
+            if (weighted) combine(a, k, at(t), at(t + (1 << k))); else add_into(a, at(t), at(t + (1 << k)));
+    };
     for (long long row = 0; row < rows; ++row)
-        for (long long chunk = 0; chunk < out_len; ++chunk) {
-            for (int tid = 0; tid < kThreads; ++tid) horner(a, chunk, row, tid, buf.data());
-            for (int level = 0; level < kLogThreads; ++level)
-                for (int tid = 0; tid < kThreads; ++tid) reduce(a, row, tid, level, buf.data());
-            for (int tid = 0; tid < kThreads; ++tid) store(a, chunk, row, tid, buf.data());
+        for (long long block = 0; block < a.blocks; ++block) {
+            for (int tid = 0; tid < kThreads; ++tid) {
+                if (log == kLongLog) horner<kLongLog>(a, row, block, tid, at(tid));
+                else horner<kShortLog>(a, row, block, tid, at(tid));
+            }
+            for (int k = 0; k < 5; ++k) lanes(k, true);
+            std::array<u128, kMaxPoints> w[kWarps];           // warp_values, then warp 0's lanes
+            for (int warp = 0; warp < kWarps; ++warp) w[warp] = h[32 * warp];
+            for (int k = 0; k < kLogWarps; ++k)
+                for (int t = 0; t < kWarps; t += 2 << k)
+                    combine(a, 5 + k, *(u128 (*)[kMaxPoints])w[t].data(),
+                            *(const u128 (*)[kMaxPoints])w[t + (1 << k)].data());
+            u128 (&value)[kMaxPoints] = *(u128 (*)[kMaxPoints])w[0].data();
+            scale(a, block, value);
+            store(a, row, block, value);
+            if (a.blocks == 1 || tickets[row]++ != (uint32_t)a.blocks - 1) continue;
+            for (int tid = 0; tid < kThreads; ++tid) gather(a, row, tid, at(tid));
+            for (int k = 0; k < 5; ++k) lanes(k, false);
+            for (int p = 0; p < points; ++p) {
+                u128 sum = 0;
+                for (int warp = 0; warp < kWarps; ++warp) sum = f128::add(sum, h[32 * warp][p]);
+                a.out[row * points + p] = f128::to_limbs(sum);
+            }
+            tickets[row] = 0;
         }
+}
+
+extern "C" int poly_eval_log_per_thread(long long rows, long long len) {
+    return poly_eval::log_per_thread(rows, len);
 }
 """
 
@@ -170,7 +206,9 @@ def kernel_bodies(tmp_path_factory):
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.deep_compose_host.argtypes = [vp, ll, i32, ll] + [vp] * 7 + [
         i32, ctypes.POINTER(ctypes.c_uint32), vp]
-    lib.poly_eval_host.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, i32, i32]
+    lib.poly_eval_host.argtypes = [vp, vp, vp, vp, ll, ll, i32, ctypes.POINTER(ctypes.c_uint32),
+                                   i32]
+    lib.poly_eval_log_per_thread.argtypes = [ll, ll]
     return lib
 
 
@@ -197,28 +235,48 @@ def test_deep_compose_kernel_body_matches_plain(kernel_bodies, domain, n, zero):
         assert not out[list(zero)].to(torch.int64).any()
 
 
-@pytest.mark.parametrize("regs,length,points", [
-    (3, 256, 2),                  # one pass, one partial chunk
-    (2, 3 * 4096 + 100, 4),       # two passes, a partial last chunk, four points a read
-    (1, 70000, 1),                # two passes
+@pytest.mark.parametrize("regs,length,points,log", [
+    # 8 coefficients a thread (log 3), the spans 2048:
+    # under one span: one block a row, its value stored directly
+    pytest.param(3, 256, 2, 3, id="3-256-2"),
+    # 7 blocks a row, a partial last span, four points a read
+    pytest.param(2, 3 * 4096 + 100, 4, 3, id="2-12388-4"),
+    # 35 blocks: block indices up to 2^5, the last block's sum
+    pytest.param(1, 70000, 1, 3, id="1-70000-1"),
+    pytest.param(2, 1, 3, 3, id="2-1-3"),                      # one coefficient
+    # 64 a thread (log 6), the spans 16384: 3 spans of 8 batches each
+    pytest.param(2, 40000, 2, 6, id="2-40000-2-long"),
+    # under one span, past the first batch only in part
+    pytest.param(1, 5000, 3, 6, id="1-5000-3-long"),
 ])
-def test_poly_eval_kernel_body_matches_plain(kernel_bodies, regs, length, points):
+def test_poly_eval_kernel_body_matches_plain(kernel_bodies, regs, length, points, log):
     rng = np.random.default_rng(length)
     polys = _limbs([_ints(length, rng) for _ in range(regs)])
     xs = _ints(points, rng)
 
-    def launch(src, dst, sq, *geometry):
-        kernel_bodies.poly_eval_host(src.data_ptr(), dst.data_ptr(), sq.data_ptr(), *geometry)
+    def launch(polys, out, partial, tickets, length, rows, count, words):
+        kernel_bodies.poly_eval_host(polys.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                                     tickets.data_ptr(), length, rows, count,
+                                     (ctypes.c_uint32 * len(words))(*words), log)
 
-    got = dk.run_passes(polys, xs, launch)
+    got = dk.evaluate_group(polys, xs, launch)
     assert torch.equal(got, dk.poly_eval_plain(polys, xs))
+    assert not dk._tickets(regs, "cpu").any()          # each row's last block reset its counter
+
+
+def test_poly_eval_takes_more_coefficients_a_thread_in_large_calls(kernel_bodies):
+    # 8 a thread in the 2^16 proof's calls and the 2^18 proof's constraint
+    # polynomial, 64 from 2^22 coefficients a call on
+    choose = kernel_bodies.poly_eval_log_per_thread
+    assert [choose(r, n) for r, n in ((20, 1 << 16), (1, 1 << 19), (1, 1 << 21))] == [3, 3, 3]
+    assert [choose(r, n) for r, n in ((20, 1 << 18), (20, 1 << 20), (1, 1 << 23))] == [6, 6, 6]
 
 
 def test_step_six_is_one_composition_and_two_evaluations(monkeypatch):
     # step 6 on the CPU calls K7's plain version once, K8's twice (the trace
     # polynomials at z and zg, the constraint polynomial at z) and no other
-    # field operation; on the card that is one K7 launch and two K8 passes
-    # each at the 2^16 proof's lengths
+    # field operation; on the card that is one K7 launch and one K8 launch
+    # a call, whatever the rows' length
     program = assembly.compile("begin push.3 push.5 add end")
     regs, ctx, loop = native.execute_u64(program, ProgramInputs.none())
     trace = TraceTable(regs, ctx, loop, 16)
@@ -249,7 +307,8 @@ def test_step_six_is_one_composition_and_two_evaluations(monkeypatch):
     assert calls == {"deep_compose": 1, "poly_eval": 2}
     assert parts == ["point evaluations (K8)", "composition (K7)"]
     assert composed.shape == (n, 4) and len(deep.trace_at_z1) == regs.shape[0]
-    assert dk.poly_eval_launches(1 << 16, 2) == 2 and dk.poly_eval_launches(1 << 19, 1) == 2
+    assert dk.poly_eval_launches(2) == 1 and dk.poly_eval_launches(1) == 1
+    assert dk.poly_eval_launches(5) == 2
 
 
 def test_wrappers_refuse_what_they_cannot_take():

@@ -188,7 +188,19 @@ static u128 parse(const char* s) {
 static void put(u128 v) {
     printf("%016llx%016llx ", (unsigned long long)(v >> 64), (unsigned long long)v);
 }
-int main() {
+int main(int argc, char** argv) {
+    if (argc > 1) {                       // "digits": kDigits hex digits a line
+        char d[40];
+        uint32_t digits[f128::kDigits];
+        for (;;) {
+            for (int k = 0; k < f128::kDigits; ++k) {
+                if (scanf("%39s", d) != 1) return 0;
+                digits[k] = (uint32_t)parse(d);
+            }
+            put(f128::reduce_digits(digits, 1));
+            printf("\n");
+        }
+    }
     char a[40], b[40], e[40];
     while (scanf("%39s %39s %39s", a, b, e) == 3) {
         u128 x = parse(a), y = parse(b);
@@ -201,24 +213,68 @@ int main() {
 """
 
 
-def test_kernel_arithmetic_header_matches_host_ints(tmp_path):
+@pytest.fixture(scope="module")
+def arithmetic_harness(tmp_path_factory):
+    """csrc/field128.cuh built with g++ into a program that reads operands
+    on its standard input (or, with an argument, digit vectors)."""
+    tmp = tmp_path_factory.mktemp("field128")
+    csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
+    (tmp / "harness.cpp").write_text(_HARNESS)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-I", str(csrc), str(tmp / "harness.cpp"),
+                    "-o", str(tmp / "harness")], check=True, timeout=120)
+    return tmp / "harness"
+
+
+def test_kernel_arithmetic_header_matches_host_ints(arithmetic_harness):
     # csrc/field128.cuh, the arithmetic of the kernels, compiles as plain
     # C++: check its host branch against Python integers (inv: the binary
     # extended Euclid that K6 runs once a block)
-    csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
-    (tmp_path / "harness.cpp").write_text(_HARNESS)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-I", str(csrc), str(tmp_path / "harness.cpp"),
-                    "-o", str(tmp_path / "harness")], check=True, timeout=120)
     rng = random.Random(0)
     cases = [(x, y, rng.choice([0, 1, 2, M - 2, rng.randrange(M)])) for x in EDGE for y in EDGE]
     cases += [(rng.randrange(M), rng.randrange(M), rng.randrange(1 << 64)) for _ in range(500)]
     feed = "\n".join(f"{x:x} {y:x} {e:x}" for x, y, e in cases)
-    out = subprocess.run([str(tmp_path / "harness")], input=feed, capture_output=True,
+    out = subprocess.run([str(arithmetic_harness)], input=feed, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()
     assert len(out) == len(cases)
     for (x, y, e), line in zip(cases, out):
         assert [int(v, 16) for v in line.split()] == [
             (x + y) % M, (x - y) % M, x * y % M, pow(x, e, M), pow(x, M - 2, M)], (x, y, e)
+
+
+def _byte_products(w, v):
+    """The 31 digits of w v split into bytes: digit d = sum_q byte(w, d - q)
+    byte(v, q)."""
+    wb, vb = w.to_bytes(16, "little"), v.to_bytes(16, "little")
+    return [sum(wb[d - q] * vb[q] for q in range(16) if 0 <= d - q < 16) for d in range(31)]
+
+
+def _digits_of(value):
+    """31 digits, each below 2^32, that sum to value < 2^272 at weights
+    2^(8d): its bytes, the last digit everything from bit 240 up."""
+    return [(value >> (8 * d)) & 0xFF for d in range(30)] + [value >> 240]
+
+
+def test_reduce_digits_matches_host_ints(arithmetic_harness):
+    # f128::reduce_digits (K10's reduction of its tensor-core digit sums):
+    # random digits below 2^27 (K10's bound) and below 2^32; the digits of
+    # K10's worst case, R = 128 with every value and weight M - 1; digits
+    # at 0; and values built to carry past 2^256 twice (lo + carry R^2 wraps
+    # with bits 128-255 all set), the largest 2^272 - 1
+    rng = random.Random(3)
+    r2 = ((45 << 40) - 1) ** 2
+    cases = [[rng.randrange(1 << 27) for _ in range(31)] for _ in range(200)]
+    cases += [[rng.randrange(1 << 32) for _ in range(31)] for _ in range(100)]
+    cases += [[128 * d for d in _byte_products(M - 1, M - 1)], [0] * 31, [(1 << 32) - 1] * 31]
+    cases += [_digits_of((1 << 257) - s) for s in (1, 2, r2 - 1, rng.randrange(1, r2))]
+    cases += [_digits_of((1 << 272) - 1), _digits_of(M), _digits_of(M - 1), _digits_of(1 << 256)]
+    feed = "\n".join(" ".join(f"{d:x}" for d in digits) for digits in cases)
+    out = subprocess.run([str(arithmetic_harness), "digits"], input=feed, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.splitlines()
+    assert len(out) == len(cases)
+    for digits, line in zip(cases, out):
+        want = sum(d << (8 * k) for k, d in enumerate(digits)) % M
+        assert int(line, 16) == want, digits
+    assert max(128 * d for d in _byte_products(M - 1, M - 1)) < 1 << 27
 
 
 # ------------------------------------------------------------------------------------------------

@@ -3,9 +3,12 @@
 package's fri_jax.fold_rows and prover._evaluate_boundaries_device,
 fri.reduce's layer roots against the JAX package's host FRI (quartic
 interpolation and host Merkle trees), and both kernels' bodies built with
-g++ from their headers and run a thread at a time against the plain
-versions.  Exact equality throughout (integer field arithmetic).  Each JAX
-function is compiled once, at one shape, for all of its cases."""
+g++ from their headers and run against the plain versions: K9 a thread at
+a time, K10 a block at a time with its tensor-core product through an
+emulation of ldmatrix and mma, and its Toeplitz product against weighted
+sums in Python integers.  Exact equality throughout (integer field
+arithmetic).  Each JAX function is compiled once, at one shape, for all of
+its cases."""
 
 import ctypes
 import subprocess
@@ -204,8 +207,7 @@ _HARNESS = r"""
 #include "boundary_columns.cuh"
 #include "fri_fold.cuh"
 
-// K9's and K10's kernel bodies on the CPU, a thread at a time in the
-// kernels' order (K10: the weights staged as in shared memory first)
+// K9's kernel body on the CPU, a thread at a time
 extern "C" void fri_fold_host(const void* column, long long q, const void* lo, const void* hi,
                               int log_lo, long long stride, const uint32_t* constants,
                               void* out) {
@@ -219,23 +221,172 @@ extern "C" void fri_fold_host(const void* column, long long q, const void* lo, c
         }
 }
 
+namespace bc = boundary_columns;
+
+// ldmatrix.x4 as the PTX ISA gives it: lane l's register j is the word at
+// bytes 4 (l & 3) of the row whose address lane 8 j + (l >> 2) gave
+static void ldmatrix_x4(const uint8_t* base, const int (&offset)[32], uint32_t (&r)[32][4]) {
+    for (int l = 0; l < 32; ++l)
+        for (int j = 0; j < 4; ++j)
+            std::memcpy(&r[l][j], base + offset[8 * j + (l >> 2)] + 4 * (l & 3), 4);
+}
+
+// mma.m16n8k32.row.col.s32.u8.u8.s32 with the PTX ISA's fragments: lane
+// l = 4 g + t holds A's rows g (a0, a2) and g + 8 (a1, a3) at bytes 4 t (a0,
+// a1) and 16 + 4 t (a2, a3), B's column g at bytes 4 t (b0) and 16 + 4 t
+// (b1), C's rows g (c0, c1) and g + 8 (c2, c3) at columns 2 t and 2 t + 1
+static void mma(int32_t (&c)[32][4], const uint32_t (&a)[32][4], uint32_t (&b)[32][4], int half) {
+    uint8_t A[16][32], B[8][32];
+    for (int l = 0; l < 32; ++l) {
+        const int g = l >> 2, t = l & 3;
+        for (int e = 0; e < 4; ++e) {
+            A[g][4 * t + e] = a[l][0] >> (8 * e);
+            A[g + 8][4 * t + e] = a[l][1] >> (8 * e);
+            A[g][16 + 4 * t + e] = a[l][2] >> (8 * e);
+            A[g + 8][16 + 4 * t + e] = a[l][3] >> (8 * e);
+            B[g][4 * t + e] = b[l][2 * half] >> (8 * e);
+            B[g][16 + 4 * t + e] = b[l][2 * half + 1] >> (8 * e);
+        }
+    }
+    for (int l = 0; l < 32; ++l)
+        for (int i = 0; i < 4; ++i) {
+            const int row = (l >> 2) + 8 * (i >> 1), col = 2 * (l & 3) + (i & 1);
+            int32_t sum = 0;
+            for (int k = 0; k < 32; ++k) sum += A[row][k] * B[col][k];
+            c[l][i] += sum;
+        }
+}
+
+// warp (s, h)'s product over a stage, boundary_columns.cu's product() for
+// the 32 lanes at once
+static void product(const bc::Layout& l, int count, const uint8_t* a_s, const uint8_t* b_s,
+                    int s, int h, int32_t (&acc)[2][4][32][4]) {
+    for (int kk = 0; kk < bc::ksteps(count); ++kk) {
+        uint32_t a[2][32][4], b[32][4];
+        int offset[32];
+        for (int mt = 0; mt < 2; ++mt) {
+            for (int lane = 0; lane < 32; ++lane)
+                offset[lane] = bc::a_offset(l, 32 * s + 16 * mt, kk, lane);
+            ldmatrix_x4(a_s, offset, a[mt]);
+        }
+        for (int np = 0; np < 2; ++np) {
+            for (int lane = 0; lane < 32; ++lane)
+                offset[lane] = bc::b_offset(l, 32 * h + 16 * np, kk, lane);
+            ldmatrix_x4(b_s, offset, b);
+            for (int mt = 0; mt < 2; ++mt) {
+                mma(acc[mt][2 * np], a[mt], b, 0);
+                mma(acc[mt][2 * np + 1], a[mt], b, 1);
+            }
+        }
+    }
+}
+
+static void stage_b(const bc::Args& a, const bc::Layout& l, long long tile, int g, uint8_t* b_s) {
+    for (int i = 0; i < bc::copies(a, l, g); ++i) {
+        int dst;
+        const uint4* src = bc::stage_copy(a, l, tile, g, i, dst);
+        std::memcpy(b_s + dst, src, 16);
+    }
+}
+
+// the launcher's Args: the weights' 4 x regs x 4 words into rows of
+// kMaxRegisters
+static bc::Args boundary_args(const void* lde, long long reg_stride, long long point_stride,
+                              int regs, long long n, const uint32_t* weights, const void* xb_lo,
+                              const void* xb_hi, int log_lo, const uint32_t* constants,
+                              void* out) {
+    bc::Args a{(const uint4*)lde, reg_stride, point_stride, regs, n, (const uint4*)xb_lo,
+               (const uint4*)xb_hi, log_lo, {}, (uint4*)out, {}};
+    std::memcpy(a.c, constants, sizeof(a.c));
+    for (int s = 0; s < bc::kSums; ++s)
+        std::memcpy(a.w + s * bc::kMaxRegisters, weights + 4 * s * regs, sizeof(uint4) * regs);
+    return a;
+}
+
+// K10's kernel as the card runs it, the blocks of a grid of `grid` one
+// after another: each block's stages (tile, group) in order, the copies of
+// the stage stages - 1 on before each stage's product into the ring of
+// slots, the eight warps' products through the fragment emulation above,
+// the digits over the consumed slot, each thread's sum and then each even
+// thread's column
 extern "C" void boundary_columns_host(const void* lde, long long reg_stride,
                                       long long point_stride, int regs, long long n,
-                                      const void* weights, const void* xb_lo, const void* xb_hi,
-                                      int log_lo, const uint32_t* constants, void* out) {
-    using namespace boundary_columns;
-    Args a{(const uint4*)lde, reg_stride, point_stride, regs, n, (const uint4*)weights,
-           (const uint4*)xb_lo, (const uint4*)xb_hi, log_lo, {}, (uint4*)out};
-    std::memcpy(a.c, constants, sizeof(a.c));
-    std::vector<uint4> shared(4 * kMaxRegisters);
-    for (int tid = 0; tid < kThreads; ++tid) stage_weights(a, shared.data(), tid);
-    const uint4* const w[4] = {&shared[0], &shared[kMaxRegisters], &shared[2 * kMaxRegisters],
-                               &shared[3 * kMaxRegisters]};
-    for (long long block = 0; block < blocks(a); ++block)
-        for (int tid = 0; tid < kThreads; ++tid) {
-            const long long k = block * kThreads + tid;
-            if (k < a.n) column(a, w, k);
+                                      const uint32_t* weights, const void* xb_lo,
+                                      const void* xb_hi, int log_lo, const uint32_t* constants,
+                                      void* out, int grid) {
+    const bc::Args a = boundary_args(lde, reg_stride, point_stride, regs, n, weights, xb_lo,
+                                     xb_hi, log_lo, constants, out);
+    const bc::Layout l = bc::layout(regs);
+    std::vector<uint8_t> shared(bc::shared_bytes(l));
+    uint8_t* const a_s = shared.data();
+    uint8_t* const b_s = a_s + l.a_bytes;
+    static int32_t acc[8][2][4][32][4];
+    std::vector<f128::u128> values(bc::kThreads);
+    for (int block = 0; block < grid; ++block) {
+        bc::Cursor in{block, 0, 0}, at = in;
+        auto issue = [&]() {
+            if (in.tile < bc::tiles(a)) stage_b(a, l, in.tile, in.g, b_s + in.slot * l.slot_bytes);
+            bc::advance(in, l, grid);
+        };
+        if (l.groups == 1)
+            for (int tid = 0; tid < bc::kThreads; ++tid) bc::build_a(a, l, 0, a_s, tid);
+        for (int i = 0; i < l.stages - 1; ++i) issue();
+        std::memset(acc, 0, sizeof(acc));
+        for (; at.tile < bc::tiles(a); bc::advance(at, l, grid)) {
+            issue();
+            if (l.groups > 1)
+                for (int tid = 0; tid < bc::kThreads; ++tid) bc::build_a(a, l, at.g, a_s, tid);
+            for (int w = 0; w < 8; ++w)
+                product(l, bc::group_regs(a, l, at.g), a_s, b_s + at.slot * l.slot_bytes, w & 3,
+                        w >> 2, acc[w]);
+            if (at.g != l.groups - 1) continue;
+            uint32_t* const digits = (uint32_t*)(b_s + at.slot * l.slot_bytes);
+            for (int w = 0; w < 8; ++w)
+                for (int mt = 0; mt < 2; ++mt)
+                    for (int nt = 0; nt < 4; ++nt)
+                        for (int lane = 0; lane < 32; ++lane)
+                            for (int k = 0; k < 4; ++k) {
+                                const int word = bc::digit_word(w & 3, w >> 2, mt, nt, lane, k);
+                                if (word >= 0) digits[word] = (uint32_t)acc[w][mt][nt][lane][k];
+                                acc[w][mt][nt][lane][k] = 0;
+                            }
+            for (int tid = 0; tid < bc::kThreads; ++tid)
+                values[tid] = bc::sum_value(a, digits, tid);
+            for (int tid = 0; tid < bc::kThreads; tid += 2)
+                bc::finish(a, at.tile, tid, values[tid], values[tid + 1]);
         }
+    }
+}
+
+// The four weighted sums of each point, (4, n): D = A B over each register
+// group of A and B as build_a and stage_copy lay them out, a plain loop over
+// their bytes, the digits summed over the groups and reduced by
+// f128::reduce_digits
+extern "C" void boundary_sums_host(const void* lde, long long reg_stride,
+                                   long long point_stride, int regs, long long n,
+                                   const uint32_t* weights, void* out) {
+    const uint32_t none[16] = {};
+    const bc::Args a = boundary_args(lde, reg_stride, point_stride, regs, n, weights, nullptr,
+                                     nullptr, 0, none, nullptr);
+    const bc::Layout l = bc::layout(regs);
+    std::vector<uint8_t> a_s(l.a_bytes), b_s(l.stage_bytes);
+    std::vector<uint32_t> digits(bc::kRows * bc::kTile);
+    for (long long tile = 0; tile < bc::tiles(a); ++tile) {
+        std::fill(digits.begin(), digits.end(), 0);
+        for (int g = 0; g < l.groups; ++g) {
+            for (int tid = 0; tid < bc::kThreads; ++tid) bc::build_a(a, l, g, a_s.data(), tid);
+            stage_b(a, l, tile, g, b_s.data());
+            for (int row = 0; row < bc::kRows; ++row)
+                for (int p = 0; p < bc::kTile; ++p)
+                    for (int c = 0; c < 32 * bc::ksteps(bc::group_regs(a, l, g)); ++c)
+                        digits[row * bc::kTile + p] +=
+                            a_s[row * l.pitch + c] * b_s[p * l.pitch + c];
+        }
+        for (int s = 0; s < bc::kSums; ++s)
+            for (int p = 0; p < bc::kTile && tile * bc::kTile + p < n; ++p)
+                ((uint4*)out)[s * n + tile * bc::kTile + p] =
+                    f128::to_limbs(f128::reduce_digits(&digits[32 * s * bc::kTile + p], bc::kTile));
+    }
 }
 """
 
@@ -252,7 +403,9 @@ def kernel_bodies(tmp_path_factory):
     vp, ll, i32, u32p = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(
         ctypes.c_uint32)
     lib.fri_fold_host.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp]
-    lib.boundary_columns_host.argtypes = [vp, ll, ll, i32, ll, vp, vp, vp, i32, u32p, vp]
+    lib.boundary_columns_host.argtypes = [vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp,
+                                          i32]
+    lib.boundary_sums_host.argtypes = [vp, ll, ll, i32, ll, u32p, vp]
     return lib
 
 
@@ -276,21 +429,48 @@ def test_fri_fold_kernel_body_matches_plain(kernel_bodies, points, stride):
     assert torch.equal(out, fri_torch.fri_fold_plain(column, SPECIAL_X, root, stride))
 
 
+@pytest.mark.parametrize("regs,values", [(1, "random"), (20, "random"), (128, "random"),
+                                          (128, "M - 1")])
+def test_boundary_columns_toeplitz_product_matches_field_sums(kernel_bodies, regs, values):
+    # K10's A (the weights' Toeplitz byte expansion) times B (the values'
+    # bytes), summed over the register groups (four at R = 128) and reduced
+    # from the digits, against the weighted sums in Python integers; with
+    # every value and weight M - 1 the digit sums are the largest they get
+    n = 100                                           # two tiles, the second partial
+    rng = np.random.default_rng(regs)
+    if values == "M - 1":
+        ints, weights = [[M - 1] * n] * regs, [[M - 1] * regs] * 4
+    else:
+        ints, weights = [_ints(n, rng) for _ in range(regs)], [_ints(regs, rng) for _ in range(4)]
+    lde = _limbs(ints)
+    words = [(v >> (32 * k)) & 0xFFFFFFFF for row in weights for v in row for k in range(4)]
+    out = torch.zeros((4, n, 4), dtype=torch.uint32)
+    kernel_bodies.boundary_sums_host(_ptr(lde), n, 1, regs, n,
+                                     (ctypes.c_uint32 * len(words))(*words), _ptr(out))
+    want = [[sum(w * row[k] for w, row in zip(ws, ints)) % M for k in range(n)] for ws in weights]
+    assert ft.to_ints(out).tolist() == want
+
+
 @pytest.mark.parametrize("regs,n,stride", [
-    (3, 64, 4),       # one partial block, x^b from the lo table alone
-    (20, 2048, 2),    # eight blocks, x^b from lo and hi, the main path's register count
+    (3, 64, 4),       # one tile, x^b from the lo table alone
+    (20, 2048, 2),    # 32 tiles over three blocks, x^b from lo and hi, the main path's registers
     (7, 256, 1),
+    (128, 64, 1),     # four register groups of 32: A rebuilt at each stage
+    (33, 128, 2),     # two groups of 17, each with a k-step half past its registers
+    (20, 512, 8),     # point stride 8
+    (5, 100, 4),      # a partial last tile (64 + 36 points)
 ])
 def test_boundary_columns_kernel_body_matches_plain(kernel_bodies, regs, n, stride):
     rng = np.random.default_rng(regs + n)
     lde = _limbs([_ints(n * stride, rng) for _ in range(regs)])[:, ::stride]
     parts = tuple((_ints(regs, rng), _ints(regs, rng), *_ints(2, rng)) for _ in range(2))
-    xb_root = pow(_root(n), 11, M)
+    xb_root = pow(_root(1 << (n - 1).bit_length()), 11, M)
     weights, (lo, hi), words = bk.boundary_args(lde, *parts, xb_root)
     out = torch.zeros((2, n, 4), dtype=torch.uint32)
     kernel_bodies.boundary_columns_host(
-        _ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n, _ptr(weights), _ptr(lo),
-        _ptr(hi), tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), _ptr(out))
+        _ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n,
+        (ctypes.c_uint32 * len(weights))(*weights), _ptr(lo), _ptr(hi), tiles._LOG_LO,
+        (ctypes.c_uint32 * 16)(*words), _ptr(out), min(-(-n // 64), 3))
     want = bk.boundary_columns_plain(lde, *parts, xb_root)
     assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
