@@ -11,7 +11,7 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py --kernel-times
 
 The second form only prints step times (step_times below), the third only
-the times of K10 and K8 at the 2^16 proof's shapes (kernel_times below): a
+the times of K9 and K11 at the proofs' shapes (kernel_times below): a
 copy of this file placed at the root of another checkout times that
 checkout's port, so that two versions compare on one card in one call.
 
@@ -45,12 +45,15 @@ Phases, in order; any failure raises and exits non-zero:
                 card), K9 fri_fold at every
                 layer the 2^16 proof folds (2^19 ... 2^7 rows, each at the
                 LDE domain's root and the layer's stride, random values and
-                special_x), K10 boundary_columns at (20, 2^19) point stride 4
+                special_x), with the next layer's leaf digests (against the
+                plain fold and K3's plain BLAKE3 of its rows) and without,
+                K10 boundary_columns at (20, 2^19) point stride 4
                 on the 2^16 Fibonacci LDE's slice and on random registers,
                 at (128, 2^16) with every value, weight and constant M - 1
                 and at (20, 2^18) point stride 8,
-                K11 syn_div at the proof's step 4 ((3, 2^19), degree 2^16,
-                x_last) on random and edge-value coefficients, K12
+                K11 syn_div at the step 4 of the 2^16, 2^18 and 2^20 proofs
+                ((3, 2^19), (3, 2^21), (3, 2^23), degree n/8, x_last) on
+                random and edge-value coefficients, K12
                 power_series at every table the 2^16 proof builds (the
                 proof run once with the table cache empty and each call
                 recorded), at one row, a ragged length and 2^20 rows, each
@@ -62,15 +65,18 @@ Phases, in order; any failure raises and exits non-zero:
                 at depths (0, 0, 2), step 6 through K7 and K8, step 7
                 through K9 once: its LDE of 1024 points folds one layer,
                 step 4 through K11) must serialize to the bytes pinned in
-                tests/test_determinism.py, with no K2 launch; its K9, K10
-                and K11 calls are held against the plain versions
+                tests/test_determinism.py, with no K2 launch and K3 over
+                rows K3_ROW_LAUNCHES times; its K9 (with the leaf digests),
+                K10 and K11 calls are held against the plain versions
   4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                 [1, 0], default ProofOptions) proved on cuda and verified,
                 with its time, peak device memory and the launches of every
                 kernel, the table cache emptied first as for a first proof:
                 K1, K3, K4 and K7-K12 must launch (K4, K7, K10 and K11
-                exactly once, K6 and K2 never), K1 exactly at the passes
-                phase 2 checked and none of two points, K8 exactly at the
+                exactly once, K3 over rows K3_ROW_LAUNCHES times: the trace
+                and the first FRI layer, K6 and K2 never), K1 exactly at
+                the passes phase 2 checked and none of two points, K8
+                exactly at the
                 evaluations phase 2 checked, each one launch, K9
                 once at each layer phase 2 checked, K10 and K11 at the
                 shapes they were checked at, K12 once for each table that
@@ -90,7 +96,8 @@ Phases, in order; any failure raises and exits non-zero:
                 default ProofOptions, each with the table cache emptied: the
                 expected outputs, verified, a tampered output rejected, the
                 path's kernels launched (K4, K10 and K11 once, at the
-                example's depths and registers, K2 never), the K11 call held
+                example's depths and registers, K3 over rows
+                K3_ROW_LAUNCHES times, K2 never), the K11 call held
                 against its plain version; `python -m distaff_torch
                 fibonacci` on the card must exit 0; the golden case with
                 hash_fn="sha3" must give the JAX package's bytes
@@ -107,8 +114,9 @@ Phases, in order; any failure raises and exits non-zero:
                 time, step 0, peak device memory, LDE size and K1 passes
                 (the LDE must take K1's recursion; its K1 passes and K8
                 calls must be exactly those held; K9 once a layer, K10 and
-                K11 once, K12 once a table built, K2 never); every call it
-                made of K3, K4, K7, K9, K10 and K11 held against the plain
+                K11 once, K3 over rows K3_ROW_LAUNCHES times, K12 once a
+                table built, K2 never); every call it made of K3, K4, K7,
+                K9 (its leaf digests too), K10 and K11 held against the plain
                 versions on the proof's own inputs, run a piece of
                 2^LAST_PIECE rows or points at a time (the other rung: the
                 last piece of each call), with a row for each class of call
@@ -176,6 +184,9 @@ SEED = 20261016
 # a 9-limb sum, 3 each: a shift and a carried add of two limbs; the fold of
 # the bits from 2^256 up through R^2, 8; the 256-bit value's folds and
 # conditional subtraction as a multiply's, 32), 3 multiplies and 6 adds.
+# K9's bytes are the layer read once, the folded column and the next
+# layer's leaf digests written and the power tables, its operations those
+# of its code (fri_torch.fri_fold_ops) and a compression a leaf.
 # K11's bytes are the three columns read once,
 # the output written and b's and 1/b's power tables, its operations those of
 # the three divisions at their leanest (syndiv_kernels.syn_div_ops); K12's
@@ -196,6 +207,9 @@ KERNEL_TRIALS = 7
 # random domain)
 MAIN_PATH = ("ntt_pass", "blake3_rows", "blake3_rows.parents", "air_transition", "deep_compose",
              "poly_eval", "fri_fold", "boundary_columns", "syn_div", "power_series")
+# K3's launches over rows in a blake3 proof: the trace rows and the first
+# FRI layer's (K9 hashes each folded layer's leaves as it folds it)
+K3_ROW_LAUNCHES = 2
 # K2's operations: a proof launches none of them
 K2_OPS = ("field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const")
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
@@ -908,21 +922,24 @@ def fold_key(column, stride):
 
 
 def fold_bound(q, order):
-    """K9's bound over q rows in bytes and operations: the layer's 4q
-    values read once, the q outputs written, the power tables of the
-    order-point domain; its operations from its code (fri_torch.
-    fri_fold_ops)."""
+    """K9's bound over q rows in bytes and operations, with the next
+    layer's leaf digests: the layer's 4q values read once, the q outputs
+    and q/4 digests written, the power tables of the order-point domain;
+    its operations from its code (fri_torch.fri_fold_ops) and a compression
+    a leaf."""
     from distaff_torch.ops import fri_torch
 
-    muls, adds, subs = fri_torch.fri_fold_ops(order)
-    return ((5 * q + power_tables(order)) * 16,
-            q * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
+    muls, adds, subs = fri_torch.fri_fold_ops(q, order)
+    return ((5 * q + power_tables(order)) * 16 + q // 4 * 32,
+            muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS + q // 4 * COMPRESS_OPS)
 
 
 def check_fri_fold(gen, ops_rate, log2_trace):
     """K9 at every layer the bench's 2^log2_trace proof folds: a random
     column of the layer's points at the LDE domain's root and the layer's
-    stride, folded at a random special_x; a row each."""
+    stride, folded at a random special_x with the next layer's leaf
+    digests (a row each), and without them (the path of any hash but
+    blake3)."""
     import random
 
     from distaff_torch.math import field as hostfield
@@ -937,15 +954,20 @@ def check_fri_fold(gen, ops_rate, log2_trace):
     while length > fri.MAX_REMAINDER_LENGTH:
         column = random_elements(gen, (length,))
         special_x = rng.randrange(hostfield.M)
+        shape = f"2^{log2_trace} layer {fold_key(column, stride)}"
         row = check_kernel(
-            "fri_fold", f"2^{log2_trace} layer {fold_key(column, stride)}",
-            lambda: fri_torch.fri_fold(column, special_x, root, stride),
-            lambda: fri_torch.fri_fold_plain(column, special_x, root, stride), 20, 1,
-            *fold_bound(length // 4, n), ops_rate, "distaff_torch/csrc/fri_fold.cu",
+            "fri_fold", f"{shape} with its leaf digests",
+            lambda: fri_torch.fri_fold(column, special_x, root, stride, digests=True),
+            lambda: fri_torch.fri_fold_plain(column, special_x, root, stride, digests=True), 20,
+            1, *fold_bound(length // 4, n), ops_rate, "distaff_torch/csrc/fri_fold.cu",
             "distaff_tpu/ops/fri_jax.py:53")
         row["key"] = ("fri_fold", log2_trace, fold_key(column, stride))
         rows.append(row)
+        check_equal("fri_fold", shape, lambda: fri_torch.fri_fold(column, special_x, root, stride),
+                    lambda: fri_torch.fri_fold_plain(column, special_x, root, stride))
         length, stride = length // 4, stride * 4
+    print(f"kernel fri_fold at every 2^{log2_trace} layer without digests: equal to plain",
+          flush=True)
     return rows
 
 
@@ -1024,32 +1046,42 @@ def syn_div_bound(n, degree):
 
 
 def check_syn_div(gen, ops_rate):
-    """K11 at the 2^16 proof's step 4: random (3, 2^19) coefficients,
-    degree 2^16 and the trace's x_last (the row of the JSON table), then
-    with the edge values 0, 1, M - 1 and M - 2 at both ends of each row."""
+    """K11 at the step 4 of the 2^16, 2^18 and 2^20 proofs: random (3, 8n)
+    coefficients, degree n and the trace's x_last, then with the edge
+    values 0, 1, M - 1 and M - 2 at both ends of each row; above 2^21
+    points held a piece of 2^LAST_PIECE rows at a time.  The 2^16 call
+    gives the row of the JSON table, the others a printed line."""
     from distaff_torch.math import field as hostfield
     from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import syndiv_kernels as sk
     from distaff_torch.tools.timing import random_elements
 
-    degree = 1 << MAIN_LOG2_TRACE
-    n = degree * 8
-    x_last = hostfield.exp(hostfield.get_root_of_unity(degree), degree - 1)
-    polys3 = random_elements(gen, (3, n))
-    row = check_kernel(
-        "syn_div", f"2^{MAIN_LOG2_TRACE} step 4 {syn_div_key(polys3, degree)}",
-        lambda: sk.syn_div(polys3, degree, x_last),
-        lambda: sk.syn_div_plain(polys3, degree, x_last), 20, 1, *syn_div_bound(n, degree),
-        ops_rate, "distaff_torch/csrc/syn_div.cu", "distaff_tpu/stark/prover.py:482")
-    row["key"] = ("syn_div", MAIN_LOG2_TRACE, syn_div_key(polys3, degree))
     edge = ft.from_ints([0, 1, hostfield.M - 1, hostfield.M - 2], "cuda")
-    polys3[:, :4] = edge
-    polys3[:, -4:] = edge
-    check_equal("syn_div", f"{syn_div_key(polys3, degree)} edge values",
-                lambda: sk.syn_div(polys3, degree, x_last),
-                lambda: sk.syn_div_plain(polys3, degree, x_last))
-    print(f"kernel syn_div at {syn_div_key(polys3, degree)} with edge values at both ends: "
-          f"equal to plain", flush=True)
+    for log2_trace in (MAIN_LOG2_TRACE, *LADDER):
+        degree = 1 << log2_trace
+        n = degree * 8
+        x_last = hostfield.exp(hostfield.get_root_of_unity(degree), degree - 1)
+        polys3 = random_elements(gen, (3, n))
+        shape = f"2^{log2_trace} step 4 {syn_div_key(polys3, degree)}"
+        kernel = lambda: sk.syn_div(polys3, degree, x_last)
+        if log2_trace == MAIN_LOG2_TRACE:
+            row = check_kernel(
+                "syn_div", shape, kernel, lambda: sk.syn_div_plain(polys3, degree, x_last), 20,
+                1, *syn_div_bound(n, degree), ops_rate, "distaff_torch/csrc/syn_div.cu",
+                "distaff_tpu/stark/prover.py:482")
+            row["key"] = ("syn_div", MAIN_LOG2_TRACE, syn_div_key(polys3, degree))
+        else:
+            piece_row("syn_div", shape, kernel, pieces(n, lambda a, b: lambda: sk.syn_div_plain(
+                polys3, degree, x_last, start=a)[:b - a]), False, *syn_div_bound(n, degree),
+                ops_rate, "distaff_torch/csrc/syn_div.cu", "distaff_tpu/stark/prover.py:482")
+        polys3[:, :4] = edge
+        polys3[:, -4:] = edge
+        hold_pieces("syn_div", f"{shape} edge values", kernel, pieces(
+            n, lambda a, b: lambda: sk.syn_div_plain(polys3, degree, x_last, start=a)[:b - a]),
+            False)
+        print(f"kernel syn_div at {syn_div_key(polys3, degree)} with edge values at both ends: "
+              f"equal to plain", flush=True)
+        del polys3
     return row
 
 
@@ -1142,10 +1174,11 @@ def phase_golden():
     (lde, i_parts, f_parts, root), = calls.boundaries
     if launches["boundary_columns"] != 1 or lde.stride(1) != 8 or \
             launches["fri_fold"] != fold_layers(domain) or launches["syn_div"] != 1 or \
-            any(launches[k] for k in K2_OPS):
+            launches["blake3_rows"] != K3_ROW_LAUNCHES or any(launches[k] for k in K2_OPS):
         raise AssertionError(f"golden: K10 launched {launches['boundary_columns']} times at "
                              f"{boundary_key(lde)}, K9 {launches['fri_fold']} times, K11 "
-                             f"{launches['syn_div']}, K2 {[launches[k] for k in K2_OPS]}")
+                             f"{launches['syn_div']}, K3 over rows {launches['blake3_rows']}, K2 "
+                             f"{[launches[k] for k in K2_OPS]}")
     (polys3, degree, x_last), = calls.syn_divs
     check_equal("syn_div", f"golden {syn_div_key(polys3, degree)}",
                 lambda: sk.syn_div(polys3, degree, x_last),
@@ -1153,15 +1186,18 @@ def phase_golden():
     check_equal("boundary_columns", f"golden {boundary_key(lde)}",
                 lambda: bk.boundary_columns(lde, i_parts, f_parts, root),
                 lambda: bk.boundary_columns_plain(lde, i_parts, f_parts, root))
-    for column, special_x, root, stride in calls.folds:
-        check_equal("fri_fold", f"golden layer {fold_key(column, stride)}",
-                    lambda: fri_torch.fri_fold(column, special_x, root, stride),
-                    lambda: fri_torch.fri_fold_plain(column, special_x, root, stride))
+    for column, special_x, root, stride, digests in calls.folds:
+        if not digests:
+            raise AssertionError("golden: a blake3 proof folded a layer without its leaf digests")
+        check_equal("fri_fold", f"golden layer {fold_key(column, stride)} with its leaf digests",
+                    lambda: fri_torch.fri_fold(column, special_x, root, stride, digests=True),
+                    lambda: fri_torch.fri_fold_plain(column, special_x, root, stride,
+                                                     digests=True))
     print(f"golden: K10 once at {boundary_key(lde)}; K11 once at "
           f"{syn_div_key(polys3, degree)}; the LDE of {domain} points folds "
           f"{launches['fri_fold']} FRI layer(s) ({', '.join(calls.keys['fri_fold'])}) down to at "
-          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each; each call equal to plain; K2 "
-          f"never", flush=True)
+          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each with the leaf digests; each call "
+          f"equal to plain; K3 over rows {launches['blake3_rows']} times; K2 never", flush=True)
 
 
 class _StepLog(logging.Handler):
@@ -1245,18 +1281,23 @@ def step_times(sizes, runs=2):
 
 
 def kernel_times():
-    """K10 at (20, 2^19) point stride 4 (random registers, weights and
-    constants) and K8 at (20, 2^16) x 2 points and (1, 2^19) x 1 point
-    (random coefficients and points), the 2^16 proof's shapes, each timed as
+    """K9 at every layer of the 2^16 proof and at the first layer of the
+    2^18 and 2^20 proofs (random columns and special_x), with the next
+    layer's leaf digests, and alone; and K11 at the 2^16, 2^18 and 2^20
+    proofs' step 4 ((3, 8n) random coefficients, degree n): each timed as
     phase 2 times it and printed with the directory of the checkout whose
-    package ran.  It uses only what every version of the port has."""
+    package ran.  It uses only what every version of the port has: where
+    fri_fold takes no `digests`, the digests are K3's launch over the
+    folded layer's rows after it, as the proof ran them."""
+    import inspect
     import os
     import random
 
     import distaff_torch
     from distaff_torch.math import field as hostfield
-    from distaff_torch.ops import boundary_kernels as bk
-    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import fri_torch
+    from distaff_torch.ops import syndiv_kernels as sk
     from distaff_torch.tools.timing import random_elements
 
     tag = os.path.basename(os.path.dirname(os.path.dirname(
@@ -1264,23 +1305,35 @@ def kernel_times():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
     rng = random.Random(SEED + 5)
+    fused = "digests" in inspect.signature(fri_torch.fri_fold).parameters
 
-    def ints(count):
-        return [rng.randrange(hostfield.M) for _ in range(count)]
+    def with_leaves(column, special_x, root, stride):
+        if fused:
+            return fri_torch.fri_fold(column, special_x, root, stride, digests=True)
+        out = fri_torch.fri_fold(column, special_x, root, stride)
+        return out, b3.hash_rows(fri_torch.transpose_quartic(out, 1))
 
-    regs, n = 20, 1 << 19
-    lde = random_elements(gen, (regs, 4 * n))[:, ::4]
-    i_parts, f_parts = ((ints(regs), ints(regs), *ints(2)) for _ in range(2))
-    root = hostfield.exp(hostfield.get_root_of_unity(n), 37)
-    ms = time_ms(lambda: bk.boundary_columns(lde, i_parts, f_parts, root), 20, KERNEL_TRIALS,
-                 queued=True)
-    print(f"[{tag}] kernel boundary_columns at {boundary_key(lde)}: {ms:.4f} ms", flush=True)
-    del lde
-    for regs, length, count in ((20, 1 << 16, 2), (1, 1 << 19, 1)):
-        polys = random_elements(gen, (regs, length))
-        points = ints(count)
-        ms = time_ms(lambda: dk.poly_eval(polys, points), 20, KERNEL_TRIALS, queued=True)
-        print(f"[{tag}] kernel poly_eval at {eval_key(polys, points)}: {ms:.4f} ms", flush=True)
+    layers = [(16, 1 << 21 >> 2 * k, 4 ** k) for k in range(7)]
+    layers += [(18, 1 << 23, 1), (20, 1 << 25, 1)]
+    for log2_trace, length, stride in layers:
+        root = hostfield.get_root_of_unity(1 << (log2_trace + 5))
+        column = random_elements(gen, (length,))
+        special_x = rng.randrange(hostfield.M)
+        both = time_ms(lambda: with_leaves(column, special_x, root, stride), 20, KERNEL_TRIALS,
+                       queued=True)
+        alone = time_ms(lambda: fri_torch.fri_fold(column, special_x, root, stride), 20,
+                        KERNEL_TRIALS, queued=True)
+        print(f"[{tag}] kernel fri_fold at 2^{log2_trace} layer {fold_key(column, stride)}: "
+              f"with the leaf digests {both:.4f} ms ({'one launch' if fused else 'K9 + K3'}), "
+              f"fold alone {alone:.4f} ms", flush=True)
+        del column
+    for log2_trace in (16, 18, 20):
+        degree = 1 << log2_trace
+        x_last = hostfield.exp(hostfield.get_root_of_unity(degree), degree - 1)
+        polys3 = random_elements(gen, (3, 8 * degree))
+        ms = time_ms(lambda: sk.syn_div(polys3, degree, x_last), 20, KERNEL_TRIALS, queued=True)
+        print(f"[{tag}] kernel syn_div at {syn_div_key(polys3, degree)}: {ms:.4f} ms", flush=True)
+        del polys3
 
 
 def print_step4(log2_trace, lines):
@@ -1375,6 +1428,7 @@ def phase_main(checked_keys):
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                        ("boundary_columns", 1), ("syn_div", 1), ("power_series", tables),
                        ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
+                       ("blake3_rows", K3_ROW_LAUNCHES),
                        ("poly_eval", sum(n for _, n in evals.calls)),
                        *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
@@ -1400,7 +1454,8 @@ def phase_main(checked_keys):
     field_ew = {k.split(".")[1]: v for k, v in launches.items() if k.startswith("field_ew.")}
     print(f"2^{MAIN_LOG2_TRACE} K1 launched {launches['ntt_pass']} times, no two-point "
           f"transform; K7 {launches['deep_compose']}, K8 {launches['poly_eval']}, K9 "
-          f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K11 "
+          f"{launches['fri_fold']} (one a layer, with the leaf digests), K3 over rows "
+          f"{launches['blake3_rows']}, K10 {launches['boundary_columns']}, K11 "
           f"{launches['syn_div']}, K12 {launches['power_series']} (the {len(tiles._TABLES)} "
           f"tables the proof built), K6 {launches['inv_batch']}; field_ew by operation "
           f"{json.dumps(field_ew)}", flush=True)
@@ -1466,7 +1521,8 @@ def phase_examples(ops_rate):
         idle = [k for k in MAIN_PATH if launches[k] == 0]
         if idle or launches["air_transition"] != 1 or launches["boundary_columns"] != 1 or \
                 launches["syn_div"] != 1 or launches["power_series"] != table_builds(
-                    tiles._TABLES) or any(launches[k] for k in K2_OPS):
+                    tiles._TABLES) or launches["blake3_rows"] != K3_ROW_LAUNCHES or \
+                any(launches[k] for k in K2_OPS):
             raise AssertionError(f"example {name}: kernels not launched {idle}, launches "
                                  f"{json.dumps(launches)}, {len(tiles._TABLES)} tables built")
         (polys3, degree, x_last), = calls.syn_divs
@@ -1558,9 +1614,9 @@ class ProofCalls:
     def compose(self, *args):
         return self.record(self.composes, "deep_compose", args)
 
-    def fold(self, column, special_x, root, stride=1):
+    def fold(self, column, special_x, root, stride=1, digests=False):
         self.keys["fri_fold"].append(fold_key(column, stride))
-        return self.record(self.folds, "fri_fold", (column, special_x, root, stride))
+        return self.record(self.folds, "fri_fold", (column, special_x, root, stride, digests))
 
     def boundary(self, lde, i_parts, f_parts, xb_root):
         self.keys["boundary_columns"].append(boundary_key(lde))
@@ -1588,13 +1644,11 @@ def pieces(n, make):
     return [(a, min(a + step, n), make(a, min(a + step, n))) for a in range(0, n, step)]
 
 
-def hold_pieces(name, shape, kernel, parts, last):
-    """Hold kernel()'s output against its plain version computed a piece at
-    a time: parts lists (start, stop, plain) with plain() the output's rows
-    [start, stop); with `last`, the last piece alone.  Returns the kernel's
-    output and the time of the plain pieces in ms (CUDA events)."""
-    got = kernel()
-    got = got[0] if isinstance(got, tuple) else got
+def check_pieces(name, shape, got, parts, last):
+    """Hold a kernel's output `got` against its plain version computed a
+    piece at a time: parts lists (start, stop, plain) with plain() the
+    output's rows [start, stop); with `last`, the last piece alone.
+    Returns the time of the plain pieces in ms (CUDA events)."""
     start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start_ev.record()
     wants = [(a, b, plain()) for a, b, plain in (parts[-1:] if last else parts)]
@@ -1605,7 +1659,15 @@ def hold_pieces(name, shape, kernel, parts, last):
         if err:
             raise AssertionError(f"{name} at {shape}: rows {a}-{b - 1} differ from the plain "
                                  f"version (max abs err {err})")
-    return got, start_ev.elapsed_time(end_ev)
+    return start_ev.elapsed_time(end_ev)
+
+
+def hold_pieces(name, shape, kernel, parts, last):
+    """check_pieces on kernel()'s output (the first of a tuple).  Returns
+    the output and the time of the plain pieces in ms."""
+    got = kernel()
+    got = got[0] if isinstance(got, tuple) else got
+    return got, check_pieces(name, shape, got, parts, last)
 
 
 def piece_row(name, shape, kernel, parts, last, bound_bytes, bound_ops, ops_rate, source,
@@ -1716,21 +1778,34 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
         add(row, "deep_compose", "LDE", 1)
 
-    # K9 on the proof's layers, the largest timed; K10 on the proof's slice
+    # K9 on the proof's layers, the largest timed: the folded column
+    # against the plain fold, a piece at a time, then the leaf digests
+    # against the plain BLAKE3 of that column's rows; K10 on the proof's slice
     folds = sorted(calls.folds, key=lambda args: -args[0].shape[0])
-    for i, (column, special_x, root, stride) in enumerate(folds):
+    for i, (column, special_x, root, stride, digests) in enumerate(folds):
         q = column.shape[0] // 4
         parts = pieces(q, lambda a, b: lambda: fri_torch.fri_fold_plain(
             column, special_x, root, stride, rows=(a, b)))
-        kernel = lambda: fri_torch.fri_fold(column, special_x, root, stride)
-        shape = f"{tag} layer {fold_key(column, stride)}"
+        kernel = lambda: fri_torch.fri_fold(column, special_x, root, stride, digests=digests)
+        shape = f"{tag} layer {fold_key(column, stride)}" + (" with its leaf digests"
+                                                             if digests else "")
         if i:
-            hold_pieces("fri_fold", shape, kernel, parts, last)
-            continue
-        row = piece_row("fri_fold", shape, kernel, parts, last, *fold_bound(q, 4 * q * stride),
-                        ops_rate, "distaff_torch/csrc/fri_fold.cu", "distaff_tpu/ops/fri_jax.py:53")
-        add(row, "fri_fold", "layers", len(folds))
-    print(f"kernel fri_fold: {tag}'s {len(folds)} layers equal to plain", flush=True)
+            got, _ = hold_pieces("fri_fold", shape, kernel, parts, last)
+        else:
+            got = None
+            row = piece_row("fri_fold", shape, kernel, parts, last,
+                            *fold_bound(q, 4 * q * stride), ops_rate,
+                            "distaff_torch/csrc/fri_fold.cu", "distaff_tpu/ops/fri_jax.py:53")
+            add(row, "fri_fold", "layers", len(folds))
+        if digests:
+            folded, leaves = kernel()
+            rows_in = fri_torch.transpose_quartic(folded, 1)
+            check_pieces("fri_fold", f"{shape}: digests", leaves, pieces(
+                q // 4, lambda a, b: lambda: b3.hash_rows_plain(rows_in[a:b])), last)
+            del folded, leaves, rows_in
+        del got
+    print(f"kernel fri_fold: {tag}'s {len(folds)} layers equal to plain, with their leaf "
+          f"digests", flush=True)
     for lde, i_parts, f_parts, root in calls.boundaries:
         regs, n = lde.shape[0], lde.shape[1]
         parts = pieces(n, lambda a, b: lambda: torch.stack(bk.boundary_columns_plain(
@@ -1818,6 +1893,7 @@ def phase_ladder(ops_rate):
         for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                            ("boundary_columns", 1), ("fri_fold", fold_layers(domain)),
                            ("syn_div", 1), ("power_series", table_builds(tiles._TABLES)),
+                           ("blake3_rows", K3_ROW_LAUNCHES),
                            *((k, 0) for k in K2_OPS)):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
@@ -1841,7 +1917,8 @@ def phase_ladder(ops_rate):
         print(f"2^{log2_trace} K1: {launches['ntt_pass']} passes of kinds "
               f"{sorted(rec.kinds())}, the LDE through {tiles.ntt_buffers(domain) - 2} level(s) "
               f"of recursion, each held; K8 {launches['poly_eval']} launches, each held; K9 "
-              f"{launches['fri_fold']} (one a layer), K10 {launches['boundary_columns']}, K11 "
+              f"{launches['fri_fold']} (one a layer, with the leaf digests), K3 over rows "
+              f"{launches['blake3_rows']}, K10 {launches['boundary_columns']}, K11 "
               f"{launches['syn_div']}, K12 {launches['power_series']} ({len(tiles._TABLES)} "
               f"tables built), K2 0", flush=True)
         del outputs, proof
@@ -1885,7 +1962,7 @@ def main():
     parser.add_argument("--step-times", nargs="+", type=int, metavar="LOG2_N",
                         help="only print the step times of the bench's proofs at these sizes")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="only print the times of K10 and K8 at the 2^16 proof's shapes")
+                        help="only print the times of K9 and K11 at the proofs' shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -3,16 +3,16 @@
 // Replaces the XLA BLAKE3 of distaff_tpu/ops/blake3_jax.py (_compress,
 // hash_rows_u32, parent_root) and the level hashing of
 // distaff_tpu/crypto/merkle_dev.py (_build_flat_nodes): every commitment of
-// the proof - trace rows, constraint evaluations, FRI layer rows and every
-// internal Merkle level - is hashed here.  native/blake3.cpp is the scalar
-// reference.
+// the proof - trace rows, the first FRI layer's rows and every internal
+// Merkle level - is hashed here (K9 hashes the folded layers' rows).
+// native/blake3.cpp is the scalar reference.
 //
 // Bound on this card: a 64-byte compression is at least 680 integer
 // instructions (7 rounds x 8 G x 12, plus 8 output xors); at the trace's
 // 320-byte rows that takes about as long as moving the bytes, and a parent
 // level is bound by its bytes.  One thread per row keeps the
-// 16-word state and the message block in registers; the message schedule
-// is unrolled so that no register array is ever indexed at run time.
+// 16-word state and the message block in registers (blake3.cuh, which K9
+// shares for the leaf digests of the FRI layers it folds).
 //
 // A row of up to 2048 bytes is one or two 1024-byte chunks, hashed as
 // hash_rows_u32 does: chunk counter per chunk, CHUNK_START/CHUNK_END
@@ -24,73 +24,16 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "blake3.cuh"
+
 namespace {
 
-constexpr uint32_t kChunkStart = 1, kChunkEnd = 2, kParent = 4, kRoot = 8;
-
-__device__ __forceinline__ uint32_t iv(int i) {
-    switch (i) {
-        case 0: return 0x6A09E667u; case 1: return 0xBB67AE85u;
-        case 2: return 0x3C6EF372u; case 3: return 0xA54FF53Au;
-        case 4: return 0x510E527Fu; case 5: return 0x9B05688Cu;
-        case 6: return 0x1F83D9ABu; default: return 0x5BE0CD19u;
-    }
-}
-
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
-    return __funnelshift_r(x, x, n);
-}
-
-#define B3_G(a, b, c, d, mx, my)          \
-    do {                                  \
-        s[a] = s[a] + s[b] + (mx);        \
-        s[d] = rotr(s[d] ^ s[a], 16);     \
-        s[c] = s[c] + s[d];               \
-        s[b] = rotr(s[b] ^ s[c], 12);     \
-        s[a] = s[a] + s[b] + (my);        \
-        s[d] = rotr(s[d] ^ s[a], 8);      \
-        s[c] = s[c] + s[d];               \
-        s[b] = rotr(s[b] ^ s[c], 7);      \
-    } while (0)
-
-// the BLAKE3 message permutation (2,6,3,10,7,0,4,13,1,11,12,5,9,14,15,8)
-__device__ __forceinline__ void permute(uint32_t m[16]) {
-    uint32_t t[16];
-    t[0] = m[2];   t[1] = m[6];   t[2] = m[3];   t[3] = m[10];
-    t[4] = m[7];   t[5] = m[0];   t[6] = m[4];   t[7] = m[13];
-    t[8] = m[1];   t[9] = m[11];  t[10] = m[12]; t[11] = m[5];
-    t[12] = m[9];  t[13] = m[14]; t[14] = m[15]; t[15] = m[8];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = t[i];
-}
-
-// cv <- compress(cv, m, counter, block_len, flags), truncated to 8 words
-__device__ __forceinline__ void compress(uint32_t cv[8], uint32_t m[16], uint64_t counter,
-                                         uint32_t block_len, uint32_t flags) {
-    uint32_t s[16];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = cv[i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[8 + i] = iv(i);
-    s[12] = (uint32_t)counter;
-    s[13] = (uint32_t)(counter >> 32);
-    s[14] = block_len;
-    s[15] = flags;
-#pragma unroll
-    for (int r = 0; r < 7; ++r) {
-        B3_G(0, 4, 8, 12, m[0], m[1]);
-        B3_G(1, 5, 9, 13, m[2], m[3]);
-        B3_G(2, 6, 10, 14, m[4], m[5]);
-        B3_G(3, 7, 11, 15, m[6], m[7]);
-        B3_G(0, 5, 10, 15, m[8], m[9]);
-        B3_G(1, 6, 11, 12, m[10], m[11]);
-        B3_G(2, 7, 8, 13, m[12], m[13]);
-        B3_G(3, 4, 9, 14, m[14], m[15]);
-        if (r < 6) permute(m);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cv[i] = s[i] ^ s[i + 8];
-}
+using blake3::compress;
+using blake3::iv;
+using blake3::kChunkEnd;
+using blake3::kChunkStart;
+using blake3::kParent;
+using blake3::kRoot;
 
 __global__ void blake3_rows_kernel(const uint4* __restrict__ src, uint32_t* __restrict__ out,
                                    long long n_rows, int n_regs, long long row_stride,

@@ -11,25 +11,60 @@ namespace {
 
 using fri_fold::kThreads;
 
-__global__ void __launch_bounds__(kThreads, 4) fri_fold_kernel(fri_fold::Args a) {
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (i < a.q) fri_fold::fold(a, i);
+// Thread g: its kRows rows, then with digests the leaf's first thread
+// gathers the leaf row from the other 4 / kRows - 1 lanes and hashes it.
+// No register cap: ptxas' count, and the block sizes, come from air_probe
+// k9's measurements (PERF.md).
+template <int kRows>
+__global__ void __launch_bounds__(kThreads)
+    fri_fold_kernel(const __grid_constant__ fri_fold::Args a) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const bool active = g < fri_fold::threads(a);
+    uint32_t own[4 * kRows];
+    if (active) fri_fold::fold<kRows>(a, g, own);
+    if (!a.digests) return;                  // the same for every thread
+    constexpr int kLanes = fri_fold::kLeafRows / kRows;
+    uint32_t words[4 * fri_fold::kLeafRows];
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+        for (int w = 0; w < 4 * kRows; ++w)
+            words[4 * kRows * l + w] = l ? __shfl_down_sync(0xFFFFFFFFu, own[w], l) : own[w];
+    if (active && g % kLanes == 0) fri_fold::hash_leaf(a, g / kLanes, words);
 }
 
 }  // namespace
 
-// out[i] for i < q from the column of 4q points; constants: the host's 16
-// words of special_x, special_x^2, I special_x and 1/4; hi may be null
-extern "C" int distaff_fri_fold(const void* column, long long q, const void* lo, const void* hi,
-                                int log_lo, long long stride, const uint32_t* constants,
-                                void* out, void* stream) {
-    if (q < 1 || stride < 1 || log_lo < 0 || log_lo > 30)
+// out[r] for r < q from the column of 4q points, `rows` rows a thread (4,
+// or 1: then four lanes a leaf, or q lanes where q < 4); constants: the
+// host's 32 words of special_x, zeta^-j (j = 1..3) and I zeta^-j (j =
+// 0..3); hi may be null; digests (q/4, 8) words or null (q must then be
+// at least 4)
+extern "C" int distaff_fri_fold(const void* column, long long q, int rows, const void* lo,
+                                const void* hi, int log_lo, long long stride,
+                                const uint32_t* constants, void* out, void* digests,
+                                void* stream) {
+    if (q < 1 || stride < 1 || log_lo < 0 || log_lo > 30 || (rows != 1 && rows != 4) ||
+        (q % 4 && (rows != 1 || digests)))
         return (int)cudaErrorInvalidValue;
-    fri_fold::Args a{(const uint4*)column, q, (const uint4*)lo, (const uint4*)hi, log_lo,
-                     stride, {}, (uint4*)out};
+    fri_fold::Args a{(const uint4*)column, q, rows,
+                     (int)(q % 4 ? q : fri_fold::kLeafRows / rows), (const uint4*)lo,
+                     (const uint4*)hi, log_lo, stride, {}, (uint4*)out, (uint32_t*)digests};
     std::memcpy(&a.k, constants, sizeof(a.k));
-    const long long blocks = fri_fold::blocks(a);
+    static int sms = 0;
+    if (sms == 0) {
+        int device = 0;
+        cudaError_t e = cudaGetDevice(&device);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int block = fri_fold::block_threads(a, sms);
+    const long long blocks = fri_fold::blocks(a, block);
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    fri_fold_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+    if (rows == 4)
+        fri_fold_kernel<4><<<(unsigned)blocks, block, 0, (cudaStream_t)stream>>>(a);
+    else
+        fri_fold_kernel<1><<<(unsigned)blocks, block, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

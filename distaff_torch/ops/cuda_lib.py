@@ -147,10 +147,11 @@ def lib():
         handle.distaff_deep_compose.argtypes = [
             vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, u32p, vp, vp]
         handle.distaff_poly_eval.argtypes = [vp, vp, vp, vp, ll, ll, i32, u32p, vp]
-        handle.distaff_fri_fold.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp, vp]
+        handle.distaff_fri_fold.argtypes = [vp, ll, i32, vp, vp, i32, ll, u32p, vp, vp, vp]
         handle.distaff_boundary_columns.argtypes = [
             vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp, vp]
-        handle.distaff_syn_div.argtypes = [vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, vp, vp, vp]
+        handle.distaff_syn_div.argtypes = [
+            vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, u32p, vp, vp, vp, vp, vp]
         handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,

@@ -9,15 +9,20 @@ the primitive 4th root of unity, so the Lagrange denominators are
 x^3 * K_k with global constants K_k, and no inversion runs.
 
 K9 `fri_fold` (csrc/fri_fold.cu, fri_fold.cuh) folds one layer in one
-launch: it replaces fri_jax._fold_rows_impl (jitted as fold_rows, tiled as
-distaff_tpu/ops/tiles.py::_fold_tile) and the x0 and x0^-3 power series of
-distaff_tpu/stark/fri.py::reduce, taking both from K1's power tables of
-the LDE domain's root.  Bound by operations; see the source for the design.
+launch, four rows a thread (one row a thread and four lanes a leaf on a
+small layer): it replaces fri_jax._fold_rows_impl (jitted as
+fold_rows, tiled as distaff_tpu/ops/tiles.py::_fold_tile) and the x0 and
+x0^-3 power series of distaff_tpu/stark/fri.py::reduce, taking both from
+K1's power tables of the LDE domain's root.  With `digests` it also
+hashes the folded layer's quartic rows, the next Merkle tree's leaves
+(BLAKE3, as K3 would hash them).  Bound by bytes and operations near
+even; see the source for the design.
 
 The wrapper takes the plain version for a column on the CPU, and launches
 the kernel for one on the card, or raises.  The plain version is the chain
 the port ran before K9 (the two power series and the fold on K2's plain
-versions), so it launches nothing on any device.
+versions) and K3's plain BLAKE3 of the transposed rows, so it launches
+nothing on any device.
 """
 
 import ctypes
@@ -26,6 +31,7 @@ import torch
 
 from ..math import field as hostfield
 from ..math import field_torch as ft
+from . import blake3_torch
 from . import cuda_lib
 from . import field_kernels as fk
 from . import tiles
@@ -74,20 +80,42 @@ def transpose_quartic(values, stride):
     return v.reshape(4, row_count, 4).transpose(0, 1)
 
 
-def fri_fold_ops(order):
-    """(multiplies, adds, subtractions) a row of K9 on an order-point
-    domain's tables, from its code: the two table lookups (one multiply
-    each where the domain has a hi table), x0^2, the four products of the
-    even and odd halves, B and A times them, x0^-3 and 1/4; B = sx^2 +
-    x0^2, y0 + y2, y1 + y3, the even half and the sum; A = sx^2 - x0^2,
-    y0 - y2, y1 - y3 and the odd half."""
-    return 9 + (2 if order > 1 << tiles._LOG_LO else 0), 5, 4
+# K9 folds four rows a thread where a thread a leaf gives every SM at
+# least this many threads (air_probe k9 on the H100's 132 SMs: four rows a
+# thread were faster from 2^17 rows up, one row and four lanes a leaf below)
+FOLD_LEAVES_PER_SM = 128
 
 
-def fri_fold_plain(column, special_x, root, stride=1, rows=None):
+def rows_per_thread(q, sms):
+    """K9's rows a thread on a layer of q rows, on a card of `sms`
+    multiprocessors: 4 (a leaf's quartic row) where the layer's q/4
+    leaves give every SM FOLD_LEAVES_PER_SM threads, else 1 (four lanes a
+    leaf), which a small layer's latency favours (PERF.md)."""
+    return 4 if q // 4 >= sms * FOLD_LEAVES_PER_SM else 1
+
+
+def fri_fold_ops(q, order):
+    """(multiplies, adds, subtractions) of K9 over a layer of q rows on an
+    order-point domain's tables, from its code at its leanest, four rows a
+    thread (one where q < 4): a thread's table lookup of 1/x0 (a multiply
+    where the domain has a hi table), t_0 = sx / x0, its rows' other t_j =
+    t_0 zeta^-j and I t_j; a row's t (y0 - y2), I t (y1 - y3), t^2 and t^2
+    (X + Y); y0 + y2, y1 + y3, X, X + Y, the sum and the two halvings (each
+    a shift and an add) as adds; y0 - y2, y1 - y3, Y and X - Y.  The
+    digests' compressions (q/4 with blake3) come on top."""
+    rows = 4 if q >= 4 else 1
+    thread = (order > 1 << tiles._LOG_LO) + 1 + 1 + 2 * (rows - 1)
+    return q // rows * thread + 4 * q, 7 * q, 4 * q
+
+
+def fri_fold_plain(column, special_x, root, stride=1, rows=None, digests=False):
     """fri_fold's function on plain tensors: the power series of x0 = w_L^i
     and of x0^-3 = w_L^-3i (w_L = root^stride) and fold_rows, on K2's plain
-    versions.  With `rows` = (start, stop), the rows [start, stop) alone."""
+    versions.  With `rows` = (start, stop), the rows [start, stop) alone;
+    with `digests`, (folded column, the BLAKE3 of its quartic rows on K3's
+    plain version: the next Merkle tree's leaves)."""
+    if rows is not None and digests:
+        raise ValueError("fri_fold_plain: the digests need the whole layer")
     q = column.shape[0] // 4
     start, stop = rows or (0, q)
     device = column.device
@@ -96,40 +124,53 @@ def fri_fold_plain(column, special_x, root, stride=1, rows=None):
     x0 = fk.power_series_plain(w, stop - start, device, pow(w, start, M))
     x0_inv3 = fk.power_series_plain(inv3, stop - start, device, pow(inv3, start, M))
     ys = transpose_quartic(column, 1)[start:stop]
-    return fold_rows(ys, x0, x0_inv3, ft.constant(special_x, device))
+    out = fold_rows(ys, x0, x0_inv3, ft.constant(special_x, device))
+    if not digests:
+        return out
+    return out, blake3_torch.hash_rows_plain(transpose_quartic(out, 1))
 
 
-def fold_words(special_x):
-    """K9's constants as 16 host words: special_x, special_x^2, I special_x
-    and 1/4 (1/K_k = I^k / 4)."""
-    sx = int(special_x) % M
-    values = [sx, sx * sx % M, _I * sx % M, hostfield.inv(4)]
+def fold_words(special_x, root, stride, q):
+    """K9's constants as 32 host words: special_x, zeta^-j (j = 1, 2, 3)
+    and I zeta^-j (j = 0..3), zeta = w_L^(q/4) with w_L = root^stride: the
+    rows i + j q/4 of a leaf have nodes x0 zeta^j, so their t = special_x /
+    x0 are t_0 zeta^-j (one row a thread reads I alone)."""
+    zeta_inv = hostfield.inv(pow(int(root), stride * max(q // 4, 1), M))
+    values = [int(special_x) % M] + [pow(zeta_inv, j, M) for j in (1, 2, 3)]
+    values += [_I * pow(zeta_inv, j, M) % M for j in range(4)]
     return [(v >> (32 * k)) & 0xFFFFFFFF for v in values for k in range(4)]
 
 
-def fri_fold(column, special_x, root, stride=1):
+def fri_fold(column, special_x, root, stride=1, digests=False):
     """One FRI layer folded at the host int special_x: column (4q, 4) limbs,
     the layer's evaluations over the domain of w_L = root^stride (order 4q;
     root's power tables, 4q*stride points, are K1's of the LDE domain).
     Row i holds column[i + j q] at the nodes w_L^i I^j.  Returns the (q, 4)
-    folded column."""
+    folded column; with `digests` also the (q/4, 8) BLAKE3 digests of its
+    quartic rows, the next layer's Merkle leaves."""
     n = column.shape[0]
     if column.dim() != 2 or column.shape[1] != 4 or n < 4 or n & (n - 1) or stride < 1 or \
             stride & (stride - 1):
         raise ValueError(f"fri_fold: expected a (4q, 4) column of a power of two points and a "
                          f"power-of-two stride, got {tuple(column.shape)} and {stride}")
+    q = n // 4
+    if digests and q < 4:
+        raise ValueError(f"fri_fold: {q} folded points make no quartic leaf row")
     if fk._on_cpu(column):
-        return fri_fold_plain(column, special_x, root, stride)
+        return fri_fold_plain(column, special_x, root, stride, digests=digests)
     cuda_lib.require_limbs("fri_fold", column)
     column = column.contiguous()
-    q = n // 4
     lo, hi = tiles._store_factors(n * stride, int(root), 1, column.device)
     out = torch.empty((q, 4), dtype=torch.uint32, device=column.device)
+    leaves = (torch.empty((q // 4, 8), dtype=torch.uint32, device=column.device)
+              if digests else None)
+    nul = ctypes.c_void_p(None)
+    sms = torch.cuda.get_device_properties(column.device).multi_processor_count
     code = cuda_lib.lib().distaff_fri_fold(
-        cuda_lib.ptr(column), q, cuda_lib.ptr(lo),
-        ctypes.c_void_p(None) if hi is None else cuda_lib.ptr(hi), tiles._LOG_LO, stride,
-        (ctypes.c_uint32 * 16)(*fold_words(special_x)), cuda_lib.ptr(out),
-        cuda_lib.stream(out))
+        cuda_lib.ptr(column), q, rows_per_thread(q, sms), cuda_lib.ptr(lo),
+        nul if hi is None else cuda_lib.ptr(hi), tiles._LOG_LO, stride,
+        (ctypes.c_uint32 * 32)(*fold_words(special_x, root, stride, q)), cuda_lib.ptr(out),
+        nul if leaves is None else cuda_lib.ptr(leaves), cuda_lib.stream(out))
     cuda_lib.check(code, "fri_fold")
     cuda_lib.LAUNCHES["fri_fold"] += 1
-    return out
+    return (out, leaves) if digests else out

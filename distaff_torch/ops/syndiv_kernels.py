@@ -7,9 +7,11 @@ _incl_suffix_sums and the sum of the three divisions (prover.py:568-572),
 with the scans and series they run on (distaff_tpu/ops/tiles.py::
 _suf_tile, suffix_sums, _ps_tile, _scale_tile; distaff_tpu/math/
 field_jax.py::cumsum, power_series_dev): the constraint polynomial from
-the batched iNTT's three rows in one call of three launches (tile totals,
-their carries, the tiles' suffix scans), b^j and b^-(j+1) from K1's kind
-of power tables.  Bound by memory traffic; see the source for the design.
+the batched iNTT's three rows in one single-pass launch (a chained scan
+with decoupled look-back, tiles claimed from the end), which reads each
+row once; the division by x - b as recurrences, from a power of b and one
+of 1/b a thread out of K1's kind of power tables.  Bound by memory
+traffic; see the source for the design.
 
 The wrapper takes the plain version for tensors on the CPU, and launches
 the kernel for tensors on the card, or raises.  The plain version is the
@@ -93,24 +95,24 @@ def syn_div_plain(polys3, degree, x_last, start=0):
 
 def syn_div_ops(n, degree):
     """(multiplies, adds) of the divisions at n points, at their leanest:
-    a_j b^j and b^-(i+1) F with one table lookup each (a multiply where the
-    tables have a hi part), e R at the n - degree + 1 points that take it;
-    the suffix sums of a, f b^j and t (stride degree), the two sums of out
-    and the subtraction of e R."""
-    muls = 2 * n + (2 * n if n > 1 << tiles._LOG_LO else 0) + (n - degree + 1)
-    adds = 2 * (n - 1) + (n - degree) + n + 2 * (n - degree + 1)
+    the division by x - b as two recurrences of one multiply a point (the
+    sum of f_j b^j by Horner, and b^-i F[i] = f_i + b b^-(i+1) F[i+1]), e R
+    at the n - degree + 1 points that take it; the suffix sums of a, f b^j
+    and t (stride degree), the recurrence's adds, the two sums of out and
+    the subtraction of e R."""
+    muls = 2 * n + (n - degree + 1)
+    adds = 2 * (n - 1) + (n - degree) + 2 * n + 2 * (n - degree + 1)
     return muls, adds
 
 
 def syn_div_args(n, x_last, device):
     """K11's arguments beside the polynomials: the power tables of b =
     x_last (c = 1) and of 1/b (c = 1/b) at n points, cached (hi None up to
-    1024 points), and -x_last as 4 host words."""
+    1024 points), and b and -x_last as 4 host words each."""
     b = int(x_last) % M
     b_inv = hostfield.inv(b)
-    neg_e = hostfield.neg(b)
     return (tiles._store_factors(n, b, 1, device), tiles._store_factors(n, b_inv, b_inv, device),
-            [(neg_e >> (32 * k)) & 0xFFFFFFFF for k in range(4)])
+            [(v >> (32 * k)) & 0xFFFFFFFF for v in (b, hostfield.neg(b)) for k in range(4)])
 
 
 def syn_div(polys3, degree, x_last):
@@ -130,14 +132,19 @@ def syn_div(polys3, degree, x_last):
     if polys3.stride(1) != 4:
         raise ValueError(f"syn_div: the rows must be contiguous, got strides {polys3.stride()}")
     (b_lo, b_hi), (i_lo, i_hi), words = syn_div_args(n, x_last, polys3.device)
-    totals = torch.empty((2, -(-n // TILE), 4), dtype=torch.uint32, device=polys3.device)
-    out = torch.empty((n, 4), dtype=torch.uint32, device=polys3.device)
+    n_tiles = -(-n // TILE)
+    device = polys3.device
+    flags = torch.empty(2 * n_tiles + 1, dtype=torch.int32, device=device)
+    sums = torch.empty((n_tiles, 4, 4), dtype=torch.uint32, device=device)
+    r = torch.empty((n, 4), dtype=torch.uint32, device=device)
+    out = torch.empty((n, 4), dtype=torch.uint32, device=device)
     nul = ctypes.c_void_p(None)
     code = cuda_lib.lib().distaff_syn_div(
         cuda_lib.ptr(polys3), polys3.stride(0) // 4, n, degree, cuda_lib.ptr(b_lo),
         nul if b_hi is None else cuda_lib.ptr(b_hi), cuda_lib.ptr(i_lo),
         nul if i_hi is None else cuda_lib.ptr(i_hi), tiles._LOG_LO,
-        (ctypes.c_uint32 * 4)(*words), cuda_lib.ptr(totals), cuda_lib.ptr(out),
+        (ctypes.c_uint32 * 4)(*words[:4]), (ctypes.c_uint32 * 4)(*words[4:]),
+        cuda_lib.ptr(flags), cuda_lib.ptr(sums), cuda_lib.ptr(r), cuda_lib.ptr(out),
         cuda_lib.stream(out))
     cuda_lib.check(code, "syn_div")
     cuda_lib.LAUNCHES["syn_div"] += 1

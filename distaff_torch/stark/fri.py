@@ -1,6 +1,7 @@
-"""Radix-4 FRI (reference src/stark/fri/): device folds (kernel K9) and layer trees
-(on the device for blake3, on the host for any other hash) for the
-prover, host-side verification.
+"""Radix-4 FRI (reference src/stark/fri/): device folds (kernel K9, which
+with blake3 also hashes each folded layer's leaves) and layer trees (on the
+device for blake3, on the host for any other hash) for the prover,
+host-side verification.
 """
 
 from ..math import field, quartic, polynom
@@ -30,32 +31,31 @@ class FriProof:
         self.rem_values = rem_values
 
 
-def _build_layer_tree(rows_dev, hash_name):
-    """Commit to (q, 4, 4limbs) rows: each row's 64 bytes are the u128 LE
-    concatenation, which the limb layout already is (crypto.merkle_dev.
-    commit: on the device with blake3, else on the host)."""
-    from ..crypto.merkle_dev import commit
-
-    return commit(rows_dev, hash_name)
-
-
 def reduce(evaluations_dev, domain_root, options, part=None):
     """Reduce composition evaluations down to <= 256 remainder values.
 
     evaluations_dev: (n, 4limbs) device tensor over the LDE domain, whose
     root is domain_root.  Returns (trees, row_values_dev) per layer; the
     Fiat-Shamir fold point of each layer is drawn from that layer's Merkle
-    root, and the layer is folded in one launch of kernel K9.  `part`, if
-    given, is called with the name in PARTS of each piece of work as it
-    ends.
+    root, and the layer is folded in one launch of kernel K9.  A layer's
+    tree commits to its (q, 4, 4limbs) rows, each row's 64 bytes the u128
+    LE concatenation that the limb layout already is (crypto.merkle_dev.
+    commit: on the device with blake3, else on the host); with blake3 the
+    fold's launch also hashes the folded layer's rows, so its tree is
+    built from those leaf digests (K3 hashes the first layer's rows alone).
+    `part`, if given, is called with the name in PARTS of each piece of
+    work as it ends.
     """
+    from ..crypto.merkle_dev import commit
+
     part = part or (lambda name: None)
+    hash_leaves = options.hash_fn == "blake3"
     tree_results = []
     value_results = []
 
     p_column = evaluations_dev
     p_values = fri_torch.transpose_quartic(p_column, 1)
-    p_tree = _build_layer_tree(p_values, options.hash_fn)
+    p_tree = commit(p_values, options.hash_fn)
     part("layer trees")
 
     # layer L's nodes are powers of w^(4^L): K9 reads them from the power
@@ -64,12 +64,15 @@ def reduce(evaluations_dev, domain_root, options, part=None):
     while p_values.shape[0] * 4 > MAX_REMAINDER_LENGTH:
         special_x = rand.prng(p_tree.root(), field.M)
         part("root draws")
-        column = fri_torch.fri_fold(p_column, special_x, domain_root, stride)
+        folded = fri_torch.fri_fold(p_column, special_x, domain_root, stride,
+                                    digests=hash_leaves)
         part("folds (K9)")
         stride *= 4
 
+        column, leaves = folded if hash_leaves else (folded, None)
         c_values = fri_torch.transpose_quartic(column, 1)
-        c_tree = _build_layer_tree(c_values, options.hash_fn)
+        c_tree = (commit(leaves, "blake3", leaves=True) if hash_leaves
+                  else commit(c_values, options.hash_fn))
         part("layer trees")
 
         tree_results.append(p_tree)

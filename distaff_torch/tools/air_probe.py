@@ -1,11 +1,11 @@
-"""K4's, K6's, K7's and K10's design choices measured on the card, each
-against the kernel with that one choice undone.
+"""K4's, K6's-K11's design choices measured on the card, each against the
+kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k10]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11]
 
-(all five by default).
+(all seven by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -28,11 +28,17 @@ DEEP_MIN_BLOCKS blocks an SM; production 256, 2 and 4); K8 at the 2^16
 and 2^20 proofs' calls with 8 or 64 coefficients a thread at every size
 and without its ticket (probe_k8); and K10 at (20,
 2^19) at point strides 1-8 beside PyTorch's copy of each strided slice,
-and built without its product, its epilogue or both (probe_k10).  Times
+and built without its product, its epilogue or both (probe_k10); K9 at
+the 2^16 proof's first, second, third and fifth layers (2^19, 2^17,
+2^15 and 2^11 rows) and the 2^18 proof's first (2^21 rows) at four rows a
+thread and one (four lanes a leaf), with and without the leaf digests, built with a 64-register cap and
+with blocks of 64, 128 or 256 threads at every size (probe_k9); and K11 at the 2^16, 2^18 and 2^20
+proofs' step 4 built without its look-back, its R chain, its epilogue,
+and with only its loads and scans (probe_k11).  Times
 come from CUDA events around calls queued behind a spin kernel
 (tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
-difference from the production build raises (but K10's variants, which
-drop work by design).
+difference from the production build raises (but K10's and K11's
+variants, which drop work by design).
 """
 
 import ctypes
@@ -86,6 +92,34 @@ K8_VARIANTS = {
                    "last = atomicAdd(a.tickets + row, 1u) == (unsigned)a.blocks - 1;",
                    "last = 0;"),),
 }
+# variant: (patches, -D definitions)
+K9_BLOCK = "return threads(a) >= 2LL * sms * kThreads ? kThreads : kSmallThreads;"
+K9_VARIANTS = {
+    "64-register cap": ((("fri_fold.cu", "__launch_bounds__(kThreads)\n",
+                          "__launch_bounds__(kThreads, 65536 / (64 * kThreads))\n"),), ()),
+    "blocks of 64 threads at every size": ((("fri_fold.cuh", K9_BLOCK,
+                                             "return kSmallThreads;"),), ()),
+    "blocks of 128 threads at every size": ((("fri_fold.cuh", K9_BLOCK, "return 128;"),), ()),
+    "blocks of 256 threads at every size": ((("fri_fold.cuh", K9_BLOCK, "return kThreads;"),),
+                                            ()),
+}
+K11_LOOK_BACK = ("syn_div.cu", "        look_back(g, tile, lane, carry);\n",
+                 "        carry[0] = carry[1] = 0;\n")
+K11_R_CHAIN = (("syn_div.cu", "    if (tid == 0) wait_r(g, tile);\n", ""),
+               ("syn_div.cu", "    store_r(g, s, tile, tid);\n", ""))
+K11_EPILOGUE = ("syn_div.cu", "    finish(g, s, tile, tid, after);\n", "")
+# variant: (patches, -D definitions); those with patches drop work (their
+# outputs are not held), the other tiles are held equal
+K11_VARIANTS = {
+    "no look-back": ((K11_LOOK_BACK,), ()),
+    "no R chain": (K11_R_CHAIN, ()),
+    "no epilogue": ((K11_EPILOGUE,), ()),
+    "look-back alone (no R chain, no epilogue)": ((*K11_R_CHAIN, K11_EPILOGUE), ()),
+    "loads and scans alone": ((K11_LOOK_BACK, *K11_R_CHAIN, K11_EPILOGUE), ()),
+    "tile 2048, 256 threads x 8": ((), ("SYN_DIV_PER_THREAD=8",)),
+    "tile 512, 128 threads x 4": ((), ("SYN_DIV_THREADS=128",)),
+}
+K11_MIN_TILE = 512
 # variant: patches
 K10_VARIANTS = {
     "copies only": (K10_PRODUCT, K10_EPILOGUE),
@@ -357,11 +391,150 @@ def probe_k8():
                   f"{'; '.join(spills)}; {ms:.4f} ms", flush=True)
 
 
+def probe_k9():
+    """K9 on random columns at the 2^16 proof's first, second, third and
+    fifth layers and the 2^18 proof's first, at the LDE domain's root: the
+    production build at four rows a thread and at one (four lanes a leaf),
+    with and without the leaf digests, then K9_VARIANTS at the same, each
+    held equal to the production build."""
+    import random
+
+    from ..math import field as hostfield
+    from ..ops import fri_torch, tiles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    rng = random.Random(9)
+    layers = [(1 << 21, 1 << 21, 1), (1 << 19, 1 << 21, 4), (1 << 17, 1 << 21, 16),
+              (1 << 13, 1 << 21, 1 << 8), (1 << 23, 1 << 23, 1)]
+    cases = [(random_elements(gen, (length,)), rng.randrange(hostfield.M),
+              hostfield.get_root_of_unity(domain), stride) for length, domain, stride in layers]
+    spills = [line.strip() for line in cuda_lib.ptxas_report("fri_fold")
+              if "spill" in line or "registers" in line]
+    print(f"K9 production: {'; '.join(spills)}", flush=True)
+    p = cuda_lib.ptr
+    nul = ctypes.c_void_p(None)
+
+    def same(got, want):
+        return all(map(torch.equal, got, want)) if isinstance(got, tuple) else \
+            torch.equal(got, want)
+
+    def runner(fn, column, special_x, root, stride, rows, digests):
+        n = column.shape[0]
+        q = n // 4
+        lo, hi = tiles._store_factors(n * stride, int(root), 1, column.device)
+        words = (ctypes.c_uint32 * 32)(*fri_torch.fold_words(special_x, root, stride, q))
+
+        def run():
+            out = torch.empty((q, 4), dtype=torch.uint32, device="cuda")
+            leaves = torch.empty((q // 4, 8), dtype=torch.uint32, device="cuda")
+            cuda_lib.check(fn(p(column), q, rows, p(lo), nul if hi is None else p(hi),
+                              tiles._LOG_LO, stride, words, p(out), p(leaves) if digests else nul,
+                              cuda_lib.stream(out)), "fri_fold")
+            return (out, leaves) if digests else out
+
+        return run
+
+    modes = (("4 rows a thread, with the leaf digests", 4, True),
+             ("4 rows a thread, fold only", 4, False),
+             ("1 row a thread (4 lanes a leaf), with the leaf digests", 1, True),
+             ("1 row a thread, fold only", 1, False))
+    want = {}
+    for column, special_x, root, stride in cases:
+        key = f"{column.shape[0] // 4} rows, stride {stride}"
+        for mode, rows, digests in modes:
+            run = runner(cuda_lib.lib().distaff_fri_fold, column, special_x, root, stride, rows,
+                         digests)
+            got = run()
+            if not same(got, want.setdefault((key, digests), got)):
+                raise AssertionError(f"air_probe: K9 at {key}, {mode} differs from 4 rows a "
+                                     f"thread")
+            ms = time_ms(run, 20, 7, queued=True)
+            print(f"K9 production, {key}, {mode}: {ms:.4f} ms", flush=True)
+    with ThreadPoolExecutor(len(K9_VARIANTS)) as pool:
+        built = dict(zip(K9_VARIANTS, pool.map(
+            lambda kv: _build(kv[0].replace(" ", "-"), "fri_fold.cu", *kv[1]),
+            K9_VARIANTS.items())))
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_fri_fold
+        fn.argtypes = cuda_lib.lib().distaff_fri_fold.argtypes
+        fn.restype = ctypes.c_int
+        for column, special_x, root, stride in cases:
+            key = f"{column.shape[0] // 4} rows, stride {stride}"
+            for mode, rows, digests in modes:
+                run = runner(fn, column, special_x, root, stride, rows, digests)
+                if not same(run(), want[(key, digests)]):
+                    raise AssertionError(f"air_probe: K9 {name} differs from the production "
+                                         f"build at {key}, {mode}")
+                ms = time_ms(run, 20, 7, queued=True)
+                print(f"K9 {name}, {key}, {mode}: {'; '.join(spills)}; {ms:.4f} ms", flush=True)
+
+
+def probe_k11():
+    """K11 on random coefficients at the 2^16, 2^18 and 2^20 proofs' step 4
+    ((3, 8n), degree n): the production build, then K11_VARIANTS, so that
+    its time splits into the loads and scans, the look-back, the R chain
+    and the epilogue, beside other tiles."""
+    from ..math import field as hostfield
+    from ..ops import syndiv_kernels as sk
+    from ..ops import tiles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    calls = []
+    for log2 in (16, 18, 20):
+        degree = 1 << log2
+        calls.append((random_elements(gen, (3, 8 * degree)), degree,
+                      hostfield.exp(hostfield.get_root_of_unity(degree), degree - 1)))
+    spills = [line.strip() for line in cuda_lib.ptxas_report("syn_div")
+              if "spill" in line or "registers" in line]
+    print(f"K11 production: {'; '.join(spills)}", flush=True)
+    want = []
+    for polys3, degree, x_last in calls:
+        want.append(sk.syn_div(polys3, degree, x_last))
+        ms = time_ms(lambda: sk.syn_div(polys3, degree, x_last), 20, 7, queued=True)
+        print(f"K11 production, (3, {polys3.shape[1]}) degree {degree}: {ms:.4f} ms", flush=True)
+    with ThreadPoolExecutor(len(K11_VARIANTS)) as pool:
+        built = dict(zip(K11_VARIANTS, pool.map(
+            lambda kv: _build("k11-" + "".join(c for c in kv[0] if c.isalnum()), "syn_div.cu",
+                              *kv[1]),
+            K11_VARIANTS.items())))
+    p = cuda_lib.ptr
+    nul = ctypes.c_void_p(None)
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_syn_div
+        fn.argtypes = cuda_lib.lib().distaff_syn_div.argtypes
+        fn.restype = ctypes.c_int
+        for (polys3, degree, x_last), ref in zip(calls, want):
+            n = polys3.shape[1]
+            (b_lo, b_hi), (i_lo, i_hi), words = sk.syn_div_args(n, x_last, polys3.device)
+            n_tiles = -(-n // K11_MIN_TILE)            # scratch for the smallest tile
+            flags = torch.empty(2 * n_tiles + 1, dtype=torch.int32, device="cuda")
+            sums = torch.empty((n_tiles, 4, 4), dtype=torch.uint32, device="cuda")
+            r = torch.zeros((n, 4), dtype=torch.uint32, device="cuda")
+            out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
+
+            def run():
+                cuda_lib.check(fn(p(polys3), polys3.stride(0) // 4, n, degree, p(b_lo),
+                                  nul if b_hi is None else p(b_hi), p(i_lo),
+                                  nul if i_hi is None else p(i_hi), tiles._LOG_LO,
+                                  (ctypes.c_uint32 * 4)(*words[:4]),
+                                  (ctypes.c_uint32 * 4)(*words[4:]), p(flags), p(sums), p(r),
+                                  p(out), cuda_lib.stream(out)), name)
+                return out
+
+            if not K11_VARIANTS[name][0] and not torch.equal(run(), ref):
+                raise AssertionError(f"air_probe: K11 {name} differs from the production build")
+            ms = time_ms(run, 20, 7, queued=True)
+            print(f"K11 {name}, (3, {n}) degree {degree}: {'; '.join(spills)}; {ms:.4f} ms",
+                  flush=True)
+
+
 def main(argv=None):
     import sys
 
     probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
-              "k10": probe_k10}
+              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11}
     names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")

@@ -28,7 +28,9 @@ from distaff_tpu.ops import fri_jax
 from distaff_tpu.stark import prover as jax_prover
 from distaff_tpu.utils import rand as jax_rand
 from distaff_torch import ProofOptions
+from distaff_torch.crypto import merkle_dev
 from distaff_torch.math import field_torch as ft
+from distaff_torch.ops import blake3_torch
 from distaff_torch.ops import boundary_kernels as bk
 from distaff_torch.ops import field_kernels as fk
 from distaff_torch.ops import fri_torch, tiles
@@ -131,9 +133,9 @@ def test_reduce_gives_the_jax_packages_host_layer_roots(monkeypatch):
     folds, parts = [], []
     real = fri_torch.fri_fold
 
-    def counted(*args):
+    def counted(*args, **kwargs):
         folds.append(args[0].shape[0])
-        return real(*args)
+        return real(*args, **kwargs)
 
     monkeypatch.setattr(fri_torch, "fri_fold", counted)
     trees, layers = fri.reduce(_limbs(values), _root(n), ProofOptions(), parts.append)
@@ -143,6 +145,35 @@ def test_reduce_gives_the_jax_packages_host_layer_roots(monkeypatch):
     assert folds == [n, n // 4]
     assert parts == ["layer trees"] + ["root draws", "folds (K9)", "layer trees"] * 2
     assert set(parts) == set(fri.PARTS)
+
+
+@pytest.mark.parametrize("hash_fn", ["blake3", "sha3"])
+def test_reduce_commits_the_folds_leaf_digests(monkeypatch, hash_fn):
+    # with blake3 each folded layer's tree is built from the digests that
+    # the fold returns (leaves=True), and K3 hashes the first layer's rows
+    # alone; its roots are those of the layer rows hashed as before.  Any
+    # other hash takes the fold without digests and hashes the rows itself.
+    n = 1 << 12
+    values = _limbs(_ints(n, np.random.default_rng(13)))
+    options = ProofOptions(hash_fn=hash_fn)
+    calls, hashed = [], []
+    real_fold, real_hash = fri_torch.fri_fold, blake3_torch.hash_rows
+
+    def fold(*args, **kwargs):
+        calls.append(kwargs.get("digests", False))
+        return real_fold(*args, **kwargs)
+
+    def hash_rows(rows, out=None):
+        hashed.append(rows.shape[0])
+        return real_hash(rows, out)
+
+    monkeypatch.setattr(fri_torch, "fri_fold", fold)
+    monkeypatch.setattr(merkle_dev, "hash_rows", hash_rows)
+    trees, layers = fri.reduce(values, _root(n), options)
+    assert calls == [hash_fn == "blake3"] * 2
+    assert hashed == ([n // 4] if hash_fn == "blake3" else [])
+    for tree, rows in zip(trees, layers):
+        assert tree.root() == merkle_dev.commit(rows, hash_fn).root()
 
 
 # ------------------------------------------------------------------------------------------------
@@ -207,18 +238,38 @@ _HARNESS = r"""
 #include "boundary_columns.cuh"
 #include "fri_fold.cuh"
 
-// K9's kernel body on the CPU, a thread at a time
-extern "C" void fri_fold_host(const void* column, long long q, const void* lo, const void* hi,
-                              int log_lo, long long stride, const uint32_t* constants,
-                              void* out) {
-    fri_fold::Args a{(const uint4*)column, q, (const uint4*)lo, (const uint4*)hi, log_lo,
-                     stride, {}, (uint4*)out};
+// K9's kernel body on the CPU, a thread at a time, `rows` rows a thread;
+// with digests each leaf's words gathered from its lanes as the kernel's
+// shuffles gather them
+template <int kRows>
+static void fold_layer(const fri_fold::Args& a) {
+    struct Words {
+        uint32_t w[4 * kRows];
+    };
+    const long long n = fri_fold::threads(a);
+    std::vector<Words> own(n);
+    for (long long g = 0; g < n; ++g) fri_fold::fold<kRows>(a, g, own[g].w);
+    if (!a.digests) return;
+    constexpr int kLanes = fri_fold::kLeafRows / kRows;
+    for (long long g = 0; g < n; g += kLanes) {
+        uint32_t words[4 * fri_fold::kLeafRows];
+        for (int l = 0; l < kLanes; ++l)
+            for (int w = 0; w < 4 * kRows; ++w) words[4 * kRows * l + w] = own[g + l].w[w];
+        fri_fold::hash_leaf(a, g / kLanes, words);
+    }
+}
+
+extern "C" void fri_fold_host(const void* column, long long q, int rows, const void* lo,
+                              const void* hi, int log_lo, long long stride,
+                              const uint32_t* constants, void* out, void* digests) {
+    fri_fold::Args a{(const uint4*)column, q, rows,
+                     (int)(q % 4 ? q : fri_fold::kLeafRows / rows), (const uint4*)lo,
+                     (const uint4*)hi, log_lo, stride, {}, (uint4*)out, (uint32_t*)digests};
     std::memcpy(&a.k, constants, sizeof(a.k));
-    for (long long block = 0; block < fri_fold::blocks(a); ++block)
-        for (int tid = 0; tid < fri_fold::kThreads; ++tid) {
-            const long long i = block * fri_fold::kThreads + tid;
-            if (i < a.q) fri_fold::fold(a, i);
-        }
+    if (rows == 4)
+        fold_layer<4>(a);
+    else
+        fold_layer<1>(a);
 }
 
 namespace bc = boundary_columns;
@@ -402,7 +453,7 @@ def kernel_bodies(tmp_path_factory):
     lib = ctypes.CDLL(str(tmp / "libharness.so"))
     vp, ll, i32, u32p = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(
         ctypes.c_uint32)
-    lib.fri_fold_host.argtypes = [vp, ll, vp, vp, i32, ll, u32p, vp]
+    lib.fri_fold_host.argtypes = [vp, ll, i32, vp, vp, i32, ll, u32p, vp, vp]
     lib.boundary_columns_host.argtypes = [vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp,
                                           i32]
     lib.boundary_sums_host.argtypes = [vp, ll, ll, i32, ll, u32p, vp]
@@ -413,20 +464,51 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@pytest.mark.parametrize("points,stride", [
-    (16, 1),          # four rows, one partial block, x0 from the lo table alone
-    (1024, 4),        # 256 rows of a 4096-point domain: x0 and x0^-3 from lo and hi
-    (4096, 16),       # four blocks, 2^16-point tables
+def _fold_body(lib, column, root, stride, digests, rows):
+    """K9's body over a layer of `column`'s points at `rows` rows a thread:
+    (folded column, its leaf digests or None)."""
+    points = column.shape[0]
+    q = points // 4
+    lo, hi = tiles._store_factors(points * stride, root, 1, "cpu")
+    out = torch.zeros((q, 4), dtype=torch.uint32)
+    leaves = torch.zeros((q // 4, 8), dtype=torch.uint32) if digests else None
+    lib.fri_fold_host(
+        _ptr(column), q, rows, _ptr(lo), _ptr(hi), tiles._LOG_LO, stride,
+        (ctypes.c_uint32 * 32)(*fri_torch.fold_words(SPECIAL_X, root, stride, q)), _ptr(out),
+        _ptr(leaves))
+    return out, leaves
+
+
+@pytest.mark.parametrize("points,stride,rows", [
+    pytest.param(4, 1, 1, id="4-1"),            # one row: a thread of one row
+    pytest.param(16, 1, 4, id="16-1"),          # four rows, one thread, x0 from lo alone
+    pytest.param(1024, 4, 4, id="1024-4"),      # 256 rows of a 4096-point domain: lo and hi
+    pytest.param(4096, 16, 4, id="4096-16"),    # 1024 rows, 2^16-point tables
+    pytest.param(16, 1, 1, id="16-1-one-row"),  # one row a thread, four lanes a leaf
+    pytest.param(4096, 16, 1, id="4096-16-one-row"),
 ])
-def test_fri_fold_kernel_body_matches_plain(kernel_bodies, points, stride):
+def test_fri_fold_kernel_body_matches_plain(kernel_bodies, points, stride, rows):
     column = _limbs(_ints(points, np.random.default_rng(points + stride)))
     root = _root(points * stride)
-    lo, hi = tiles._store_factors(points * stride, root, 1, "cpu")
-    out = torch.zeros((points // 4, 4), dtype=torch.uint32)
-    kernel_bodies.fri_fold_host(
-        _ptr(column), points // 4, _ptr(lo), _ptr(hi), tiles._LOG_LO, stride,
-        (ctypes.c_uint32 * 16)(*fri_torch.fold_words(SPECIAL_X)), _ptr(out))
+    out, _ = _fold_body(kernel_bodies, column, root, stride, False, rows)
     assert torch.equal(out, fri_torch.fri_fold_plain(column, SPECIAL_X, root, stride))
+
+
+@pytest.mark.parametrize("points,stride,rows", [
+    pytest.param(1024, 1, 4, id="1024-1"),
+    pytest.param(1024, 4, 4, id="1024-4"),
+    pytest.param(1024, 4, 1, id="1024-4-one-row"),
+])
+def test_fri_fold_kernel_body_leaf_digests_match_plain(kernel_bodies, points, stride, rows):
+    # each leaf's four rows (one thread's, or four lanes' gathered) are the
+    # next layer's leaf row: its BLAKE3 against K3's plain version over the
+    # transposed plain fold
+    column = _limbs(_ints(points, np.random.default_rng(points * stride)))
+    root = _root(points * stride)
+    out, leaves = _fold_body(kernel_bodies, column, root, stride, True, rows)
+    want = fri_torch.fri_fold_plain(column, SPECIAL_X, root, stride)
+    assert torch.equal(out, want)
+    assert torch.equal(leaves, blake3_torch.hash_rows_plain(fri_torch.transpose_quartic(want, 1)))
 
 
 @pytest.mark.parametrize("regs,values", [(1, "random"), (20, "random"), (128, "random"),

@@ -2,8 +2,9 @@
 plain version against the JAX package's device divisions
 (prover._syn_div_dev, _syn_div_expanded_dev) and host divisions
 (_syn_div_column, _syn_div_expanded_column), and the kernel's body
-(csrc/syn_div.cuh) built with g++ and run a block at a time, its launches
-in order, against the plain version.  Exact equality throughout (integer
+(csrc/syn_div.cuh) built with g++ and run a block at a time, the tiles in
+ticket order and with every tile's aggregate published before any
+look-back, against the plain version.  Exact equality throughout (integer
 field arithmetic).  Each JAX device division is compiled once a size, for
 both of its cases."""
 
@@ -124,45 +125,167 @@ _HARNESS = r"""
 #include <vector>
 #include "syn_div.cuh"
 
-// K11's three launches on the CPU in order, each a block at a time and
-// each phase of a block for every thread before the next phase
-extern "C" void syn_div_host(const void* polys, long long row_stride, long long n, long long d,
-                             const void* b_lo, const void* b_hi, const void* binv_lo,
-                             const void* binv_hi, int log_lo, const uint32_t* neg_e,
-                             void* totals, void* out) {
-    using namespace syn_div;
+using namespace syn_div;
+
+namespace {
+
+struct Block {
+    Shared s;
+    u128 after[kThreads][2];          // each thread's sums of the elements after its own
+    u128 total[2];
+};
+
+struct Up {
+    u128 v[kPerThread];
+};
+
+// syn_div.cu's warp_suffix over one warp's lanes (its __shfl_down_sync
+// returns a lane's own value where no lane is `off` up)
+void warp_suffix(u128 (&v)[kLanes][2], int count) {
+    for (int off = 1; off < kLanes && off < count; off <<= 1) {
+        u128 up[kLanes][2];
+        for (int lane = 0; lane < kLanes; ++lane)
+            for (int x = 0; x < 2; ++x)
+                up[lane][x] = v[lane + off < kLanes ? lane + off : lane][x];
+        for (int lane = 0; lane < kLanes; ++lane)
+            for (int x = 0; x < 2; ++x)
+                v[lane][x] = suffix_step(v[lane][x], up[lane][x], lane, off, count);
+    }
+}
+
+void warp_after(const u128 (&v)[kLanes][2], int count, u128 (&after)[kLanes][2]) {
+    for (int lane = 0; lane < kLanes; ++lane)
+        for (int x = 0; x < 2; ++x) after[lane][x] = lane + 1 < count ? v[lane + 1][x] : 0;
+}
+
+// the kernel's loads
+void load_tile(const Args& g, Block& b) {
+    for (int tid = 0; tid < kThreads; ++tid) load(g, b.s, b.s.tile, tid);
+}
+
+// the kernel from its sums to publish_aggregate
+void publish(const Args& g, Block& b) {
+    const long long tile = b.s.tile;
+    u128 v[kLanes][2], after[kLanes][2];
+    for (int warp = 0; warp < kWarps; ++warp) {
+        for (int lane = 0; lane < kLanes; ++lane)
+            thread_sums(g, b.s, tile, warp * kLanes + lane, v[lane]);
+        warp_suffix(v, kLanes);
+        warp_after(v, kLanes, after);
+        for (int lane = 0; lane < kLanes; ++lane)
+            for (int x = 0; x < 2; ++x) b.after[warp * kLanes + lane][x] = after[lane][x];
+        store_warp_sums(b.s, v[0], warp);
+    }
+    for (int lane = 0; lane < kLanes; ++lane)
+        for (int x = 0; x < 2; ++x)
+            v[lane][x] = lane < kWarps ? f128::from_limbs(b.s.warp_sums[x][lane]) : 0;
+    warp_suffix(v, kWarps);
+    warp_after(v, kWarps, after);
+    for (int lane = 0; lane < kWarps; ++lane)
+        for (int x = 0; x < 2; ++x) b.s.warp_sums[x][lane] = f128::to_limbs(after[lane][x]);
+    b.total[0] = v[0][0];
+    b.total[1] = v[0][1];
+    publish_aggregate(g, tile, b.total);
+}
+
+// syn_div.cu's look_back, its lanes in turn, and publish_inclusive;
+// counts the tiles it found with their aggregate alone
+void look_back(const Args& g, Block& b, long long& aggregates) {
+    const long long tile = b.s.tile, nt = tiles(g);
+    u128 carry[2] = {0, 0};
+    for (long long base = tile + 1; base < nt; base += kLanes) {
+        u128 v[kLanes][2] = {};
+        unsigned inclusive = 0;
+        for (int lane = 0; lane < kLanes; ++lane) {
+            const long long p = base + lane;
+            const uint32_t st = p < nt ? peek(g, p, v[lane]) : kEmpty;
+            if (st == kInclusive) inclusive |= 1u << lane;
+            aggregates += st == kAggregate;
+        }
+        for (int lane = 0; lane < kLanes; ++lane)
+            if (inclusive && lane > __builtin_ctz(inclusive)) v[lane][0] = v[lane][1] = 0;
+        warp_suffix(v, kLanes);
+        carry[0] = f128::add(carry[0], v[0][0]);
+        carry[1] = f128::add(carry[1], v[0][1]);
+        if (inclusive) break;
+    }
+    publish_inclusive(g, b.s, tile, b.total, carry);
+}
+
+// the kernel's R, between publish_aggregate and the look-back
+void r_tile(const Args& g, Block& b) {
+    const long long tile = b.s.tile;
+    wait_r(g, tile);
+    std::vector<Up> up(kThreads);
+    for (long long off = g.d; off < kTile; off *= 2) {
+        for (int tid = 0; tid < kThreads; ++tid) chain_read(b.s, (int)off, tid, up[tid].v);
+        for (int tid = 0; tid < kThreads; ++tid) chain_add(b.s, tid, up[tid].v);
+    }
+    for (int tid = 0; tid < kThreads; ++tid) store_r(g, b.s, tile, tid);
+    store_release(r_ready(g, tile), 1);
+}
+
+// the kernel after the look-back: out
+void out_tile(const Args& g, Block& b) {
+    const long long tile = b.s.tile;
+    for (int tid = 0; tid < kThreads; ++tid)
+        for (int x = 0; x < 2; ++x)
+            b.after[tid][x] = f128::add(b.after[tid][x],
+                                        f128::from_limbs(b.s.warp_sums[x][tid / kLanes]));
+    for (int tid = 0; tid < kThreads; ++tid) finish(g, b.s, tile, tid, b.after[tid]);
+    for (int tid = 0; tid < kThreads; ++tid) store_out(g, b.s, tile, tid);
+}
+
+}  // namespace
+
+// K11's launch on the CPU, a block at a time, each phase of a block for
+// every thread before the next, the blocks' tiles from the ticket.  Order
+// 0: each block whole, in ticket order.  Order 1: every block's phases to
+// its aggregate first, then their R in ticket order, then the look-backs
+// from the first tile up (so each walks over tiles that have published
+// their aggregate alone), then out in ticket order.  Returns the waits that found their word unset (0
+// in any order the card could run), and the aggregates the look-backs met.
+extern "C" int syn_div_host(const void* polys, long long row_stride, long long n, long long d,
+                            const void* b_lo, const void* b_hi, const void* binv_lo,
+                            const void* binv_hi, int log_lo, const uint32_t* words, void* flags,
+                            void* sums, void* r, void* out, int order, long long* aggregates) {
     const uint4* p = (const uint4*)polys;
     Args g{p, p + row_stride, p + 2 * row_stride, n, d, (const uint4*)b_lo, (const uint4*)b_hi,
-           (const uint4*)binv_lo, (const uint4*)binv_hi, log_lo, {}, (uint4*)totals,
-           (uint4*)out};
-    std::memcpy(&g.neg_e, neg_e, sizeof(g.neg_e));
-    ScanBuffer s;
-    std::vector<Column> c(kThreads);
-    auto scan = [&] {
-        for (int k = 0; k < kLogThreads; ++k)
-            for (int tid = 0; tid < kThreads; ++tid) scan_step(s, k, tid);
-    };
-    for (long long tile = 0; tile < tiles(g); ++tile) {
-        for (int tid = 0; tid < kThreads; ++tid) load(g, tile, tid, c[tid], s);
-        scan();
-        for (int tid = 0; tid < kThreads; ++tid) store_totals(g, s, tile, tid);
+           (const uint4*)binv_lo, (const uint4*)binv_hi, log_lo, {}, {}, (uint32_t*)flags,
+           (uint4*)sums, (uint4*)r, (uint4*)out};
+    std::memcpy(&g.b, words, sizeof(g.b));
+    std::memcpy(&g.neg_e, words + 4, sizeof(g.neg_e));
+    const long long nt = tiles(g);
+    std::memset(flags, 0, (2 * nt + 1) * sizeof(uint32_t));
+    host_unready = 0;
+    *aggregates = 0;
+    std::vector<Block> blocks(nt);
+    for (Block& b : blocks) b.s.tile = nt - 1 - (long long)(*ticket(g))++;
+    if (order == 0) {
+        for (Block& b : blocks) {
+            load_tile(g, b);
+            publish(g, b);
+            r_tile(g, b);
+            look_back(g, b, *aggregates);
+            out_tile(g, b);
+        }
+    } else {
+        for (Block& b : blocks) load_tile(g, b);
+        for (Block& b : blocks) publish(g, b);
+        for (Block& b : blocks) r_tile(g, b);
+        for (long long k = nt - 1; k >= 0; --k) look_back(g, blocks[k], *aggregates);
+        for (Block& b : blocks) out_tile(g, b);
     }
-    for (int tid = 0; tid < kThreads; ++tid) chunk_sums(g, s, tid);
-    scan();
-    for (int tid = 0; tid < kThreads; ++tid) chunk_carries(g, s, tid);
-    for (long long tile = 0; tile < tiles(g); ++tile) {
-        for (int tid = 0; tid < kThreads; ++tid) load(g, tile, tid, c[tid], s);
-        scan();
-        for (int tid = 0; tid < kThreads; ++tid) finish(g, c[tid], s, tile, tid);
-    }
+    return host_unready;
 }
 
 extern "C" long long syn_div_tile() { return syn_div::kTile; }
 """
 
-# (threads, elements a thread): a tile of 16, so that a few thousand points
-# carry across hundreds of tiles, and the card's tile of 1024
-TILES = [(8, 2), (256, 4)]
+# (threads, elements a thread): a tile of 64 (two warps), so that a few
+# thousand points carry across dozens of tiles and the look-back walks
+# more than one window of 32, and the card's tile of 1024
+TILES = [(64, 1), (256, 4)]
 
 
 @pytest.fixture(scope="module", params=TILES, ids=lambda t: f"tile{t[0] * t[1]}")
@@ -177,7 +300,8 @@ def kernel_body(request, tmp_path_factory):
     lib = ctypes.CDLL(str(tmp / "libharness.so"))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.syn_div_host.argtypes = [vp, ll, ll, ll, vp, vp, vp, vp, ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_uint32), vp, vp]
+                                 ctypes.POINTER(ctypes.c_uint32), vp, vp, vp, vp, ctypes.c_int,
+                                 ctypes.POINTER(ll)]
     lib.syn_div_tile.restype = ll
     assert lib.syn_div_tile() == threads * per_thread
     return lib
@@ -187,21 +311,43 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@pytest.mark.parametrize("n,degree", [
-    (16, 2),          # one small tile; b's tables without hi
-    (512, 64),        # 32 small tiles, a partial last chunk of the carry scan
-    (4096, 512),      # 256 small tiles, 4 of the card's; b's tables with hi
-    (2048, 2048),     # degree n: the stride sums are single terms
-])
-def test_kernel_body_matches_plain(kernel_body, n, degree):
+CASES = [
+    (16, 2),          # one partial tile, d < tile; b's tables without hi
+    (512, 64),        # n/d = 8: 8 small tiles, d = the small tile
+    (1024, 16),       # d < the small tile across 16 of them: the chain from the next tile's R
+    (4096, 512),      # n/d = 8: 64 small tiles, 4 of the card's; b's tables with hi
+    (8192, 1024),     # n/d = 8, d = the card's tile: its chain across 8 of them
+    (2048, 2048),     # d = n: the stride sums are single terms
+]
+ORDERS = ("ticket order", "aggregates first")
+
+
+@pytest.mark.parametrize("n,degree,order", [
+    pytest.param(n, d, order, id=f"{n}-{d}" + ("" if order == ORDERS[0] else "-aggregates-first"))
+    for n, d in CASES for order in ORDERS])
+def test_kernel_body_matches_plain(kernel_body, n, degree, order):
     rows = _port(_coefficients(n, n + degree, edge=True))
     x_last = _x_last(degree)
     (b_lo, b_hi), (i_lo, i_hi), words = sk.syn_div_args(n, x_last, "cpu")
     tile = kernel_body.syn_div_tile()
-    totals = torch.zeros((2, -(-n // tile), 4), dtype=torch.uint32)
+    n_tiles = -(-n // tile)
+    flags = torch.zeros(2 * n_tiles + 1, dtype=torch.int32)
+    sums = torch.zeros((n_tiles, 4, 4), dtype=torch.uint32)
+    r = torch.zeros((n, 4), dtype=torch.uint32)
     out = torch.zeros((n, 4), dtype=torch.uint32)
-    kernel_body.syn_div_host(_ptr(rows), rows.stride(0) // 4, n, degree, _ptr(b_lo), _ptr(b_hi),
-                             _ptr(i_lo), _ptr(i_hi), tiles._LOG_LO,
-                             (ctypes.c_uint32 * 4)(*words), _ptr(totals), _ptr(out))
+    aggregates = ctypes.c_longlong()
+    unready = kernel_body.syn_div_host(
+        _ptr(rows), rows.stride(0) // 4, n, degree, _ptr(b_lo), _ptr(b_hi), _ptr(i_lo),
+        _ptr(i_hi), tiles._LOG_LO, (ctypes.c_uint32 * 8)(*words), _ptr(flags), _ptr(sums),
+        _ptr(r), _ptr(out), ORDERS.index(order),
+        ctypes.byref(aggregates))
+    assert unready == 0
     assert torch.equal(out, sk.syn_div_plain(rows, degree, x_last))
-
+    # every tile inclusive and its R written; with the aggregates first, the
+    # look-backs walked over tiles that had published their aggregate alone
+    assert flags[:2 * n_tiles].tolist() == [2] * n_tiles + [1] * n_tiles
+    assert flags[-1] == n_tiles
+    if order == ORDERS[0] or n_tiles < 3:
+        assert aggregates.value == 0
+    else:
+        assert aggregates.value == (n_tiles - 1) * (n_tiles - 2) // 2
