@@ -9,20 +9,23 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py
     python3 chip_smoke.py --step-times 16 18
     python3 chip_smoke.py --kernel-times
+    python3 chip_smoke.py --tree-times
 
 The second form only prints step times (step_times below), the third only
-the times of K9 and K11 at the proofs' shapes (kernel_times below): a
-copy of this file placed at the root of another checkout times that
-checkout's port, so that two versions compare on one card in one call.
+the times of K9 and K11 at the proofs' shapes (kernel_times below), the
+fourth only the times of the Merkle trees of the 2^16 proof (tree_times
+below): a copy of this file placed at the root of another checkout times
+that checkout's port, so that two versions compare on one card in one
+call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-                K4's (K1-K3, K5-K12) in its own call and links them, and K4
+                K4's (K1-K3, K5-K13) in its own call and links them, and K4
                 once for each depth triple of AIR_TRIPLES (its library is
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K12, the count of IMMA
+                K4 at each triple and for K6-K13, the count of IMMA
                 (tensor-core) instructions in K10's SASS, which must not be
                 0, and the card's name and power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
@@ -31,7 +34,7 @@ Phases, in order; any failure raises and exits non-zero:
                 K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
                 edge values (the PTX multiply's carries) and on the broadcast
                 operands of the main path, K3 blake3_rows at 2^21 rows of 320
-                bytes and a Merkle level of 2^21 -> 2^20 nodes, K4
+                bytes, K4
                 air_transition at (20, 2^19) on the stride slice of the 2^16
                 Fibonacci LDE (bad steps 0), on a copy with one value altered
                 (bad steps > 0) and on random registers, K5 butterfly at 2^19
@@ -56,7 +59,10 @@ Phases, in order; any failure raises and exits non-zero:
                 random and edge-value coefficients, K12
                 power_series at every table the 2^16 proof builds (the
                 proof run once with the table cache empty and each call
-                recorded), at one row, a ragged length and 2^20 rows, each
+                recorded), at one row, a ragged length and 2^20 rows, K13
+                merkle_tree at every tree the 2^16 proof builds (2^21,
+                2^20, 2^19, 2^17, ..., 2^5 random leaf digests, each whole
+                tree), each
                 equal (tolerance zero: integer field arithmetic and
                 hashing) to its plain version on the same inputs; times from
                 CUDA events
@@ -67,7 +73,9 @@ Phases, in order; any failure raises and exits non-zero:
                 step 4 through K11) must serialize to the bytes pinned in
                 tests/test_determinism.py, with no K2 launch and K3 over
                 rows K3_ROW_LAUNCHES times; its K9 (with the leaf digests),
-                K10 and K11 calls are held against the plain versions
+                K10, K11 and K13 calls are held against the plain versions
+                (K13 at each of its trees, its launches those that
+                tree_launches plans)
   4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                 [1, 0], default ProofOptions) proved on cuda and verified,
                 with its time, peak device memory and the launches of every
@@ -80,7 +88,10 @@ Phases, in order; any failure raises and exits non-zero:
                 evaluations phase 2 checked, each one launch, K9
                 once at each layer phase 2 checked, K10 and K11 at the
                 shapes they were checked at, K12 once for each table that
-                the proof put in the cache and at calls phase 2 held; then
+                the proof put in the cache and at calls phase 2 held, K13
+                at exactly the tree sizes phase 2 checked, in the launches
+                tree_launches plans for them (K3 never over a Merkle
+                level); then
                 proved with per-step times (steps 1, 3, 6 and 7 in parts
                 too; step 4 and step 3's K4 part printed again), and once
                 more without
@@ -115,13 +126,16 @@ Phases, in order; any failure raises and exits non-zero:
                 (the LDE must take K1's recursion; its K1 passes and K8
                 calls must be exactly those held; K9 once a layer, K10 and
                 K11 once, K3 over rows K3_ROW_LAUNCHES times, K12 once a
-                table built, K2 never); every call it made of K3, K4, K7,
-                K9 (its leaf digests too), K10 and K11 held against the plain
+                table built, K13 in the launches tree_launches plans, K2
+                never); every call it made of K3, K4, K7, K9 (its leaf
+                digests too), K10, K11 and K13 held against the plain
                 versions on the proof's own inputs, run a piece of
                 2^LAST_PIECE rows or points at a time (the other rung: the
-                last piece of each call), with a row for each class of call
-                at 2^LADDER_HELD; then the 2^LADDER_HELD rung once more with
-                the step log
+                last piece of each call; K13 at 2^LADDER_HELD each whole
+                tree, at the other rung each tree's nodes above its first
+                launch's subtrees and its last subtree's nodes), with a row
+                for each class of call at 2^LADDER_HELD; then the
+                2^LADDER_HELD rung once more with the step log
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -191,7 +205,9 @@ SEED = 20261016
 # the output written and b's and 1/b's power tables, its operations those of
 # the three divisions at their leanest (syndiv_kernels.syn_div_ops); K12's
 # bytes are its rows written and the host's squarings, its multiplies
-# counted from its code (field_kernels.power_series_ops).
+# counted from its code (field_kernels.power_series_ops).  A tree of n
+# leaves (K13) reads its leaves and writes its n-row flat array once, 64n
+# bytes, against its n - 1 compressions (tree_bound).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 ISSUE_LANES_PER_SM = 128
@@ -201,12 +217,14 @@ REDUCE_OPS = 31 * 3 + 8 + 32
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
-# kernels of each path: the proof launches K1, K3, K4 and K7-K12 (and K2
+# kernels of each path: the proof launches K1, K3, K4 and K7-K13 (and K2
 # no more, since K11 divides step 4 and K12 builds the power tables), the
 # kernel bench K2, K5, K6 and K12 with K1, K3 (the bench also times K4, on a
 # random domain)
-MAIN_PATH = ("ntt_pass", "blake3_rows", "blake3_rows.parents", "air_transition", "deep_compose",
-             "poly_eval", "fri_fold", "boundary_columns", "syn_div", "power_series")
+MAIN_PATH = ("ntt_pass", "blake3_rows", "air_transition", "deep_compose", "poly_eval",
+             "fri_fold", "boundary_columns", "syn_div", "power_series", "merkle_tree")
+K13 = "distaff_torch/csrc/merkle_tree.cu"
+K13_REPLACES = "distaff_tpu/crypto/merkle_dev.py:34"
 # K3's launches over rows in a blake3 proof: the trace rows and the first
 # FRI layer's (K9 hashes each folded layer's leaves as it folds it)
 K3_ROW_LAUNCHES = 2
@@ -370,7 +388,7 @@ def phase_kernels(ops_rate):
                      n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate, k2, "")
 
     # K3: trace rows of the 2^16 rung (20 registers = 320 bytes) hashed in
-    # place from the (R, D, 4) LDE, and one Merkle level 2^21 -> 2^20
+    # place from the (R, D, 4) LDE
     regs = 20
     trace_rows = lde.permute(1, 0, 2)
     blocks = (regs * 16 + 63) // 64
@@ -378,13 +396,8 @@ def phase_kernels(ops_rate):
         "blake3_rows", f"{count} rows x {regs * 16} B", lambda: b3.hash_rows(trace_rows),
         lambda: b3.hash_rows_plain(trace_rows), 10, 1, count * (regs * 16 + 32),
         count * blocks * COMPRESS_OPS, ops_rate, k3, "distaff_tpu/ops/blake3_jax.py:95"))
-    level = random_elements(gen, (count, 2)).view(count, 8)
-    rows.append(check_kernel(
-        "blake3_rows.parents", f"{count} -> {count // 2} nodes", lambda: b3.hash_level(level),
-        lambda: b3.hash_rows_plain(level.view(count // 2, 4, 4)),
-        20, 1, count * 32 + count // 2 * 32, count // 2 * COMPRESS_OPS, ops_rate,
-        k3, "distaff_tpu/crypto/merkle_dev.py:34"))
-    del lde, trace_rows, level
+    del lde, trace_rows
+    rows.extend(check_merkle_tree(gen, ops_rate, MAIN_LOG2_TRACE))
     trace, evaluator = fibonacci_case()
     rows.append(check_air(gen, ops_rate, trace, evaluator))
     rows.append(check_boundary(gen, ops_rate, trace, evaluator))
@@ -1143,6 +1156,69 @@ def check_power_series(ops_rate):
     return rows
 
 
+def tree_sizes(log2_trace, extension=32):
+    """The leaves of every Merkle tree that a blake3 proof of 2^log2_trace
+    steps builds: the trace tree's (a point of the LDE domain a leaf), the
+    constraint tree's (two evaluations a leaf) and each FRI layer's (a
+    quartic row a leaf), the remainder's last."""
+    domain = extension << log2_trace
+    return [domain, domain // 2] + [domain >> 2 * (k + 1) for k in range(fold_layers(domain) + 1)]
+
+
+def tree_bound(n):
+    """K13's bound terms for a tree of n leaves: (bytes, 32-bit operations)."""
+    return 64 * n, (n - 1) * COMPRESS_OPS
+
+
+def check_merkle_tree(gen, ops_rate, log2_trace):
+    """K13 at every tree the bench's 2^log2_trace proof builds, on random
+    leaf digests: each whole tree held equal to the plain version (the
+    level loop), a row each."""
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.tools.timing import random_elements
+
+    rows = []
+    for n in tree_sizes(log2_trace):
+        leaves = random_elements(gen, (n, 2)).view(n, 8)
+        row = check_kernel(
+            "merkle_tree", f"2^{log2_trace} tree of {n} leaves in "
+            f"{len(b3.tree_launches(n))} launch(es)", lambda: b3.merkle_tree(leaves),
+            lambda: b3.merkle_tree_plain(leaves), 20, 1, *tree_bound(n), ops_rate, K13,
+            K13_REPLACES)
+        row["key"] = ("merkle_tree", log2_trace, n)
+        rows.append(row)
+    return rows
+
+
+def check_tree_top(shape, nodes, leaves):
+    """Hold a tree's flat nodes where phase 7's other rung holds them: the
+    root and every node above the first launch's subtrees (the plain tree
+    over their roots), and the nodes of the last subtree (the plain tree
+    over its leaves, at their rows of the whole tree).  Returns the time of
+    the plain trees in ms (CUDA events)."""
+    from distaff_torch.ops import blake3_torch as b3
+
+    n = leaves.shape[0]
+    _, levels = b3.tree_launches(n)[0]
+    roots, size = n >> levels, 1 << levels
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    top = b3.merkle_tree_plain(nodes[roots : 2 * roots]) if roots > 1 else None
+    last = b3.merkle_tree_plain(leaves[n - size :])
+    end_ev.record()
+    torch.cuda.synchronize()
+    # the last subtree's local node 2^k + q sits at row 2^k (2 roots - 1) + q
+    rows = torch.cat([torch.arange(1 << k, 2 << k) + ((1 << k) * (2 * roots - 2))
+                      for k in range(levels)]).to(nodes.device)
+    err = max_abs_err(nodes.index_select(0, rows), last[1:])
+    if top is not None:
+        err = max(err, max_abs_err(nodes[1:roots], top[1:]))
+    if err:
+        raise AssertionError(f"merkle_tree at {shape}: differs from the plain version "
+                             f"(max abs err {err})")
+    return start_ev.elapsed_time(end_ev)
+
+
 def phase_golden():
     """The golden case on cuda: its bytes, verified, no K2 launch; K10 and
     K11 launched once (K10 at point stride 2, extension 16) and K9 once a
@@ -1150,6 +1226,7 @@ def phase_golden():
     its plain version on the proof's own inputs."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import boundary_kernels as bk
     from distaff_torch.ops import cuda_lib, fri_torch
     from distaff_torch.ops import syndiv_kernels as sk
@@ -1172,13 +1249,22 @@ def phase_golden():
     print(f"golden proof on cuda: {len(blob)} bytes, sha256 {digest}, verified", flush=True)
     domain = proof.trace_length() * options.extension_factor()
     (lde, i_parts, f_parts, root), = calls.boundaries
+    trees = calls.keys["merkle_tree"]
+    tree_launches = sum(len(b3.tree_launches(n)) for n in trees)
     if launches["boundary_columns"] != 1 or lde.stride(1) != 8 or \
             launches["fri_fold"] != fold_layers(domain) or launches["syn_div"] != 1 or \
-            launches["blake3_rows"] != K3_ROW_LAUNCHES or any(launches[k] for k in K2_OPS):
+            launches["blake3_rows"] != K3_ROW_LAUNCHES or any(launches[k] for k in K2_OPS) or \
+            sorted(trees, reverse=True) != tree_sizes(proof.trace_length().bit_length() - 1,
+                                                      options.extension_factor()) or \
+            launches["merkle_tree"] != tree_launches:
         raise AssertionError(f"golden: K10 launched {launches['boundary_columns']} times at "
                              f"{boundary_key(lde)}, K9 {launches['fri_fold']} times, K11 "
                              f"{launches['syn_div']}, K3 over rows {launches['blake3_rows']}, K2 "
-                             f"{[launches[k] for k in K2_OPS]}")
+                             f"{[launches[k] for k in K2_OPS]}, K13 {launches['merkle_tree']} "
+                             f"times over trees of {trees} leaves")
+    for (leaves,) in calls.trees:
+        check_equal("merkle_tree", f"golden tree of {leaves.shape[0]} leaves",
+                    lambda: b3.merkle_tree(leaves), lambda: b3.merkle_tree_plain(leaves))
     (polys3, degree, x_last), = calls.syn_divs
     check_equal("syn_div", f"golden {syn_div_key(polys3, degree)}",
                 lambda: sk.syn_div(polys3, degree, x_last),
@@ -1196,8 +1282,9 @@ def phase_golden():
     print(f"golden: K10 once at {boundary_key(lde)}; K11 once at "
           f"{syn_div_key(polys3, degree)}; the LDE of {domain} points folds "
           f"{launches['fri_fold']} FRI layer(s) ({', '.join(calls.keys['fri_fold'])}) down to at "
-          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each with the leaf digests; each call "
-          f"equal to plain; K3 over rows {launches['blake3_rows']} times; K2 never", flush=True)
+          f"most {fri.MAX_REMAINDER_LENGTH} points, K9 once each with the leaf digests; K13 "
+          f"{tree_launches} times over its trees of {trees} leaves; each call equal to plain; K3 "
+          f"over rows {launches['blake3_rows']} times; K2 never", flush=True)
 
 
 class _StepLog(logging.Handler):
@@ -1336,6 +1423,67 @@ def kernel_times():
         del polys3
 
 
+def tree_times():
+    """Every tree the 2^16 proof builds (tree_sizes), on random leaf
+    digests: the whole tree timed as phase 2 times a kernel, with its
+    launches, bound and loss (ms - bound); where the port hashes a tree a
+    level at a time (one K3 launch a level, before K13), also each level
+    timed, their sum and their summed loss, launches x (ms - bound) with
+    each level's own bound.  Each line is tagged with the directory of the
+    checkout whose package ran.  It uses only what every version of the
+    port has; where the checkout has K13, each tree is held against its
+    plain version too."""
+    import os
+
+    import distaff_torch
+    from distaff_torch.crypto import merkle_dev
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import cuda_lib
+    from distaff_torch.tools.timing import random_elements
+
+    tag = os.path.basename(os.path.dirname(os.path.dirname(
+        os.path.abspath(distaff_torch.__file__))))
+    ops_rate = int32_ops_per_s()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    build = getattr(b3, "merkle_tree", None) or merkle_dev.build_flat_nodes
+    all_ms = all_lost = 0.0
+    for n in tree_sizes(MAIN_LOG2_TRACE):
+        leaves = random_elements(gen, (n, 2)).view(n, 8)
+        if hasattr(b3, "merkle_tree"):
+            check_equal("merkle_tree", f"{n} leaves", lambda: b3.merkle_tree(leaves),
+                        lambda: b3.merkle_tree_plain(leaves))
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        build(leaves)
+        launches = sum(cuda_lib.LAUNCHES.values())
+        ms = time_ms(lambda: build(leaves), 20, KERNEL_TRIALS, queued=True)
+        bound_ms, bound_by = bound(*tree_bound(n), ops_rate)
+        line = (f"[{tag}] tree of {n} leaves: {ms:.4f} ms in {launches} launch(es), bound "
+                f"{bound_ms:.4f} ms by {bound_by}, lost {ms - bound_ms:.4f} ms")
+        all_ms += ms
+        all_lost += ms - bound_ms
+        if hasattr(b3, "hash_level"):
+            levels_ms = levels_lost = 0.0
+            size = n
+            children = leaves
+            while size > 1:
+                out = torch.empty((size // 2, 8), dtype=torch.uint32, device="cuda")
+                level_ms = time_ms(lambda c=children, o=out: b3.hash_level(c, out=o), 20,
+                                   KERNEL_TRIALS, queued=True)
+                level_bound, _ = bound(size * 32 + size // 2 * 32, size // 2 * COMPRESS_OPS,
+                                       ops_rate)
+                levels_ms += level_ms
+                levels_lost += level_ms - level_bound
+                children, size = out, size // 2
+            line += (f"; its {n.bit_length() - 1} K3 levels: {levels_ms:.4f} ms summed, lost "
+                     f"{levels_lost:.4f} ms")
+        print(line, flush=True)
+        del leaves
+    print(f"[{tag}] the 2^{MAIN_LOG2_TRACE} proof's {len(tree_sizes(MAIN_LOG2_TRACE))} trees: "
+          f"{all_ms:.4f} ms, lost {all_lost:.4f} ms", flush=True)
+
+
 def print_step4(log2_trace, lines):
     """Step 4 (the iNTT and K11) and step 3's K4 part from a stepped
     proof's log lines."""
@@ -1389,10 +1537,13 @@ def phase_main(checked_keys):
     points); K9's, K10's and K11's calls exactly their ("fri_fold", ...),
     ("boundary_columns", ...) and ("syn_div", ...) keys, each one launch;
     with the table cache emptied first, K12 once for each table the proof
-    builds, at the calls phase 2 held; K2 never.  Returns the launches and
-    a Counter of launches by (kernel, rung, key)."""
+    builds, at the calls phase 2 held; K13's trees exactly its
+    ("merkle_tree", ...) keys, each in the launches tree_launches plans;
+    K2 never.  Returns the launches and a Counter of launches by (kernel,
+    rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
 
     program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
@@ -1430,6 +1581,7 @@ def phase_main(checked_keys):
                        ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
                        ("blake3_rows", K3_ROW_LAUNCHES),
                        ("poly_eval", sum(n for _, n in evals.calls)),
+                       ("merkle_tree", sum(len(b3.tree_launches(n)) for n in held["merkle_tree"])),
                        *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
@@ -1457,8 +1609,9 @@ def phase_main(checked_keys):
           f"{launches['fri_fold']} (one a layer, with the leaf digests), K3 over rows "
           f"{launches['blake3_rows']}, K10 {launches['boundary_columns']}, K11 "
           f"{launches['syn_div']}, K12 {launches['power_series']} (the {len(tiles._TABLES)} "
-          f"tables the proof built), K6 {launches['inv_batch']}; field_ew by operation "
-          f"{json.dumps(field_ew)}", flush=True)
+          f"tables the proof built), K13 {launches['merkle_tree']} over "
+          f"{len(calls.keys['merkle_tree'])} trees, K6 {launches['inv_batch']}; field_ew by "
+          f"operation {json.dumps(field_ew)}", flush=True)
 
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
@@ -1472,7 +1625,9 @@ def phase_main(checked_keys):
     keyed = Counter(("ntt_pass", MAIN_LOG2_TRACE, key) for key in proof_keys)
     keyed.update({("poly_eval", MAIN_LOG2_TRACE, key): n for key, n in evals.launches.items()})
     for name in ProofCalls.KEYED:
-        keyed.update((name, MAIN_LOG2_TRACE, key) for key in calls.keys[name])
+        for key in calls.keys[name]:
+            keyed[(name, MAIN_LOG2_TRACE, key)] += (
+                len(b3.tree_launches(key)) if name == "merkle_tree" else 1)
     return launches, keyed
 
 
@@ -1566,26 +1721,29 @@ def phase_examples(ops_rate):
 
 class ProofCalls:
     """Within its `with`, records the calls that the prover makes of K3 (the
-    rows it hashes and the launch's counter), K4, K7, K9, K10, K11 and K12
-    (their arguments), and lets each launch; the keys of K9, K10, K11 and
-    K12 (fold_key, boundary_key, syn_div_key, series_key) by name.  Without
-    `keep`, it records the keys alone and keeps no tensor alive."""
+    rows it hashes and the launch's counter), K4, K7, K9, K10, K11, K12 and
+    K13 (their arguments), and lets each launch; the keys of K9, K10, K11,
+    K12 and K13 (fold_key, boundary_key, syn_div_key, series_key, the
+    tree's leaves) by name.  Without `keep`, it records the keys alone and
+    keeps no tensor alive."""
 
-    KEYED = ("fri_fold", "boundary_columns", "syn_div", "power_series")
+    KEYED = ("fri_fold", "boundary_columns", "syn_div", "power_series", "merkle_tree")
 
     def __init__(self, keep=True):
         self.keep = keep
         self.keys = {name: [] for name in self.KEYED}
         self.hashes, self.airs, self.composes, self.folds, self.boundaries = [], [], [], [], []
-        self.syn_divs, self.series = [], []
+        self.syn_divs, self.series, self.trees = [], [], []
 
     def __enter__(self):
+        from distaff_torch.crypto import merkle_dev
         from distaff_torch.ops import air_kernels, blake3_torch, boundary_kernels, deep_kernels
         from distaff_torch.ops import field_kernels as fk
         from distaff_torch.ops import fri_torch
         from distaff_torch.ops import syndiv_kernels
 
         self.patches = [(blake3_torch, "_launch", self.hash),
+                        (merkle_dev, "merkle_tree", self.tree),
                         (air_kernels, "air_transition", self.air),
                         (deep_kernels, "deep_compose", self.compose),
                         (fri_torch, "fri_fold", self.fold),
@@ -1625,6 +1783,10 @@ class ProofCalls:
     def syn_div(self, polys3, degree, x_last):
         self.keys["syn_div"].append(syn_div_key(polys3, degree))
         return self.record(self.syn_divs, "syn_div", (polys3, degree, x_last))
+
+    def tree(self, leaves):
+        self.keys["merkle_tree"].append(leaves.shape[0])
+        return self.record(self.trees, "merkle_tree", (leaves,))
 
     def power_series(self, x, n, device, c=1):
         self.keys["power_series"].append(series_key(x, n, c))
@@ -1700,13 +1862,14 @@ def fold_layers(domain):
 
 
 def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
-    """Every call of K3, K4, K7, K9, K10 and K11 that a proof made (a
+    """Every call of K3, K4, K7, K9, K10, K11 and K13 that a proof made (a
     ProofCalls), held against the plain versions on the proof's own inputs,
     a piece of 2^LAST_PIECE rows or points at a time (with `last`, the last
-    piece of each call alone).  Without `last` a row for each class of call
-    (K3: the trace rows, the FRI layer rows, the Merkle levels; K4; K7; K9
-    timed at its largest layer; K10; K11), keyed by (kernel, rung, class),
-    and a Counter of the proof's launches by those keys."""
+    piece of each call alone; K13's trees whole, or with `last` by
+    check_tree_top).  Without `last` a row for each class of call (K3: the
+    trace rows, the FRI layer rows; K4; K7; K9 and K13 timed at their
+    largest layer and tree; K10; K11), keyed by (kernel, rung, class), and
+    a Counter of the proof's launches by those keys."""
     from distaff_torch.ops import air_kernels
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import boundary_kernels as bk
@@ -1728,9 +1891,7 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
     k3 = "distaff_torch/csrc/blake3_rows.cu"
     groups = {}
     for rows_in, counter in calls.hashes:
-        k = rows_in.shape[1]
-        cls = ("Merkle levels" if counter == "blake3_rows.parents"
-               else "trace rows" if k > 4 else "FRI layer rows")
+        cls = "trace rows" if rows_in.shape[1] > 4 else "FRI layer rows"
         groups.setdefault((counter, cls), []).append(rows_in)
     for (counter, cls), group in groups.items():
         group.sort(key=lambda t: -t.shape[0])
@@ -1743,12 +1904,38 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             if i:
                 hold_pieces(counter, shape, kernel, parts, last)
                 continue
-            replaces = ("distaff_tpu/crypto/merkle_dev.py:34" if counter == "blake3_rows.parents"
-                        else "distaff_tpu/ops/blake3_jax.py:95")
             row = piece_row(counter, shape, kernel, parts, last, count * (k * 16 + 32),
-                            count * ((k * 16 + 63) // 64) * COMPRESS_OPS, ops_rate, k3, replaces)
+                            count * ((k * 16 + 63) // 64) * COMPRESS_OPS, ops_rate, k3,
+                            "distaff_tpu/ops/blake3_jax.py:95")
             add(row, counter, cls, len(group))
         print(f"kernel {counter}: {tag}'s {len(group)} calls of {cls} equal to plain", flush=True)
+
+    # K13 on the proof's leaves, the largest tree timed
+    trees = sorted(calls.trees, key=lambda args: -args[0].shape[0])
+    for i, (leaves,) in enumerate(trees):
+        n = leaves.shape[0]
+        shape = f"{tag} tree of {n} leaves in {len(b3.tree_launches(n))} launch(es)"
+        kernel = lambda: b3.merkle_tree(leaves)
+        if last:
+            plain_ms = check_tree_top(shape, kernel(), leaves)
+            if i == 0:
+                ms = time_ms(kernel, 3, 3, queued=True)
+                bound_ms, bound_by = bound(*tree_bound(n), ops_rate)
+                print(f"kernel merkle_tree at {shape}: equal to plain above its first launch's "
+                      f"subtrees and in its last; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                      f"{bound_ms:.4f} ms by {bound_by})", flush=True)
+            continue
+        parts = [(0, n, lambda: b3.merkle_tree_plain(leaves))]
+        if i:
+            hold_pieces("merkle_tree", shape, kernel, parts, False)
+            continue
+        row = piece_row("merkle_tree", shape, kernel, parts, False, *tree_bound(n), ops_rate,
+                        K13, K13_REPLACES)
+        add(row, "merkle_tree", "trees", sum(len(b3.tree_launches(t.shape[0]))
+                                             for (t,) in trees))
+    print(f"kernel merkle_tree: {tag}'s {len(trees)} trees equal to plain "
+          f"({'above the first launch and in the last subtree' if last else 'whole'})",
+          flush=True)
 
     # K4 on the proof's LDE slice and tables: no bad step
     for lde, tables in calls.airs:
@@ -1841,12 +2028,14 @@ def phase_ladder(ops_rate):
     with its wall time, step 0, peak device memory, LDE size and K1
     passes (the LDE must take K1's recursion, the passes and K8 calls must
     be exactly those held; the table cache emptied first, K12 once a table
-    built; K2 never), and every call it made of K3, K4, K7, K9, K10 and K11
-    held against the plain versions (check_proof_calls).  Then the
+    built; K13 in the launches tree_launches plans; K2 never), and every
+    call it made of K3, K4, K7, K9, K10, K11 and K13 held against the plain
+    versions (check_proof_calls).  Then the
     LADDER_HELD rung once more with the step log.  Returns the rows and a
     Counter of launches by (kernel, rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
 
     gen = torch.Generator(device="cuda")
@@ -1898,10 +2087,13 @@ def phase_ladder(ops_rate):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
         recorded = Counter(counter for _, counter in calls.hashes)
-        for name in ("blake3_rows", "blake3_rows.parents"):
+        recorded["merkle_tree"] = sum(len(b3.tree_launches(t.shape[0])) for (t,) in calls.trees)
+        for name in ("blake3_rows", "merkle_tree"):
             if recorded[name] != launches[name]:
-                raise AssertionError(f"2^{log2_trace}: {recorded[name]} calls of {name} "
+                raise AssertionError(f"2^{log2_trace}: {recorded[name]} launches of {name} "
                                      f"recorded, {launches[name]} launched")
+        if sorted(calls.keys["merkle_tree"], reverse=True) != tree_sizes(log2_trace):
+            raise AssertionError(f"2^{log2_trace}: trees of {calls.keys['merkle_tree']} leaves")
         if tiles.ntt_buffers(domain) < 3 or not any(
                 kind.startswith("columns zero extended -> columns x lo")
                 for kind in rec.kinds()):
@@ -1920,7 +2112,8 @@ def phase_ladder(ops_rate):
               f"{launches['fri_fold']} (one a layer, with the leaf digests), K3 over rows "
               f"{launches['blake3_rows']}, K10 {launches['boundary_columns']}, K11 "
               f"{launches['syn_div']}, K12 {launches['power_series']} ({len(tiles._TABLES)} "
-              f"tables built), K2 0", flush=True)
+              f"tables built), K13 {launches['merkle_tree']} over {len(calls.trees)} trees, K2 0",
+              flush=True)
         del outputs, proof
         call_rows, call_keyed = check_proof_calls(gen, ops_rate, log2_trace, calls, last)
         rows += call_rows
@@ -1963,14 +2156,18 @@ def main():
                         help="only print the step times of the bench's proofs at these sizes")
     parser.add_argument("--kernel-times", action="store_true",
                         help="only print the times of K9 and K11 at the proofs' shapes")
+    parser.add_argument("--tree-times", action="store_true",
+                        help="only print the times of the 2^16 proof's Merkle trees")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.step_times or args.kernel_times:
+    if args.step_times or args.kernel_times or args.tree_times:
         from distaff_torch.tools.timing import card_line
 
         print(card_line(), flush=True)
+        if args.tree_times:
+            tree_times()
         if args.kernel_times:
             kernel_times()
         if args.step_times:
@@ -1988,7 +2185,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5-K12": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K13": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -2002,7 +2199,7 @@ def main():
             print(f"K4 {d} {line.strip()}", flush=True)
     for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval"),
                        ("K9", "fri_fold"), ("K10", "boundary_columns"), ("K11", "syn_div"),
-                       ("K12", "power_series")):
+                       ("K12", "power_series"), ("K13", "merkle_tree")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
     sass = cuda_lib.sass("boundary_columns")

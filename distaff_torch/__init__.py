@@ -7,6 +7,10 @@ the reference crate (reference src/lib.rs):
       -> (outputs, StarkProof)
 - verify(program_hash, public_inputs, outputs, proof) -> True / raises
 
+execute() raises AssertionError, as the JAX package does, where a
+precondition fails (too many outputs, too short a run, a program hash that
+does not match its trace) or the VM fails.
+
 The VM (native C++) and the verifier run on the host; trace extension,
 commitments, constraint composition and FRI folding run on the device
 through the hand-written kernels in distaff_torch/csrc.  The device is the
@@ -34,7 +38,7 @@ def execute(program, inputs, num_outputs, options, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("execute(device='cuda'): no CUDA device is available")
     if num_outputs > MAX_OUTPUTS:
-        raise ValueError(
+        raise AssertionError(
             f"cannot produce more than {MAX_OUTPUTS} outputs, but requested {num_outputs}")
 
     from . import native
@@ -46,14 +50,14 @@ def execute(program, inputs, num_outputs, options, device="cuda"):
     last_state = trace.get_last_state()
     outputs = last_state.user_stack[:num_outputs]
     if last_state.op_counter < MIN_TRACE_LENGTH:
-        raise ValueError(
+        raise AssertionError(
             f"a program must consist of at least {MIN_TRACE_LENGTH} operations, "
             f"but only {last_state.op_counter} were executed")
 
     from .math import field
     program_hash = b"".join(field.to_bytes(v) for v in last_state.program_hash())
     if program.hash != program_hash:
-        raise ValueError(
+        raise AssertionError(
             f"expected program hash {program.hash.hex()} does not match trace hash "
             f"{program_hash.hex()}")
 

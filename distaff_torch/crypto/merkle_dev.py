@@ -1,18 +1,18 @@
-"""Device-resident Merkle trees: every level hashed on the card by kernel K3,
-with only the 32-byte root and the queried openings crossing to the host.
+"""Device-resident Merkle trees: every internal node hashed on the card by
+kernel K13 in one to three launches, with only the 32-byte root and the
+queried openings crossing to the host.
 
 Semantics (layout, batch-proof node order) are those of
 crypto.merkle.MerkleTree and the reference (reference src/crypto/merkle.rs):
 internal nodes form a flat array with the root at index 1 and node i's
-children at 2i and 2i+1.  Here that array is one (N, 8) uint32 tensor;
-each level is hashed straight into its slice.
+children at 2i and 2i+1.  Here that array is one (N, 8) uint32 tensor
+(ops/blake3_torch.merkle_tree).
 """
 
 import numpy as np
-import torch
 
 from .merkle import BatchMerkleProof, MerkleTree, _map_indexes, _normalize_indexes, hash_leaves
-from ..ops.blake3_torch import hash_level, hash_rows
+from ..ops.blake3_torch import hash_rows, merkle_tree
 from ..ops.gather import gather_rows_dev
 from ..ops.hostsync import TransferBatch
 
@@ -20,8 +20,9 @@ from ..ops.hostsync import TransferBatch
 def commit(rows, hash_name, leaves=False):
     """The Merkle tree of one of the prover's commitments, over device
     rows: (N, K, 4) limb rows, each hashed to its leaf, or with `leaves`
-    (N, 8) words, the 32-byte leaves themselves.  With blake3 the tree is
-    hashed on the device (kernel K3) and stays there; with any other hash
+    (N, 8) words, the 32-byte leaves themselves.  With blake3 the leaves
+    (kernel K3, or K9's digests) and the tree (K13) are hashed on the
+    device and stay there; with any other hash
     the rows' bytes (the u128 LE bytes of their limbs) go to the host and
     are hashed there into a crypto.merkle.MerkleTree, as the JAX package
     does (an arithmetic hash takes at most 64 bytes, so it raises on a
@@ -31,20 +32,6 @@ def commit(rows, hash_name, leaves=False):
     data = rows.contiguous().cpu().numpy()
     data = data.reshape(data.shape[0], -1).view(np.uint8)
     return MerkleTree(data if leaves else hash_leaves(data, hash_name), hash_name)
-
-
-def build_flat_nodes(leaves_u32):
-    """(N, 8) leaf digests -> (N, 8) flat node array: row 0 unused, root at
-    row 1, node i's children at rows 2i and 2i+1 (children of the bottom
-    internal level are the leaves)."""
-    n = leaves_u32.shape[0]
-    nodes = torch.zeros((n, 8), dtype=torch.uint32, device=leaves_u32.device)
-    hash_level(leaves_u32, out=nodes[n // 2 : n])
-    size = n // 2
-    while size > 1:
-        hash_level(nodes[size : 2 * size], out=nodes[size // 2 : size])
-        size //= 2
-    return nodes
 
 
 class DeviceMerkleTree:
@@ -62,7 +49,7 @@ class DeviceMerkleTree:
             raise ValueError("number of leaves must be a power of 2, >= 2")
         self.n = n
         self.values = leaves_u32
-        self.flat_nodes = build_flat_nodes(leaves_u32)
+        self.flat_nodes = merkle_tree(leaves_u32)
         self._root = self.flat_nodes[1].cpu().numpy().tobytes()
 
     # interface parity with crypto.merkle.MerkleTree -----------------------------------------------

@@ -1,18 +1,17 @@
 // K3 blake3_rows: BLAKE3 of N equal-length rows, one digest per row.
 //
 // Replaces the XLA BLAKE3 of distaff_tpu/ops/blake3_jax.py (_compress,
-// hash_rows_u32, parent_root) and the level hashing of
-// distaff_tpu/crypto/merkle_dev.py (_build_flat_nodes): every commitment of
-// the proof - trace rows, the first FRI layer's rows and every internal
-// Merkle level - is hashed here (K9 hashes the folded layers' rows).
+// hash_rows_u32, parent_root): the leaves of the proof's trees - the trace
+// rows and the first FRI layer's rows - are hashed here (K9 hashes the
+// folded layers' rows, K13 every internal Merkle node).
 // native/blake3.cpp is the scalar reference.
 //
 // Bound on this card: a 64-byte compression is at least 680 integer
 // instructions (7 rounds x 8 G x 12, plus 8 output xors); at the trace's
-// 320-byte rows that takes about as long as moving the bytes, and a parent
-// level is bound by its bytes.  One thread per row keeps the
-// 16-word state and the message block in registers (blake3.cuh, which K9
-// shares for the leaf digests of the FRI layers it folds).
+// 320-byte rows that takes about as long as moving the bytes.  One thread
+// per row keeps the 16-word state and the message block in registers
+// (blake3.cuh, which K9 shares for the leaf digests of the FRI layers it
+// folds, and K13 for the nodes).
 //
 // A row of up to 2048 bytes is one or two 1024-byte chunks, hashed as
 // hash_rows_u32 does: chunk counter per chunk, CHUNK_START/CHUNK_END

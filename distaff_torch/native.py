@@ -136,7 +136,7 @@ def execute_u64(program, inputs):
         ctypes.byref(out_buf), ctypes.byref(out_regs), ctypes.byref(out_len),
         ctypes.byref(out_ctx), ctypes.byref(out_loop), ctypes.byref(err))
     if rc != 0:
-        raise RuntimeError(f"native execution failed: {err.value.decode()}")
+        raise AssertionError(f"native execution failed: {err.value.decode()}")
 
     n_regs, n = out_regs.value, out_len.value
     raw = ctypes.cast(out_buf, ctypes.POINTER(ctypes.c_uint8 * (n_regs * n * 16)))

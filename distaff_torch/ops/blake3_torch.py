@@ -1,11 +1,17 @@
-"""BLAKE3 row hashing on the card: kernel K3 (blake3_rows) and its plain version.
+"""BLAKE3 on the card: row hashing (kernel K3, blake3_rows), whole Merkle
+trees (kernel K13, merkle_tree) and their plain versions.
 
 K3 (csrc/blake3_rows.cu) replaces the XLA BLAKE3 of
-distaff_tpu/ops/blake3_jax.py (_compress, hash_rows_u32, parent_root) and
-the level hashing of distaff_tpu/crypto/merkle_dev.py: N equal-length rows
-of up to 2048 bytes (one or two 1024-byte chunks) -> (N, 8) uint32
-digests.  Bound by operations; one thread per row with the state in
-registers.
+distaff_tpu/ops/blake3_jax.py (_compress, hash_rows_u32, parent_root): N
+equal-length rows of up to 2048 bytes (one or two 1024-byte chunks) ->
+(N, 8) uint32 digests.  Bound by operations; one thread per row with the
+state in registers.
+
+K13 (csrc/merkle_tree.cu + .cuh) replaces the level hashing of
+distaff_tpu/crypto/merkle_dev.py (_build_flat_nodes, _build_subtree_nodes):
+(N, 8) leaf digests -> the (N, 8) flat node array, in one to three
+launches of a kernel that hashes subtrees of up to 2^11 nodes a block in
+shared memory (tree_launches).
 
 Rows are given as (N, K, 4) uint32 views: K 16-byte registers per row,
 any row and register strides, limbs contiguous - so a (R, D, 4) trace LDE
@@ -130,18 +136,62 @@ def hash_rows(rows, out=None):
     return _launch(rows, out, "blake3_rows")
 
 
-def hash_level(children, out=None):
-    """One Merkle level: (2m, 8) node digests -> (m, 8) parents, each the
-    BLAKE3 of its two children's 64 bytes (reference merkle.rs node hash)."""
-    m = children.shape[0] // 2
-    rows = children.reshape(m, 4, 4)
-    if children.device.type == "cpu":
-        digests = hash_rows_plain(rows)
-        return digests if out is None else out.copy_(digests)
-    cuda_lib.require_limbs("blake3_rows.parents", rows)
-    if out is None:
-        out = torch.empty((m, 8), dtype=torch.uint32, device=children.device)
-    return _launch(rows, out, "blake3_rows.parents")
+# the levels a K13 block hashes at most: subtrees of 2^11 input nodes
+# (csrc/merkle_tree.cuh's kMaxLevels)
+TREE_LEVELS = 11
+
+
+def tree_launches(n, levels=TREE_LEVELS):
+    """K13's launches for a tree of n leaves: [(m, l)], each launch hashing
+    l levels above a level of m nodes in subtrees of 2^l of them."""
+    launches = []
+    while n > 1:
+        launches.append((n, min(n.bit_length() - 1, levels)))
+        n >>= launches[-1][1]
+    return launches
+
+
+def _check_leaves(leaves):
+    n = leaves.shape[0]
+    if leaves.dim() != 2 or leaves.shape[1] != 8 or n < 2 or n & (n - 1):
+        raise ValueError(f"merkle_tree: expected (N, 8) leaf digests, N a power of two >= 2, "
+                         f"got {tuple(leaves.shape)}")
+
+
+def merkle_tree_plain(leaves):
+    """(N, 8) uint32 leaf digests -> (N, 8) flat node array: row 0 zero, the
+    root at row 1, node i's children at rows 2i and 2i+1 (those of rows N/2
+    and up are the leaves), each node the BLAKE3 of its children's 64
+    bytes (reference merkle.rs node hash); one level at a time."""
+    _check_leaves(leaves)
+    n = leaves.shape[0]
+    nodes = torch.zeros((n, 8), dtype=torch.uint32, device=leaves.device)
+    level = leaves
+    for size in (n >> k for k in range(1, n.bit_length())):
+        nodes[size : 2 * size] = hash_rows_plain(level.reshape(size, 4, 4))
+        level = nodes[size : 2 * size]
+    return nodes
+
+
+def merkle_tree(leaves):
+    """The flat node array of a BLAKE3 Merkle tree over (N, 8) uint32 leaf
+    digests (merkle_tree_plain's): on the card K13's launches of
+    tree_launches(N), all on the leaves' stream."""
+    _check_leaves(leaves)
+    if leaves.device.type == "cpu":
+        return merkle_tree_plain(leaves)
+    n = leaves.shape[0]
+    leaves = leaves.contiguous()
+    cuda_lib.require_limbs("merkle_tree", leaves.view(n, 2, 4))
+    nodes = torch.empty((n, 8), dtype=torch.uint32, device=leaves.device)
+    level = leaves
+    for m, levels in tree_launches(n):
+        code = cuda_lib.lib().distaff_merkle_tree(
+            cuda_lib.ptr(level), cuda_lib.ptr(nodes), m, levels, cuda_lib.stream(nodes))
+        cuda_lib.check(code, "merkle_tree")
+        cuda_lib.LAUNCHES["merkle_tree"] += 1
+        level = nodes[m >> levels : 2 * (m >> levels)]
+    return nodes
 
 
 def hash_rows_u32(rows_u32, byte_len):

@@ -35,7 +35,6 @@ LAUNCHES = {
     "field_ew.mul": 0,
     "field_ew.exp_const": 0,
     "blake3_rows": 0,
-    "blake3_rows.parents": 0,
     "air_transition": 0,
     "butterfly": 0,
     "inv_batch": 0,
@@ -45,6 +44,7 @@ LAUNCHES = {
     "boundary_columns": 0,
     "syn_div": 0,
     "power_series": 0,
+    "merkle_tree": 0,
 }
 
 _lib = None
@@ -153,12 +153,14 @@ def lib():
         handle.distaff_syn_div.argtypes = [
             vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, u32p, vp, vp, vp, vp, vp]
         handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
+        handle.distaff_merkle_tree.argtypes = [vp, vp, ll, i32, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
                    handle.distaff_deep_compose, handle.distaff_poly_eval,
                    handle.distaff_fri_fold, handle.distaff_boundary_columns,
-                   handle.distaff_syn_div, handle.distaff_power_series):
+                   handle.distaff_syn_div, handle.distaff_power_series,
+                   handle.distaff_merkle_tree):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

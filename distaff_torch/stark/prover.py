@@ -2,7 +2,8 @@
 the domain-sized work on the device:
 
 1. trace LDE           - batched NTTs per register (kernel K1)
-2. trace Merkle tree   - leaf rows and every level hashed on device (K3);
+2. trace Merkle tree   - leaf rows hashed on device (K3), the tree in one
+                         to three launches (K13, as every blake3 tree);
                          with another hash than blake3 the trees of
                          steps 2, 5 and 7 are hashed on the host
 3. constraint eval     - boundary columns in one launch (K10) and
@@ -22,9 +23,18 @@ and the parts of steps 1, 3, 6 and 7 as "step <i> part <name>: <ms> ms"
 (step 7's each summed over the FRI layers); while
 that level is enabled every step and part ends with a device synchronize,
 so the times are the device's and not the enqueue's.
+
+With DISTAFF_DEBUG set to anything but "0", the prover runs the JAX
+package's three debug checks (the reference's debug_assert!s) and raises
+AssertionError where one fails: the transition constraints vanish at every
+trace step but the last (K4's count of bad steps, read back), each
+transition constraint's degree is at most its declared degree, and the
+constraint polynomial's degree is exactly |D_ev| - |D_trace|.  Unset, no
+check runs and nothing more is read back.
 """
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -108,13 +118,18 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     # 3 ----- evaluate constraints over the evaluation domain ------------------------------------
     evaluator = Evaluator.from_trace(trace, trace_tree.root(), inputs, outputs)
     clock.part(3, "evaluator (host)")
-    i_evals, f_evals, t_evals = _evaluate_constraints_columnar(evaluator, trace, clock)
+    debug = os.environ.get("DISTAFF_DEBUG", "0") != "0"
+    i_evals, f_evals, t_evals = _evaluate_constraints_columnar(evaluator, trace, clock, debug)
+    if debug:
+        _validate_transition_degrees(evaluator, trace)
     clock.done(3, "evaluate constraints")
 
     # 4 ----- combine into the constraint polynomial ---------------------------------------------
     constraint_poly = _combine_constraint_polys(
         evaluator, i_evals, f_evals, t_evals, trace.unextended_length())
     del i_evals, f_evals, t_evals
+    if debug:
+        _validate_constraint_poly_degree(constraint_poly, trace.unextended_length())
     clock.done(4, "constraint polynomial")
 
     # 5 ----- commit to constraint polynomial evaluations ----------------------------------------
@@ -178,17 +193,56 @@ def prove(trace, inputs, outputs, options, device="cuda"):
 # step 3: columnar constraint evaluation
 # ------------------------------------------------------------------------------------------------
 
-def _evaluate_constraints_columnar(evaluator, trace, clock):
+def _evaluate_constraints_columnar(evaluator, trace, clock, debug=False):
     """Boundary and transition columns over D_ev, all on the device of the
-    LDE: the stride slice is read in place and never leaves it."""
+    LDE: the stride slice is read in place and never leaves it.  With
+    `debug`, K4's count of trace steps whose transition constraints do not
+    vanish is read back and must be 0 (distaff_tpu/stark/constraints/
+    device_eval.py:319-324)."""
     from .constraints.device_eval import evaluate_transition_device
 
     stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
     i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace, stride)
     clock.part(3, "boundary columns")
-    t_evals, _ = evaluate_transition_device(evaluator, trace)
+    t_evals, bad = evaluate_transition_device(evaluator, trace)
+    if debug:
+        total = int(bad.sum())
+        assert total == 0, f"transition constraints not satisfied at {total} trace steps"
     clock.part(3, "transition (K4 tables and launch)")
     return i_evals, f_evals, t_evals
+
+
+def _validate_transition_degrees(evaluator, trace):
+    """Debug-mode per-constraint degree validation (reference
+    src/stark/constraints/constraint_table.rs:90-112, evaluator.rs:360-380;
+    distaff_tpu/stark/prover.py:_validate_transition_degrees): every
+    transition constraint evaluated alone over D_ev on the host, each column
+    interpolated, and its degree must not exceed the declared degree x
+    (trace_length - 1)."""
+    from ..math import polynom
+    from .trace_state import TraceState
+
+    stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
+    columns = list(ft.to_ints(trace.lde_dev[:, ::stride]))
+    depths = (trace.ctx_depth, trace.loop_depth, trace.stack_depth)
+    current = TraceState.from_vec(*depths, columns)
+    next_state = TraceState.from_vec(
+        *depths, [np.roll(c, -MAX_CONSTRAINT_DEGREE) for c in columns])
+
+    evaluations = evaluator.evaluate_transition_individual(current, next_state)
+    declared = evaluator.transition_degrees()
+    trace_degree = evaluator.trace_length - 1
+    n_ev = evaluator.domain_size
+    actual = []
+    for col in evaluations:
+        if isinstance(col, int):
+            col = np.full(n_ev, col, dtype=object)
+        actual.append(polynom.infer_degree([int(v) for v in col]))
+    bad = [(i, declared[i] * trace_degree, actual[i])
+           for i in range(len(declared)) if actual[i] > declared[i] * trace_degree]
+    assert not bad, (
+        "constraint degrees didn't match (constraint, expected_max, actual): "
+        f"{bad[:5]}")
 
 
 def _evaluate_boundaries_device(evaluator, trace, stride):
@@ -221,6 +275,21 @@ def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length
     ev_root = field.get_root_of_unity(evaluator.domain_size)
     polys3 = tiles.intt_batched(torch.stack([i_evals, f_evals, t_evals]), ev_root)
     return syndiv_kernels.syn_div(polys3, trace_length, evaluator.get_x_at_last_step())
+
+
+def _validate_constraint_poly_degree(constraint_poly, trace_length):
+    """Debug-mode degree validation (reference constraint_poly.rs:13-26,
+    constraint_table.rs:90-112; distaff_tpu/stark/prover.py:574-588): after
+    the zero polynomials are divided out, the constraint polynomial has
+    degree exactly |D_ev| - |D_trace|: every higher coefficient vanishes."""
+    combined = ft.to_ints(constraint_poly)
+    expected = combined.shape[0] - trace_length
+    high = np.nonzero(combined[expected + 1:])[0]
+    assert len(high) == 0, (
+        f"constraint polynomial degree exceeds {expected}: nonzero "
+        f"coefficients at {expected + 1 + high[:3]}")
+    assert combined[expected] != 0, (
+        f"constraint polynomial degree is below the expected {expected}")
 
 
 # ------------------------------------------------------------------------------------------------

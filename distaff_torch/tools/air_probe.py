@@ -1,11 +1,11 @@
-"""K4's, K6's-K11's design choices measured on the card, each against the
-kernel with that one choice undone.
+"""K4's, K6's-K11's and K13's design choices measured on the card, each
+against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13]
 
-(all seven by default).
+(all eight by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -34,7 +34,11 @@ the 2^16 proof's first, second, third and fifth layers (2^19, 2^17,
 thread and one (four lanes a leaf), with and without the leaf digests, built with a 64-register cap and
 with blocks of 64, 128 or 256 threads at every size (probe_k9); and K11 at the 2^16, 2^18 and 2^20
 proofs' step 4 built without its look-back, its R chain, its epilogue,
-and with only its loads and scans (probe_k11).  Times
+and with only its loads and scans (probe_k11); and K13 at every tree of
+the 2^16 proof and at 2^23 and 2^25 leaves under other launch plans
+(K13_PLANS: other subtree sizes, levels split evenly over the launches,
+the top levels in a launch of their own) and built with 128, 512 or 1024
+threads a block (probe_k13).  Times
 come from CUDA events around calls queued behind a spin kernel
 (tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
 difference from the production build raises (but K10's and K11's
@@ -120,6 +124,42 @@ K11_VARIANTS = {
     "tile 512, 128 threads x 4": ((), ("SYN_DIV_THREADS=128",)),
 }
 K11_MIN_TILE = 512
+K13_THREADS = "constexpr int kThreads = 256;"
+# variant: patches
+K13_VARIANTS = {
+    f"{t} threads a block": (("merkle_tree.cuh", K13_THREADS, f"constexpr int kThreads = {t};"),)
+    for t in (128, 512, 1024)
+}
+K13_SIZES = [1 << k for k in (25, 23, 21, 20, 19, 17, 15, 13, 11, 9, 7, 5)]
+
+
+def _tree_plan(n, cap, top=0, even=True):
+    """K13's launches [(m, levels)] for a tree of n leaves: at most `cap`
+    levels a launch from the bottom up, and the top `top` levels (where the
+    tree has more) in a launch of their own; with `even` the levels below
+    the top split as evenly as the launches allow, else `cap` a launch."""
+    total = n.bit_length() - 1
+    tail = [top] if top and total > top else []
+    body = total - sum(tail)
+    parts = -(-body // cap)
+    sizes = ([body // parts + (i < body % parts) for i in range(parts)] if even
+             else [cap] * (body // cap) + ([body % cap] if body % cap else []))
+    plan, m = [], n
+    for levels in sizes + tail:
+        plan.append((m, levels))
+        m >>= levels
+    return plan
+
+
+K13_PLANS = {
+    "11 levels a launch (production)": None,
+    **{f"{k} levels a launch": (lambda n, k=k: _tree_plan(n, k, even=False))
+       for k in (10, 9, 8, 7)},
+    "even, at most 11 a launch": lambda n: _tree_plan(n, 11),
+    "even, at most 9 a launch": lambda n: _tree_plan(n, 9),
+    "top 6 alone, 11 a launch below": lambda n: _tree_plan(n, 11, 6, even=False),
+    **{f"top {t} alone, even below": (lambda n, t=t: _tree_plan(n, 11, t)) for t in (6, 5, 4)},
+}
 # variant: patches
 K10_VARIANTS = {
     "copies only": (K10_PRODUCT, K10_EPILOGUE),
@@ -530,11 +570,64 @@ def probe_k11():
                   flush=True)
 
 
+def probe_k13():
+    """K13 on random leaf digests at K13_SIZES: the production build under
+    each launch plan of K13_PLANS, then each build of K13_VARIANTS under the
+    production plan, each tree held equal to the production build's; per
+    plan the sum over the 2^16 proof's ten trees."""
+    from ..ops import blake3_torch as b3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    trees = [(n, random_elements(gen, (n, 2)).view(n, 8)) for n in K13_SIZES]
+    proof_trees = [n for n in K13_SIZES if n <= 1 << 21]
+    spills = [line.strip() for line in cuda_lib.ptxas_report("merkle_tree")
+              if "spill" in line or "registers" in line]
+    print(f"K13 production: {'; '.join(spills)}", flush=True)
+    want = {n: b3.merkle_tree(leaves) for n, leaves in trees}
+    p = cuda_lib.ptr
+
+    def report(name, fn, plan_of):
+        times, launches = {}, {}
+        for n, leaves in trees:
+            plan = plan_of(n)
+
+            def run(leaves=leaves, plan=plan):
+                nodes = torch.empty((n, 8), dtype=torch.uint32, device="cuda")
+                level = leaves
+                for m, levels in plan:
+                    cuda_lib.check(fn(p(level), p(nodes), m, levels, cuda_lib.stream(nodes)),
+                                   "merkle_tree")
+                    level = nodes[m >> levels : 2 * (m >> levels)]
+                return nodes
+
+            if not torch.equal(run(), want[n]):
+                raise AssertionError(f"air_probe: K13 {name} differs at {n} leaves")
+            times[n], launches[n] = time_ms(run, 20, 7, queued=True), len(plan)
+        print(f"K13 {name}: " + ", ".join(
+            f"2^{n.bit_length() - 1} {times[n]:.4f} ms ({launches[n]})" for n, _ in trees)
+            + f"; the 2^16 proof's trees {sum(times[n] for n in proof_trees):.4f} ms in "
+            f"{sum(launches[n] for n in proof_trees)} launches", flush=True)
+
+    for name, plan_of in K13_PLANS.items():
+        report(name, cuda_lib.lib().distaff_merkle_tree, plan_of or b3.tree_launches)
+    with ThreadPoolExecutor(len(K13_VARIANTS)) as pool:
+        built = dict(zip(K13_VARIANTS, pool.map(
+            lambda kv: _build("k13-" + kv[0].split()[0], "merkle_tree.cu", kv[1]),
+            K13_VARIANTS.items())))
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_merkle_tree
+        fn.argtypes = cuda_lib.lib().distaff_merkle_tree.argtypes
+        fn.restype = ctypes.c_int
+        print(f"K13 {name}: {'; '.join(spills)}", flush=True)
+        report(name, fn, b3.tree_launches)
+
+
 def main(argv=None):
     import sys
 
     probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
-              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11}
+              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11, "k13": probe_k13}
     names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")

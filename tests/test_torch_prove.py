@@ -173,3 +173,136 @@ def test_kernel_bench_runs_on_cpu(capsys):
         "blake3 32x64B", "air_transition"]
     assert all(r["ms"] > 0 for r in rows)
     assert "2^7   air_transition" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------------------------------------
+# the JAX package's debug checks (DISTAFF_DEBUG) and precondition errors, in both packages
+# ------------------------------------------------------------------------------------------------
+
+def _raised(fn):
+    """The exception fn() raises (it must raise one)."""
+    with pytest.raises(Exception) as error:
+        fn()
+    return error.value
+
+
+def test_debug_checks_pass_an_honest_proof(monkeypatch):
+    # tests/test_e2e.py::test_debug_degree_validation on the port: all three
+    # checks run and pass on an honest trace
+    monkeypatch.setenv("DISTAFF_DEBUG", "1")
+    program = assembly.compile("begin push.7 push.11 mul end")
+    inputs = ProgramInputs.none()
+    options = ProofOptions(extension_factor=16, num_queries=10, grinding_factor=2)
+    outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cpu")
+    assert outputs == [77]
+    assert distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof)
+
+
+def test_debug_misdeclared_degree_caught(monkeypatch):
+    # tests/test_e2e.py::test_misdeclared_degree_caught on the port: an
+    # under-declared degree fails the per-constraint degree validation
+    from distaff_torch.stark.constraints.evaluator import Evaluator
+
+    monkeypatch.setenv("DISTAFF_DEBUG", "1")
+    real = Evaluator.transition_degrees
+    monkeypatch.setattr(Evaluator, "transition_degrees", lambda self: [0] * len(real(self)))
+    program, inputs, options = _golden_case()
+    with pytest.raises(AssertionError, match="constraint degrees"):
+        distaff_torch.execute(program, inputs, 1, options, device="cpu")
+
+
+def test_debug_altered_trace_raises_as_the_jax_package_does(monkeypatch):
+    # one stack value altered after execution: the port stops at step 3 with
+    # AssertionError, and so does the JAX package's check of the same trace
+    # (its host sweep, fed the port's LDE as tests/test_torch_air.py does:
+    # the JAX extension at the test tiles takes tens of seconds).  That
+    # sweep names the bad steps; its device path and the port count them
+    # (distaff_tpu/stark/constraints/device_eval.py:319-324)
+    from distaff_tpu.stark import prover as jax_prover
+    from distaff_tpu.stark.constraints.evaluator import Evaluator as JaxEvaluator
+    from distaff_tpu.stark.trace_table import TraceTable as JaxTraceTable
+    from distaff_torch import native
+    from distaff_torch.config import MAX_CONSTRAINT_DEGREE
+    from distaff_torch.stark import TraceTable
+
+    program, inputs, options = _golden_case()
+    regs, ctx_depth, loop_depth = native.execute_u64(program, inputs)
+    regs = regs.copy()
+    regs[15 + ctx_depth + loop_depth, 3, 0] += 1     # the first user-stack register
+    monkeypatch.setattr(native, "execute_u64", lambda *_: (regs, ctx_depth, loop_depth))
+    monkeypatch.setenv("DISTAFF_DEBUG", "1")
+    got = _raised(lambda: distaff_torch.execute(program, inputs, 1, options, device="cpu"))
+
+    port = TraceTable(regs, ctx_depth, loop_depth, options.extension_factor())
+    port.extend("cpu")
+    jax_trace = JaxTraceTable(regs, ctx_depth, loop_depth, options.extension_factor())
+    jax_trace.lde_dev = port.lde_dev.numpy()
+    outputs = port.get_last_state().user_stack[:1]
+    evaluator = JaxEvaluator.from_trace(jax_trace, bytes(32), [], outputs)
+    want = _raised(lambda: jax_prover._native_transition_column(
+        evaluator, jax_trace, options.extension_factor() // MAX_CONSTRAINT_DEGREE, True))
+
+    assert type(want) is AssertionError and type(got) is AssertionError
+    steps = re.fullmatch(r"transition constraints not satisfied at step \[([0-9 ]+)\]", str(want))
+    assert steps, str(want)
+    count = len(steps.group(1).split())
+    assert count > 0
+    assert str(got) == f"transition constraints not satisfied at {count} trace steps"
+
+
+def _precondition_cases():
+    """(name, run(package)) for the three checks of execute() that precede
+    the proof: too many outputs, too short a run, a wrong program hash."""
+
+    def too_many_outputs(pkg, monkeypatch):
+        program = pkg.assembly.compile("begin push.3 push.5 add end")
+        return lambda: pkg.execute(program, pkg.ProgramInputs.none(), pkg.config.MAX_OUTPUTS + 1,
+                                   pkg.ProofOptions(16, 10, 2), **_cpu(pkg))
+
+    def too_short(pkg, monkeypatch):
+        program = pkg.assembly.compile("begin push.3 push.5 add end")
+        monkeypatch.setattr(pkg, "MIN_TRACE_LENGTH", 1 << 20)
+        return lambda: pkg.execute(program, pkg.ProgramInputs.none(), 1,
+                                   pkg.ProofOptions(16, 10, 2), **_cpu(pkg))
+
+    def wrong_hash(pkg, monkeypatch):
+        program = pkg.assembly.compile("begin push.3 push.5 add end")
+        program.hash = bytes(32)
+        return lambda: pkg.execute(program, pkg.ProgramInputs.none(), 1,
+                                   pkg.ProofOptions(16, 10, 2), **_cpu(pkg))
+
+    return {"too_many_outputs": too_many_outputs, "too_short": too_short,
+            "wrong_hash": wrong_hash}
+
+
+def _cpu(pkg):
+    return {"device": "cpu"} if pkg is distaff_torch else {}
+
+
+@pytest.mark.parametrize("case", sorted(_precondition_cases()))
+def test_precondition_errors_are_the_jax_packages(monkeypatch, case):
+    import distaff_tpu
+
+    run = _precondition_cases()[case]
+    want = _raised(run(distaff_tpu, monkeypatch))
+    got = _raised(run(distaff_torch, monkeypatch))
+    assert type(want) is AssertionError
+    assert type(got) is AssertionError and str(got) == str(want)
+
+
+def test_choose_on_a_non_binary_condition_raises_assertion_error():
+    # tests/test_e2e_programs.py::test_selection_operations_panic on the
+    # port: the native VM's failure is an AssertionError, as in the JAX package
+    from distaff_torch.programs import Program
+    from distaff_torch.programs.blocks import Group, Span
+    from distaff_torch.programs.opcodes import OpCode
+
+    program = Program(Group([Span([
+        OpCode.Begin, OpCode.Choose, OpCode.Choose, OpCode.Noop,
+        OpCode.Noop, OpCode.Noop, OpCode.Noop, OpCode.Noop,
+        OpCode.Noop, OpCode.Noop, OpCode.Noop, OpCode.Noop,
+        OpCode.Noop, OpCode.Noop, OpCode.Noop,
+    ], {})]))
+    inputs = ProgramInputs.from_public([3, 4, 2, 5, 0, 6, 7, 8])
+    with pytest.raises(AssertionError, match="CHOOSE.*non-binary"):
+        distaff_torch.execute(program, inputs, 8, ProofOptions(16, 10, 2), device="cpu")
