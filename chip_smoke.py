@@ -1,8 +1,9 @@
 """Smoke run of distaff_torch on one NVIDIA H100: builds the kernels, holds
 each against its plain PyTorch version at the main path's shapes, proves
 and verifies the bench's Fibonacci program on the card, runs the kernel
-bench, proves the six examples and the CLI on the card, and proves the
-bench's larger rungs.
+bench, proves the six examples and the CLI on the card, proves the
+bench's larger rungs, and proves with the streaming LDE up to 2^22 steps,
+whose extended trace does not fit the card.
 
 Usage (from the root of the repository, on a machine with the card):
 
@@ -20,12 +21,12 @@ call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-                K4's (K1-K3, K5-K13) in its own call and links them, and K4
+                K4's (K1-K3, K5-K15) in its own call and links them, and K4
                 once for each depth triple of AIR_TRIPLES (its library is
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K13, the count of IMMA
+                K4 at each triple and for K6-K15, the count of IMMA
                 (tensor-core) instructions in K10's SASS, which must not be
                 0, and the card's name and power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
@@ -136,6 +137,24 @@ Phases, in order; any failure raises and exits non-zero:
                 launch's subtrees and its last subtree's nodes), with a row
                 for each class of call at 2^LADDER_HELD; then the
                 2^LADDER_HELD rung once more with the step log
+  8. stream   - K14 trace_absorb over every block of random registers at
+                R = 22 (a partial last block) and R = 70 (two chunks and the
+                parent node), its digests equal to the plain version's and
+                to K3's of the whole rows, and a middle block at the groups
+                of the streamed 2^16, 2^20 and 2^22 proofs ((4, 2^21), (4,
+                2^25), (4, 2^27) points) held over its last 2^LAST_PIECE
+                rows, a row each; K15 coeff_wsum at (20, 2^16) whole and
+                (20, 2^22) over its last piece, a row each; then the bench's
+                Fibonacci proof streamed: at 2^16 and 2^20 forced
+                (DISTAFF_STREAM_LDE=1), its bytes those of the materialized
+                proof of phase 4 or 7 and its peak device memory below that
+                proof's; at 2^22 in auto mode, where the LDE with K1's
+                scratch (128.8 GB) does not fit, so it must stream; each
+                verified, a tampered output rejected, its time, step 0,
+                peak memory and launches printed (K14 ceil(R / 4), K15 once,
+                K3 over rows once: the first FRI layer; K2 never), and the
+                last piece of each call of K4, K7, K10, K14 and K15 held
+                against the plain versions (LastPieces)
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -207,7 +226,11 @@ SEED = 20261016
 # bytes are its rows written and the host's squarings, its multiplies
 # counted from its code (field_kernels.power_series_ops).  A tree of n
 # leaves (K13) reads its leaves and writes its n-row flat array once, 64n
-# bytes, against its n - 1 compressions (tree_bound).
+# bytes, against its n - 1 compressions (tree_bound).  K14 reads a block's
+# registers once, reads and writes each row's 32-byte chaining value and
+# writes the slice's points, against a compression a row (absorb_bound);
+# K15 reads the coefficients once and writes its two sums, against 2R
+# multiplies and 2(R - 1) adds a coefficient (wsum_bound).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 ISSUE_LANES_PER_SM = 128
@@ -225,6 +248,21 @@ MAIN_PATH = ("ntt_pass", "blake3_rows", "air_transition", "deep_compose", "poly_
              "fri_fold", "boundary_columns", "syn_div", "power_series", "merkle_tree")
 K13 = "distaff_torch/csrc/merkle_tree.cu"
 K13_REPLACES = "distaff_tpu/crypto/merkle_dev.py:34"
+K14 = "distaff_torch/csrc/trace_absorb.cu"
+K14_REPLACES = "distaff_tpu/ops/blake3_jax.py:157"
+K15 = "distaff_torch/csrc/coeff_wsum.cu"
+K15_REPLACES = "distaff_tpu/ops/tiles.py:221"
+# a streamed proof launches K14 (the trace commitment) and K15 (step 6's
+# sums) besides the main path's kernels
+STREAM_PATH = MAIN_PATH + ("trace_absorb", "coeff_wsum")
+# the rungs phase 8 proves forced to stream, whose bytes must equal phases 4
+# and 7's materialized proofs; and the rung whose LDE (128.8 GB with K1's
+# scratch) does not fit the card, proved in auto mode
+STREAM_RUNGS = (16, 20)
+STREAM_LOG2_TRACE = 22
+# rung -> (sha256 of the proof's bytes, peak device memory) of the
+# materialized proofs of phases 4 and 7
+MATERIALIZED = {}
 # K3's launches over rows in a blake3 proof: the trace rows and the first
 # FRI layer's (K9 hashes each folded layer's leaves as it folds it)
 K3_ROW_LAUNCHES = 2
@@ -1545,6 +1583,7 @@ def phase_main(checked_keys):
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.stark import serde
 
     program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
     inputs = ProgramInputs.from_public([1, 0])
@@ -1559,6 +1598,7 @@ def phase_main(checked_keys):
     proof_keys = rec.keys()
     peak = torch.cuda.max_memory_allocated()
     tables = table_builds(tiles._TABLES)
+    MATERIALIZED[MAIN_LOG2_TRACE] = (hashlib.sha256(serde.serialize(proof)).hexdigest(), peak)
 
     if proof.trace_length() != 1 << MAIN_LOG2_TRACE:
         raise AssertionError(f"trace length {proof.trace_length()}")
@@ -1582,7 +1622,7 @@ def phase_main(checked_keys):
                        ("blake3_rows", K3_ROW_LAUNCHES),
                        ("poly_eval", sum(n for _, n in evals.calls)),
                        ("merkle_tree", sum(len(b3.tree_launches(n)) for n in held["merkle_tree"])),
-                       *((k, 0) for k in K2_OPS)):
+                       ("trace_absorb", 0), ("coeff_wsum", 0), *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
     for name in ProofCalls.KEYED:
@@ -2037,6 +2077,7 @@ def phase_ladder(ops_rate):
     from distaff_torch import assembly, ProgramInputs, ProofOptions
     from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.stark import serde
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
@@ -2060,6 +2101,7 @@ def phase_ladder(ops_rate):
                                                            stepped=False)
         launches = dict(cuda_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        MATERIALIZED[log2_trace] = (hashlib.sha256(serde.serialize(proof)).hexdigest(), peak)
         t1 = time.perf_counter()
         if proof.trace_length() != 1 << log2_trace:
             raise AssertionError(f"trace length {proof.trace_length()}")
@@ -2082,8 +2124,8 @@ def phase_ladder(ops_rate):
         for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                            ("boundary_columns", 1), ("fri_fold", fold_layers(domain)),
                            ("syn_div", 1), ("power_series", table_builds(tiles._TABLES)),
-                           ("blake3_rows", K3_ROW_LAUNCHES),
-                           *((k, 0) for k in K2_OPS)):
+                           ("blake3_rows", K3_ROW_LAUNCHES), ("trace_absorb", 0),
+                           ("coeff_wsum", 0), *((k, 0) for k in K2_OPS)):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
         recorded = Counter(counter for _, counter in calls.hashes)
@@ -2127,6 +2169,372 @@ def phase_ladder(ops_rate):
         print(f"2^{LADDER_HELD} {line}", flush=True)
     print_step4(LADDER_HELD, lines)
     print(f"2^{LADDER_HELD} execute, stepped: {stepped_s:.3f} s", flush=True)
+    return rows, keyed
+
+
+def absorb_bound(d, regs, shift, first=False, parent=False):
+    """K14's bound for one launch over d rows of `regs` registers: bytes
+    (the registers read once, the chaining values read, but on a chunk's
+    first block, and written, chunk 0's read for a parent node, the slice's
+    points written) and operations (a compression a row, two with the
+    parent node)."""
+    cv_bytes = 32 * ((1 if first else 2) + (1 if parent else 0))
+    return (d * (16 * regs + cv_bytes) + (d >> shift) * 16 * regs,
+            d * COMPRESS_OPS * (2 if parent else 1))
+
+
+def wsum_bound(regs, n):
+    """K15's bound over (regs, n) coefficients: bytes (the coefficients
+    read once, the two sums written, the weights) and operations (from its
+    code, deep_kernels.coeff_wsum_ops)."""
+    from distaff_torch.ops import deep_kernels as dk
+
+    muls, adds = dk.coeff_wsum_ops(regs)
+    return (regs * n + 2 * n + 2 * regs) * 16, n * (muls * MUL_OPS + adds * ADD_OPS)
+
+
+def plain_absorb_rows(cols, slice_out, shift):
+    """blake3_torch.absorb_rows over the registers `cols` (R, D, 4) with
+    K14's plain version in place of the kernel."""
+    from distaff_torch.ops import blake3_torch as b3
+
+    real, b3.trace_absorb = b3.trace_absorb, b3.trace_absorb_plain
+    try:
+        return b3.absorb_rows(lambda lo: cols[lo:lo + 4], cols.shape[0], slice_out, shift)
+    finally:
+        b3.trace_absorb = real
+
+
+def random_rows(gen, shape, d):
+    """(*shape, d, 4) limbs: a random (*shape, 2^LAST_PIECE) block repeated
+    (d / 2^LAST_PIECE times) along the rows, so that a large tensor needs
+    no int64 draw of its size and its last piece is random."""
+    from distaff_torch.tools.timing import random_elements
+
+    piece = min(d, 1 << LAST_PIECE)
+    block = random_elements(gen, (*shape, piece))
+    return block.repeat(*([1] * len(shape)), d // piece, 1) if d > piece else block
+
+
+def check_trace_absorb(gen, ops_rate):
+    """K14 on random registers: every block of rows of R = 22 registers (a
+    32-byte last block) at 2^LAST_PIECE points and of R = 70 (two chunks,
+    and the parent node) at a quarter of that, its digests equal to the
+    plain version's and to K3's of the whole rows, its slice to the plain
+    version's and to the registers' points; then a middle block (chaining values read and
+    written) at the groups of the streamed 2^16, 2^20 and 2^22 proofs ((4,
+    2^21), (4, 2^25), (4, 2^27) points, into rows 16-19 of the (20, D / 4)
+    slice: at 2^22 both reach past 2^31 words), held over its last
+    2^LAST_PIECE rows against the plain version and timed: a row each,
+    keyed (trace_absorb, rung, "group")."""
+    from distaff_torch.ops import blake3_torch as b3
+
+    shift = 2                                        # ext 32: D_ev is every fourth point
+    for regs, d in ((22, 1 << LAST_PIECE), (70, 1 << LAST_PIECE - 2)):
+        cols = random_rows(gen, (regs,), d)
+        got_slice = torch.empty((regs, d >> shift, 4), dtype=torch.uint32, device="cuda")
+        want_slice = torch.empty_like(got_slice)
+        got = b3.absorb_rows(lambda lo: cols[lo:lo + 4], regs, got_slice, shift)
+        want = plain_absorb_rows(cols, want_slice, shift)
+        whole = b3.hash_rows(cols.permute(1, 0, 2))
+        torch.cuda.synchronize()
+        for what, x, y in (("digests", got, want), ("digests against K3", got, whole),
+                           ("slice", got_slice, want_slice),
+                           ("slice against the points", got_slice, cols[:, ::1 << shift])):
+            if max_abs_err(x, y):
+                raise AssertionError(f"trace_absorb at ({regs}, {d}): {what} differ")
+        print(f"kernel trace_absorb over the {-(-regs // 4)} blocks of ({regs}, {d}) random "
+              f"registers{' (two chunks)' if regs > 64 else ''}: digests equal to plain and to "
+              f"K3's of the rows, slice equal", flush=True)
+        del cols, got_slice, want_slice, got, want, whole
+
+    rows, piece = [], 1 << LAST_PIECE
+    for log2_trace in (*STREAM_RUNGS, STREAM_LOG2_TRACE):
+        d = 32 << log2_trace
+        a = d - piece
+        group = random_rows(gen, (4,), d)
+        cv = random_rows(gen, (2,), d).view(d, 8)
+        ev = torch.empty((20, d >> shift, 4), dtype=torch.uint32, device="cuda")
+        cv_in = cv[a:].clone()
+        b3.trace_absorb(group, cv, 1, 320, None, ev[16:], shift)
+        want_slice = torch.empty((4, piece >> shift, 4), dtype=torch.uint32, device="cuda")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = b3.trace_absorb_plain(group[:, a:], cv_in, 1, 320, None, want_slice, shift)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if max_abs_err(cv[a:], want) or max_abs_err(ev[16:, a >> shift:], want_slice):
+            raise AssertionError(f"trace_absorb at (4, {d}): the last {piece} rows differ")
+        kernel = lambda: b3.trace_absorb(group, cv, 1, 320, None, ev[16:], shift)
+        ms = time_ms(kernel, 20 if d <= piece else 3, KERNEL_TRIALS if d <= piece else 3,
+                     queued=True)
+        bound_ms, bound_by = bound(*absorb_bound(d, 4, shift), ops_rate)
+        shape = f"2^{log2_trace} proof's group (4, {d}), a middle block, slice stride 4"
+        print(f"kernel trace_absorb at {shape}: equal to plain over its last {piece} rows; "
+              f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by})",
+              flush=True)
+        rows.append({"name": "trace_absorb", "route": "cuda", "source": K14,
+                     "replaces": K14_REPLACES, "launches": None, "max_abs_err": 0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "key": ("trace_absorb", log2_trace, "group")})
+        del group, cv, ev, cv_in, want, want_slice
+    return rows
+
+
+def check_coeff_wsum(gen, ops_rate):
+    """K15 at (20, 2^16), the streamed 2^16 proof's call, whole, and at (20,
+    2^22), the 2^22 proof's, held over its last 2^LAST_PIECE coefficients:
+    random coefficients and weights, a row each, keyed (coeff_wsum, rung,
+    "sums")."""
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.tools.timing import random_elements
+
+    rows = []
+    for log2_trace in (STREAM_RUNGS[0], STREAM_LOG2_TRACE):
+        n = 1 << log2_trace
+        a = n - min(n, 1 << LAST_PIECE)
+        polys = random_rows(gen, (20,), n)
+        w1, w2 = random_elements(gen, (20,)), random_elements(gen, (20,))
+        held = "whole" if a == 0 else f"its last {n - a} coefficients"
+        row = check_kernel(
+            "coeff_wsum", f"(20, {n}) 2^{log2_trace} proof's call, {held}",
+            lambda: dk.coeff_wsum(polys, w1, w2)[:, a:],
+            lambda: dk.coeff_wsum_plain(polys[:, a:], w1, w2), 20 if a == 0 else 5, 1,
+            *wsum_bound(20, n), ops_rate, K15, K15_REPLACES)
+        row["key"] = ("coeff_wsum", log2_trace, "sums")
+        rows.append(row)
+        del polys
+    return rows
+
+
+class LastPieces:
+    """Within its `with`, lets each call of K4, K7, K10, K14 and K15 launch
+    and copies to the host the last piece of 2^LAST_PIECE rows or points of
+    its inputs and its output (K4 also the cycle of rows after it, where it
+    wraps), so that check() holds them against the plain versions after
+    the proof, whose tensors are gone by then; the copies leave the
+    proof's peak device memory as it was.  Keeps K14's calls' (block, byte
+    length, points) and the K1 passes' count."""
+
+    def __enter__(self):
+        from distaff_torch.ops import air_kernels, blake3_torch, boundary_kernels, deep_kernels
+
+        self.calls, self.absorbs = [], []
+        self.patches = [(blake3_torch, "trace_absorb", self.absorb),
+                        (deep_kernels, "coeff_wsum", self.wsum),
+                        (deep_kernels, "deep_compose", self.compose),
+                        (boundary_kernels, "boundary_columns", self.boundary),
+                        (air_kernels, "air_transition", self.air)]
+        self.real = {}
+        for module, name, fn in self.patches:
+            self.real[name] = getattr(module, name)
+            setattr(module, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, _ in self.patches:
+            setattr(module, name, self.real[name])
+        self.patches = None
+
+    @staticmethod
+    def start(n):
+        return n - min(n, 1 << LAST_PIECE)
+
+    def absorb(self, group, cv, block, byte_len, chunk0=None, slice_out=None, slice_shift=0):
+        d = group.shape[1]
+        a = self.start(d)
+        self.absorbs.append((block, byte_len, d))
+        inputs = (group[:, a:].cpu(), cv[a:].cpu(), None if chunk0 is None else chunk0[a:].cpu())
+        out = self.real["trace_absorb"](group, cv, block, byte_len, chunk0, slice_out,
+                                        slice_shift)
+        self.calls.append(("trace_absorb", f"block {block} of ({group.shape[0]}, {d})", a,
+                           inputs + (block, byte_len, slice_shift),
+                           (cv[a:].cpu(), slice_out[:, a >> slice_shift:].cpu())))
+        return out
+
+    def wsum(self, polys, w1, w2):
+        out = self.real["coeff_wsum"](polys, w1, w2)
+        a = self.start(polys.shape[1])
+        self.calls.append(("coeff_wsum", f"{tuple(polys.shape[:2])}", a,
+                           (polys[:, a:].cpu(), w1.cpu(), w2.cpu()), out[:, a:].cpu()))
+        return out
+
+    def compose(self, lde, c_lde, w1, w2, root, incr, scalars):
+        out = self.real["deep_compose"](lde, c_lde, w1, w2, root, incr, scalars)
+        a = self.start(lde.shape[1])
+        self.calls.append(("deep_compose", f"{tuple(lde.shape[:2])}", a,
+                           (lde[:, a:].cpu(), c_lde[a:].cpu(), w1.cpu(), w2.cpu(), root, incr,
+                            scalars), out[a:].cpu()))
+        return out
+
+    def boundary(self, lde, i_parts, f_parts, xb_root):
+        out = self.real["boundary_columns"](lde, i_parts, f_parts, xb_root)
+        a = self.start(lde.shape[1])
+        self.calls.append(("boundary_columns", boundary_key(lde), a,
+                           (lde[:, a:].cpu(), i_parts, f_parts, xb_root),
+                           torch.stack(out)[:, a:].cpu()))
+        return out
+
+    def air(self, lde, tables):
+        out = self.real["air_transition"](lde, tables)
+        n, cycle = lde.shape[1], tables.dec_ark.shape[1]
+        a = self.start(n)
+        self.calls.append(("air_transition", boundary_key(lde), a,
+                           (torch.cat([lde[:, a:], lde[:, :cycle]], 1).cpu(), tables, n),
+                           out[0][a:].cpu()))
+        return out
+
+    def check(self, tag):
+        """Each recorded call's last piece against its plain version on the
+        card; prints a line a kernel."""
+        from distaff_torch.ops import blake3_torch as b3
+        from distaff_torch.ops import boundary_kernels as bk
+        from distaff_torch.ops import deep_kernels as dk
+        from distaff_torch.stark.constraints.device_eval import transition_plain
+
+        held = Counter()
+        for name, shape, a, inputs, got in self.calls:
+            cuda = [x.cuda() if torch.is_tensor(x) else x for x in inputs]
+            if name == "trace_absorb":
+                group, cv, chunk0, block, byte_len, shift = cuda
+                sliced = torch.empty((group.shape[0], group.shape[1] >> shift, 4),
+                                     dtype=torch.uint32, device="cuda")
+                want = (b3.trace_absorb_plain(group, cv, block, byte_len, chunk0, sliced, shift),
+                        sliced)
+            elif name == "coeff_wsum":
+                want = dk.coeff_wsum_plain(*cuda)
+            elif name == "deep_compose":
+                want = dk.deep_compose_plain(*cuda, start=a)
+            elif name == "boundary_columns":
+                want = torch.stack(bk.boundary_columns_plain(*cuda, start=a))
+            else:
+                window, tables, n = cuda
+                rows = torch.arange(a, n + tables.dec_ark.shape[1], device="cuda") % n
+                want = transition_plain(window, tables, rows)[0][:n - a]
+            got = tuple(x.cuda() for x in got) if isinstance(got, tuple) else got.cuda()
+            err = max_abs_err(got, want)
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"{name} at {tag} {shape}: its last piece from row {a} "
+                                     f"differs from the plain version (max abs err {err})")
+            held[name] += 1
+        print(f"{tag}: the last piece of each call equal to plain: "
+              f"{', '.join(f'{k} {v}' for k, v in sorted(held.items()))}", flush=True)
+        return held
+
+
+def phase_stream(ops_rate):
+    """K14 and K15 against their plain versions (check_trace_absorb,
+    check_coeff_wsum); then the bench's Fibonacci proof (bench.py sizing,
+    default options) streamed: at each rung of STREAM_RUNGS forced
+    (DISTAFF_STREAM_LDE=1), its bytes equal to the materialized proof's of
+    phase 4 or 7 and its peak device memory below that proof's; at
+    2^STREAM_LOG2_TRACE in auto mode, where the LDE does not fit the card
+    and the proof must stream.  Each proof on cuda unstepped, with the
+    table cache emptied first: verified, a tampered output rejected; its
+    time, step 0, peak memory and launches printed; K14 once a block of a
+    row (ceil(R / 4)), K15 once, K3 over rows once (the first FRI layer),
+    K4, K7, K10 and K11 once, K9 once a layer, K12 once a table built, K13
+    in the launches tree_launches plans, K2 and K6 never; the last piece of
+    each call of K4, K7, K10, K14 and K15 held against the plain versions
+    (LastPieces).  Returns the rows and a Counter of launches by (kernel,
+    rung, key)."""
+    import os
+
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.stark import serde
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    rows = check_trace_absorb(gen, ops_rate) + check_coeff_wsum(gen, ops_rate)
+    torch.cuda.empty_cache()
+    keyed = Counter()
+    inputs = ProgramInputs.from_public([1, 0])
+    options = ProofOptions()
+    saved = os.environ.get("DISTAFF_STREAM_LDE")
+    for log2_trace in (*STREAM_RUNGS, STREAM_LOG2_TRACE):
+        forced = log2_trace in STREAM_RUNGS
+        tag = f"2^{log2_trace} streamed proof ({'forced' if forced else 'auto'})"
+        program = fibonacci_program(assembly, log2_trace)
+        tiles._TABLES.clear()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        os.environ["DISTAFF_STREAM_LDE"] = "1" if forced else "auto"
+        try:
+            with LastPieces() as pieces:
+                outputs, proof, prove_s, lines = timed_execute(program, inputs, options,
+                                                               stepped=False)
+        finally:
+            if saved is None:
+                os.environ.pop("DISTAFF_STREAM_LDE")
+            else:
+                os.environ["DISTAFF_STREAM_LDE"] = saved
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        data = serde.serialize(proof)
+        digest = hashlib.sha256(data).hexdigest()
+        public = inputs.get_public_inputs()
+        t1 = time.perf_counter()
+        if not distaff_torch.verify(program.hash, public, outputs, proof):
+            raise AssertionError(f"{tag} does not verify")
+        verify_s = time.perf_counter() - t1
+        tampered = [(outputs[0] + 1) % hostfield.M] + outputs[1:]
+        try:
+            distaff_torch.verify(program.hash, public, tampered, proof)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{tag}: a tampered output verifies")
+        info = proof.trace_info
+        regs = 15 + info.ctx_depth + info.loop_depth + info.stack_depth
+        domain = proof.trace_length() * options.extension_factor()
+        del proof
+        print(f"{tag}: execute {prove_s:.3f} s (step 0 "
+              f"{step_ms(lines, 'step 0 execute program'):.3f} ms), verify {verify_s:.3f} s, "
+              f"output {outputs}, a tampered output rejected, peak device memory {peak} bytes, "
+              f"{len(data)} bytes sha256 {digest}; the LDE ({regs}, {domain}) would be "
+              f"{regs * domain * 16} bytes", flush=True)
+        print(f"2^{log2_trace} streamed launches: {json.dumps(launches)}", flush=True)
+        idle = [k for k in STREAM_PATH if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"{tag}: kernels not launched: {idle}")
+        trees = sum(len(b3.tree_launches(n)) for n in tree_sizes(log2_trace))
+        for name, want in (("trace_absorb", -(-regs // b3.BLOCK_REGISTERS)), ("coeff_wsum", 1),
+                           ("blake3_rows", 1), ("air_transition", 1), ("deep_compose", 1),
+                           ("boundary_columns", 1), ("syn_div", 1), ("inv_batch", 0),
+                           ("fri_fold", fold_layers(domain)), ("merkle_tree", trees),
+                           ("power_series", table_builds(tiles._TABLES)),
+                           *((k, 0) for k in K2_OPS)):
+            if launches[name] != want:
+                raise AssertionError(f"{tag}: {name} launched {launches[name]} times, not {want}")
+        if [(block, d) for block, _, d in pieces.absorbs] != [
+                (block, domain) for block in range(-(-regs // b3.BLOCK_REGISTERS))]:
+            raise AssertionError(f"{tag}: K14's calls {pieces.absorbs}")
+        if forced:
+            want_digest, want_peak = MATERIALIZED[log2_trace]
+            if digest != want_digest:
+                raise AssertionError(f"{tag}: its bytes differ from the materialized proof's")
+            if peak >= want_peak:
+                raise AssertionError(f"{tag}: peak device memory {peak} bytes, the materialized "
+                                     f"proof's {want_peak}")
+            print(f"{tag}: the materialized proof's bytes; peak device memory {peak} bytes "
+                  f"against its {want_peak}", flush=True)
+        print(f"{tag}: K14 {launches['trace_absorb']} (a block of each row), K15 "
+              f"{launches['coeff_wsum']}, K3 over rows {launches['blake3_rows']} (the first "
+              f"FRI layer), K13 {launches['merkle_tree']}, K8 {launches['poly_eval']}, K2 0",
+              flush=True)
+        pieces.check(tag)
+        del pieces
+        keyed[("trace_absorb", log2_trace, "group")] += launches["trace_absorb"]
+        keyed[("coeff_wsum", log2_trace, "sums")] += launches["coeff_wsum"]
     return rows, keyed
 
 
@@ -2185,7 +2593,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5-K13": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K15": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -2199,7 +2607,8 @@ def main():
             print(f"K4 {d} {line.strip()}", flush=True)
     for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval"),
                        ("K9", "fri_fold"), ("K10", "boundary_columns"), ("K11", "syn_div"),
-                       ("K12", "power_series"), ("K13", "merkle_tree")):
+                       ("K12", "power_series"), ("K13", "merkle_tree"), ("K14", "trace_absorb"),
+                       ("K15", "coeff_wsum")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
     sass = cuda_lib.sass("boundary_columns")
@@ -2220,7 +2629,7 @@ def main():
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
-    for phase in (phase_examples, phase_ladder):
+    for phase in (phase_examples, phase_ladder, phase_stream):
         phase_rows, phase_keyed = phase(ops_rate)
         rows += phase_rows
         keyed += phase_keyed

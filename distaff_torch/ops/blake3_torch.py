@@ -13,6 +13,13 @@ distaff_tpu/crypto/merkle_dev.py (_build_flat_nodes, _build_subtree_nodes):
 launches of a kernel that hashes subtrees of up to 2^11 nodes a block in
 shared memory (tree_launches).
 
+K14 (csrc/trace_absorb.cu + .cuh) replaces distaff_tpu/ops/blake3_jax.py's
+absorb_begin, absorb_block, absorb_finish and parent_root as the streaming
+trace commitment drives them: one 64-byte block (four registers) of every
+row absorbed into (D, 8) chaining values, a launch a block, the block's
+registers copied into the evaluation domain's stride slice on the way; the
+finished values are hash_rows' digests of the whole rows.  Bound by bytes.
+
 Rows are given as (N, K, 4) uint32 views: K 16-byte registers per row,
 any row and register strides, limbs contiguous - so a (R, D, 4) trace LDE
 is hashed row-wise through `lde.permute(1, 0, 2)` without a copy.  The row
@@ -21,6 +28,8 @@ serialization the reference hashes.
 
 On CPU tensors the wrappers run the plain version, in int64 lanes.
 """
+
+import ctypes
 
 import torch
 
@@ -192,6 +201,125 @@ def merkle_tree(leaves):
         cuda_lib.LAUNCHES["merkle_tree"] += 1
         level = nodes[m >> levels : 2 * (m >> levels)]
     return nodes
+
+
+# ------------------------------------------------------------------------------------------------
+# K14 trace_absorb: a row's BLAKE3 a 64-byte block at a time
+# ------------------------------------------------------------------------------------------------
+
+BLOCK_REGISTERS = 4          # 16-byte registers in a 64-byte BLAKE3 block
+CHUNK_BLOCKS = 16            # blocks in a 1024-byte chunk
+
+
+def absorb_flags(block, byte_len):
+    """(flags, block length, chunk counter, parent) of 64-byte block `block`
+    of rows of byte_len bytes, as hash_rows_plain hashes them: parent is
+    whether the block ends a two-chunk row, whose digest is then the parent
+    node over the two chunks' chaining values."""
+    n_blocks = -(-byte_len // 64)
+    n_chunks = -(-n_blocks // CHUNK_BLOCKS)
+    if not 0 <= block < n_blocks or n_chunks > 2:
+        raise ValueError(f"absorb: block {block} of rows of {byte_len} bytes")
+    last = block == n_blocks - 1
+    flags = CHUNK_START if block % CHUNK_BLOCKS == 0 else 0
+    if last or block % CHUNK_BLOCKS == CHUNK_BLOCKS - 1:
+        flags |= CHUNK_END
+    if last and n_chunks == 1:
+        flags |= ROOT
+    block_len = byte_len - 64 * (n_blocks - 1) if last else 64
+    return flags, block_len, block // CHUNK_BLOCKS, last and n_chunks == 2
+
+
+def _check_absorb(group, cv, block, byte_len, chunk0, slice_out, slice_shift):
+    k, d = group.shape[0], group.shape[1]
+    parent = absorb_flags(block, byte_len)[3]
+    want_k = min(BLOCK_REGISTERS, byte_len // 16 - BLOCK_REGISTERS * block)
+    bad_slice = slice_out is not None and (
+        slice_out.shape[0] != k or slice_out.shape[1] << slice_shift != d)
+    if group.dim() != 3 or group.shape[2] != 4 or k != want_k or cv.shape != (d, 8) or \
+            (chunk0 is not None) != parent or bad_slice or (
+                chunk0 is not None and chunk0.shape != cv.shape):
+        shapes = [tuple(t.shape) for t in (group, cv, chunk0, slice_out) if t is not None]
+        raise ValueError(
+            f"trace_absorb: block {block} of {byte_len}-byte rows takes ({want_k}, D, 4) "
+            f"registers, (D, 8) chaining values{', chunk 0 values' if parent else ''} and "
+            f"a ({want_k}, D >> {slice_shift}, 4) slice or none, got {shapes}")
+
+
+def trace_absorb_plain(group, cv, block, byte_len, chunk0=None, slice_out=None, slice_shift=0):
+    """trace_absorb's function on plain tensors: compress_plain over the
+    block's words in int64 lanes (and parent_root after a two-chunk row's
+    last block)."""
+    _check_absorb(group, cv, block, byte_len, chunk0, slice_out, slice_shift)
+    flags, block_len, counter, parent = absorb_flags(block, byte_len)
+    k, d = group.shape[0], group.shape[1]
+    if slice_out is not None:
+        slice_out.copy_(group[:, ::1 << slice_shift])
+    words = group.permute(1, 0, 2).reshape(d, 4 * k).to(torch.int64)
+    zero = torch.zeros(d, dtype=torch.int64, device=group.device)
+    m = [words[:, w] if w < 4 * k else zero for w in range(16)]
+    state = list(_IV) if flags & CHUNK_START else list(cv.to(torch.int64).unbind(1))
+    state = compress_plain(state, m, counter, block_len, flags)
+    if parent:
+        state = parent_root(chunk0.to(torch.int64).unbind(1), state)
+    state = [v if torch.is_tensor(v) else torch.full_like(zero, v) for v in state]
+    return cv.copy_(torch.stack(state, dim=1))
+
+
+def trace_absorb(group, cv, block, byte_len, chunk0=None, slice_out=None, slice_shift=0):
+    """Absorb 64-byte block `block` of rows of byte_len bytes into the
+    chaining values cv (D, 8) uint32, in place: group (k, D, 4) the block's
+    k <= 4 registers (the rest of a partial last block zero), chunk0 chunk
+    0's finished values where the block ends a two-chunk row (the digest is
+    then the parent node), and slice_out, if given, (k, D >> slice_shift, 4)
+    receives the registers' points d = e << slice_shift.  After a row's last
+    block cv holds hash_rows' digests.  Returns cv."""
+    _check_absorb(group, cv, block, byte_len, chunk0, slice_out, slice_shift)
+    if group.device.type == "cpu":
+        return trace_absorb_plain(group, cv, block, byte_len, chunk0, slice_out, slice_shift)
+    flags, block_len, counter, _ = absorb_flags(block, byte_len)
+    cuda_lib.require_limbs("trace_absorb", group, cv.view(-1, 2, 4),
+                           *(t.view(-1, 2, 4) for t in (chunk0,) if t is not None),
+                           *(t for t in (slice_out,) if t is not None))
+    if group.stride(1) != 4 or not cv.is_contiguous() or (
+            chunk0 is not None and not chunk0.is_contiguous()) or (
+            slice_out is not None and slice_out.stride(1) != 4):
+        raise ValueError("trace_absorb: each register's points and the chaining values "
+                         "must be contiguous")
+    nul = ctypes.c_void_p(None)
+    code = cuda_lib.lib().distaff_trace_absorb(
+        cuda_lib.ptr(group), group.stride(0) // 4, group.shape[0], group.shape[1],
+        cuda_lib.ptr(cv), nul if chunk0 is None else cuda_lib.ptr(chunk0),
+        nul if slice_out is None else cuda_lib.ptr(slice_out),
+        0 if slice_out is None else slice_out.stride(0) // 4, slice_shift, flags, block_len,
+        counter, cuda_lib.stream(cv))
+    cuda_lib.check(code, "trace_absorb")
+    cuda_lib.LAUNCHES["trace_absorb"] += 1
+    return cv
+
+
+def absorb_rows(group_at, regs, slice_out=None, slice_shift=0):
+    """The (D, 8) digests of rows of `regs` registers, absorbed a 64-byte
+    block at a time (one trace_absorb a block): group_at(lo) makes block
+    lo // 4's registers lo, lo + 1, ... as a (k, D, 4) tensor, which is
+    dropped after its launch; slice_out (regs, D >> slice_shift, 4), if
+    given, receives every register's points d = e << slice_shift.  A
+    two-chunk row's chunk 0 values are kept for its last launch, which
+    writes the parent node."""
+    byte_len = 16 * regs
+    cv = chunk0 = None
+    for block, lo in enumerate(range(0, regs, BLOCK_REGISTERS)):
+        group = group_at(lo)
+        if cv is None:
+            cv = torch.empty((group.shape[1], 8), dtype=torch.uint32, device=group.device)
+        if block == CHUNK_BLOCKS:
+            chunk0, cv = cv, torch.empty_like(cv)
+        parent = absorb_flags(block, byte_len)[3]
+        trace_absorb(group, cv, block, byte_len, chunk0 if parent else None,
+                     None if slice_out is None else slice_out[lo:lo + BLOCK_REGISTERS],
+                     slice_shift)
+        del group
+    return cv
 
 
 def hash_rows_u32(rows_u32, byte_len):

@@ -45,6 +45,8 @@ LAUNCHES = {
     "syn_div": 0,
     "power_series": 0,
     "merkle_tree": 0,
+    "trace_absorb": 0,
+    "coeff_wsum": 0,
 }
 
 _lib = None
@@ -154,13 +156,18 @@ def lib():
             vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, u32p, vp, vp, vp, vp, vp]
         handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
         handle.distaff_merkle_tree.argtypes = [vp, vp, ll, i32, vp]
+        handle.distaff_trace_absorb.argtypes = [
+            vp, ll, i32, ll, vp, vp, vp, ll, i32, ctypes.c_uint, ctypes.c_uint,
+            ctypes.c_ulonglong, vp]
+        handle.distaff_coeff_wsum.argtypes = [vp, ll, i32, ll, vp, vp, vp, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
                    handle.distaff_deep_compose, handle.distaff_poly_eval,
                    handle.distaff_fri_fold, handle.distaff_boundary_columns,
                    handle.distaff_syn_div, handle.distaff_power_series,
-                   handle.distaff_merkle_tree):
+                   handle.distaff_merkle_tree, handle.distaff_trace_absorb,
+                   handle.distaff_coeff_wsum):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

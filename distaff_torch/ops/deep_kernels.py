@@ -17,6 +17,13 @@ one launch, a Horner sum a thread and a tree a block over each span of
 place, and the row's last block summing the spans.  Bound by bytes; the
 multiplies it issues and, in small calls, latency set its time.
 
+K15 `coeff_wsum` (csrc/coeff_wsum.cu, coeff_wsum.cuh) replaces
+distaff_tpu/ops/tiles.py::weighted_register_sum (_wsum_tile) on the trace's
+polynomials, as the streaming prover calls it: both of step 6's weighted
+register sums over the (R, N) coefficients in one launch, a (2, N) result
+that K1 extends to the LDE domain and K7 composes (a weighted sum commutes
+with the NTT).  Bound by bytes and operations about alike.
+
 Each wrapper takes its plain version for tensors on the CPU, and launches
 the kernel for tensors on the card, or raises.  The plain versions are the
 chain the port ran before these kernels (power series, products and sums,
@@ -39,6 +46,7 @@ M = hostfield.M
 POLY_EVAL_LOG_SPAN = 11        # poly_eval.cuh: a block's shortest span of a row, 2^(8 + 3)
 POLY_EVAL_MAX_POINTS = 4       # poly_eval.cuh kMaxPoints
 POLY_EVAL_SQUARINGS = 32       # poly_eval.cuh kSquarings: x^(2^k) for k < 32
+COEFF_WSUM_MAX_REGISTERS = 128  # coeff_wsum.cuh kMaxRegisters
 LOG_LO = tiles._LOG_LO         # K1's power tables (tiles._store_factors): lo holds 2^LOG_LO
 
 
@@ -156,6 +164,41 @@ def weighted_sum_plain(lde, weights):
     for r in range(1, lde.shape[0]):
         total = fk.add_plain(total, fk.mul_plain(lde[r], weights[r]))
     return total
+
+
+def coeff_wsum_plain(polys, w1, w2):
+    """coeff_wsum's function on plain tensors: the two weighted sums on
+    K2's plain versions."""
+    return torch.stack([weighted_sum_plain(polys, w1), weighted_sum_plain(polys, w2)])
+
+
+def coeff_wsum(polys, w1, w2):
+    """(2, N, 4): sum_r w1[r] polys[r] and sum_r w2[r] polys[r] over the
+    rows of (R, N, 4) limbs, w1 and w2 (R, 4); one launch of K15 on the card."""
+    regs, n = polys.shape[0], polys.shape[1]
+    if polys.dim() != 3 or w1.shape != (regs, 4) or w2.shape != w1.shape or \
+            not 1 <= regs <= COEFF_WSUM_MAX_REGISTERS:
+        raise ValueError(f"coeff_wsum: expected (R <= {COEFF_WSUM_MAX_REGISTERS}, N, 4) rows and "
+                         f"(R, 4) weights, got {tuple(polys.shape)}, {tuple(w1.shape)} and "
+                         f"{tuple(w2.shape)}")
+    if fk._on_cpu(polys, w1, w2):
+        return coeff_wsum_plain(polys, w1, w2)
+    cuda_lib.require_limbs("coeff_wsum", polys, w1, w2)
+    if polys.stride(1) != 4:
+        raise ValueError("coeff_wsum: each register's coefficients must be contiguous")
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    out = torch.empty((2, n, 4), dtype=torch.uint32, device=polys.device)
+    code = cuda_lib.lib().distaff_coeff_wsum(
+        cuda_lib.ptr(polys), polys.stride(0) // 4, regs, n, cuda_lib.ptr(w1), cuda_lib.ptr(w2),
+        cuda_lib.ptr(out), cuda_lib.stream(out))
+    cuda_lib.check(code, "coeff_wsum")
+    cuda_lib.LAUNCHES["coeff_wsum"] += 1
+    return out
+
+
+def coeff_wsum_ops(regs):
+    """(multiplies, adds) a coefficient of K15: 2R and 2(R - 1)."""
+    return 2 * regs, 2 * (regs - 1)
 
 
 def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):

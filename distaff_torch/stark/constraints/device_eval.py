@@ -227,6 +227,5 @@ def evaluate_transition_device(evaluator, trace):
     column over D_ev as (n_ev, 4) limbs and the count of trace steps, other
     than the last, whose transition constraints do not vanish, as a (1,)
     int32 tensor: 0 for an honest trace."""
-    stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
-    lde = trace.lde_dev[:, ::stride]
+    lde = trace.ev_slice()
     return transition(lde, air_tables(evaluator, lde.device))

@@ -18,6 +18,13 @@ the domain-sized work on the device:
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
 
+Where the LDE does not fit (stark/trace_table.py's streaming LDE), step 1
+only interpolates, step 2 extends the registers four at a time, each group
+absorbed into the leaf digests (K14) and its points of D_ev kept for step
+3, step 6 extends two weighted sums of the coefficients (K15, then K1) in
+place of reading the LDE, and step 9 evaluates the query rows from the
+polynomials (K8).
+
 Each step's wall time is logged at DEBUG level ("step <i> <name>: <ms> ms"),
 and the parts of steps 1, 3, 6 and 7 as "step <i> part <name>: <ms> ms"
 (step 7's each summed over the FRI layers); while
@@ -128,6 +135,9 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     constraint_poly = _combine_constraint_polys(
         evaluator, i_evals, f_evals, t_evals, trace.unextended_length())
     del i_evals, f_evals, t_evals
+    if trace.streaming:
+        # the slice over D_ev has no reader past step 4
+        trace.lde_stride_dev = None
     if debug:
         _validate_constraint_poly_degree(constraint_poly, trace.unextended_length())
     clock.done(4, "constraint polynomial")
@@ -201,8 +211,7 @@ def _evaluate_constraints_columnar(evaluator, trace, clock, debug=False):
     device_eval.py:319-324)."""
     from .constraints.device_eval import evaluate_transition_device
 
-    stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
-    i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace, stride)
+    i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace)
     clock.part(3, "boundary columns")
     t_evals, bad = evaluate_transition_device(evaluator, trace)
     if debug:
@@ -222,8 +231,7 @@ def _validate_transition_degrees(evaluator, trace):
     from ..math import polynom
     from .trace_state import TraceState
 
-    stride = trace.extension_factor // MAX_CONSTRAINT_DEGREE
-    columns = list(ft.to_ints(trace.lde_dev[:, ::stride]))
+    columns = list(ft.to_ints(trace.ev_slice()))
     depths = (trace.ctx_depth, trace.loop_depth, trace.stack_depth)
     current = TraceState.from_vec(*depths, columns)
     next_state = TraceState.from_vec(
@@ -245,17 +253,17 @@ def _validate_transition_degrees(evaluator, trace):
         f"{bad[:5]}")
 
 
-def _evaluate_boundaries_device(evaluator, trace, stride):
+def _evaluate_boundaries_device(evaluator, trace):
     """Boundary constraint columns over D_ev computed on the device.
 
     The combined first/last-step boundary columns are weighted register sums
     plus transcript constants (evaluator.boundary_weight_vectors), and one
     multiply by x^b_degree_adj - bit-identical to the reference's per-step
-    loop (evaluator.rs:181-326).  One launch of kernel K10 over the LDE's
-    stride slice, read in place."""
+    loop (evaluator.rs:181-326).  One launch of kernel K10 over the trace's
+    slice over D_ev, read in place."""
     from ..ops import boundary_kernels
 
-    lde = trace.lde_dev[:, ::stride]                         # (R, n_ev, 4)
+    lde = trace.ev_slice()                                   # (R, n_ev, 4)
     r_ev = field.get_root_of_unity(evaluator.domain_size)
     i_parts, f_parts = evaluator.boundary_weight_vectors(lde.shape[0])
     return boundary_kernels.boundary_columns(
@@ -314,12 +322,14 @@ def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc
     trace_table.rs:206-261 / constraint_poly.rs:39-52 build the same values
     by coefficient-space synthetic division): the point evaluations T_i(z),
     T_i(zg) and C(z) (kernel K8, both queued before one copy to the host),
-    then the composition in one launch of kernel K7.  `part` is called with
-    the name of each part as it ends."""
-    from ..ops import deep_kernels
+    then the composition in one launch of kernel K7.  Streaming, K7 reads
+    A1 and A2 themselves: the weighted sums of the coefficients (K15)
+    extended to the LDE domain (K1), weighted (1, 0) and (0, 1), which is
+    exact.  `part` is called with the name of each part as it ends."""
+    from ..ops import deep_kernels, tiles
     from ..ops.hostsync import TransferBatch
 
-    device = trace.lde_dev.device
+    device = trace.polys_dev.device
     trace_length = trace.unextended_length()
     next_z = field.mul(z, field.get_root_of_unity(trace_length))
 
@@ -338,8 +348,17 @@ def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc
     s2 = sum(v * c for v, c in zip(trace_state2, cc.trace2[:r_count])) % M
     w1 = ft.from_ints(np.array(cc.trace1[:r_count], dtype=object), device)
     w2 = ft.from_ints(np.array(cc.trace2[:r_count], dtype=object), device)
+    root = field.get_root_of_unity(trace.domain_size())
+    lde = trace.lde_dev
+    if trace.streaming:
+        sums = deep_kernels.coeff_wsum(trace.polys_dev, w1, w2)
+        lde = tiles.ntt_batched(sums, root, n=trace.domain_size())       # (2, D, 4)
+        del sums
+        w1 = ft.from_ints(np.array([1, 0], dtype=object), device)
+        w2 = ft.from_ints(np.array([0, 1], dtype=object), device)
+        part("A1 and A2 (K15, K1)")
     composed = deep_kernels.deep_compose(
-        trace.lde_dev, constraint_lde, w1, w2, field.get_root_of_unity(trace.domain_size()),
+        lde, constraint_lde, w1, w2, root,
         utils.get_incremental_trace_degree(trace_length),
         (z, next_z, s1, s2, c_at_z, cc.t1_degree, cc.t2_degree, cc.constraints))
     part("composition (K7)")

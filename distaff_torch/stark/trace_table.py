@@ -6,7 +6,22 @@ dominant cost of proving, reference src/stark/trace/trace_table.rs:143-169)
 and keeps the whole (R, n * ext, 4) LDE there.  Row hashing for the Merkle
 commitment reads the limb layout directly: uint32 limbs in little-endian
 order are exactly the u128 LE bytes the reference hashes.
+
+Where the LDE would not fit (the streaming LDE of distaff_tpu/stark/
+trace_table.py), only the coefficient polynomials are kept: the trace
+commitment computes the LDE again four registers at a time (a 64-byte
+BLAKE3 block of each row), absorbing each group into the rows' chaining
+values and copying its points of the evaluation domain into a stride slice
+(kernel K14), so the whole LDE never exists.  The query rows are then
+evaluated from the polynomials (K8) and step 6 extends two weighted sums of
+the coefficients (K15) in place of reading the LDE.  DISTAFF_STREAM_LDE
+chooses: "1" streams, "0" never does (and raises MemoryError where the LDE
+does not fit), "auto" (the default) streams where extend_bytes() exceeds
+the budget: DISTAFF_HBM_BUDGET_BYTES where it is set, else the card's free
+memory (on the CPU, no budget: auto never streams).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -14,7 +29,8 @@ import torch
 from ..math import field
 from ..math import field_torch as ft
 from ..config import (
-    MAX_CONTEXT_DEPTH, MAX_LOOP_DEPTH, MAX_REGISTER_COUNT, MIN_EXTENSION_FACTOR,
+    MAX_CONSTRAINT_DEGREE, MAX_CONTEXT_DEPTH, MAX_LOOP_DEPTH, MAX_REGISTER_COUNT,
+    MIN_EXTENSION_FACTOR,
 )
 from ..interop import limbs_from_numpy
 from .trace_state import TraceState, compute_decoder_width
@@ -46,6 +62,11 @@ class TraceTable:
 
         self.polys_dev = None               # (R, N, 4) device limb coefficients
         self.lde_dev = None                 # (R, N*ext, 4) device limb evaluations
+        # streaming: lde_dev stays None, and the commitment writes the
+        # evaluation domain's slice and the leaf digests
+        self.streaming = False
+        self.lde_stride_dev = None          # (R, N*8, 4) the LDE's points of D_ev
+        self._leaf_digests = None           # (N*ext, 8) uint32
 
     # geometry ------------------------------------------------------------------------------------
 
@@ -59,7 +80,15 @@ class TraceTable:
         return self._register_count
 
     def is_extended(self):
-        return self.lde_dev is not None
+        return self.lde_dev is not None or (self.streaming and self.polys_dev is not None)
+
+    def ev_slice(self):
+        """The trace over the evaluation domain D_ev, every (ext / 8)-th
+        point of the LDE: a strided view of the LDE, or the slice that the
+        streaming commitment wrote."""
+        if self.streaming:
+            return self.lde_stride_dev
+        return self.lde_dev[:, ::self.extension_factor // MAX_CONSTRAINT_DEGREE]
 
     # states --------------------------------------------------------------------------------------
 
@@ -82,10 +111,22 @@ class TraceTable:
         return self._register_count * self.domain_size() * 16 * tiles.ntt_buffers(
             self.domain_size())
 
+    def _budget(self, device):
+        """Device bytes the LDE may take: DISTAFF_HBM_BUDGET_BYTES where it
+        is set, else the card's free memory; None (no limit) on the CPU."""
+        budget = os.environ.get("DISTAFF_HBM_BUDGET_BYTES")
+        if budget is not None:
+            return int(budget)
+        if device.type == "cuda":
+            return torch.cuda.mem_get_info(device)[0]
+        return None
+
     def extend(self, device, part=None):
         """Interpolate every register and evaluate it over the extended
-        domain, on `device`.  `part`, if given, is called with the name of
-        each part as it ends (the prover's step-1 part log)."""
+        domain, on `device`, or when streaming only interpolate (the
+        commitment extends the registers a group at a time).  `part`, if
+        given, is called with the name of each part as it ends (the
+        prover's step-1 part log)."""
         if self.is_extended():
             raise RuntimeError("trace table has already been extended")
         device = torch.device(device)
@@ -93,12 +134,14 @@ class TraceTable:
         domain = self.domain_size()
         r_count = self._register_count
         lde_bytes = self.extend_bytes()
-        if device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(device)
-            if lde_bytes > free:
-                raise MemoryError(
-                    f"the extended trace needs {lde_bytes} bytes of device memory "
-                    f"with the NTT's scratch, {free} are free")
+        budget = self._budget(device)
+        over = budget is not None and lde_bytes > budget
+        mode = os.environ.get("DISTAFF_STREAM_LDE", "auto")
+        self.streaming = mode == "1" or (mode == "auto" and over)
+        if over and not self.streaming:
+            raise MemoryError(
+                f"the extended trace needs {lde_bytes} bytes of device memory with the NTT's "
+                f"scratch, the budget is {budget} (DISTAFF_STREAM_LDE={mode})")
 
         # LE u64 halves are LE u32 limbs: a view, no per-element conversion
         regs = limbs_from_numpy(
@@ -106,6 +149,13 @@ class TraceTable:
             device)
         if part:
             part("upload")
+        if self.streaming:
+            from ..ops import tiles
+
+            self.polys_dev = tiles.intt_batched(regs, field.get_root_of_unity(n))
+            if part:
+                part("interpolation")
+            return
         self.polys_dev, self.lde_dev = self._extend_tiled(regs, n, domain, part)
 
     def _extend_tiled(self, regs, n, domain, part=None):
@@ -122,23 +172,58 @@ class TraceTable:
             part("LDE")
         return polys, lde
 
+    def _stream_commit(self):
+        """The streaming trace commitment: the LDE of four registers at a
+        time (K1, zero-extended from the polynomials), each group absorbed
+        as one 64-byte block of every row into the rows' chaining values,
+        its points of D_ev copied into the stride slice on the way (one
+        K14 launch), and freed before the next group; a two-chunk row's
+        chunk 0 values are kept for the parent node that its last launch
+        writes.  The finished values are the leaf digests."""
+        from ..ops import blake3_torch as b3
+        from ..ops import tiles
+
+        r_count, domain = self._register_count, self.domain_size()
+        shift = (self.extension_factor // MAX_CONSTRAINT_DEGREE).bit_length() - 1
+        root = field.get_root_of_unity(domain)
+        self.lde_stride_dev = torch.empty((r_count, domain >> shift, 4), dtype=torch.uint32,
+                                          device=self.polys_dev.device)
+        self._leaf_digests = b3.absorb_rows(
+            lambda lo: tiles.ntt_batched(self.polys_dev[lo:lo + b3.BLOCK_REGISTERS], root,
+                                         n=domain),
+            r_count, self.lde_stride_dev, shift)
+
     def build_merkle_tree(self, hash_name):
         """The trace commitment: a leaf for each point of the LDE, the
         digest of every register's value there (crypto.merkle_dev.commit:
-        on the device with blake3, else on the host)."""
+        on the device with blake3, else on the host).  Streaming, the
+        leaves are the digests of the streaming pass (blake3 only, as in
+        the JAX package)."""
         from ..crypto.merkle_dev import commit
+        if self.streaming:
+            if hash_name != "blake3":
+                raise AssertionError("streaming commitment is blake3-only; set "
+                                     "DISTAFF_STREAM_LDE=0 for other hash functions")
+            if self._leaf_digests is None:
+                self._stream_commit()
+            return commit(self._leaf_digests, hash_name, leaves=True)
         return commit(self.lde_dev.permute(1, 0, 2), hash_name)
 
     def get_register_values_at_async(self, positions, batch):
         """Enqueue the extended-trace rows at the given positions on the
-        caller's TransferBatch; returns a zero-arg closure producing the
-        host-int rows."""
-        from ..ops.gather import gather_rows_dev
-        ref = batch.add(gather_rows_dev(self.lde_dev, positions, axis=1))   # (R, Q, 4)
+        caller's TransferBatch (streaming: the polynomials evaluated at x =
+        g^p, kernel K8); returns a zero-arg closure producing the host-int
+        rows."""
+        if self.streaming:
+            from ..ops.deep_kernels import poly_eval
+            root = field.get_root_of_unity(self.domain_size())
+            rows = poly_eval(self.polys_dev, [field.exp(root, int(p)) for p in positions])
+        else:
+            from ..ops.gather import gather_rows_dev
+            rows = gather_rows_dev(self.lde_dev, positions, axis=1).transpose(0, 1)
+        ref = batch.add(rows)                                      # (Q, R, 4)
 
         def result():
-            ints = ft.to_ints(batch.get(ref))
-            return [[int(ints[r][q]) for r in range(ints.shape[0])]
-                    for q in range(ints.shape[1])]
+            return [[int(v) for v in row] for row in ft.to_ints(batch.get(ref))]
 
         return result

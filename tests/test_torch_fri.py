@@ -199,9 +199,13 @@ class _Evaluator:
 
 
 class _Trace:
-    def __init__(self, lde_dev):
+    def __init__(self, lde_dev, stride):
         self.lde_dev = lde_dev
         self.streaming = False
+        self.stride = stride
+
+    def ev_slice(self):
+        return self.lde_dev[:, ::self.stride]
 
 
 @pytest.mark.parametrize("regs,stride", [(5, 4), (11, 2)])
@@ -211,8 +215,8 @@ def test_boundary_columns_match_jax_evaluate_boundaries(regs, stride):
     rng = np.random.default_rng(stride)
     lde = [_ints(N_EV * stride, rng) for _ in range(regs)]
     want = jax_prover._evaluate_boundaries_device(
-        evaluator, _Trace(fj.from_ints(np.array(lde, dtype=object))), stride)
-    got = prover._evaluate_boundaries_device(evaluator, _Trace(_limbs(lde)), stride)
+        evaluator, _Trace(fj.from_ints(np.array(lde, dtype=object)), stride), stride)
+    got = prover._evaluate_boundaries_device(evaluator, _Trace(_limbs(lde), stride))
     for g, w in zip(got, want):
         assert ft.to_ints(g).tolist() == fj.to_ints(w).tolist()
 

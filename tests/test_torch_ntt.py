@@ -195,8 +195,12 @@ def test_ntt_buffers_counts_what_the_transform_allocates(monkeypatch, leaf, log_
 def test_lde_memory_check_counts_the_transforms_buffers(monkeypatch, log_trace, buffers):
     # the check in front of the LDE reckons the LDE and the NTT's scratch
     # buffers of its size: below tiles.LEAF^2 = 2^22 points one scratch, at
-    # the bench's 2^18 and 2^20 steps (2^23 and 2^25 points) a second one
+    # the bench's 2^18 and 2^20 steps (2^23 and 2^25 points) a second one;
+    # with the streaming LDE off, a trace above free memory raises
     from distaff_torch.stark.trace_table import TraceTable
+
+    monkeypatch.setenv("DISTAFF_STREAM_LDE", "0")
+    monkeypatch.delenv("DISTAFF_HBM_BUDGET_BYTES", raising=False)
 
     regs = 20
     table = TraceTable(np.zeros((regs, 1 << log_trace, 2), dtype=np.uint64), 1, 0, 32)
