@@ -11,13 +11,15 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py --step-times 16 18
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --tree-times
+    python3 chip_smoke.py --wsum-times
 
 The second form only prints step times (step_times below), the third only
 the times of K9 and K11 at the proofs' shapes (kernel_times below), the
 fourth only the times of the Merkle trees of the 2^16 proof (tree_times
-below): a copy of this file placed at the root of another checkout times
-that checkout's port, so that two versions compare on one card in one
-call.
+below), the fifth only the times of K7 and K15 at the proofs' calls
+(wsum_times below): a copy of this file placed at the root of another
+checkout times that checkout's port, so that two versions compare on one
+card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
@@ -27,8 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
                 K4 at each triple and for K6-K15, the count of IMMA
-                (tensor-core) instructions in K10's SASS, which must not be
-                0, and the card's name and power limit
+                (tensor-core) instructions in the SASS of K7, K10 and K15,
+                which must not be 0 in any, and the card's name and power
+                limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
                 recorded and launched again), one row each,
@@ -43,7 +46,12 @@ Phases, in order; any failure raises and exits non-zero:
                 values and on a ragged length, K7 deep_compose over the 2^16
                 proof's LDE domain ((20, 2^21), its tables and exponent) on
                 random inputs and with x - z and x - zg vanishing at two
-                points, K8 poly_eval at the proof's point evaluations ((20,
+                points, then at (2, 2^21) with the streamed prover's
+                weights (1, 0) and (0, 1), at (128, 2^16) with every value,
+                weight and constraint evaluation M - 1 (four register
+                groups, the largest digit sums) and over a ragged 2^21 - 37
+                points (through the C entry: the wrapper takes powers of
+                two), K8 poly_eval at the proof's point evaluations ((20,
                 2^16) at two points, (1, 2^19) at one; one launch a call,
                 and no host-to-device copy where the profiler traces the
                 card), K9 fri_fold at every
@@ -144,7 +152,10 @@ Phases, in order; any failure raises and exits non-zero:
                 of the streamed 2^16, 2^20 and 2^22 proofs ((4, 2^21), (4,
                 2^25), (4, 2^27) points) held over its last 2^LAST_PIECE
                 rows, a row each; K15 coeff_wsum at (20, 2^16) whole and
-                (20, 2^22) over its last piece, a row each; then the bench's
+                (20, 2^22) over its last piece, a row each, and at (2,
+                2^16) with the weights (1, 0) and (0, 1), at (128, 2^14)
+                with every value and weight M - 1 and at (20, 2^16 - 37) (a
+                ragged last tile); then the bench's
                 Fibonacci proof streamed: at 2^16 and 2^20 forced
                 (DISTAFF_STREAM_LDE=1), its bytes those of the materialized
                 proof of phase 4 or 7 and its peak device memory below that
@@ -203,10 +214,14 @@ SEED = 20261016
 # bound: one read and one write of 16 bytes an element (2^21 elements: 67
 # MB, 0.020 ms) against 3 multiplies an element, Montgomery's least; its
 # floor in practice is the latency of a block's one dependent inversion
-# chain.  K7's operations per point are counted from its code
-# (deep_kernels.deep_compose_ops: 2R + 13 multiplies), its bytes are the LDE
-# and the constraint evaluations read once, the output written once and its
-# tables; K8 does one multiply and one add per coefficient and point and
+# chain.  K7's bound (compose_bound) is the larger of its bytes (the LDE
+# and the constraint evaluations read once, the output written once, the
+# weights and its tables) at 3.35 TB/s, its int8 product (2 x 64 x 16R byte
+# operations a point) at the tensor cores' 1,979 TOP/s, and its epilogue's
+# 32-bit instructions at the issue width (two digit reductions, 15
+# multiplies, 3 adds, 7 subtractions a point: deep_kernels.deep_compose_ops;
+# before its sums were on the tensor cores, 2R + 13 multiplies a point);
+# K8 does one multiply and one add per coefficient and point and
 # reads each coefficient once.  K10's bound (boundary_bound) is the larger
 # of its bytes (the slice's R values a point read once, the two columns
 # written, the weights and x^b's tables) at 3.35 TB/s, its int8 product
@@ -229,8 +244,11 @@ SEED = 20261016
 # bytes, against its n - 1 compressions (tree_bound).  K14 reads a block's
 # registers once, reads and writes each row's 32-byte chaining value and
 # writes the slice's points, against a compression a row (absorb_bound);
-# K15 reads the coefficients once and writes its two sums, against 2R
-# multiplies and 2(R - 1) adds a coefficient (wsum_bound).
+# K15 reads the coefficients once and writes its two sums, against K7's
+# int8 product and two digit reductions a coefficient (wsum_bound;
+# deep_kernels.coeff_wsum_ops; 2R multiplies and 2(R - 1) adds before).
+# The bytes bound of K7 and K15 is the same whatever implements them, so
+# wsum_times prints it beside the times of two versions.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 ISSUE_LANES_PER_SM = 128
@@ -847,16 +865,60 @@ def check_butterfly(gen, ops_rate):
         "distaff_torch/csrc/butterfly.cu", "distaff_tpu/ops/field_pallas.py:171")
 
 
+def compose_bytes(regs, n):
+    """K7's bytes over (regs, n) points: the LDE and the constraint
+    evaluations read once, the output written once, the weights and the
+    four power tables of the domain."""
+    return ((regs + 2) * n + 2 * regs + 2 * power_tables(n)) * 16
+
+
+def compose_bound(regs, n):
+    """K7's bound as keywords of check_kernel and piece_row: its bytes, the
+    epilogue's 32-bit instructions and the int8 product's operations, from
+    its code (deep_kernels.deep_compose_ops)."""
+    from distaff_torch.ops import deep_kernels as dk
+
+    product, reductions, muls, adds, subs = dk.deep_compose_ops(regs)
+    return {"bound_bytes": compose_bytes(regs, n),
+            "bound_ops": n * (reductions * REDUCE_OPS + muls * MUL_OPS + adds * ADD_OPS
+                              + subs * SUB_OPS),
+            "tensor_ops": n * product}
+
+
+def deep_compose_first(lde, c_lde, w1, w2, root, incr, scalars, n):
+    """K7 over the first n points of lde's domain (any n, through the C
+    entry: the wrapper takes whole power-of-two domains); not counted as a
+    launch of the main path."""
+    import ctypes
+
+    from distaff_torch.ops import cuda_lib
+    from distaff_torch.ops import deep_kernels as dk
+
+    stride, regs, _, tables, words = dk.compose_args(lde, root, incr, scalars)
+    out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
+    cuda_lib.check(cuda_lib.lib().distaff_deep_compose(
+        cuda_lib.ptr(lde), stride, regs, n, cuda_lib.ptr(c_lde), cuda_lib.ptr(w1),
+        cuda_lib.ptr(w2), *[ctypes.c_void_p(None) if t is None else cuda_lib.ptr(t)
+                            for t in tables], dk.LOG_LO,
+        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), cuda_lib.stream(out)), "deep_compose")
+    return out
+
+
 def check_deep_compose(gen, ops_rate):
     """K7 over the 2^16 proof's LDE domain: random (20, 2^21) registers,
     constraint evaluations and weights at the proof's root and x^incr
     exponent (so that phase 4 finds their power tables built), with random
     scalars, then with z = w^k and zg = z g (g the trace domain's root, w^32),
     so that x - z and x - zg vanish at points k and k + 32 and the output
-    must be 0 there.  The first check gives K7's row of the JSON table."""
+    must be 0 there; then at (2, 2^21) with the streamed prover's weights
+    (1, 0) and (0, 1) (one k-step of the product), at (128, 2^16) with
+    every value, weight and constraint evaluation M - 1 (four register
+    groups, the largest digit sums), and over the first 2^21 - 37 points (a
+    ragged last tile).  The first check gives K7's row of the JSON table."""
     import random
 
     from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import deep_kernels as dk
     from distaff_torch.stark import utils
     from distaff_torch.tools.timing import random_elements
@@ -872,18 +934,15 @@ def check_deep_compose(gen, ops_rate):
     k = n // 3
     z = pow(root, k, hostfield.M)
     vanishing = [z, z * pow(root, blowup, hostfield.M) % hostfield.M] + scalars[2:]
-    muls, adds, subs = dk.deep_compose_ops(regs)
-    tables = 2 * (1024 + n // 1024)
-    bound_bytes = ((regs + 2) * n + 2 * regs + tables) * 16
-    bound_ops = n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS)
 
-    def run(values, plain=False):
+    def run(values, plain=False, x=lde, c=c_lde, ws=(w1, w2), at=root):
         f = dk.deep_compose_plain if plain else dk.deep_compose
-        return lambda: f(lde, c_lde, w1, w2, root, incr, values)
+        return lambda: f(x, c, *ws, at, incr, values)
 
     row = check_kernel("deep_compose", f"({regs}, {n}), random scalars", run(scalars),
-                       run(scalars, True), 20, 1, bound_bytes, bound_ops, ops_rate,
-                       "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
+                       run(scalars, True), 20, 1, ops_rate=ops_rate,
+                       source="distaff_torch/csrc/deep_compose.cu",
+                       replaces="distaff_tpu/stark/prover.py:724", **compose_bound(regs, n))
     got, _ = check_equal("deep_compose", f"({regs}, {n}), x - z and x - zg vanishing",
                          run(vanishing), run(vanishing, True))
     at = got.view(torch.int32).index_select(0, torch.tensor([k, k + blowup], device="cuda"))
@@ -891,6 +950,31 @@ def check_deep_compose(gen, ops_rate):
         raise AssertionError("deep_compose: nonzero where x - z or x - zg vanishes")
     print(f"kernel deep_compose at ({regs}, {n}) with x - z and x - zg vanishing at points "
           f"{k} and {k + blowup}: equal to plain, 0 there", flush=True)
+    unit = [ft.from_ints([1, 0], "cuda"), ft.from_ints([0, 1], "cuda")]
+    pair = random_elements(gen, (2, n))
+    check_equal("deep_compose", f"(2, {n}), weights (1, 0) and (0, 1)",
+                run(scalars, x=pair, ws=unit), run(scalars, True, x=pair, ws=unit))
+    print(f"kernel deep_compose at (2, {n}) with the streamed prover's weights (1, 0) and "
+          f"(0, 1): equal to plain", flush=True)
+    del pair
+    top, wide_n = hostfield.M - 1, 1 << 16
+    wide = ft.constant(top, "cuda").expand(128, wide_n, 4).contiguous()
+    tops = ft.constant(top, "cuda").expand(128, 4).contiguous()
+    wide_c = ft.constant(top, "cuda").expand(wide_n, 4).contiguous()
+    wide_root = hostfield.get_root_of_unity(wide_n)
+    check_equal("deep_compose", f"(128, {wide_n}) every value, weight and evaluation M - 1",
+                run(scalars, x=wide, c=wide_c, ws=(tops, tops), at=wide_root),
+                run(scalars, True, x=wide, c=wide_c, ws=(tops, tops), at=wide_root))
+    print(f"kernel deep_compose at (128, {wide_n}) with every value, weight and constraint "
+          f"evaluation M - 1 (the largest digit sums): equal to plain", flush=True)
+    del wide, wide_c
+    ragged = n - 37
+    check_equal("deep_compose", f"({regs}, {n}) first {ragged} points",
+                lambda: deep_compose_first(lde, c_lde, w1, w2, root, incr, scalars, ragged),
+                lambda: dk.deep_compose_plain(lde[:, :ragged], c_lde[:ragged], w1, w2, root,
+                                              incr, scalars))
+    print(f"kernel deep_compose at ({regs}, {n}) over its first {ragged} points (a ragged last "
+          f"tile): equal to plain", flush=True)
     return row
 
 
@@ -1461,6 +1545,55 @@ def kernel_times():
         del polys3
 
 
+def wsum_times():
+    """K7 at the calls of the 2^16, 2^18 and 2^20 proofs ((20, 2^21), (20,
+    2^23), (20, 2^25)) and of the streamed 2^16, 2^20 and 2^22 proofs ((2,
+    2^21), (2, 2^25), (2, 2^27): the weights (1, 0) and (0, 1)), and K15 at
+    the streamed proofs' calls ((20, 2^16), (20, 2^18), (20, 2^20), (20,
+    2^22)), on random values at the proof's root and x^incr exponent: each
+    timed as phase 2 times it, printed with its bytes bound (the same
+    whatever implements the kernel) and the directory of the checkout whose
+    package ran.  It uses only what every version of the port has."""
+    import os
+    import random
+
+    import distaff_torch
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import deep_kernels as dk
+    from distaff_torch.stark import utils
+    from distaff_torch.tools.timing import random_elements
+
+    tag = os.path.basename(os.path.dirname(os.path.dirname(
+        os.path.abspath(distaff_torch.__file__))))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    rng = random.Random(SEED + 13)
+    scalars = [rng.randrange(hostfield.M) for _ in range(8)]
+    for regs, log2_trace in ((20, 16), (20, 18), (20, 20), (2, 16), (2, 20), (2, 22)):
+        n = 32 << log2_trace
+        root = hostfield.get_root_of_unity(n)
+        incr = utils.get_incremental_trace_degree(1 << log2_trace)
+        lde, c_lde = random_rows(gen, (regs,), n), random_rows(gen, (), n)
+        w1, w2 = (random_elements(gen, (regs,)) for _ in range(2)) if regs > 2 else \
+            (ft.from_ints([1, 0], "cuda"), ft.from_ints([0, 1], "cuda"))
+        ms = time_ms(lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars),
+                     5 if n > 1 << 23 else 20, KERNEL_TRIALS, queued=True)
+        bound_ms = compose_bytes(regs, n) / HBM_BYTES_PER_S * 1e3
+        print(f"[{tag}] kernel deep_compose at ({regs}, {n}) the 2^{log2_trace} proof's call: "
+              f"{ms:.4f} ms (bytes bound {bound_ms:.4f} ms)", flush=True)
+        del lde, c_lde
+    for log2_trace in (16, 18, 20, 22):
+        n = 1 << log2_trace
+        polys = random_rows(gen, (20,), n)
+        w1, w2 = random_elements(gen, (20,)), random_elements(gen, (20,))
+        ms = time_ms(lambda: dk.coeff_wsum(polys, w1, w2), 20, KERNEL_TRIALS, queued=True)
+        bound_ms = wsum_bytes(20, n) / HBM_BYTES_PER_S * 1e3
+        print(f"[{tag}] kernel coeff_wsum at (20, {n}) the streamed 2^{log2_trace} proof's "
+              f"call: {ms:.4f} ms (bytes bound {bound_ms:.4f} ms)", flush=True)
+        del polys
+
+
 def tree_times():
     """Every tree the 2^16 proof builds (tree_sizes), on random leaf
     digests: the whole tree timed as phase 2 times a kernel, with its
@@ -1995,14 +2128,13 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
         regs, n = lde.shape[0], lde.shape[1]
         parts = pieces(n, lambda a, b: lambda: dk.deep_compose_plain(
             lde[:, a:b], c_lde[a:b], w1, w2, root, incr, scalars, start=a))
-        muls, adds, subs = dk.deep_compose_ops(regs)
-        tables = 2 * (1024 + n // 1024)
+        bounds = compose_bound(regs, n)
         row = piece_row(
             "deep_compose", f"{tag} ({regs}, {n})",
             lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars), parts, last,
-            ((regs + 2) * n + 2 * regs + tables) * 16,
-            n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS), ops_rate,
-            "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724")
+            bounds["bound_bytes"], bounds["bound_ops"], ops_rate,
+            "distaff_torch/csrc/deep_compose.cu", "distaff_tpu/stark/prover.py:724",
+            tensor_ops=bounds["tensor_ops"])
         add(row, "deep_compose", "LDE", 1)
 
     # K9 on the proof's layers, the largest timed: the folded column
@@ -2183,14 +2315,21 @@ def absorb_bound(d, regs, shift, first=False, parent=False):
             d * COMPRESS_OPS * (2 if parent else 1))
 
 
+def wsum_bytes(regs, n):
+    """K15's bytes over (regs, n) coefficients: the coefficients read once,
+    the two sums written, the weights."""
+    return (regs * n + 2 * n + 2 * regs) * 16
+
+
 def wsum_bound(regs, n):
-    """K15's bound over (regs, n) coefficients: bytes (the coefficients
-    read once, the two sums written, the weights) and operations (from its
-    code, deep_kernels.coeff_wsum_ops)."""
+    """K15's bound as keywords of check_kernel: its bytes, the digit
+    reductions' 32-bit instructions and the int8 product's operations (from
+    its code, deep_kernels.coeff_wsum_ops)."""
     from distaff_torch.ops import deep_kernels as dk
 
-    muls, adds = dk.coeff_wsum_ops(regs)
-    return (regs * n + 2 * n + 2 * regs) * 16, n * (muls * MUL_OPS + adds * ADD_OPS)
+    product, reductions = dk.coeff_wsum_ops(regs)
+    return {"bound_bytes": wsum_bytes(regs, n), "bound_ops": n * reductions * REDUCE_OPS,
+            "tensor_ops": n * product}
 
 
 def plain_absorb_rows(cols, slice_out, shift):
@@ -2286,7 +2425,11 @@ def check_coeff_wsum(gen, ops_rate):
     """K15 at (20, 2^16), the streamed 2^16 proof's call, whole, and at (20,
     2^22), the 2^22 proof's, held over its last 2^LAST_PIECE coefficients:
     random coefficients and weights, a row each, keyed (coeff_wsum, rung,
-    "sums")."""
+    "sums"); then at (2, 2^16) with the weights (1, 0) and (0, 1), at (128,
+    2^14) with every value and weight M - 1 (four register groups, the
+    largest digit sums) and at (20, 2^16 - 37) (a ragged last tile)."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
     from distaff_torch.ops import deep_kernels as dk
     from distaff_torch.tools.timing import random_elements
 
@@ -2301,10 +2444,23 @@ def check_coeff_wsum(gen, ops_rate):
             "coeff_wsum", f"(20, {n}) 2^{log2_trace} proof's call, {held}",
             lambda: dk.coeff_wsum(polys, w1, w2)[:, a:],
             lambda: dk.coeff_wsum_plain(polys[:, a:], w1, w2), 20 if a == 0 else 5, 1,
-            *wsum_bound(20, n), ops_rate, K15, K15_REPLACES)
+            ops_rate=ops_rate, source=K15, replaces=K15_REPLACES, **wsum_bound(20, n))
         row["key"] = ("coeff_wsum", log2_trace, "sums")
         rows.append(row)
         del polys
+    top = hostfield.M - 1
+    unit = (ft.from_ints([1, 0], "cuda"), ft.from_ints([0, 1], "cuda"))
+    tops = ft.constant(top, "cuda").expand(128, 4).contiguous()
+    cases = (("weights (1, 0) and (0, 1)", random_rows(gen, (2,), 1 << 16), unit),
+             ("every value and weight M - 1",
+              ft.constant(top, "cuda").expand(128, 1 << 14, 4).contiguous(), (tops, tops)),
+             ("a ragged last tile", random_rows(gen, (20,), (1 << 16) - 37),
+              (random_elements(gen, (20,)), random_elements(gen, (20,)))))
+    for what, polys, (w1, w2) in cases:
+        shape = f"({polys.shape[0]}, {polys.shape[1]})"
+        check_equal("coeff_wsum", f"{shape} {what}", lambda: dk.coeff_wsum(polys, w1, w2),
+                    lambda: dk.coeff_wsum_plain(polys, w1, w2))
+        print(f"kernel coeff_wsum at {shape} with {what}: equal to plain", flush=True)
     return rows
 
 
@@ -2566,14 +2722,18 @@ def main():
                         help="only print the times of K9 and K11 at the proofs' shapes")
     parser.add_argument("--tree-times", action="store_true",
                         help="only print the times of the 2^16 proof's Merkle trees")
+    parser.add_argument("--wsum-times", action="store_true",
+                        help="only print the times of K7 and K15 at the proofs' calls")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.step_times or args.kernel_times or args.tree_times:
+    if args.step_times or args.kernel_times or args.tree_times or args.wsum_times:
         from distaff_torch.tools.timing import card_line
 
         print(card_line(), flush=True)
+        if args.wsum_times:
+            wsum_times()
         if args.tree_times:
             tree_times()
         if args.kernel_times:
@@ -2611,14 +2771,16 @@ def main():
                        ("K15", "coeff_wsum")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
-    sass = cuda_lib.sass("boundary_columns")
-    if sass is None:
-        print("K10 SASS: no cuobjdump found, IMMA not counted", flush=True)
-    else:
+    for name, stem in (("K7", "deep_compose"), ("K10", "boundary_columns"),
+                       ("K15", "coeff_wsum")):
+        sass = cuda_lib.sass(stem)
+        if sass is None:
+            print(f"{name} SASS: no cuobjdump found, IMMA not counted", flush=True)
+            continue
         imma = sum("IMMA" in line for line in sass.splitlines())
-        print(f"K10 SASS: {imma} IMMA instructions (the int8 tensor-core product)", flush=True)
+        print(f"{name} SASS: {imma} IMMA instructions (the int8 tensor-core product)", flush=True)
         if imma == 0:
-            raise AssertionError("boundary_columns: no IMMA instruction in its SASS")
+            raise AssertionError(f"{stem}: no IMMA instruction in its SASS")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 

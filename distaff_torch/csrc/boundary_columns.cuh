@@ -15,21 +15,13 @@
 // b = b_degree_adj: the combined first- and last-step boundary
 // constraints, bit for bit the JAX package's (integer field arithmetic).
 //
-// The product.  Split into bytes, w v = sum_d 2^(8d) sum_q w_(d-q) v_q, so
-// the four sums S_s = sum_r w_(s,r) v_r of a point have 31 digits each,
-// D_(s,d) = sum_r sum_q byte(w_(s,r), d - q) byte(v_r, q), and for a tile of
-// points all of them are one product D = A B:
-// - A (128 x 16R bytes) is the Toeplitz expansion of the (4, R) weights:
-//   row 32 s + d, column 16 r + q holds byte d - q of w_(s,r) (0 outside
-//   0 <= d - q < 16; row 32 s + 31 is all 0);
-// - B (16R x 64) is the tile's values, 16 bytes a register, a point's K
-//   contiguous (mma's "col" operand);
-// - each digit is a sum of at most 16 R 255^2 < 2^27 byte products (R <=
-//   128): exact in the s32 sums of mma.sync.m16n8k32.row.col.s32.u8.u8.s32,
-//   the same mma the distaff_tpu/ops/mxu_ntt.py "bigmat" asks of the TPU's
-//   matrix unit (_bigmat, _matrices, its one _reduce_digits).
-// f128::reduce_digits then takes each (point, sum) from its digits to the
-// field once, in place of 4R modular multiplies and adds on the CUDA cores.
+// The product: the four sums of a tile of 64 points as one unsigned-byte
+// matrix product on the int8 tensor cores, A (128 x 16R bytes, the
+// weights' Toeplitz byte expansion) by B (the tile's value bytes), then one
+// f128::reduce_digits a (point, sum), as wsum_product.cuh sets out (shared
+// with K7 and K15): in place of 4R modular multiplies and adds on the CUDA
+// cores; the same mma the distaff_tpu/ops/mxu_ntt.py "bigmat" asks of the
+// TPU's matrix unit (_bigmat, _matrices, its one _reduce_digits).
 //
 // Bound on this card at (20, 2^19), point stride 4: the larger of (a) the
 // slice's 16R bytes a point read once and the two 16-byte outputs
@@ -78,23 +70,24 @@
 
 #include "field128.cuh"
 #include "points.cuh"
+#include "wsum_product.cuh"
 
 namespace boundary_columns {
 
 using f128::u128;
 
-constexpr int kThreads = 256;           // eight warps: warp w computes sum w & 3 at half w >> 2
-constexpr int kSums = 4;                // w1i, w2i, w1f, w2f
-constexpr int kTile = 64;               // points a tile: a (point, sum) a thread in the epilogue
-constexpr int kRows = 128;              // A's rows: sum s, digit d at 32 s + d
-constexpr int kDigitPitch = kTile + 8;  // words a digit row in the digits' stage
-constexpr int kSumGap = 24;             // words between two sums' digits: 16 banks apart
-constexpr int kMaxGroup = 32;           // registers a group
-constexpr int kSharedBytes = 232448;    // shared memory a block can have on the H100 (227 KB)
-constexpr int kSharedPerSM = 233472;    // an SM's (228 KB)
-constexpr int kReserved = 1024;         // the runtime's share of it a block
+using Shape = wsum::Shape<4>;           // w1i, w2i, w1f, w2f
+constexpr int kThreads = wsum::kThreads;  // eight warps: warp w computes sum w & 3 at half w >> 2
+constexpr int kSums = 4;
+constexpr int kTile = Shape::kTile;     // 64 points a tile: a (point, sum) a thread in the epilogue
+constexpr int kRows = Shape::kRows;     // A's rows: sum s, digit d at 32 s + d
+constexpr int kDigitPitch = Shape::kDigitPitch;
+constexpr int kMaxGroup = wsum::kMaxGroup;
+constexpr int kSharedBytes = wsum::kSharedBytes;
+constexpr int kSharedPerSM = wsum::kSharedPerSM;
+constexpr int kReserved = wsum::kReserved;
 constexpr int kMaxStages = 8;           // B stages: the copies of up to 7 tiles in flight
-constexpr int kMaxRegisters = 128;      // config.MAX_REGISTER_COUNT
+constexpr int kMaxRegisters = wsum::kMaxRegisters;
 
 struct Args {
     const uint4* lde;        // the point k of register r at r reg_stride + k point_stride
@@ -126,13 +119,12 @@ struct Layout {
 
 F128_FN Layout layout(int regs) {
     Layout l;
-    l.groups = (regs + kMaxGroup - 1) / kMaxGroup;
-    l.group = (regs + l.groups - 1) / l.groups;
-    l.pitch = 16 * (2 * ((l.group + 1) / 2) + 1);
+    l.groups = wsum::groups_of(regs);
+    l.group = wsum::group_of(regs);
+    l.pitch = wsum::pitch_of(l.group);
     l.a_bytes = kRows * l.pitch;
     l.stage_bytes = kTile * l.pitch;
-    const int digits = kSums * (f128::kDigits * kDigitPitch + kSumGap) * 4;
-    l.slot_bytes = l.stage_bytes > digits ? l.stage_bytes : digits;
+    l.slot_bytes = l.stage_bytes > Shape::kDigitBytes ? l.stage_bytes : Shape::kDigitBytes;
     l.stages = (kSharedPerSM / 2 - kReserved - l.a_bytes) / l.slot_bytes;
     if (l.stages < 2) l.stages = (kSharedBytes - l.a_bytes) / l.slot_bytes;
     if (l.stages > kMaxStages) l.stages = kMaxStages;
@@ -160,37 +152,16 @@ F128_FN void advance(Cursor& c, const Layout& l, long long stride) {
 
 // registers in group g
 F128_FN int group_regs(const Args& a, const Layout& l, int g) {
-    const int rest = a.regs - g * l.group;
-    return rest < l.group ? rest : l.group;
+    return wsum::group_regs(a.regs, l.group, g);
 }
 
-// 32-byte k-steps of a group of `count` registers
-F128_FN int ksteps(int count) { return (count + 1) / 2; }
-
-F128_FN uint32_t byte_of(uint4 w, int e) {
-    const uint32_t limb = e < 4 ? w.x : e < 8 ? w.y : e < 12 ? w.z : w.w;
-    return (limb >> (8 * (e & 3))) & 0xFF;
-}
-
-// A for group g into a_s: row 32 s + d, column 16 r + q holds byte d - q of
-// w_(s, g group + r), 0 where there is no such byte or register; thread tid
-// writes its share of the words.
+// A for group g into a_s (wsum::build_a over the group's weights of the four
+// sums, from the kernel parameter)
 F128_FN void build_a(const Args& a, const Layout& l, int g, uint8_t* a_s, int tid) {
-    const int count = group_regs(a, l, g), words = l.pitch / 4;
-    for (int i = tid; i < kRows * words; i += kThreads) {
-        const int row = i / words, col = 4 * (i % words);
-        const int s = row >> 5, d = row & 31, r = col >> 4, q = col & 15;
-        uint32_t word = 0;
-        if (r < count) {
-            const uint4 w = a.w[s * kMaxRegisters + g * l.group + r];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                const int e = d - q - b;
-                if (e >= 0 && e < 16) word |= byte_of(w, e) << (8 * b);
-            }
-        }
-        *(uint32_t*)(a_s + row * l.pitch + col) = word;
-    }
+    const uint4* const w[kSums] = {a.w + g * l.group, a.w + kMaxRegisters + g * l.group,
+                                   a.w + 2 * kMaxRegisters + g * l.group,
+                                   a.w + 3 * kMaxRegisters + g * l.group};
+    wsum::build_a<kSums>(w, group_regs(a, l, g), l.pitch, a_s, tid);
 }
 
 // The values of group g at tile `tile`'s points into a B stage, one
@@ -209,39 +180,17 @@ F128_FN const uint4* stage_copy(const Args& a, const Layout& l, long long tile, 
     return a.lde + (long long)(g * l.group + r) * a.reg_stride + k * a.point_stride;
 }
 
-// The fragments of warp (s, h)'s product: A's rows of sum s, B's points
-// 32 h to 32 h + 31.  ldmatrix.x4: lane l gives the row address (l & 7) of
-// matrix l >> 3, and receives in register j the word at bytes 4 (l & 3) of
-// row l >> 2 of matrix j.  Offsets in bytes into A or a B stage for k-step
-// kk:
-// - A's m16 tile at rows row0: matrices (rows 0-7, bytes 0-15), (8-15,
-//   0-15), (0-7, 16-31), (8-15, 16-31), mma's a0-a3;
-// - B's two n8 tiles at points p0 and p0 + 8: matrices (p0, bytes 0-15),
-//   (p0, 16-31), (p0 + 8, 0-15), (p0 + 8, 16-31), b0 and b1 of each.
-F128_FN int a_offset(const Layout& l, int row0, int kk, int lane) {
-    const int j = lane >> 3;
-    return (row0 + (lane & 7) + 8 * (j & 1)) * l.pitch + 32 * kk + 16 * (j >> 1);
-}
-
-F128_FN int b_offset(const Layout& l, int p0, int kk, int lane) {
-    const int j = lane >> 3;
-    return (p0 + (lane & 7) + 8 * (j >> 1)) * l.pitch + 32 * kk + 16 * (j & 1);
-}
-
-// Word of sum s's digit d at point p in the digits' stage: the two sums
-// that a pair of lanes reads at one point lie 16 banks apart
-F128_FN int digit_at(int s, int d, int p) {
-    return s * (f128::kDigits * kDigitPitch + kSumGap) + d * kDigitPitch + p;
-}
-
-// Where accumulator i of lane `lane` of warp (s, h) for m16 tile mt and
-// n8 tile nt (points 32 h + 8 nt on) goes in the digits' stage (mma's c_i:
-// row (lane >> 2) + 8 (i >> 1), column 2 (lane & 3) + (i & 1)), or -1 for
-// the digit d = 31, which is 0.
-F128_FN int digit_word(int s, int h, int mt, int nt, int lane, int i) {
-    const int d = 16 * mt + (lane >> 2) + 8 * (i >> 1);
-    return d < f128::kDigits ? digit_at(s, d, 32 * h + 8 * nt + 2 * (lane & 3) + (i & 1)) : -1;
-}
+// B's two n8 tiles at points p0 and p0 + 8 of a point-major stage, k-step
+// kk: matrices (p0, bytes 0-15), (p0, 16-31), (p0 + 8, 0-15), (p0 + 8,
+// 16-31), b0 and b1 of each (ldmatrix.x4's rows as wsum::a_offset says);
+// the offset in bytes of lane `lane`'s row
+struct PointB {
+    int pitch;
+    F128_FN int operator()(int p0, int kk, int lane) const {
+        const int j = lane >> 3;
+        return (p0 + (lane & 7) + 8 * (j >> 1)) * pitch + 32 * kk + 16 * (j & 1);
+    }
+};
 
 // The epilogue: thread tid takes sum s = 2 (tid >> 7) + (tid & 1) at point
 // p = (tid >> 1) mod kTile, S_s + c_s from its digits; the pair of threads
@@ -249,7 +198,7 @@ F128_FN int digit_word(int s, int h, int mt, int nt, int lane, int i) {
 // i, 1: f), and the even one stores base + x^b adj.
 F128_FN u128 sum_value(const Args& a, const uint32_t* digits, int tid) {
     const int s = 2 * (tid >> 7) + (tid & 1), p = (tid >> 1) % kTile;
-    return f128::add(f128::reduce_digits(digits + digit_at(s, 0, p), kDigitPitch),
+    return f128::add(f128::reduce_digits(digits + Shape::digit_at(s, 0, p), kDigitPitch),
                      f128::from_limbs(a.c[s]));
 }
 

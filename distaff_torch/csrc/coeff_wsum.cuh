@@ -9,62 +9,45 @@
 // the NTTs of these two columns, and the (R, D) LDE that K7 would read is
 // never needed.
 //
-// Bound on this card: bytes and operations about alike (R = 20: 16R + 32
-// bytes and 2R multiplies a point).  The design is K7's: a thread's points
-// at tile offsets k kThreads + tid, so each register's loads are coalesced
-// and streaming; the (R, 4) weights of both sums in shared memory, read as
-// broadcasts; both sums from one read of each value (points.cuh's
-// weighted_sums).  Offsets are 64-bit.
+// Bound on this card (R = 20): bytes, 16R + 32 a coefficient (0.441 ms at
+// (20, 2^22)), over the int8 product (2 x 64 x 16R byte operations a
+// coefficient) and the two digit reductions.  On the CUDA cores its 2R
+// multiplies a coefficient bound it (1.32 ms).  The design is K7's sums
+// alone: wsum_product.cuh's ring of bulk copies, one a (register, tile)
+// run, and its byte-limb product on the int8 tensor cores; each thread
+// then reduces one (sum, coefficient) of the tile from its digits and
+// stores it, a warp's 32 consecutive coefficients of one sum.  Offsets are
+// 64-bit; coefficients at N or beyond are read by no copy and not written.
+// On the card (tools/air_probe.py k15, PERF.md) it takes 0.51-0.53 ms at
+// (20, 2^22), its copies alone 0.44 ms; cp.async copies or one block an SM
+// are slower.
 //
-// Compiles as plain C++ too: the CPU tests run `points_of` a block and a
-// thread at a time against the plain version.
+// Compiles as plain C++ too: the CPU tests run the ring and the product (an
+// emulation of ldmatrix and mma) and `store` a block and a thread at a time
+// against the plain version.
 
 #pragma once
 #include <cstdint>
 
 #include "field128.cuh"
-#include "points.cuh"
+#include "wsum_product.cuh"
 
 namespace coeff_wsum {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 2;
-constexpr int kTile = kThreads * kPerThread;
-constexpr int kMaxRegisters = 128;       // config.MAX_REGISTER_COUNT
+constexpr int kThreads = wsum::kThreads;
+constexpr int kTile = wsum::Pair::kTile;
+constexpr int kMaxRegisters = wsum::kMaxRegisters;
 
 struct Args {
-    const uint4* polys;     // register r's coefficient i at polys[r * reg_stride + i]
-    long long reg_stride;   // in 16-byte units
-    int regs;
-    long long n;            // coefficients a register
-    const uint4* w1;        // (R, 4) weights of each sum
-    const uint4* w2;
+    wsum::Source polys;     // register r's coefficient i at base[r reg_stride + i], n a register
     uint4* out;             // (2, n): the two sums
 };
 
-F128_FN long long blocks(const Args& a) { return (a.n + kTile - 1) / kTile; }
-
-// Thread `thread` of block `block`: its points' two sums, with the weights
-// read from w1s and w2s (shared memory on the card).
-F128_FN void points_of(const Args& a, long long block, int thread, const uint4* w1s,
-                       const uint4* w2s) {
-    long long at[kPerThread];
-    bool valid[kPerThread];
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-        at[k] = block * kTile + k * kThreads + thread;
-        valid[k] = at[k] < a.n;
-    }
-    const uint4* const w[2] = {w1s, w2s};
-    f128::u128 acc[2][kPerThread];
-    points::weighted_sums<2, kPerThread>(a.polys, a.reg_stride, a.regs, w, at, valid, acc);
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-        if (valid[k]) {
-            a.out[at[k]] = f128::to_limbs(acc[0][k]);
-            a.out[a.n + at[k]] = f128::to_limbs(acc[1][k]);
-        }
-    }
+// Thread tid's sum at tile t's coefficient, from the tile's digits
+F128_FN void store(const Args& a, long long t, const uint32_t* digits, int tid) {
+    const long long i = t * kTile + wsum::point_of(tid);
+    if (i < a.polys.n)
+        a.out[wsum::sum_of(tid) * a.polys.n + i] = f128::to_limbs(wsum::reduce(digits, tid));
 }
 
 }  // namespace coeff_wsum

@@ -3,10 +3,10 @@
 //
 // Replaces the JAX package's fused step-6 dispatches:
 // distaff_tpu/stark/prover.py::_compose_tiles_batched (the composition, with
-// field_jax.inv_batch_scan for its inverses on an accelerator: K6 on this
-// card until now), the x and x^incr power series it takes, and
-// distaff_tpu/ops/tiles.py::_wsum_tile (the weighted register sums A1, A2).
-// For each point i < n of the domain, x = w^i:
+// field_jax.inv_batch_scan for its inverses on an accelerator), the x and
+// x^incr power series it takes, and distaff_tpu/ops/tiles.py::_wsum_tile
+// (the weighted register sums A1, A2).  For each point i < n of the
+// domain, x = w^i:
 //
 //   A1 = sum_r cc1_r lde[r, i],  A2 = sum_r cc2_r lde[r, i]
 //   out[i] = ((A1 - s1) / (x - z) + (A2 - s2) / (x - zg)) (k1 + k2 x^incr)
@@ -19,38 +19,52 @@
 // maps 0 to 0.  The inverse is unique, so the values are the JAX
 // package's bit for bit.
 //
-// Bound on this card: bytes and operations about alike (2^21 points, 20
-// registers: 352 bytes and 53 multiplies a point).  The design:
-// - The LDE is read where it lies, (R, D) points of 16 bytes: a thread's
-//   point i of register r at r * D + i, a warp's lanes on consecutive i, so
-//   each register's load is one coalesced 512-byte row a warp; the loads
-//   are streaming (evict first), as nothing reads the LDE again here.  The
-//   (R, 4) weights sit in shared memory and are read as broadcasts.  The
-//   sums are points.cuh's weighted_sums, which K10 shares.
-// - x and x^incr come from two pairs of small power tables, c w^e =
-//   lo[e mod 1024] hi[e >> 10] (the tables K1 keeps for the NTT, tiles.
-//   _store_factors; points.cuh's table_power): one multiply a point each,
-//   no power series.
-// - The eight scalars (z, zg, s1, s2, c(z), k1, k2, kc) are kernel
-//   arguments.
-// - The inverses are Montgomery's trick within the block on values that are
-//   already in registers: a thread keeps d, N and the running product for
-//   each of its kPerThread points, the block's threads meet in
-//   inv_block.cuh's product tree, and one inversion a block runs while the
-//   SM's other blocks do their ~50 multiplies a point.
-// - A tile is kThreads x kPerThread points, a thread's point k at tile
-//   offset k kThreads + tid; points at n or beyond (a partial last tile)
-//   count as d = 0 and are not written.  Indices are 64-bit.
-// - Each multiply is one carry chain (field128.cuh), so a thread's
-//   multiplies do not overlap and the SM needs many warps: 256 threads x 2
-//   points with launch bounds for 4 blocks an SM (64 registers, no
-//   spills, 32 warps) took 1.03 ms at (20, 2^21) where 4 points at 2 blocks
-//   (124 registers, 16 warps) took 1.27 ms (tools/air_probe.py, PERF.md).
+// Bound on this card (2^21 points, 20 registers): bytes, 352 a point (the
+// LDE's 16R and c's 16 read once, out's 16 written: 0.220 ms at 3.35
+// TB/s), over the int8 product (2 x 64 x 16R byte operations a point:
+// 0.043 ms at 1,979 TOP/s) and the epilogue's 32-bit instructions (two
+// digit reductions and 15 multiplies a point: 0.08 ms at the SM issue
+// width).  On the CUDA cores the two sums alone were 2R multiplies a
+// point, 40 of 53, and bound the kernel (1.04 ms).  The design:
+// - A1 and A2 are wsum_product.cuh's byte-limb product on the int8 tensor
+//   cores: a tile of 128 points, A (64 x 16R bytes) built in shared memory
+//   from the weights (device memory, read once a block: the wrapper takes
+//   them as tensors on the card) at the block's start (above 32 registers
+//   at each group's stage), each register's run of the tile's points one
+//   bulk asynchronous copy into the ring of stages; persistent blocks over
+//   tiles block + k grid, two an SM at R = 20.  R from 1 to 128: the
+//   streamed prover's call (R = 2, weights (1, 0) and (0, 1), the NTTs of
+//   K15's sums) is one m16n8k32 k-step.
+// - The epilogue: each thread reduces one (sum, point) of the tile from its
+//   s32 digits (f128::reduce_digits) into `sums` in shared memory; then the
+//   tile's slot takes the next copies, and after every second tile each
+//   thread composes one point of the pair (x and x^incr from the two pairs
+//   of small power tables, c w^e = lo[e mod 1024] hi[e >> 10], the tables
+//   K1 keeps for the NTT; their entries and c fetched a tile ahead), d and
+//   N as above, with every slot's copies in flight.
+// - Montgomery's trick over a round of kRoundPairs pairs (points per
+//   inversion: 256 kRoundPairs): a thread keeps only its running product q
+//   of the round's nonzero d, and writes y = N q_before (q before this
+//   point's d) to out[i] as scratch (a round's y, 34 MB over the card's
+//   blocks, stay in the 50 MB L2); at the round's end the block's threads
+//   meet in inv_block.cuh's product tree, one field inversion (a dependent
+//   chain) for the block, and each thread walks back through its round:
+//   out = y / q = N / d, 1/q_before = d / q, with d recomputed from x, the
+//   next point's reads issued before this one's multiplies.
+// - What the card measured (tools/air_probe.py k7, PERF.md): 8192 points
+//   an inversion against 2048 took (20, 2^21) from 0.59 to 0.53 ms (512:
+//   0.85); bulk copies beat cp.async (0.59 ms) and two blocks an SM one
+//   (0.65 ms); the copies alone take 0.27 ms, with the product and the
+//   reductions 0.28 ms, and the composition's multiplies (latency-bound
+//   chains, 16 warps an SM) most of the rest.
+// - Points at n or beyond (a ragged last tile) are read by no copy and not
+//   written.  Indices are 64-bit.
 //
 // Phases, each a function of (block, thread), with barriers between them
-// on the card: numerators (loads, sums, d and N, the thread's running
-// products), inv_block's tree, store.  This header compiles as plain C++
-// too: the tests run the phases a block and a thread at a time against the
+// on the card (deep_compose.cu): the ring's stages (wsum::run), keep_sum
+// and fetch, forward, inv_block's tree, walk_back.  This header compiles
+// as plain C++ too: the tests run the phases a block and a thread at a
+// time, the product through an emulation of ldmatrix and mma, against the
 // plain version.
 
 #pragma once
@@ -59,36 +73,33 @@
 #include "field128.cuh"
 #include "inv_block.cuh"
 #include "points.cuh"
+#include "wsum_product.cuh"
 
-// The tile's shape; tools/air_probe.py builds other shapes to time them.
-#ifndef DEEP_THREADS
-#define DEEP_THREADS 256
-#endif
-#ifndef DEEP_PER_THREAD
-#define DEEP_PER_THREAD 2
+// Points per inversion, 256 a pair; tools/air_probe.py builds other rounds.
+#ifndef DEEP_ROUND_PAIRS
+#define DEEP_ROUND_PAIRS 32
 #endif
 
 namespace deep_compose {
 
 using f128::u128;
 
-constexpr int kThreads = DEEP_THREADS;
-constexpr int kPerThread = DEEP_PER_THREAD;
-constexpr int kTile = kThreads * kPerThread;
-constexpr int kMaxRegisters = 128;       // config.MAX_REGISTER_COUNT
+constexpr int kThreads = wsum::kThreads;
+constexpr int kTile = wsum::Pair::kTile;   // 128 points a tile
+constexpr long long kRoundPairs = DEEP_ROUND_PAIRS;
+constexpr int kMaxRegisters = wsum::kMaxRegisters;
+// shared memory of its own: two tiles' sums, (2, 2, kTile) elements; the
+// inversion's product tree (2 kThreads elements) takes the same bytes
+constexpr int kSumsBytes = 2 * 2 * kTile * 16;
+static_assert(kSumsBytes == 2 * kThreads * 16, "deep_compose: the tree is the sums' size");
 
 struct Scalars {
     uint4 z, zg, s1, s2, cz, k1, k2, kc;
 };
 
 struct Args {
-    const uint4* lde;        // (regs, lde_stride) points
-    long long lde_stride;
-    int regs;
-    long long n;             // points composed: out[0, n)
+    wsum::Source lde;        // (regs, lde.reg_stride) points, n of them composed, and w1, w2
     const uint4* c_lde;      // (n,) constraint evaluations
-    const uint4* w1;         // (regs,) weights of A1 and A2
-    const uint4* w2;
     const uint4* x_lo;       // x = x_lo[i mod 2^log_lo] * x_hi[i >> log_lo], x_lo[i] without x_hi
     const uint4* x_hi;
     const uint4* i_lo;       // x^incr likewise
@@ -98,77 +109,120 @@ struct Args {
     uint4* out;              // (n,)
 };
 
-// A thread's points between the phases: d, N and the running product of
-// the d that are not zero, up to and with point k.
-struct Lane {
-    u128 d[kPerThread], num[kPerThread], prefix[kPerThread];
+// Tile k of the block: its sum s = sum_of(tid), point point_of(tid) into
+// sums[((k & 1) 2 + s) kTile + p]
+F128_FN void keep_sum(u128* sums, long long k, const uint32_t* digits, int tid) {
+    sums[((k & 1) * 2 + wsum::sum_of(tid)) * kTile + wsum::point_of(tid)] =
+        wsum::reduce(digits, tid);
+}
+
+// After tile k of the block's mine: whether a pair of tiles is complete
+// (its second tile, or the block's last), and whether a round is
+F128_FN bool pair_done(long long k, long long mine) { return (k & 1) || k == mine - 1; }
+F128_FN bool round_done(long long k, long long mine) {
+    return ((k >> 1) + 1) % kRoundPairs == 0 || k == mine - 1;
+}
+
+F128_FN long long round_start(long long pair) { return pair - pair % kRoundPairs; }
+
+// Thread tid's point of the block's pair j: point p = tid mod kTile of its
+// tile 2 j + tid / kTile; -1 where that tile or point is past the end
+F128_FN long long pair_point(const Args& a, long long block, long long grid, long long mine,
+                             long long j, int tid) {
+    const long long k = 2 * j + tid / kTile;
+    if (k >= mine) return -1;
+    const long long i = (block + k * grid) * kTile + tid % kTile;
+    return i < a.lde.n ? i : -1;
+}
+
+// What point i's forward reads from device memory (x's and x^incr's table
+// entries, c), fetched a tile ahead of it
+struct Inputs {
+    points::Entries x, xi;
+    uint4 c;
 };
 
-F128_FN long long point(long long block, int tid, int k) {
-    return block * kTile + (long long)k * kThreads + tid;
+F128_FN Inputs fetch(const Args& a, long long i) {
+    Inputs in;
+    in.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, i);
+    in.xi = points::table_entries(a.i_lo, a.i_hi, a.log_lo, i);
+    in.c = points::load_stream(a.c_lde + i);
+    return in;
 }
 
-// Phase 1: the thread's points' d and N, and the product of its d that are
-// not zero (returned).  w1, w2: the weights (shared memory on the card).
-F128_FN u128 numerators(const Args& a, const uint4* w1, const uint4* w2, long long block,
-                        int tid, Lane& lane) {
-    long long at[kPerThread];
-    bool valid[kPerThread];
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-        at[k] = point(block, tid, k);
-        valid[k] = at[k] < a.n;
-    }
-    const uint4* const w[2] = {w1, w2};
-    u128 acc[2][kPerThread];
-    points::weighted_sums<2, kPerThread>(a.lde, a.lde_stride, a.regs, w, at, valid, acc);
-    const u128 z = f128::from_limbs(a.s.z), zg = f128::from_limbs(a.s.zg);
-    const u128 s1 = f128::from_limbs(a.s.s1), s2 = f128::from_limbs(a.s.s2);
-    const u128 cz = f128::from_limbs(a.s.cz), k1 = f128::from_limbs(a.s.k1);
-    const u128 k2 = f128::from_limbs(a.s.k2), kc = f128::from_limbs(a.s.kc);
-    u128 run = 1;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-        const long long i = at[k];
-        u128 d = 0, num = 0;
-        if (valid[k]) {
-            const u128 x = points::table_power(a.x_lo, a.x_hi, a.log_lo, i);
-            const u128 xi = points::table_power(a.i_lo, a.i_hi, a.log_lo, i);
-            const u128 xz = f128::sub(x, z), xzg = f128::sub(x, zg);
-            d = f128::mul(xz, xzg);
-            const u128 t = f128::add(f128::mul(f128::sub(acc[0][k], s1), xzg),
-                                     f128::mul(f128::sub(acc[1][k], s2), xz));
-            const u128 f = f128::add(k1, f128::mul(k2, xi));
-            const u128 c = f128::from_limbs(points::load_stream(a.c_lde + i));
-            num = f128::add(f128::mul(f, t),
-                            f128::mul(f128::mul(f128::sub(c, cz), kc), xzg));
-        }
-        if (d != 0) run = f128::mul(run, d);
-        lane.d[k] = d;
-        lane.num[k] = num;
-        lane.prefix[k] = run;
-    }
-    return run;
+// d = (x - z)(x - zg), with x - z and x - zg
+F128_FN u128 denominator(const Args& a, const points::Entries& x_at, u128& xz, u128& xzg) {
+    const u128 x = points::entries_power(x_at, a.x_hi);
+    xz = f128::sub(x, f128::from_limbs(a.s.z));
+    xzg = f128::sub(x, f128::from_limbs(a.s.zg));
+    return f128::mul(xz, xzg);
 }
 
-// Phase 3: with inv_run the inverse of the thread's product, each point's
-// 1/d by Montgomery's walk back (1/d_k = 1/q_k q_(k-1), 1/q_(k-1) = 1/q_k
-// d_k, q the running products), and out = N / d, 0 where d = 0.
-F128_FN void store(const Args& a, long long block, int tid, const Lane& lane, u128 inv_run) {
-#pragma unroll
-    for (int k = kPerThread - 1; k >= 0; --k) {
-        const long long i = point(block, tid, k);
-        const u128 d = lane.d[k];
-        u128 value = 0;
-        if (d != 0) {
-            const u128 inv_d = k ? f128::mul(inv_run, lane.prefix[k - 1]) : inv_run;
-            if (k) inv_run = f128::mul(inv_run, d);
-            value = f128::mul(inv_d, lane.num[k]);
-        }
-        if (i < a.n) a.out[i] = f128::to_limbs(value);
+// Point i of the thread (the pair's tile tid / kTile, its sums in `sums`,
+// its inputs fetched): d and N; out[i] = N q (0 where d = 0) and q *= d.
+F128_FN void forward(const Args& a, const u128* sums, long long i, int tid, const Inputs& in,
+                     u128& q) {
+    u128 xz, xzg;
+    const u128 d = denominator(a, in.x, xz, xzg);
+    if (d == 0) {
+        a.out[i] = f128::to_limbs(0);
+        return;
     }
+    const int at = (tid / kTile) * 2 * kTile + tid % kTile;
+    const u128 a1 = sums[at], a2 = sums[at + kTile];
+    const u128 xi = points::entries_power(in.xi, a.i_hi);
+    const u128 t = f128::add(f128::mul(f128::sub(a1, f128::from_limbs(a.s.s1)), xzg),
+                             f128::mul(f128::sub(a2, f128::from_limbs(a.s.s2)), xz));
+    const u128 f = f128::add(f128::from_limbs(a.s.k1), f128::mul(f128::from_limbs(a.s.k2), xi));
+    const u128 c = f128::from_limbs(in.c);
+    const u128 num = f128::add(
+        f128::mul(f, t),
+        f128::mul(f128::mul(f128::sub(c, f128::from_limbs(a.s.cz)), f128::from_limbs(a.s.kc)),
+                  xzg));
+    a.out[i] = f128::to_limbs(f128::mul(num, q));
+    q = f128::mul(q, d);
 }
 
-F128_FN long long blocks(const Args& a) { return (a.n + kTile - 1) / kTile; }
+// What point i's backward reads: x's table entries and y = out[i]
+struct Back {
+    points::Entries x;
+    uint4 y;
+};
+
+F128_FN Back fetch_back(const Args& a, long long i) {
+    Back b;
+    b.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, i);
+    b.y = a.out[i];
+    return b;
+}
+
+// Back through point i with inv = 1/q up to and with it: out[i] = y inv =
+// N / d, and inv becomes 1/q before it (nothing where d = 0).
+F128_FN void backward(const Args& a, long long i, const Back& b, u128& inv) {
+    u128 xz, xzg;
+    const u128 d = denominator(a, b.x, xz, xzg);
+    if (d == 0) return;
+    a.out[i] = f128::to_limbs(f128::mul(f128::from_limbs(b.y), inv));
+    inv = f128::mul(inv, d);
+}
+
+// The thread's walk back through the round that ends at the block's pair
+// j, from inv = 1/q of the round: each point's reads issued one point
+// ahead of its multiplies (a point's y is not the next one's)
+F128_FN void walk_back(const Args& a, long long block, long long grid, long long mine,
+                       long long j, int tid, u128 inv) {
+    long long at = pair_point(a, block, grid, mine, j, tid);
+    Back cur;
+    if (at >= 0) cur = fetch_back(a, at);
+    for (long long p = j; p >= round_start(j); --p) {
+        const long long next = p > round_start(j) ? pair_point(a, block, grid, mine, p - 1, tid)
+                                                  : -1;
+        Back ahead;
+        if (next >= 0) ahead = fetch_back(a, next);
+        if (at >= 0) backward(a, at, cur, inv);
+        at = next;
+        cur = ahead;
+    }
+}
 
 }  // namespace deep_compose

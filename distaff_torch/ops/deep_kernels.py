@@ -5,9 +5,12 @@ K7 `deep_compose` (csrc/deep_compose.cu, deep_compose.cuh) replaces the
 JAX package's distaff_tpu/stark/prover.py::_compose_tiles_batched with the
 power series and weighted register sums (distaff_tpu/ops/tiles.py::
 _wsum_tile) that feed it: the DEEP composition over the LDE domain in one
-launch, reading the LDE in place, x and x^incr from K1's cached power
-tables, and the inverses of (x - z)(x - zg) by Montgomery's trick inside
-each block.  Bound by bytes and operations about alike.
+launch, reading the LDE in place by bulk asynchronous copies, its two
+weighted register sums as one byte-limb product on the int8 tensor cores
+(csrc/wsum_product.cuh, shared with K10 and K15), x and x^incr from K1's
+cached power tables, and the inverses of (x - z)(x - zg) by Montgomery's
+trick over rounds of 8192 points a block.  Bound by bytes; the
+composition's 15 multiplies a point set its time.
 
 K8 `poly_eval` (csrc/poly_eval.cu, poly_eval.cuh) replaces
 distaff_tpu/stark/prover.py::_ps_points and _poly_eval_tile_multi (driven
@@ -22,7 +25,8 @@ distaff_tpu/ops/tiles.py::weighted_register_sum (_wsum_tile) on the trace's
 polynomials, as the streaming prover calls it: both of step 6's weighted
 register sums over the (R, N) coefficients in one launch, a (2, N) result
 that K1 extends to the LDE domain and K7 composes (a weighted sum commutes
-with the NTT).  Bound by bytes and operations about alike.
+with the NTT): K7's ring and tensor-core product with no further
+epilogue.  Bound by bytes.
 
 Each wrapper takes its plain version for tensors on the CPU, and launches
 the kernel for tensors on the card, or raises.  The plain versions are the
@@ -46,7 +50,8 @@ M = hostfield.M
 POLY_EVAL_LOG_SPAN = 11        # poly_eval.cuh: a block's shortest span of a row, 2^(8 + 3)
 POLY_EVAL_MAX_POINTS = 4       # poly_eval.cuh kMaxPoints
 POLY_EVAL_SQUARINGS = 32       # poly_eval.cuh kSquarings: x^(2^k) for k < 32
-COEFF_WSUM_MAX_REGISTERS = 128  # coeff_wsum.cuh kMaxRegisters
+COEFF_WSUM_MAX_REGISTERS = 128  # wsum_product.cuh kMaxRegisters
+WSUM_PRODUCT_ROWS = 64          # wsum_product.cuh: A's rows for two sums, 31 digits and a 0 row each
 LOG_LO = tiles._LOG_LO         # K1's power tables (tiles._store_factors): lo holds 2^LOG_LO
 
 
@@ -151,11 +156,16 @@ def poly_eval(polys, points):
 # ------------------------------------------------------------------------------------------------
 
 def deep_compose_ops(regs):
-    """(multiplies, adds, subtractions) a point of K7 at its leanest, from
-    its code: the two weighted sums (2R multiplies, 2(R - 1) adds), x and
-    x^incr (2), d = (x - z)(x - zg) (1 and 2 subtractions), the numerator
-    (6 multiplies, 3 adds, 3 subtractions), Montgomery's 3 and N / d (1)."""
-    return 2 * regs + 13, 2 * (regs - 1) + 3, 5
+    """K7's work a point at its leanest, from its code: (byte operations of
+    the int8 product, digit reductions, multiplies, adds, subtractions).
+    The product is A's 64 rows (two sums of 31 digits and a 0 row each) by
+    the point's 16R value bytes, 2 operations a byte product; each sum is
+    one f128::reduce_digits; forward: x and x^incr from their tables (2
+    multiplies), d = (x - z)(x - zg) (1, 2 subtractions), the numerator (6
+    multiplies, 3 adds, 3 subtractions), y = N q and q d (2); backward: x
+    and d again (2, 2 subtractions), N / d = y / q and 1/q d (2).  The
+    block's inversion a round of 8192 points is left out."""
+    return 2 * WSUM_PRODUCT_ROWS * 16 * regs, 2, 15, 3, 7
 
 
 def weighted_sum_plain(lde, weights):
@@ -197,8 +207,9 @@ def coeff_wsum(polys, w1, w2):
 
 
 def coeff_wsum_ops(regs):
-    """(multiplies, adds) a coefficient of K15: 2R and 2(R - 1)."""
-    return 2 * regs, 2 * (regs - 1)
+    """K15's work a coefficient: (byte operations of the int8 product,
+    digit reductions), K7's sums alone."""
+    return 2 * WSUM_PRODUCT_ROWS * 16 * regs, 2
 
 
 def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):

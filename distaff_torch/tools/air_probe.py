@@ -1,11 +1,11 @@
-"""K4's, K6's-K11's and K13's design choices measured on the card, each
-against the kernel with that one choice undone.
+"""K4's, K6's-K11's, K13's and K15's design choices measured on the card,
+each against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13] [k15]
 
-(all eight by default).
+(all nine by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -21,10 +21,12 @@ of distaff_torch/csrc and held equal to the production build:
 
 and K6 at 2^14, 2^20 and 2^21 with the block total inverted by the binary
 extended Euclid (production) and by square-and-multiply (f128::pow, 250
-dependent multiplies); and K7 over the 2^16 proof's LDE domain ((20, 2^21)
-random registers) with other tiles and occupancies (DEEP_THREADS threads a
-block, DEEP_PER_THREAD points a thread, __launch_bounds__ for
-DEEP_MIN_BLOCKS blocks an SM; production 256, 2 and 4); K8 at the 2^16
+dependent multiplies); and K7 at the 2^16 and 2^18 proofs' calls and the
+streamed 2^16 proof's with other points an inversion (DEEP_ROUND_PAIRS),
+one block an SM, cp.async copies in place of the bulk copies
+(WSUM_CP_ASYNC) and other ring depths (WSUM_MAX_STAGES), and built
+without its phases (K7_DROPS), and K15 at the streamed 2^16 and 2^22
+proofs' calls likewise (probe_k7, probe_k15); K8 at the 2^16
 and 2^20 proofs' calls with 8 or 64 coefficients a thread at every size
 and without its ticket (probe_k8); and K10 at (20,
 2^19) at point strides 1-8 beside PyTorch's copy of each strided slice,
@@ -41,8 +43,8 @@ the top levels in a launch of their own) and built with 128, 512 or 1024
 threads a block (probe_k13).  Times
 come from CUDA events around calls queued behind a spin kernel
 (tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
-difference from the production build raises (but K10's and K11's
-variants, which drop work by design).
+difference from the production build raises (but K10's, K11's and the
+K7_DROPS and K15_DROPS builds, which drop work by design).
 """
 
 import ctypes
@@ -68,21 +70,57 @@ K4_VARIANTS = {
     "u128-multiply": ("field128.cuh", MUL_DEVICE, "#if 0\n#else"),
     "128-registers": ("air_transition.cu", BOUNDS, "__launch_bounds__(kThreads, 4)"),
 }
+# K7's and K15's variants: (patches, -D definitions); ONE_BLOCK gives a
+# block the whole SM's shared memory (the ring's two-block layout refused)
+ONE_BLOCK = ("wsum_product.cuh",
+             "l.stages = (kSharedPerSM / 2 - kReserved - fixed) / l.slot_bytes;", "l.stages = 0;")
+WSUM_VARIANTS = {
+    "cp.async copies in place of the bulk copies": ((), ("WSUM_CP_ASYNC",)),
+    "one block an SM": ((ONE_BLOCK,), ()),
+    "one block an SM, cp.async copies": ((ONE_BLOCK,), ("WSUM_CP_ASYNC",)),
+    "one block an SM, at most 2 stages": ((ONE_BLOCK,), ("WSUM_MAX_STAGES=2",)),
+    "at most 4 stages": ((), ("WSUM_MAX_STAGES=4",)),
+}
 K7_VARIANTS = {
-    "256 threads x 2 points, 3 blocks an SM": ("DEEP_MIN_BLOCKS=3",),
-    "256 threads x 1 point, 4 blocks an SM": ("DEEP_PER_THREAD=1",),
-    "256 threads x 4 points, 2 blocks an SM": ("DEEP_PER_THREAD=4", "DEEP_MIN_BLOCKS=2"),
-    "256 threads x 4 points, 3 blocks an SM": ("DEEP_PER_THREAD=4", "DEEP_MIN_BLOCKS=3"),
-    "256 threads x 8 points, 1 block an SM": ("DEEP_PER_THREAD=8", "DEEP_MIN_BLOCKS=1"),
-    "128 threads x 4 points, 4 blocks an SM": ("DEEP_THREADS=128", "DEEP_PER_THREAD=4"),
-    "128 threads x 2 points, 6 blocks an SM": ("DEEP_THREADS=128", "DEEP_MIN_BLOCKS=6"),
+    "512 points an inversion": ((), ("DEEP_ROUND_PAIRS=2",)),
+    "2048 points an inversion": ((), ("DEEP_ROUND_PAIRS=8",)),
+    "one inversion a block": ((), ("DEEP_ROUND_PAIRS=1073741824",)),
+    **WSUM_VARIANTS,
+}
+# builds that drop phases of K7 or K15 (their outputs are wrong by design
+# and are not held), so that the time splits into the phases
+NO_PRODUCT = ("wsum_product.cuh",
+              "        product(l.pitch, group_regs(s.regs, l.group, at.g), shared_address(a_s),\n"
+              "                shared_address(b_s + at.slot * l.slot_bytes), warp & 1, warp >> 1, "
+              "lane, acc,\n                RunB());", "")
+NO_WALK = ("deep_compose.cu", "walk_back(a, blockIdx.x, gridDim.x, mine, k >> 1, tid,\n"
+           "                      inv_block::inverse_of_total<kThreads>(sums, q));",
+           "inv_block::inverse_of_total<kThreads>(sums, q);")
+NO_INVERSION = ("deep_compose.cu", "inv_block::inverse_of_total<kThreads>(sums, q));", "q);")
+NO_FORWARD = ("deep_compose.cu", "if (i >= 0) forward(a, sums, i, tid, in, q);",
+              "if (i >= 0) a.out[i] = in.c;")
+NO_REDUCE = ("deep_compose.cu", "keep_sum(sums, k, digits, tid);", "(void)digits;")
+NO_TREE = ("deep_compose.cu", "inv_block::inverse_of_total<kThreads>(sums, q);", "")
+K7_DROPS = {
+    "without the inversion": (NO_INVERSION,),
+    "without the walk back": (NO_WALK,),
+    "without the forward": (NO_FORWARD,),
+    "copies, product and reductions only": (NO_FORWARD, NO_WALK, NO_TREE),
+    "copies and reductions only": (NO_FORWARD, NO_WALK, NO_TREE, NO_PRODUCT),
+    "copies only": (NO_FORWARD, NO_WALK, NO_TREE, NO_PRODUCT, NO_REDUCE),
+}
+K15_DROPS = {
+    "copies and product only": (("coeff_wsum.cu", "store(a, blockIdx.x + k * gridDim.x, digits, "
+                                 "threadIdx.x);", "(void)k; (void)digits;"),),
+    "copies only": (("coeff_wsum.cu", "store(a, blockIdx.x + k * gridDim.x, digits, "
+                     "threadIdx.x);", "(void)k; (void)digits;"), NO_PRODUCT),
 }
 K6_VARIANT = ("inv_block.cuh", "tree[1] = f128::inv(tree[1]);",
               "tree[1] = f128::pow(tree[1], f128::modulus() - 2);")
 K10_PRODUCT = ("boundary_columns.cu",
-               "product(l, group_regs(a, l, at.g), shared_address(a_s),\n                "
-               "shared_address(b_s + at.slot * l.slot_bytes), warp & 3, warp >> 2, lane, acc);",
-               "")
+               "wsum::product(l.pitch, group_regs(a, l, at.g), shared_address(a_s),\n"
+               "                      shared_address(b_s + at.slot * l.slot_bytes), warp & 3, "
+               "warp >> 2, lane,\n                      acc, PointB{l.pitch});", "")
 K10_EPILOGUE = ("boundary_columns.cu",
                 "if ((tid & 1) == 0) finish(a, at.tile, tid, value, f128::from_limbs(v));", "")
 K8_CHOICE = "const int log = log_per_thread(rows, len);"
@@ -279,48 +317,109 @@ def probe_k6():
               flush=True)
 
 
-def probe_k7():
+def _k7_case(regs, n, seed):
     from ..math import field as hostfield
-    from ..ops import deep_kernels as dk
+    from ..math import field_torch as ft
     from ..stark import utils
 
-    regs, trace_length = 20, 1 << 16
-    n = 32 * trace_length
-    root, incr = hostfield.get_root_of_unity(n), utils.get_incremental_trace_degree(trace_length)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
-    lde, w1, w2 = (random_elements(gen, shape) for shape in ((regs, n), (regs,), (regs,)))
-    c_lde = random_elements(gen, (n,))
+    gen.manual_seed(seed)
+    lde, c_lde = random_elements(gen, (regs, n)), random_elements(gen, (n,))
+    w1, w2 = (random_elements(gen, (regs,)) for _ in range(2)) if regs > 2 else (
+        ft.from_ints([1, 0], "cuda"), ft.from_ints([0, 1], "cuda"))
     scalars = [int.from_bytes(bytes([k + 1] * 16), "little") % hostfield.M for k in range(8)]
-    want = dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars)
-    ms = time_ms(lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars), 20, 7,
-                 queued=True)
+    return (lde, c_lde, w1, w2, hostfield.get_root_of_unity(n),
+            utils.get_incremental_trace_degree(n // 32), scalars)
+
+
+def probe_k7():
+    """K7 at the 2^16 and 2^18 proofs' calls ((20, 2^21), (20, 2^23)) and the
+    streamed 2^16 proof's ((2, 2^21), weights (1, 0) and (0, 1)) on random
+    values: the production build (bulk copies, 2048 points an inversion,
+    two blocks an SM at R = 20), then each build of K7_VARIANTS (points an
+    inversion, one block an SM, cp.async copies, ring depth), held equal
+    and timed."""
+    from ..ops import deep_kernels as dk
+
+    cases = [_k7_case(regs, n, 7 + regs) for regs, n in ((20, 1 << 21), (20, 1 << 23),
+                                                           (2, 1 << 21))]
+    wants = [dk.deep_compose(*case) for case in cases]
     spills = [line.strip() for line in cuda_lib.ptxas_report("deep_compose")
               if "spill" in line or "registers" in line]
-    print(f"K7 production (256 threads x 2 points, 4 blocks an SM): {'; '.join(spills)}; "
-          f"{ms:.4f} ms", flush=True)
-    with ThreadPoolExecutor(len(K7_VARIANTS)) as pool:
-        built = dict(zip(K7_VARIANTS, pool.map(
-            lambda kv: _build(kv[0].replace(" ", "-"), "deep_compose.cu", (), kv[1]),
-            K7_VARIANTS.items())))
-    stride, _, _, tables, words = dk.compose_args(lde, root, incr, scalars)
+    times = [time_ms(lambda: dk.deep_compose(*case), 20, 7, queued=True) for case in cases]
+    print(f"K7 production: {'; '.join(spills)}; " + ", ".join(
+        f"({c[0].shape[0]}, {c[0].shape[1]}) {ms:.4f} ms" for c, ms in zip(cases, times)),
+        flush=True)
+    builds = {**K7_VARIANTS, **{name: (patches, ()) for name, patches in K7_DROPS.items()}}
+    with ThreadPoolExecutor(8) as pool:
+        built = dict(zip(builds, pool.map(
+            lambda kv: _build(kv[0].replace(" ", "-").replace(",", ""), "deep_compose.cu",
+                              *kv[1]), builds.items())))
     p, nul = cuda_lib.ptr, ctypes.c_void_p(None)
     for name, (handle, spills) in built.items():
         fn = handle.distaff_deep_compose
         fn.argtypes = cuda_lib.lib().distaff_deep_compose.argtypes
         fn.restype = ctypes.c_int
+        line = []
+        for case, want in zip(cases, wants):
+            lde, c_lde, w1, w2, root, incr, scalars = case
+            stride, regs, n, tables, words = dk.compose_args(lde, root, incr, scalars)
 
-        def run():
-            out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
-            cuda_lib.check(fn(p(lde), stride, regs, n, p(c_lde), p(w1), p(w2),
-                              *[nul if t is None else p(t) for t in tables], dk.LOG_LO,
-                              (ctypes.c_uint32 * 32)(*words), p(out), cuda_lib.stream(out)), name)
-            return out
+            def run():
+                out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
+                cuda_lib.check(fn(p(lde), stride, regs, n, p(c_lde), p(w1), p(w2),
+                                  *[nul if t is None else p(t) for t in tables], dk.LOG_LO,
+                                  (ctypes.c_uint32 * 32)(*words), p(out),
+                                  cuda_lib.stream(out)), name)
+                return out
 
-        if not torch.equal(run(), want):
-            raise AssertionError(f"air_probe: K7 {name} differs from the production build")
-        ms = time_ms(run, 20, 7, queued=True)
-        print(f"K7 {name}: {'; '.join(spills)}; {ms:.4f} ms", flush=True)
+            if name in K7_VARIANTS and not torch.equal(run(), want):
+                raise AssertionError(f"air_probe: K7 {name} differs from the production build")
+            line.append(f"({regs}, {n}) {time_ms(run, 20, 7, queued=True):.4f} ms")
+        print(f"K7 {name}: {'; '.join(spills)}; {', '.join(line)}", flush=True)
+
+
+def probe_k15():
+    """K15 at the streamed 2^16 and 2^22 proofs' calls ((20, 2^16), (20,
+    2^22)) on random values: the production build, then each build of
+    WSUM_VARIANTS (one block an SM, cp.async copies, ring depth), held
+    equal and timed."""
+    from ..ops import deep_kernels as dk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    cases = [(random_elements(gen, (20, n)), random_elements(gen, (20,)),
+              random_elements(gen, (20,))) for n in (1 << 16, 1 << 22)]
+    wants = [dk.coeff_wsum(*case) for case in cases]
+    spills = [line.strip() for line in cuda_lib.ptxas_report("coeff_wsum")
+              if "spill" in line or "registers" in line]
+    times = [time_ms(lambda: dk.coeff_wsum(*case), 20, 7, queued=True) for case in cases]
+    print(f"K15 production: {'; '.join(spills)}; " + ", ".join(
+        f"(20, {c[0].shape[1]}) {ms:.4f} ms" for c, ms in zip(cases, times)), flush=True)
+    builds = {**WSUM_VARIANTS, **{name: (patches, ()) for name, patches in K15_DROPS.items()}}
+    with ThreadPoolExecutor(8) as pool:
+        built = dict(zip(builds, pool.map(
+            lambda kv: _build("k15-" + kv[0].replace(" ", "-").replace(",", ""),
+                              "coeff_wsum.cu", *kv[1]), builds.items())))
+    p = cuda_lib.ptr
+    for name, (handle, spills) in built.items():
+        fn = handle.distaff_coeff_wsum
+        fn.argtypes = cuda_lib.lib().distaff_coeff_wsum.argtypes
+        fn.restype = ctypes.c_int
+        line = []
+        for (polys, w1, w2), want in zip(cases, wants):
+            n = polys.shape[1]
+
+            def run():
+                out = torch.empty((2, n, 4), dtype=torch.uint32, device="cuda")
+                cuda_lib.check(fn(p(polys), polys.stride(0) // 4, 20, n, p(w1), p(w2), p(out),
+                                  cuda_lib.stream(out)), name)
+                return out
+
+            if name in WSUM_VARIANTS and not torch.equal(run(), want):
+                raise AssertionError(f"air_probe: K15 {name} differs from the production build")
+            line.append(f"(20, {n}) {time_ms(run, 20, 7, queued=True):.4f} ms")
+        print(f"K15 {name}: {'; '.join(spills)}; {', '.join(line)}", flush=True)
 
 
 def probe_k10():
@@ -627,7 +726,8 @@ def main(argv=None):
     import sys
 
     probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
-              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11, "k13": probe_k13}
+              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11, "k13": probe_k13,
+              "k15": probe_k15}
     names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")

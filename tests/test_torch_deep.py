@@ -26,6 +26,7 @@ from distaff_torch.stark.trace_table import TraceTable
 
 M = jax_host_field.M
 CSRC = Path(fk.__file__).resolve().parent.parent / "csrc"
+TESTS = Path(__file__).resolve().parent          # torch_mma_host.h: the tensor-core emulation
 
 
 def _ints(count, rng):
@@ -111,35 +112,59 @@ _HARNESS = r"""
 #include <vector>
 #include "deep_compose.cuh"
 #include "poly_eval.cuh"
+#include "torch_mma_host.h"
 
-// K7's and K8's kernel bodies on the CPU: each block's threads run one
-// after another between the kernel's barriers (the phases and tree levels
-// of the headers, in the kernels' order)
+// K7's launch on the CPU over a grid of `grid` blocks: the ring, product
+// and digits of tests/torch_mma_host.h, then deep_compose.cu's epilogue,
+// each phase (keep_sum, forward, the tree's levels, backward) for every
+// thread of the block before the next
 extern "C" void deep_compose_host(const void* lde, long long lde_stride, int regs, long long n,
                                   const void* c_lde, const void* w1, const void* w2,
                                   const void* x_lo, const void* x_hi, const void* i_lo,
                                   const void* i_hi, int log_lo, const uint32_t* scalars,
-                                  void* out) {
+                                  void* out, long long grid) {
     using namespace deep_compose;
-    Args a{(const uint4*)lde, lde_stride, regs, n, (const uint4*)c_lde, (const uint4*)w1,
-           (const uint4*)w2, (const uint4*)x_lo, (const uint4*)x_hi, (const uint4*)i_lo,
+    Args a{{(const uint4*)lde, lde_stride, regs, n, (const uint4*)w1, (const uint4*)w2},
+           (const uint4*)c_lde, (const uint4*)x_lo, (const uint4*)x_hi, (const uint4*)i_lo,
            (const uint4*)i_hi, log_lo, {}, (uint4*)out};
     std::memcpy(&a.s, scalars, sizeof(a.s));
-    std::vector<f128::u128> tree(2 * kThreads);
-    std::vector<Lane> lanes(kThreads);
-    for (long long block = 0; block < blocks(a); ++block) {
+    const wsum::Ring l = wsum::ring(regs, kSumsBytes);
+    std::vector<u128> q(kThreads, 1);
+    std::vector<long long> at(kThreads, -1);
+    std::vector<Inputs> in(kThreads);
+    auto reduce = [&](long long block, long long k, long long mine, const uint32_t* digits,
+                      uint8_t* shared) {
+        u128* const sums = (u128*)(shared + wsum::extra_at(l));
+        for (int tid = 0; tid < kThreads; ++tid) {
+            keep_sum(sums, k, digits, tid);
+            if ((k & 1) == 0) {
+                at[tid] = pair_point(a, block, grid, mine, k >> 1, tid);
+                if (at[tid] >= 0) in[tid] = fetch(a, at[tid]);
+            }
+        }
+    };
+    auto then = [&](long long block, long long k, long long mine, uint8_t* shared) {
+        u128* const sums = (u128*)(shared + wsum::extra_at(l));
+        if (!pair_done(k, mine)) return;
         for (int tid = 0; tid < kThreads; ++tid)
-            tree[kThreads + tid] = numerators(a, a.w1, a.w2, block, tid, lanes[tid]);
+            if (at[tid] >= 0) forward(a, sums, at[tid], tid, in[tid], q[tid]);
+        if (!round_done(k, mine)) return;
+        u128* const tree = sums;
+        for (int tid = 0; tid < kThreads; ++tid) tree[kThreads + tid] = q[tid];
         for (int level = 0; (kThreads >> level) > 1; ++level)
-            for (int tid = 0; tid < kThreads; ++tid) inv_block::up(tree.data(), kThreads, tid, level);
-        inv_block::invert_root(tree.data());
+            for (int tid = 0; tid < kThreads; ++tid) inv_block::up(tree, kThreads, tid, level);
+        inv_block::invert_root(tree);
         for (int level = inv_block::Log2<kThreads>::value - 1; level >= 0; --level)
-            for (int tid = 0; tid < kThreads; ++tid)
-                inv_block::down(tree.data(), kThreads, tid, level);
-        for (int tid = 0; tid < kThreads; ++tid)
-            store(a, block, tid, lanes[tid], tree[kThreads + tid]);
-    }
+            for (int tid = 0; tid < kThreads; ++tid) inv_block::down(tree, kThreads, tid, level);
+        for (int tid = 0; tid < kThreads; ++tid) {
+            walk_back(a, block, grid, mine, k >> 1, tid, tree[kThreads + tid]);
+            q[tid] = 1;
+        }
+    };
+    mma_host::run(a.lde, kSumsBytes, grid, reduce, then);
 }
+
+extern "C" long long deep_compose_round_points() { return 2 * deep_compose::kTile * deep_compose::kRoundPairs; }
 
 // K8's launch on the CPU at 2^log coefficients a thread: each row's blocks
 // in order (so that the last block to take its ticket is the last index),
@@ -200,12 +225,14 @@ def kernel_bodies(tmp_path_factory):
     as host functions with the kernels' arguments."""
     tmp = tmp_path_factory.mktemp("deep")
     (tmp / "harness.cpp").write_text(_HARNESS)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC),
-                    str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")], check=True)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC), "-I",
+                    str(TESTS), str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")],
+                   check=True)
     lib = ctypes.CDLL(str(tmp / "libharness.so"))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.deep_compose_host.argtypes = [vp, ll, i32, ll] + [vp] * 7 + [
-        i32, ctypes.POINTER(ctypes.c_uint32), vp]
+        i32, ctypes.POINTER(ctypes.c_uint32), vp, ll]
+    lib.deep_compose_round_points.restype = ll
     lib.poly_eval_host.argtypes = [vp, vp, vp, vp, ll, ll, i32, ctypes.POINTER(ctypes.c_uint32),
                                    i32]
     lib.poly_eval_log_per_thread.argtypes = [ll, ll]
@@ -216,23 +243,69 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _compose_body(lib, case, n, incr, grid):
+    """K7's launch on the CPU over the first n points of `case`'s domain
+    (the port's tensors) in a grid of `grid` blocks: (n, 4) limbs."""
+    lde, c_lde, w1, w2, root, scalars = case
+    stride, regs, _, tables, words = dk.compose_args(lde, root, incr, scalars)
+    out = torch.full((n, 4), 0xDEADBEEF, dtype=torch.uint32)
+    lib.deep_compose_host(
+        _ptr(lde), stride, regs, n, _ptr(c_lde), _ptr(w1), _ptr(w2), *map(_ptr, tables),
+        dk.LOG_LO, (ctypes.c_uint32 * 32)(*words), _ptr(out), grid)
+    return out
+
+
 @pytest.mark.parametrize("domain,n,zero", [
-    (4096, 4096, None),           # four whole tiles, x from the lo and hi tables
-    (4096, 3000, (7, 2999)),      # a partial last tile, zero factors in the first and last
-    (256, 256, (100, 101)),       # one partial tile, x from the lo table alone
+    (4096, 4096, None),           # 32 tiles in one block, x from the lo and hi tables
+    (4096, 3000, (7, 2999)),      # a ragged last tile, an odd tile count, zero factors
+    (256, 256, (100, 101)),       # one pair of tiles, x from the lo table alone
 ])
 def test_deep_compose_kernel_body_matches_plain(kernel_bodies, domain, n, zero):
     incr = 1234
-    lde, c_lde, w1, w2, root, scalars = _port_case(_case(3, domain, domain + n, zero))
-    stride, regs, _, tables, words = dk.compose_args(lde, root, incr, scalars)
-    out = torch.zeros((n, 4), dtype=torch.uint32)
-    kernel_bodies.deep_compose_host(
-        _ptr(lde), stride, regs, n, _ptr(c_lde), _ptr(w1), _ptr(w2), *map(_ptr, tables),
-        dk.LOG_LO, (ctypes.c_uint32 * 32)(*words), _ptr(out))
+    case = _port_case(_case(3, domain, domain + n, zero))
+    out = _compose_body(kernel_bodies, case, n, incr, 1)
+    lde, c_lde, w1, w2, root, scalars = case
     want = dk.deep_compose_plain(lde[:, :n].contiguous(), c_lde[:n], w1, w2, root, incr, scalars)
     assert torch.equal(out, want)
     if zero is not None:
         assert not out[list(zero)].to(torch.int64).any()
+
+
+@pytest.mark.parametrize("regs,n,values,grid,zero", [
+    pytest.param(1, 256, "random", 1, None, id="1-256"),          # an odd group: a k-step half empty
+    pytest.param(2, 640, "streamed", 2, (3, 600), id="2-640-streamed"),   # weights (1, 0), (0, 1)
+    pytest.param(20, 1000, "random", 3, (0, 999), id="20-1000-ragged"),   # odd tile counts a block
+    pytest.param(20, 256, "M - 1", 1, None, id="20-256-M-1"),
+    pytest.param(33, 384, "random", 2, None, id="33-384"),        # two register groups of 17
+    pytest.param(128, 256, "M - 1", 2, None, id="128-256-M-1"),   # four groups, the largest digits
+    pytest.param(1, 10000, "random", 1, (5, 9000), id="1-10000-rounds"),  # two rounds a block
+])
+def test_deep_compose_kernel_body_at_register_counts(kernel_bodies, regs, n, values, grid, zero):
+    # the tensor-core sums over one to four register groups, on random
+    # values, on the streamed prover's call and on all M - 1 (the largest
+    # digit sums), bit for bit the plain version's
+    domain = 1 << (n - 1).bit_length()
+    lde, c_lde, w1, w2, root, scalars = _case(regs, domain, regs * n, zero)
+    if values == "M - 1":
+        lde, c_lde = [[M - 1] * domain] * regs, [M - 1] * domain
+        w1, w2 = [M - 1] * regs, [M - 1] * regs
+    if values == "streamed":
+        w1, w2 = [1, 0], [0, 1]
+    case = _port_case((lde, c_lde, w1, w2, root, scalars))
+    incr = 77
+    out = _compose_body(kernel_bodies, case, n, incr, grid)
+    lde, c_lde, w1, w2, root, scalars = case
+    want = dk.deep_compose_plain(lde[:, :n].contiguous(), c_lde[:n], w1, w2, root, incr, scalars)
+    assert torch.equal(out, want)
+    if zero is not None:
+        assert not out[list(zero)].to(torch.int64).any()
+
+
+def test_deep_compose_body_cases_cross_rounds(kernel_bodies):
+    # a round of Montgomery's trick is 32 pairs of 128-point tiles, 8192
+    # points to one inversion (deep_compose.cuh, DEEP_ROUND_PAIRS): the body
+    # case of 10000 points in one block crosses a round's end
+    assert kernel_bodies.deep_compose_round_points() == 8192
 
 
 @pytest.mark.parametrize("regs,length,points,log", [

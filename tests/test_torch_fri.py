@@ -4,8 +4,8 @@ package's fri_jax.fold_rows and prover._evaluate_boundaries_device,
 fri.reduce's layer roots against the JAX package's host FRI (quartic
 interpolation and host Merkle trees), and both kernels' bodies built with
 g++ from their headers and run against the plain versions: K9 a thread at
-a time, K10 a block at a time with its tensor-core product through an
-emulation of ldmatrix and mma, and its Toeplitz product against weighted
+a time, K10 a block at a time with its tensor-core product through the
+emulation of ldmatrix and mma in tests/torch_mma_host.h, and its Toeplitz product against weighted
 sums in Python integers.  Exact equality throughout (integer field
 arithmetic).  Each JAX function is compiled once, at one shape, for all of
 its cases."""
@@ -38,6 +38,7 @@ from distaff_torch.stark import fri, prover
 
 M = jax_host_field.M
 CSRC = Path(fk.__file__).resolve().parent.parent / "csrc"
+TESTS = Path(__file__).resolve().parent          # torch_mma_host.h: the tensor-core emulation
 SPECIAL_X = 0x0BAD_CAFE_F00D_1234_5678_9ABC_DEF0_1357 % M
 
 
@@ -241,6 +242,7 @@ _HARNESS = r"""
 #include <vector>
 #include "boundary_columns.cuh"
 #include "fri_fold.cuh"
+#include "torch_mma_host.h"
 
 // K9's kernel body on the CPU, a thread at a time, `rows` rows a thread;
 // with digests each leaf's words gathered from its lanes as the kernel's
@@ -277,64 +279,6 @@ extern "C" void fri_fold_host(const void* column, long long q, int rows, const v
 }
 
 namespace bc = boundary_columns;
-
-// ldmatrix.x4 as the PTX ISA gives it: lane l's register j is the word at
-// bytes 4 (l & 3) of the row whose address lane 8 j + (l >> 2) gave
-static void ldmatrix_x4(const uint8_t* base, const int (&offset)[32], uint32_t (&r)[32][4]) {
-    for (int l = 0; l < 32; ++l)
-        for (int j = 0; j < 4; ++j)
-            std::memcpy(&r[l][j], base + offset[8 * j + (l >> 2)] + 4 * (l & 3), 4);
-}
-
-// mma.m16n8k32.row.col.s32.u8.u8.s32 with the PTX ISA's fragments: lane
-// l = 4 g + t holds A's rows g (a0, a2) and g + 8 (a1, a3) at bytes 4 t (a0,
-// a1) and 16 + 4 t (a2, a3), B's column g at bytes 4 t (b0) and 16 + 4 t
-// (b1), C's rows g (c0, c1) and g + 8 (c2, c3) at columns 2 t and 2 t + 1
-static void mma(int32_t (&c)[32][4], const uint32_t (&a)[32][4], uint32_t (&b)[32][4], int half) {
-    uint8_t A[16][32], B[8][32];
-    for (int l = 0; l < 32; ++l) {
-        const int g = l >> 2, t = l & 3;
-        for (int e = 0; e < 4; ++e) {
-            A[g][4 * t + e] = a[l][0] >> (8 * e);
-            A[g + 8][4 * t + e] = a[l][1] >> (8 * e);
-            A[g][16 + 4 * t + e] = a[l][2] >> (8 * e);
-            A[g + 8][16 + 4 * t + e] = a[l][3] >> (8 * e);
-            B[g][4 * t + e] = b[l][2 * half] >> (8 * e);
-            B[g][16 + 4 * t + e] = b[l][2 * half + 1] >> (8 * e);
-        }
-    }
-    for (int l = 0; l < 32; ++l)
-        for (int i = 0; i < 4; ++i) {
-            const int row = (l >> 2) + 8 * (i >> 1), col = 2 * (l & 3) + (i & 1);
-            int32_t sum = 0;
-            for (int k = 0; k < 32; ++k) sum += A[row][k] * B[col][k];
-            c[l][i] += sum;
-        }
-}
-
-// warp (s, h)'s product over a stage, boundary_columns.cu's product() for
-// the 32 lanes at once
-static void product(const bc::Layout& l, int count, const uint8_t* a_s, const uint8_t* b_s,
-                    int s, int h, int32_t (&acc)[2][4][32][4]) {
-    for (int kk = 0; kk < bc::ksteps(count); ++kk) {
-        uint32_t a[2][32][4], b[32][4];
-        int offset[32];
-        for (int mt = 0; mt < 2; ++mt) {
-            for (int lane = 0; lane < 32; ++lane)
-                offset[lane] = bc::a_offset(l, 32 * s + 16 * mt, kk, lane);
-            ldmatrix_x4(a_s, offset, a[mt]);
-        }
-        for (int np = 0; np < 2; ++np) {
-            for (int lane = 0; lane < 32; ++lane)
-                offset[lane] = bc::b_offset(l, 32 * h + 16 * np, kk, lane);
-            ldmatrix_x4(b_s, offset, b);
-            for (int mt = 0; mt < 2; ++mt) {
-                mma(acc[mt][2 * np], a[mt], b, 0);
-                mma(acc[mt][2 * np + 1], a[mt], b, 1);
-            }
-        }
-    }
-}
 
 static void stage_b(const bc::Args& a, const bc::Layout& l, long long tile, int g, uint8_t* b_s) {
     for (int i = 0; i < bc::copies(a, l, g); ++i) {
@@ -375,7 +319,7 @@ extern "C" void boundary_columns_host(const void* lde, long long reg_stride,
     std::vector<uint8_t> shared(bc::shared_bytes(l));
     uint8_t* const a_s = shared.data();
     uint8_t* const b_s = a_s + l.a_bytes;
-    static int32_t acc[8][2][4][32][4];
+    static mma_host::Acc acc[8];
     std::vector<f128::u128> values(bc::kThreads);
     for (int block = 0; block < grid; ++block) {
         bc::Cursor in{block, 0, 0}, at = in;
@@ -392,19 +336,12 @@ extern "C" void boundary_columns_host(const void* lde, long long reg_stride,
             if (l.groups > 1)
                 for (int tid = 0; tid < bc::kThreads; ++tid) bc::build_a(a, l, at.g, a_s, tid);
             for (int w = 0; w < 8; ++w)
-                product(l, bc::group_regs(a, l, at.g), a_s, b_s + at.slot * l.slot_bytes, w & 3,
-                        w >> 2, acc[w]);
+                mma_host::product(l.pitch, bc::group_regs(a, l, at.g), a_s,
+                                  b_s + at.slot * l.slot_bytes, w & 3, w >> 2, acc[w],
+                                  bc::PointB{l.pitch});
             if (at.g != l.groups - 1) continue;
             uint32_t* const digits = (uint32_t*)(b_s + at.slot * l.slot_bytes);
-            for (int w = 0; w < 8; ++w)
-                for (int mt = 0; mt < 2; ++mt)
-                    for (int nt = 0; nt < 4; ++nt)
-                        for (int lane = 0; lane < 32; ++lane)
-                            for (int k = 0; k < 4; ++k) {
-                                const int word = bc::digit_word(w & 3, w >> 2, mt, nt, lane, k);
-                                if (word >= 0) digits[word] = (uint32_t)acc[w][mt][nt][lane][k];
-                                acc[w][mt][nt][lane][k] = 0;
-                            }
+            for (int w = 0; w < 8; ++w) mma_host::store_digits<bc::kSums>(acc[w], digits, w & 3, w >> 2);
             for (int tid = 0; tid < bc::kThreads; ++tid)
                 values[tid] = bc::sum_value(a, digits, tid);
             for (int tid = 0; tid < bc::kThreads; tid += 2)
@@ -433,7 +370,7 @@ extern "C" void boundary_sums_host(const void* lde, long long reg_stride,
             stage_b(a, l, tile, g, b_s.data());
             for (int row = 0; row < bc::kRows; ++row)
                 for (int p = 0; p < bc::kTile; ++p)
-                    for (int c = 0; c < 32 * bc::ksteps(bc::group_regs(a, l, g)); ++c)
+                    for (int c = 0; c < 32 * wsum::ksteps(bc::group_regs(a, l, g)); ++c)
                         digits[row * bc::kTile + p] +=
                             a_s[row * l.pitch + c] * b_s[p * l.pitch + c];
         }
@@ -452,8 +389,9 @@ def kernel_bodies(tmp_path_factory):
     functions with the kernels' arguments."""
     tmp = tmp_path_factory.mktemp("fri")
     (tmp / "harness.cpp").write_text(_HARNESS)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC),
-                    str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")], check=True)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC), "-I",
+                    str(TESTS), str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")],
+                   check=True)
     lib = ctypes.CDLL(str(tmp / "libharness.so"))
     vp, ll, i32, u32p = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(
         ctypes.c_uint32)

@@ -41,6 +41,7 @@ GOLDEN_LEN = 12926
 GOLDEN_SRC = "begin push.3 push.5 add end"
 EXT = 16
 CSRC = Path(b3.__file__).resolve().parent.parent / "csrc"
+TESTS = Path(__file__).resolve().parent          # torch_mma_host.h: the tensor-core emulation
 
 
 @contextmanager
@@ -255,6 +256,7 @@ def test_stream_with_sha3_raises_the_jax_assertion():
 
 _HARNESS = r"""
 #include "coeff_wsum.cuh"
+#include "torch_mma_host.h"
 #include "trace_absorb.cuh"
 
 // K14's launch on the CPU: every row in turn (the rows are independent)
@@ -268,13 +270,19 @@ extern "C" void trace_absorb_host(const void* regs, long long reg_stride, int n_
     for (long long d = 0; d < rows; ++d) trace_absorb::row(a, d);
 }
 
-// K15's launch on the CPU: a block and a thread at a time
+// K15's launch on the CPU over a grid of `grid` blocks: the ring, product
+// and digits of tests/torch_mma_host.h, then each thread's store
 extern "C" void coeff_wsum_host(const void* polys, long long reg_stride, int regs, long long n,
-                                const void* w1, const void* w2, void* out) {
-    const coeff_wsum::Args a{(const uint4*)polys, reg_stride, regs, n, (const uint4*)w1,
-                             (const uint4*)w2, (uint4*)out};
-    for (long long b = 0; b < coeff_wsum::blocks(a); ++b)
-        for (int t = 0; t < coeff_wsum::kThreads; ++t) coeff_wsum::points_of(a, b, t, a.w1, a.w2);
+                                const void* w1, const void* w2, void* out, long long grid) {
+    const coeff_wsum::Args a{{(const uint4*)polys, reg_stride, regs, n, (const uint4*)w1,
+                              (const uint4*)w2}, (uint4*)out};
+    mma_host::run(
+        a.polys, 0, grid,
+        [&](long long block, long long k, long long, const uint32_t* digits, uint8_t*) {
+            for (int tid = 0; tid < coeff_wsum::kThreads; ++tid)
+                coeff_wsum::store(a, block + k * grid, digits, tid);
+        },
+        [](long long, long long, long long, uint8_t*) {});
 }
 """
 
@@ -285,13 +293,14 @@ def bodies(tmp_path_factory):
     host functions of one launch each."""
     tmp = tmp_path_factory.mktemp("k14_k15")
     (tmp / "harness.cpp").write_text(_HARNESS)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC),
-                    str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")], check=True)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(CSRC), "-I",
+                    str(TESTS), str(tmp / "harness.cpp"), "-o", str(tmp / "libharness.so")],
+                   check=True)
     lib = ctypes.CDLL(str(tmp / "libharness.so"))
     vp, ll, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
     lib.trace_absorb_host.argtypes = [vp, ll, i32, ll, vp, vp, vp, ll, i32, u32, u32,
                                       ctypes.c_ulonglong]
-    lib.coeff_wsum_host.argtypes = [vp, ll, i32, ll, vp, vp, vp]
+    lib.coeff_wsum_host.argtypes = [vp, ll, i32, ll, vp, vp, vp, ll]
     return lib
 
 
@@ -320,17 +329,47 @@ def test_trace_absorb_body_matches_plain(bodies, monkeypatch, regs, rows, shift)
     assert torch.equal(got, want) and torch.equal(got_slice, want_slice)
 
 
+def _wsum_body(lib, polys, w1, w2, grid):
+    n = polys.shape[1]
+    got = torch.full((2, n, 4), 0xDEADBEEF, dtype=torch.uint32)
+    lib.coeff_wsum_host(_ptr(polys), polys.stride(0) // 4, polys.shape[0], n, _ptr(w1), _ptr(w2),
+                        _ptr(got), grid)
+    return got
+
+
+def _random_limbs(rng, *shape):
+    return ft.from_ints(np.array([int.from_bytes(rng.bytes(16), "little") % field.M
+                                  for _ in range(int(np.prod(shape)))],
+                                 dtype=object).reshape(shape), "cpu")
+
+
 @pytest.mark.parametrize("regs,n", [(20, 1000), (1, 512), (128, 24)])
 def test_coeff_wsum_body_matches_plain(bodies, regs, n):
     # a ragged last tile, one register, the most registers
     rng = np.random.default_rng(regs)
-
-    def limbs(*shape):
-        return ft.from_ints(np.array([int.from_bytes(rng.bytes(16), "little") % field.M
-                                      for _ in range(int(np.prod(shape)))],
-                                     dtype=object).reshape(shape), "cpu")
-
-    polys, w1, w2 = limbs(regs, n), limbs(regs), limbs(regs)
-    got = torch.full((2, n, 4), 0xDEADBEEF, dtype=torch.uint32)
-    bodies.coeff_wsum_host(_ptr(polys), n, regs, n, _ptr(w1), _ptr(w2), _ptr(got))
+    polys, w1, w2 = _random_limbs(rng, regs, n), _random_limbs(rng, regs), _random_limbs(rng, regs)
+    got = _wsum_body(bodies, polys, w1, w2, 3)
     assert torch.equal(got, dk.coeff_wsum_plain(polys, w1, w2))
+
+
+@pytest.mark.parametrize("regs,n,values,grid", [
+    pytest.param(2, 640, "streamed", 2, id="2-640-streamed"),   # one k-step, weights (1, 0), (0, 1)
+    pytest.param(20, 900, "M - 1", 3, id="20-900-M-1"),         # the largest digits, a ragged tile
+    pytest.param(33, 300, "random", 1, id="33-300"),            # two register groups of 17
+    pytest.param(128, 256, "M - 1", 2, id="128-256-M-1"),       # four groups
+])
+def test_coeff_wsum_body_at_register_counts(bodies, regs, n, values, grid):
+    # the tensor-core sums over one to four register groups, the streamed
+    # call's weights and all M - 1, bit for bit the plain version's, and
+    # nothing written past n in a larger row
+    rng = np.random.default_rng(regs + n)
+    if values == "M - 1":
+        polys = ft.constant(field.M - 1, "cpu").expand(regs, n + 40, 4).contiguous()
+        w1 = w2 = ft.constant(field.M - 1, "cpu").expand(regs, 4).contiguous()
+    else:
+        polys = _random_limbs(rng, regs, n + 40)
+        w1, w2 = _random_limbs(rng, regs), _random_limbs(rng, regs)
+    if values == "streamed":
+        w1, w2 = (ft.from_ints(np.array(w, dtype=object), "cpu") for w in ([1, 0], [0, 1]))
+    got = _wsum_body(bodies, polys[:, :n], w1, w2, grid)
+    assert torch.equal(got, dk.coeff_wsum_plain(polys[:, :n], w1, w2))
