@@ -15,11 +15,12 @@ Usage (from the root of the repository, on a machine with the card):
 
 The second form only prints step times (step_times below), the third only
 the times of K9 and K11 at the proofs' shapes (kernel_times below), the
-fourth only the times of the Merkle trees of the 2^16 proof (tree_times
-below), the fifth only the times of K7 and K15 at the proofs' calls
-(wsum_times below): a copy of this file placed at the root of another
-checkout times that checkout's port, so that two versions compare on one
-card in one call.
+fourth only the times of the Merkle trees of the 2^16 proof and of 2^23 to
+2^25 leaves, of a first proof's power tables and of the other kernels on
+the BLAKE3 compression (tree_times below), the fifth only the times of K7
+and K15 at the proofs' calls (wsum_times below): a copy of this file
+placed at the root of another checkout times that checkout's port, so
+that two versions compare on one card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
@@ -28,9 +29,11 @@ Phases, in order; any failure raises and exits non-zero:
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K15, the count of IMMA
-                (tensor-core) instructions in the SASS of K7, K10 and K15,
-                which must not be 0 in any, and the card's name and power
+                K4 at each triple and for K6-K15, the counts of IADD3,
+                IMAD, LOP3, SHF, PRMT and IMMA in the SASS of K3, K9, K13
+                and K14 (their compression's split over the two integer
+                pipes) and of K7, K10 and K15 (whose IMMA tensor-core
+                instructions must not be 0), and the card's name and power
                 limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
@@ -66,12 +69,15 @@ Phases, in order; any failure raises and exits non-zero:
                 K11 syn_div at the step 4 of the 2^16, 2^18 and 2^20 proofs
                 ((3, 2^19), (3, 2^21), (3, 2^23), degree n/8, x_last) on
                 random and edge-value coefficients, K12
-                power_series at every table the 2^16 proof builds (the
-                proof run once with the table cache empty and each call
-                recorded), at one row, a ragged length and 2^20 rows, K13
+                power_series over every table the 2^16 proof builds in its
+                one launch (the proof run once with the table cache empty
+                and the call recorded), at the kernel bench's one-table
+                calls of 2^18 and 2^20 rows, and one launch over tables of
+                one row, a ragged length (c != 1) and 2^20 rows, K13
                 merkle_tree at every tree the 2^16 proof builds (2^21,
                 2^20, 2^19, 2^17, ..., 2^5 random leaf digests, each whole
-                tree), each
+                tree in one launch; the 2^21 tree then TREE_REPEATS times
+                in a row, equal each time: the ticket counters reset), each
                 equal (tolerance zero: integer field arithmetic and
                 hashing) to its plain version on the same inputs; times from
                 CUDA events
@@ -83,8 +89,7 @@ Phases, in order; any failure raises and exits non-zero:
                 tests/test_determinism.py, with no K2 launch and K3 over
                 rows K3_ROW_LAUNCHES times; its K9 (with the leaf digests),
                 K10, K11 and K13 calls are held against the plain versions
-                (K13 at each of its trees, its launches those that
-                tree_launches plans)
+                (K13 at each of its trees, one launch a tree)
   4. main     - the bench's 2^16 Fibonacci proof (bench.py sizing, inputs
                 [1, 0], default ProofOptions) proved on cuda and verified,
                 with its time, peak device memory and the launches of every
@@ -96,14 +101,13 @@ Phases, in order; any failure raises and exits non-zero:
                 exactly at the
                 evaluations phase 2 checked, each one launch, K9
                 once at each layer phase 2 checked, K10 and K11 at the
-                shapes they were checked at, K12 once for each table that
-                the proof put in the cache and at calls phase 2 held, K13
-                at exactly the tree sizes phase 2 checked, in the launches
-                tree_launches plans for them (K3 never over a Merkle
-                level); then
-                proved with per-step times (steps 1, 3, 6 and 7 in parts
-                too; step 4 and step 3's K4 part printed again), and once
-                more without
+                shapes they were checked at, K12 exactly once (every table
+                the proof builds, the launch phase 2 held), K13 at exactly
+                the tree sizes phase 2 checked, one launch a tree (K3 never
+                over a Merkle level); then proved with per-step times
+                (steps 1, 3, 6 and 7 in parts too; step 4 and step 3's K4
+                part printed again), and once more without, these two with
+                the tables cached: K12 never
   5. bench    - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                 2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
                 tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
@@ -115,8 +119,8 @@ Phases, in order; any failure raises and exits non-zero:
                 examples.py at their CLI defaults proved on cuda with the
                 default ProofOptions, each with the table cache emptied: the
                 expected outputs, verified, a tampered output rejected, the
-                path's kernels launched (K4, K10 and K11 once, at the
-                example's depths and registers, K3 over rows
+                path's kernels launched (K4, K10, K11 and K12 once, at
+                the example's depths and registers, K3 over rows
                 K3_ROW_LAUNCHES times, K2 never), the K11 call held
                 against its plain version; `python -m distaff_torch
                 fibonacci` on the card must exit 0; the golden case with
@@ -134,15 +138,14 @@ Phases, in order; any failure raises and exits non-zero:
                 time, step 0, peak device memory, LDE size and K1 passes
                 (the LDE must take K1's recursion; its K1 passes and K8
                 calls must be exactly those held; K9 once a layer, K10 and
-                K11 once, K3 over rows K3_ROW_LAUNCHES times, K12 once a
-                table built, K13 in the launches tree_launches plans, K2
-                never); every call it made of K3, K4, K7, K9 (its leaf
+                K11 once, K3 over rows K3_ROW_LAUNCHES times, K12 once, K13
+                once a tree, K2 never); every call it made of K3, K4, K7, K9 (its leaf
                 digests too), K10, K11 and K13 held against the plain
                 versions on the proof's own inputs, run a piece of
                 2^LAST_PIECE rows or points at a time (the other rung: the
                 last piece of each call; K13 at 2^LADDER_HELD each whole
                 tree, at the other rung each tree's nodes above its first
-                launch's subtrees and its last subtree's nodes), with a row
+                stage's subtrees and its last subtree's nodes), with a row
                 for each class of call at 2^LADDER_HELD; then the
                 2^LADDER_HELD rung once more with the step log
   8. stream   - K14 trace_absorb over every block of random registers at
@@ -163,7 +166,8 @@ Phases, in order; any failure raises and exits non-zero:
                 scratch (128.8 GB) does not fit, so it must stream; each
                 verified, a tampered output rejected, its time, step 0,
                 peak memory and launches printed (K14 ceil(R / 4), K15 once,
-                K3 over rows once: the first FRI layer; K2 never), and the
+                K3 over rows once: the first FRI layer; K12 once, K13 once a
+                tree; K2 never), and the
                 last piece of each call of K4, K7, K10, K14 and K15 held
                 against the plain versions (LastPieces)
 
@@ -256,6 +260,11 @@ ADD_OPS = SUB_OPS = 12
 MUL_OPS = 64
 REDUCE_OPS = 31 * 3 + 8 + 32
 COMPRESS_OPS = 7 * 8 * 12 + 8
+# phase 2 builds the 2^16 proof's largest tree this many times in a row
+TREE_REPEATS = 20
+# --tree-times also times K13 at these leaves: the trace trees of the 2^18
+# and 2^20 proofs and the constraint tree of the 2^20 proof
+TREE_TIMES_LARGE = (1 << 23, 1 << 24, 1 << 25)
 # a kernel's time is the median of this many means over back-to-back launches
 KERNEL_TRIALS = 7
 # kernels of each path: the proof launches K1, K3, K4 and K7-K13 (and K2
@@ -1221,60 +1230,81 @@ def check_syn_div(gen, ops_rate):
 
 
 def series_key(x, n, c):
-    """A K12 call: its rows, base and constant."""
+    """A K12 table: its rows, base and constant."""
     return f"{n} rows of {x:#x}^i times {c:#x}"
 
 
-def series_bound(x, n, c):
-    """K12's bound in bytes and operations: the rows written and the host's
-    factors read; its multiplies from its code (power_series_ops)."""
+def tables_key(specs):
+    """A K12 call: its tables and their rows."""
+    return f"{len(specs)} tables of {sum(n for _, n, _ in specs)} rows"
+
+
+def series_bound(specs):
+    """K12's bound in bytes and operations over the tables (x, n, c) of a
+    launch: the rows written and the host's factors read; its multiplies
+    from its code (power_series_ops)."""
     from distaff_torch.ops import field_kernels as fk
 
-    factors = len(fk.power_series_factors(x, n, c))
-    return (n + factors) * 16, fk.power_series_ops(n) * MUL_OPS
+    rows = sum(n + len(fk.power_series_factors(x, n, c)) for x, n, c in specs)
+    return rows * 16, sum(fk.power_series_ops(n) for _, n, _ in specs) * MUL_OPS
 
 
-def table_builds(keys):
-    """K12 launches that building these tiles._TABLES entries took: one for
-    a twiddle table, one or two for a pair of store-factor tables (hi above
-    1024 points)."""
-    return sum(1 if key[0] == "tw" or key[2] <= 1024 else 2 for key in keys)
-
-
-def check_power_series(ops_rate):
-    """K12 at every power table the 2^16 proof builds: the table cache
-    emptied, the proof run once with each K12 call recorded, then each call
-    held against the plain version and timed, a row each; then at one row,
-    at a length that leaves the last block ragged (c != 1) and at the
-    kernel bench's 2^20 rows."""
+def proof_tables(log2_trace):
+    """The K12 tables (x, n, c) that a first proof of the bench's program at
+    2^log2_trace steps builds, each call of the K12 wrapper a list: the
+    proof run once with the table cache emptied and the calls recorded
+    (the cache emptied again after).  A version of the port whose K12
+    builds a table a launch records a list of one a call."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
-    from distaff_torch.math import field as hostfield
-    from distaff_torch.ops import field_kernels as fk
     from distaff_torch.ops import tiles
 
     tiles._TABLES.clear()
-    program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
-    with ProofCalls() as calls:
+    program = fibonacci_program(assembly, log2_trace)
+    with ProofCalls(keep=False) as calls:
         distaff_torch.execute(program, ProgramInputs.from_public([1, 0]), 1, ProofOptions(),
                               device="cuda")
     tiles._TABLES.clear()
-    rows = []
-    for x, n, c in sorted(set((x, n, c) for x, n, _, c in calls.series), key=lambda a: -a[1]):
-        row = check_kernel(
-            "power_series", f"2^{MAIN_LOG2_TRACE} proof table {series_key(x, n, c)}",
-            lambda: fk.power_series(x, n, "cuda", c),
-            lambda: fk.power_series_plain(x, n, "cuda", c), 20, 1, *series_bound(x, n, c),
-            ops_rate, "distaff_torch/csrc/power_series.cu", "distaff_tpu/ops/tiles.py:118")
-        row["key"] = ("power_series", MAIN_LOG2_TRACE, series_key(x, n, c))
-        rows.append(row)
+    return calls.series
+
+
+def check_power_series(ops_rate):
+    """K12 at every power table the 2^16 proof builds, in the one launch
+    that the proof makes (proof_tables): each table held against the plain
+    version, the launch timed, one row; then the kernel bench's one-table
+    calls at 2^18 and 2^20 rows of the domain root, a row each; then one
+    launch over a table of one row, a ragged one (c != 1) and 2^20 rows."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import field_kernels as fk
+
+    calls = proof_tables(MAIN_LOG2_TRACE)
+    if len(calls) != 1:
+        raise AssertionError(f"the 2^{MAIN_LOG2_TRACE} proof built its tables in {len(calls)} "
+                             f"K12 calls, not one")
+    specs, = calls
+    source, replaces = "distaff_torch/csrc/power_series.cu", "distaff_tpu/ops/tiles.py:118"
+    plain = lambda: torch.cat([fk.power_series_plain(x, n, "cuda", c) for x, n, c in specs])
+    many = lambda: torch.cat(fk.power_series_many(specs, "cuda"))
+    row = check_kernel("power_series", f"2^{MAIN_LOG2_TRACE} proof's {tables_key(specs)} in one "
+                       f"launch", many, plain, 20, 1, *series_bound(specs), ops_rate, source,
+                       replaces)
+    row["key"] = ("power_series", MAIN_LOG2_TRACE, tables_key(specs))
+    rows = [row]
     root = hostfield.get_root_of_unity(1 << 20)
-    for x, n, c in ((root, 1, 7), (root, 3000, 0x1234_5678_9ABC_DEF0), (root, 1 << 20, 1)):
-        check_equal("power_series", series_key(x, n, c), lambda: fk.power_series(x, n, "cuda", c),
-                    lambda: fk.power_series_plain(x, n, "cuda", c))
-        print(f"kernel power_series at {n} rows (c = {c:#x}): equal to plain", flush=True)
-    print(f"kernel power_series: the 2^{MAIN_LOG2_TRACE} proof's {len(calls.series)} calls, "
-          f"{len(rows)} distinct, equal to plain", flush=True)
+    for n in (1 << 18, 1 << 20):
+        row = check_kernel("power_series", f"kernel bench's table {series_key(root, n, 1)}",
+                           lambda: fk.power_series(root, n, "cuda"),
+                           lambda: fk.power_series_plain(root, n, "cuda"), 20, 1,
+                           *series_bound([(root, n, 1)]), ops_rate, source, replaces)
+        row["key"] = ("power_series", "kernel bench", n)    # no launch on the main path
+        rows.append(row)
+    mixed = [(root, 1, 7), (root, 3000, 0x1234_5678_9ABC_DEF0), (root, 1 << 20, 5)]
+    check_equal("power_series", "one launch of 1, 3000 and 2^20 rows",
+                lambda: torch.cat(fk.power_series_many(mixed, "cuda")),
+                lambda: torch.cat([fk.power_series_plain(x, n, "cuda", c) for x, n, c in mixed]))
+    print(f"kernel power_series: the 2^{MAIN_LOG2_TRACE} proof's {len(specs)} tables in one "
+          f"launch, equal to plain; one launch of 1, 3000 (c != 1) and 2^20 rows equal to plain",
+          flush=True)
     return rows
 
 
@@ -1292,36 +1322,59 @@ def tree_bound(n):
     return 64 * n, (n - 1) * COMPRESS_OPS
 
 
+def tree_plan(n):
+    """K13's plan for a tree of n leaves on this card."""
+    from distaff_torch.ops import blake3_torch as b3
+
+    return b3.tree_plan(n, b3.device_sms(0))
+
+
 def check_merkle_tree(gen, ops_rate, log2_trace):
     """K13 at every tree the bench's 2^log2_trace proof builds, on random
-    leaf digests: each whole tree held equal to the plain version (the
-    level loop), a row each."""
+    leaf digests, one launch each: each whole tree held equal to the plain
+    version (the level loop), a row each; then the largest tree built
+    REPEATS times in a row, its nodes equal each time (the last block of
+    each group leaves its ticket counter at 0 for the next tree)."""
     from distaff_torch.ops import blake3_torch as b3
+    from distaff_torch.ops import cuda_lib
     from distaff_torch.tools.timing import random_elements
 
     rows = []
     for n in tree_sizes(log2_trace):
         leaves = random_elements(gen, (n, 2)).view(n, 8)
+        cuda_lib.reset_launches()
+        b3.merkle_tree(leaves)
+        if cuda_lib.LAUNCHES["merkle_tree"] != 1:
+            raise AssertionError(f"merkle_tree: {cuda_lib.LAUNCHES['merkle_tree']} launches "
+                                 f"for a tree of {n} leaves")
         row = check_kernel(
-            "merkle_tree", f"2^{log2_trace} tree of {n} leaves in "
-            f"{len(b3.tree_launches(n))} launch(es)", lambda: b3.merkle_tree(leaves),
+            "merkle_tree", f"2^{log2_trace} tree of {n} leaves in one launch, plan "
+            f"{tree_plan(n)}", lambda: b3.merkle_tree(leaves),
             lambda: b3.merkle_tree_plain(leaves), 20, 1, *tree_bound(n), ops_rate, K13,
             K13_REPLACES)
         row["key"] = ("merkle_tree", log2_trace, n)
         rows.append(row)
+        if n == tree_sizes(log2_trace)[0]:
+            want = b3.merkle_tree_plain(leaves)
+            for k in range(TREE_REPEATS):
+                if not torch.equal(b3.merkle_tree(leaves), want):
+                    raise AssertionError(f"merkle_tree: the tree of {n} leaves differs from "
+                                         f"plain when built {k + 1} times in a row")
+            print(f"kernel merkle_tree: the tree of {n} leaves built {TREE_REPEATS} times in a "
+                  f"row, equal to plain each time", flush=True)
     return rows
 
 
 def check_tree_top(shape, nodes, leaves):
     """Hold a tree's flat nodes where phase 7's other rung holds them: the
-    root and every node above the first launch's subtrees (the plain tree
+    root and every node above the first stage's subtrees (the plain tree
     over their roots), and the nodes of the last subtree (the plain tree
     over its leaves, at their rows of the whole tree).  Returns the time of
     the plain trees in ms (CUDA events)."""
     from distaff_torch.ops import blake3_torch as b3
 
     n = leaves.shape[0]
-    _, levels = b3.tree_launches(n)[0]
+    levels = tree_plan(n)[0]
     roots, size = n >> levels, 1 << levels
     start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start_ev.record()
@@ -1372,7 +1425,7 @@ def phase_golden():
     domain = proof.trace_length() * options.extension_factor()
     (lde, i_parts, f_parts, root), = calls.boundaries
     trees = calls.keys["merkle_tree"]
-    tree_launches = sum(len(b3.tree_launches(n)) for n in trees)
+    tree_launches = len(trees)                     # one K13 launch a tree
     if launches["boundary_columns"] != 1 or lde.stride(1) != 8 or \
             launches["fri_fold"] != fold_layers(domain) or launches["syn_div"] != 1 or \
             launches["blake3_rows"] != K3_ROW_LAUNCHES or any(launches[k] for k in K2_OPS) or \
@@ -1595,21 +1648,25 @@ def wsum_times():
 
 
 def tree_times():
-    """Every tree the 2^16 proof builds (tree_sizes), on random leaf
-    digests: the whole tree timed as phase 2 times a kernel, with its
-    launches, bound and loss (ms - bound); where the port hashes a tree a
-    level at a time (one K3 launch a level, before K13), also each level
-    timed, their sum and their summed loss, launches x (ms - bound) with
-    each level's own bound.  Each line is tagged with the directory of the
-    checkout whose package ran.  It uses only what every version of the
-    port has; where the checkout has K13, each tree is held against its
-    plain version too."""
+    """The times of K13 at every tree the 2^16 proof builds (tree_sizes) and
+    at TREE_TIMES_LARGE leaves, on random leaf digests, each tree held
+    against its plain version and timed as phase 2 times a kernel, with its
+    launches, bound and loss (ms - bound); then K12 over the tables of a
+    first 2^16 proof (proof_tables), all its calls timed as one; then the
+    other kernels on blake3.cuh's compression: K3 over 2^21 rows of 320
+    bytes, K9 at the 2^16 proof's first layer (2^19 rows, with the leaf
+    digests), K14 at a middle block of (4, 2^21) and (4, 2^25) points.
+    Each line is tagged with the directory of the checkout whose package
+    ran; it uses only what the port has had since K13, so that a copy of
+    this file times an older checkout's kernels."""
     import os
+    import random
 
     import distaff_torch
-    from distaff_torch.crypto import merkle_dev
+    from distaff_torch.math import field as hostfield
     from distaff_torch.ops import blake3_torch as b3
-    from distaff_torch.ops import cuda_lib
+    from distaff_torch.ops import cuda_lib, fri_torch
+    from distaff_torch.ops import field_kernels as fk
     from distaff_torch.tools.timing import random_elements
 
     tag = os.path.basename(os.path.dirname(os.path.dirname(
@@ -1617,42 +1674,63 @@ def tree_times():
     ops_rate = int32_ops_per_s()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
-    build = getattr(b3, "merkle_tree", None) or merkle_dev.build_flat_nodes
-    all_ms = all_lost = 0.0
-    for n in tree_sizes(MAIN_LOG2_TRACE):
-        leaves = random_elements(gen, (n, 2)).view(n, 8)
-        if hasattr(b3, "merkle_tree"):
-            check_equal("merkle_tree", f"{n} leaves", lambda: b3.merkle_tree(leaves),
-                        lambda: b3.merkle_tree_plain(leaves))
+
+    def timed(what, fn, bound_terms, reps=20):
+        fn()                                    # builds the tables that fn reads
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
-        build(leaves)
+        fn()
         launches = sum(cuda_lib.LAUNCHES.values())
-        ms = time_ms(lambda: build(leaves), 20, KERNEL_TRIALS, queued=True)
-        bound_ms, bound_by = bound(*tree_bound(n), ops_rate)
-        line = (f"[{tag}] tree of {n} leaves: {ms:.4f} ms in {launches} launch(es), bound "
-                f"{bound_ms:.4f} ms by {bound_by}, lost {ms - bound_ms:.4f} ms")
-        all_ms += ms
-        all_lost += ms - bound_ms
-        if hasattr(b3, "hash_level"):
-            levels_ms = levels_lost = 0.0
-            size = n
-            children = leaves
-            while size > 1:
-                out = torch.empty((size // 2, 8), dtype=torch.uint32, device="cuda")
-                level_ms = time_ms(lambda c=children, o=out: b3.hash_level(c, out=o), 20,
-                                   KERNEL_TRIALS, queued=True)
-                level_bound, _ = bound(size * 32 + size // 2 * 32, size // 2 * COMPRESS_OPS,
-                                       ops_rate)
-                levels_ms += level_ms
-                levels_lost += level_ms - level_bound
-                children, size = out, size // 2
-            line += (f"; its {n.bit_length() - 1} K3 levels: {levels_ms:.4f} ms summed, lost "
-                     f"{levels_lost:.4f} ms")
-        print(line, flush=True)
+        ms = time_ms(fn, reps, KERNEL_TRIALS, queued=True)
+        bound_ms, bound_by = bound(*bound_terms, ops_rate)
+        print(f"[{tag}] {what}: {ms:.4f} ms in {launches} launch(es), bound {bound_ms:.4f} ms "
+              f"by {bound_by}, lost {ms - bound_ms:.4f} ms", flush=True)
+        return ms, ms - bound_ms
+
+    all_ms = all_lost = 0.0
+    proof_trees = tree_sizes(MAIN_LOG2_TRACE)
+    for n in proof_trees + [n for n in TREE_TIMES_LARGE if n not in proof_trees]:
+        leaves = random_elements(gen, (n, 2)).view(n, 8)
+        check_equal("merkle_tree", f"{n} leaves", lambda: b3.merkle_tree(leaves),
+                    lambda: b3.merkle_tree_plain(leaves))
+        ms, lost = timed(f"tree of {n} leaves", lambda: b3.merkle_tree(leaves), tree_bound(n),
+                         20 if n < 1 << 23 else 5)
+        if n in proof_trees:
+            all_ms += ms
+            all_lost += lost
         del leaves
-    print(f"[{tag}] the 2^{MAIN_LOG2_TRACE} proof's {len(tree_sizes(MAIN_LOG2_TRACE))} trees: "
+    print(f"[{tag}] the 2^{MAIN_LOG2_TRACE} proof's {len(proof_trees)} trees: "
           f"{all_ms:.4f} ms, lost {all_lost:.4f} ms", flush=True)
+
+    calls = proof_tables(MAIN_LOG2_TRACE)
+    specs = [spec for call in calls for spec in call]
+    many = getattr(fk, "power_series_many", None)
+
+    def tables():
+        for call in calls:
+            many(call, "cuda") if many else fk.power_series(*call[0][:2], "cuda", call[0][2])
+    timed(f"the first 2^{MAIN_LOG2_TRACE} proof's {tables_key(specs)} (K12)", tables,
+          series_bound(specs))
+
+    rows = random_elements(gen, (1 << 21, 20))
+    timed("K3 over 2^21 rows of 320 B", lambda: b3.hash_rows(rows),
+          ((1 << 21) * (320 + 32), (1 << 21) * 5 * COMPRESS_OPS))
+    column = random_elements(gen, (1 << 21,))
+    special_x = random.Random(SEED).randrange(hostfield.M)
+    root = hostfield.get_root_of_unity(1 << 21)
+    timed("K9 at 2^19 rows with the leaf digests",
+          lambda: fri_torch.fri_fold(column, special_x, root, 1, digests=True),
+          fold_bound(1 << 19, 1 << 21))
+    del rows, column
+    for d in (1 << 21, 1 << 25):
+        # phase 8's middle block: into rows 16-19 of the (20, D / 4) slice
+        group = random_elements(gen, (4, d))
+        cv = random_elements(gen, (d, 2)).view(d, 8)
+        ev = torch.empty((20, d >> 2, 4), dtype=torch.uint32, device="cuda")
+        timed(f"K14 at a middle block of (4, 2^{d.bit_length() - 1}), slice stride 4",
+              lambda: b3.trace_absorb(group, cv, 1, 320, None, ev[16:], 2),
+              absorb_bound(d, 4, 2), 20 if d < 1 << 23 else 5)
+        del group, cv, ev
 
 
 def print_step4(log2_trace, lines):
@@ -1707,14 +1785,13 @@ def phase_main(checked_keys):
     exactly its ("poly_eval", rung, key)s, each one launch (up to four
     points); K9's, K10's and K11's calls exactly their ("fri_fold", ...),
     ("boundary_columns", ...) and ("syn_div", ...) keys, each one launch;
-    with the table cache emptied first, K12 once for each table the proof
-    builds, at the calls phase 2 held; K13's trees exactly its
-    ("merkle_tree", ...) keys, each in the launches tree_launches plans;
-    K2 never.  Returns the launches and a Counter of launches by (kernel,
-    rung, key)."""
+    with the table cache emptied first, K12 once (every table the proof
+    builds, the launch phase 2 held), and K12 never in the two proofs that
+    follow with the tables cached; K13's trees exactly its ("merkle_tree",
+    ...) keys, one launch each; K2 never.  Returns the launches and a
+    Counter of launches by (kernel, rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
-    from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
     from distaff_torch.stark import serde
 
@@ -1730,7 +1807,6 @@ def phase_main(checked_keys):
     launches = dict(cuda_lib.LAUNCHES)
     proof_keys = rec.keys()
     peak = torch.cuda.max_memory_allocated()
-    tables = table_builds(tiles._TABLES)
     MATERIALIZED[MAIN_LOG2_TRACE] = (hashlib.sha256(serde.serialize(proof)).hexdigest(), peak)
 
     if proof.trace_length() != 1 << MAIN_LOG2_TRACE:
@@ -1747,14 +1823,15 @@ def phase_main(checked_keys):
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     pass_keys = [key for kernel, _, key in checked_keys if kernel == "ntt_pass"]
     eval_keys = [key for kernel, _, key in checked_keys if kernel == "poly_eval"]
-    held = {name: [key for kernel, _, key in checked_keys if kernel == name]
+    held = {name: [key for kernel, rung, key in checked_keys
+                   if kernel == name and rung == MAIN_LOG2_TRACE]
             for name in ProofCalls.KEYED}
     for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
-                       ("boundary_columns", 1), ("syn_div", 1), ("power_series", tables),
+                       ("boundary_columns", 1), ("syn_div", 1), ("power_series", 1),
                        ("fri_fold", len(held["fri_fold"])), ("ntt_pass", len(pass_keys)),
                        ("blake3_rows", K3_ROW_LAUNCHES),
                        ("poly_eval", sum(n for _, n in evals.calls)),
-                       ("merkle_tree", sum(len(b3.tree_launches(n)) for n in held["merkle_tree"])),
+                       ("merkle_tree", len(held["merkle_tree"])),
                        ("trace_absorb", 0), ("coeff_wsum", 0), *((k, 0) for k in K2_OPS)):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, not {want}")
@@ -1782,14 +1859,22 @@ def phase_main(checked_keys):
           f"{launches['fri_fold']} (one a layer, with the leaf digests), K3 over rows "
           f"{launches['blake3_rows']}, K10 {launches['boundary_columns']}, K11 "
           f"{launches['syn_div']}, K12 {launches['power_series']} (the {len(tiles._TABLES)} "
-          f"tables the proof built), K13 {launches['merkle_tree']} over "
+          f"tables the proof built, in one launch), K13 {launches['merkle_tree']} over "
           f"{len(calls.keys['merkle_tree'])} trees, K6 {launches['inv_batch']}; field_ew by "
           f"operation {json.dumps(field_ew)}", flush=True)
 
+    cuda_lib.reset_launches()
     stepped_outputs, _, stepped_s, lines = timed_execute(program, inputs, options, stepped=True)
     again_outputs, _, again_s, _ = timed_execute(program, inputs, options, stepped=False)
     if stepped_outputs != outputs or again_outputs != outputs:
         raise AssertionError("a repeated 2^16 proof's outputs differ")
+    if cuda_lib.LAUNCHES["power_series"] or \
+            cuda_lib.LAUNCHES["merkle_tree"] != 2 * launches["merkle_tree"]:
+        raise AssertionError(f"the two proofs with the tables cached launched K12 "
+                             f"{cuda_lib.LAUNCHES['power_series']} times and K13 "
+                             f"{cuda_lib.LAUNCHES['merkle_tree']}")
+    print(f"2^{MAIN_LOG2_TRACE} with the tables cached: K12 0 launches, K13 one a tree",
+          flush=True)
     for line in lines:
         print(f"2^{MAIN_LOG2_TRACE} {line}", flush=True)
     print_step4(MAIN_LOG2_TRACE, lines)
@@ -1799,8 +1884,7 @@ def phase_main(checked_keys):
     keyed.update({("poly_eval", MAIN_LOG2_TRACE, key): n for key, n in evals.launches.items()})
     for name in ProofCalls.KEYED:
         for key in calls.keys[name]:
-            keyed[(name, MAIN_LOG2_TRACE, key)] += (
-                len(b3.tree_launches(key)) if name == "merkle_tree" else 1)
+            keyed[(name, MAIN_LOG2_TRACE, key)] += 1
     return launches, keyed
 
 
@@ -1848,15 +1932,16 @@ def phase_examples(ops_rate):
             raise AssertionError(f"example {name}: a tampered output verifies")
         idle = [k for k in MAIN_PATH if launches[k] == 0]
         if idle or launches["air_transition"] != 1 or launches["boundary_columns"] != 1 or \
-                launches["syn_div"] != 1 or launches["power_series"] != table_builds(
-                    tiles._TABLES) or launches["blake3_rows"] != K3_ROW_LAUNCHES or \
-                any(launches[k] for k in K2_OPS):
+                launches["syn_div"] != 1 or launches["power_series"] != 1 or \
+                launches["merkle_tree"] != len(calls.trees) or \
+                launches["blake3_rows"] != K3_ROW_LAUNCHES or any(launches[k] for k in K2_OPS):
             raise AssertionError(f"example {name}: kernels not launched {idle}, launches "
                                  f"{json.dumps(launches)}, {len(tiles._TABLES)} tables built")
         (polys3, degree, x_last), = calls.syn_divs
         check_equal("syn_div", f"example {name} {syn_div_key(polys3, degree)}",
                     lambda: sk.syn_div(polys3, degree, x_last),
                     lambda: sk.syn_div_plain(polys3, degree, x_last))
+        trees = len(calls.trees)
         del calls, polys3
         info = proof.trace_info
         keyed[("air_transition", "example", name)] += launches["air_transition"]
@@ -1865,7 +1950,8 @@ def phase_examples(ops_rate):
               f"({info.ctx_depth}, {info.loop_depth}, {info.stack_depth}), execute "
               f"{prove_s:.3f} s, K4 launches {launches['air_transition']}, K9 "
               f"{launches['fri_fold']}, K10 {launches['boundary_columns']}, K11 "
-              f"{launches['syn_div']} (held), K12 {launches['power_series']}, outputs {outputs} "
+              f"{launches['syn_div']} (held), K12 {launches['power_series']}, K13 "
+              f"{launches['merkle_tree']} over {trees} trees, outputs {outputs} "
               f"as expected, verified, a tampered output rejected", flush=True)
 
     cli = subprocess.run([sys.executable, "-m", "distaff_torch", "fibonacci"],
@@ -1895,10 +1981,10 @@ def phase_examples(ops_rate):
 class ProofCalls:
     """Within its `with`, records the calls that the prover makes of K3 (the
     rows it hashes and the launch's counter), K4, K7, K9, K10, K11, K12 and
-    K13 (their arguments), and lets each launch; the keys of K9, K10, K11,
-    K12 and K13 (fold_key, boundary_key, syn_div_key, series_key, the
-    tree's leaves) by name.  Without `keep`, it records the keys alone and
-    keeps no tensor alive."""
+    K13 (their arguments; K12's a list of tables a call), and lets each
+    launch; the keys of K9, K10, K11, K12 and K13 (fold_key, boundary_key,
+    syn_div_key, tables_key, the tree's leaves) by name.  Without `keep`,
+    it records the keys alone and keeps no tensor alive."""
 
     KEYED = ("fri_fold", "boundary_columns", "syn_div", "power_series", "merkle_tree")
 
@@ -1921,8 +2007,11 @@ class ProofCalls:
                         (deep_kernels, "deep_compose", self.compose),
                         (fri_torch, "fri_fold", self.fold),
                         (boundary_kernels, "boundary_columns", self.boundary),
-                        (syndiv_kernels, "syn_div", self.syn_div),
-                        (fk, "power_series", self.power_series)]
+                        (syndiv_kernels, "syn_div", self.syn_div)]
+        if hasattr(fk, "power_series_many"):
+            self.patches.append((fk, "power_series_many", self.tables))
+        else:                    # a version of the port whose K12 builds a table a launch
+            self.patches.append((fk, "power_series", self.table))
         self.real = {}
         for module, name, fn in self.patches:
             self.real[name] = getattr(module, name)
@@ -1961,9 +2050,15 @@ class ProofCalls:
         self.keys["merkle_tree"].append(leaves.shape[0])
         return self.record(self.trees, "merkle_tree", (leaves,))
 
-    def power_series(self, x, n, device, c=1):
-        self.keys["power_series"].append(series_key(x, n, c))
-        self.series.append((x, n, device, c))             # host ints: nothing kept alive
+    def tables(self, specs, device):
+        specs = [(x, n, c) for x, n, c in specs]       # host ints: nothing kept alive
+        self.keys["power_series"].append(tables_key(specs))
+        self.series.append(specs)
+        return self.real["power_series_many"](specs, device)
+
+    def table(self, x, n, device, c=1):
+        self.keys["power_series"].append(tables_key([(x, n, c)]))
+        self.series.append([(x, n, c)])
         return self.real["power_series"](x, n, device, c)
 
     def __exit__(self, *exc):
@@ -2087,14 +2182,14 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
     trees = sorted(calls.trees, key=lambda args: -args[0].shape[0])
     for i, (leaves,) in enumerate(trees):
         n = leaves.shape[0]
-        shape = f"{tag} tree of {n} leaves in {len(b3.tree_launches(n))} launch(es)"
+        shape = f"{tag} tree of {n} leaves in one launch, plan {tree_plan(n)}"
         kernel = lambda: b3.merkle_tree(leaves)
         if last:
             plain_ms = check_tree_top(shape, kernel(), leaves)
             if i == 0:
                 ms = time_ms(kernel, 3, 3, queued=True)
                 bound_ms, bound_by = bound(*tree_bound(n), ops_rate)
-                print(f"kernel merkle_tree at {shape}: equal to plain above its first launch's "
+                print(f"kernel merkle_tree at {shape}: equal to plain above its first stage's "
                       f"subtrees and in its last; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
                       f"{bound_ms:.4f} ms by {bound_by})", flush=True)
             continue
@@ -2104,10 +2199,9 @@ def check_proof_calls(gen, ops_rate, log2_trace, calls, last):
             continue
         row = piece_row("merkle_tree", shape, kernel, parts, False, *tree_bound(n), ops_rate,
                         K13, K13_REPLACES)
-        add(row, "merkle_tree", "trees", sum(len(b3.tree_launches(t.shape[0]))
-                                             for (t,) in trees))
+        add(row, "merkle_tree", "trees", len(trees))
     print(f"kernel merkle_tree: {tag}'s {len(trees)} trees equal to plain "
-          f"({'above the first launch and in the last subtree' if last else 'whole'})",
+          f"({'above the first stage and in the last subtree' if last else 'whole'})",
           flush=True)
 
     # K4 on the proof's LDE slice and tables: no bad step
@@ -2199,15 +2293,14 @@ def phase_ladder(ops_rate):
     piece of each pass), the proof made on cuda unstepped and verified,
     with its wall time, step 0, peak device memory, LDE size and K1
     passes (the LDE must take K1's recursion, the passes and K8 calls must
-    be exactly those held; the table cache emptied first, K12 once a table
-    built; K13 in the launches tree_launches plans; K2 never), and every
+    be exactly those held; the table cache emptied first, K12 once; K13
+    once a tree; K2 never), and every
     call it made of K3, K4, K7, K9, K10, K11 and K13 held against the plain
     versions (check_proof_calls).  Then the
     LADDER_HELD rung once more with the step log.  Returns the rows and a
     Counter of launches by (kernel, rung, key)."""
     import distaff_torch
     from distaff_torch import assembly, ProgramInputs, ProofOptions
-    from distaff_torch.ops import blake3_torch as b3
     from distaff_torch.ops import cuda_lib, tiles
     from distaff_torch.stark import serde
 
@@ -2255,13 +2348,13 @@ def phase_ladder(ops_rate):
             raise AssertionError(f"kernels not launched at 2^{log2_trace}: {idle}")
         for name, want in (("air_transition", 1), ("deep_compose", 1), ("inv_batch", 0),
                            ("boundary_columns", 1), ("fri_fold", fold_layers(domain)),
-                           ("syn_div", 1), ("power_series", table_builds(tiles._TABLES)),
+                           ("syn_div", 1), ("power_series", 1),
                            ("blake3_rows", K3_ROW_LAUNCHES), ("trace_absorb", 0),
                            ("coeff_wsum", 0), *((k, 0) for k in K2_OPS)):
             if launches[name] != want:
                 raise AssertionError(f"2^{log2_trace}: {name} launched {launches[name]} times")
         recorded = Counter(counter for _, counter in calls.hashes)
-        recorded["merkle_tree"] = sum(len(b3.tree_launches(t.shape[0])) for (t,) in calls.trees)
+        recorded["merkle_tree"] = len(calls.trees)
         for name in ("blake3_rows", "merkle_tree"):
             if recorded[name] != launches[name]:
                 raise AssertionError(f"2^{log2_trace}: {recorded[name]} launches of {name} "
@@ -2591,8 +2684,8 @@ def phase_stream(ops_rate):
     table cache emptied first: verified, a tampered output rejected; its
     time, step 0, peak memory and launches printed; K14 once a block of a
     row (ceil(R / 4)), K15 once, K3 over rows once (the first FRI layer),
-    K4, K7, K10 and K11 once, K9 once a layer, K12 once a table built, K13
-    in the launches tree_launches plans, K2 and K6 never; the last piece of
+    K4, K7, K10, K11 and K12 once, K9 once a layer, K13 once a tree, K2
+    and K6 never; the last piece of
     each call of K4, K7, K10, K14 and K15 held against the plain versions
     (LastPieces).  Returns the rows and a Counter of launches by (kernel,
     rung, key)."""
@@ -2662,12 +2755,12 @@ def phase_stream(ops_rate):
         idle = [k for k in STREAM_PATH if launches[k] == 0]
         if idle:
             raise AssertionError(f"{tag}: kernels not launched: {idle}")
-        trees = sum(len(b3.tree_launches(n)) for n in tree_sizes(log2_trace))
+        trees = len(tree_sizes(log2_trace))
         for name, want in (("trace_absorb", -(-regs // b3.BLOCK_REGISTERS)), ("coeff_wsum", 1),
                            ("blake3_rows", 1), ("air_transition", 1), ("deep_compose", 1),
                            ("boundary_columns", 1), ("syn_div", 1), ("inv_batch", 0),
                            ("fri_fold", fold_layers(domain)), ("merkle_tree", trees),
-                           ("power_series", table_builds(tiles._TABLES)),
+                           ("power_series", 1),
                            *((k, 0) for k in K2_OPS)):
             if launches[name] != want:
                 raise AssertionError(f"{tag}: {name} launched {launches[name]} times, not {want}")
@@ -2721,7 +2814,8 @@ def main():
     parser.add_argument("--kernel-times", action="store_true",
                         help="only print the times of K9 and K11 at the proofs' shapes")
     parser.add_argument("--tree-times", action="store_true",
-                        help="only print the times of the 2^16 proof's Merkle trees")
+                        help="only print the times of the Merkle trees, a first proof's power "
+                             "tables and K3, K9 and K14")
     parser.add_argument("--wsum-times", action="store_true",
                         help="only print the times of K7 and K15 at the proofs' calls")
     args = parser.parse_args()
@@ -2771,15 +2865,20 @@ def main():
                        ("K15", "coeff_wsum")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
-    for name, stem in (("K7", "deep_compose"), ("K10", "boundary_columns"),
-                       ("K15", "coeff_wsum")):
+    # the integer opcode mix of the kernels on blake3.cuh's compression (K3,
+    # K9, K13, K14: IMAD on the FMA pipe, the rest on the integer-only pipe)
+    # and of those on the int8 tensor cores (K7, K10, K15: IMMA)
+    for name, stem in (("K3", "blake3_rows"), ("K9", "fri_fold"), ("K13", "merkle_tree"),
+                       ("K14", "trace_absorb"), ("K7", "deep_compose"),
+                       ("K10", "boundary_columns"), ("K15", "coeff_wsum")):
         sass = cuda_lib.sass(stem)
         if sass is None:
-            print(f"{name} SASS: no cuobjdump found, IMMA not counted", flush=True)
+            print(f"{name} SASS: no cuobjdump found, opcodes not counted", flush=True)
             continue
-        imma = sum("IMMA" in line for line in sass.splitlines())
-        print(f"{name} SASS: {imma} IMMA instructions (the int8 tensor-core product)", flush=True)
-        if imma == 0:
+        counts = cuda_lib.opcode_counts(sass)
+        print(f"{name} SASS opcodes: " + ", ".join(f"{op} {k}" for op, k in counts.items()),
+              flush=True)
+        if stem in ("deep_compose", "boundary_columns", "coeff_wsum") and counts["IMMA"] == 0:
             raise AssertionError(f"{stem}: no IMMA instruction in its SASS")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)

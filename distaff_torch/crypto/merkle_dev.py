@@ -1,5 +1,5 @@
 """Device-resident Merkle trees: every internal node hashed on the card by
-kernel K13 in one to three launches, with only the 32-byte root and the
+kernel K13 in one launch, with only the 32-byte root and the
 queried openings crossing to the host.
 
 Semantics (layout, batch-proof node order) are those of

@@ -1,5 +1,6 @@
-// The BLAKE3 compression function, shared by K3 (blake3_rows.cu) and K9
-// (fri_fold.cu, which hashes each folded leaf row where it computes it).
+// The BLAKE3 compression function, shared by K3 (blake3_rows.cu), K9
+// (fri_fold.cu, which hashes each folded leaf row where it computes it), K13
+// (merkle_tree.cu, a node a compression) and K14 (trace_absorb.cu).
 //
 // The port's counterpart of distaff_tpu/ops/blake3_jax.py::_compress;
 // native/blake3.cpp is the scalar reference.  The 16-word state and the
@@ -7,8 +8,29 @@
 // no register array is ever indexed at run time.  A compression is at
 // least 680 integer instructions (7 rounds x 8 G x 12, plus 8 output xors).
 //
-// Compiles as plain C++ too (field128.cuh's qualifiers), so that the CPU
-// tests can run K9's leaf digests.
+// The two integer pipes.  An H100 SM issues 32-bit adds, logic, shifts and
+// byte permutes (IADD3, LOP3, SHF, PRMT) to its integer-only pipe, 64 lanes
+// a cycle, and IMAD to the FMA pipe's other 64.  A G step is 12 such
+// instructions (2 three-input adds, 2 adds, 4 xors, 4 rotates), and the
+// compiler issues about a fifth of the adds as IMAD: in K13's build 590 of
+// 713 integer instructions went to the integer-only pipe, which bounded
+// the compression.  Its additions are a policy:
+// - AluAdds: x + y, as the compiler emits it;
+// - FmaAdds: y * one + x, issued as IMAD on the FMA pipe: `one` is 1 read
+//   from constant memory, which the compiler cannot prove to be 1, so it
+//   keeps the multiply-add (a literal 1 folds back into IADD3).  A
+//   three-input add is two of them.  The integer-only pipe keeps the xors
+//   and rotates: 483 of K13's 818.
+// A compression whose chaining value and counter are constants (hash_block:
+// the IV, counter 0, a 64-byte block, flags start | end | root) runs its
+// first round's column step on plain adds, so that the compiler folds the
+// constants (IV words added to IV words, xors with a zero counter).  The
+// diagonal steps take a policy of their own, so that a variant can move
+// part of their work alone (tools/air_probe.py k13).
+
+// Compiles as plain C++ too (field128.cuh's qualifiers; `one` is then the
+// literal 1), so that the CPU tests can run the compressions of K9's leaf
+// digests and of K13's nodes.
 
 #pragma once
 #include <cstdint>
@@ -36,16 +58,57 @@ F128_FN uint32_t rotr(uint32_t x, int n) {
 #endif
 }
 
-#define B3_G(a, b, c, d, mx, my)          \
-    do {                                  \
-        s[a] = s[a] + s[b] + (mx);        \
-        s[d] = rotr(s[d] ^ s[a], 16);     \
-        s[c] = s[c] + s[d];               \
-        s[b] = rotr(s[b] ^ s[c], 12);     \
-        s[a] = s[a] + s[b] + (my);        \
-        s[d] = rotr(s[d] ^ s[a], 8);      \
-        s[c] = s[c] + s[d];               \
-        s[b] = rotr(s[b] ^ s[c], 7);      \
+// the constant 1 of FmaAdds, in constant memory (see above)
+#ifdef __CUDACC__
+static __constant__ uint32_t kOne = 1;
+#endif
+
+F128_FN uint32_t one() {
+#ifdef __CUDA_ARCH__
+    return kOne;
+#else
+    return 1;
+#endif
+}
+
+struct AluAdds {
+    F128_FN uint32_t operator()(uint32_t x, uint32_t y) const { return x + y; }
+    F128_FN uint32_t operator()(uint32_t x, uint32_t y, uint32_t z) const { return x + y + z; }
+    template <int n>
+    F128_FN uint32_t rot(uint32_t x) const { return rotr(x, n); }
+};
+
+struct FmaAdds {
+    uint32_t one;
+    F128_FN uint32_t operator()(uint32_t x, uint32_t y) const {
+#ifdef __CUDA_ARCH__
+        uint32_t r;
+        asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(y), "r"(one), "r"(x));
+        return r;
+#else
+        return y * one + x;
+#endif
+    }
+    F128_FN uint32_t operator()(uint32_t x, uint32_t y, uint32_t z) const {
+        return (*this)((*this)(x, y), z);
+    }
+    // the rotates stay on the integer-only pipe: moved to the FMA pipe (an
+    // IMAD.WIDE by 2^(32 - n) and an IMAD of its halves) they were slower,
+    // all of them or those of the diagonal steps (tools/air_probe.py k13)
+    template <int n>
+    F128_FN uint32_t rot(uint32_t x) const { return rotr(x, n); }
+};
+
+#define B3_G(add, a, b, c, d, mx, my)                    \
+    do {                                                 \
+        s[a] = add(s[a], s[b], (mx));                    \
+        s[d] = add.template rot<16>(s[d] ^ s[a]);        \
+        s[c] = add(s[c], s[d]);                          \
+        s[b] = add.template rot<12>(s[b] ^ s[c]);        \
+        s[a] = add(s[a], s[b], (my));                    \
+        s[d] = add.template rot<8>(s[d] ^ s[a]);         \
+        s[c] = add(s[c], s[d]);                          \
+        s[b] = add.template rot<7>(s[b] ^ s[c]);         \
     } while (0)
 
 // the BLAKE3 message permutation (2,6,3,10,7,0,4,13,1,11,12,5,9,14,15,8)
@@ -59,9 +122,13 @@ F128_FN void permute(uint32_t m[16]) {
     for (int i = 0; i < 16; ++i) m[i] = t[i];
 }
 
-// cv <- compress(cv, m, counter, block_len, flags), truncated to 8 words
+// cv <- compress(cv, m, counter, block_len, flags), truncated to 8 words:
+// the first round's column step adds with `first`, the other column steps
+// with `column` and the diagonal steps with `diagonal`
+template <class First, class Column, class Diagonal>
 F128_FN void compress(uint32_t cv[8], uint32_t m[16], uint64_t counter, uint32_t block_len,
-                      uint32_t flags) {
+                      uint32_t flags, const First& first, const Column& column,
+                      const Diagonal& diagonal) {
     uint32_t s[16];
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = cv[i];
@@ -73,14 +140,21 @@ F128_FN void compress(uint32_t cv[8], uint32_t m[16], uint64_t counter, uint32_t
     s[15] = flags;
 #pragma unroll
     for (int r = 0; r < 7; ++r) {
-        B3_G(0, 4, 8, 12, m[0], m[1]);
-        B3_G(1, 5, 9, 13, m[2], m[3]);
-        B3_G(2, 6, 10, 14, m[4], m[5]);
-        B3_G(3, 7, 11, 15, m[6], m[7]);
-        B3_G(0, 5, 10, 15, m[8], m[9]);
-        B3_G(1, 6, 11, 12, m[10], m[11]);
-        B3_G(2, 7, 8, 13, m[12], m[13]);
-        B3_G(3, 4, 9, 14, m[14], m[15]);
+        if (r == 0) {
+            B3_G(first, 0, 4, 8, 12, m[0], m[1]);
+            B3_G(first, 1, 5, 9, 13, m[2], m[3]);
+            B3_G(first, 2, 6, 10, 14, m[4], m[5]);
+            B3_G(first, 3, 7, 11, 15, m[6], m[7]);
+        } else {
+            B3_G(column, 0, 4, 8, 12, m[0], m[1]);
+            B3_G(column, 1, 5, 9, 13, m[2], m[3]);
+            B3_G(column, 2, 6, 10, 14, m[4], m[5]);
+            B3_G(column, 3, 7, 11, 15, m[6], m[7]);
+        }
+        B3_G(diagonal, 0, 5, 10, 15, m[8], m[9]);
+        B3_G(diagonal, 1, 6, 11, 12, m[10], m[11]);
+        B3_G(diagonal, 2, 7, 8, 13, m[12], m[13]);
+        B3_G(diagonal, 3, 4, 9, 14, m[14], m[15]);
         if (r < 6) permute(m);
     }
 #pragma unroll
@@ -89,13 +163,30 @@ F128_FN void compress(uint32_t cv[8], uint32_t m[16], uint64_t counter, uint32_t
 
 #undef B3_G
 
+// The compression of K3, K9 and K14: its adds on the FMA pipe (FmaAdds),
+// which made each of them faster on the H100 than the compiler's adds
+// (tools/air_probe.py b3).
+F128_FN void compress(uint32_t cv[8], uint32_t m[16], uint64_t counter, uint32_t block_len,
+                      uint32_t flags) {
+    const FmaAdds adds{one()};
+    compress(cv, m, counter, block_len, flags, adds, adds, adds);
+}
+
 // The digest of one 64-byte message (one chunk of one block: chunk start,
 // chunk end and root), as hash_rows_u32 hashes a 64-byte row: cv <- its 8
-// words.  m is consumed.
-F128_FN void hash_block(uint32_t cv[8], uint32_t m[16]) {
+// words.  m is consumed.  Its chaining value and counter are constants: the
+// first round's column step adds on plain adds, which fold them.
+template <class Column, class Diagonal>
+F128_FN void hash_block(uint32_t cv[8], uint32_t m[16], const Column& column,
+                        const Diagonal& diagonal) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) cv[i] = iv(i);
-    compress(cv, m, 0, 64, kChunkStart | kChunkEnd | kRoot);
+    compress(cv, m, 0, 64, kChunkStart | kChunkEnd | kRoot, AluAdds{}, column, diagonal);
+}
+
+F128_FN void hash_block(uint32_t cv[8], uint32_t m[16]) {
+    const FmaAdds adds{one()};
+    hash_block(cv, m, adds, adds);
 }
 
 }  // namespace blake3

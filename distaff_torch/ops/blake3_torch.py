@@ -9,9 +9,9 @@ state in registers.
 
 K13 (csrc/merkle_tree.cu + .cuh) replaces the level hashing of
 distaff_tpu/crypto/merkle_dev.py (_build_flat_nodes, _build_subtree_nodes):
-(N, 8) leaf digests -> the (N, 8) flat node array, in one to three
-launches of a kernel that hashes subtrees of up to 2^11 nodes a block in
-shared memory (tree_launches).
+(N, 8) leaf digests -> the (N, 8) flat node array, in one launch whose
+blocks hash subtrees in shared memory, the last block of each group going
+on to the group's parent subtree (tree_plan).
 
 K14 (csrc/trace_absorb.cu + .cuh) replaces distaff_tpu/ops/blake3_jax.py's
 absorb_begin, absorb_block, absorb_finish and parent_root as the streaming
@@ -30,6 +30,7 @@ On CPU tensors the wrappers run the plain version, in int64 lanes.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -145,19 +146,67 @@ def hash_rows(rows, out=None):
     return _launch(rows, out, "blake3_rows")
 
 
-# the levels a K13 block hashes at most: subtrees of 2^11 input nodes
-# (csrc/merkle_tree.cuh's kMaxLevels)
+# a K13 stage hashes subtrees of at most 2^TREE_LEVELS input nodes, in
+# blocks of at most TREE_THREADS threads (csrc/merkle_tree.cuh's kMaxLevels
+# and kThreads)
 TREE_LEVELS = 11
+TREE_THREADS = 256
+# the plan's bottom subtrees leave at least TREE_BLOCKS_PER_SM blocks an SM,
+# but have at least 2^TREE_MIN_BOTTOM leaves: the fastest of the plans
+# tools/air_probe.py k13 times on the H100
+TREE_BLOCKS_PER_SM = 1
+TREE_MIN_BOTTOM = 8
 
 
-def tree_launches(n, levels=TREE_LEVELS):
-    """K13's launches for a tree of n leaves: [(m, l)], each launch hashing
-    l levels above a level of m nodes in subtrees of 2^l of them."""
-    launches = []
-    while n > 1:
-        launches.append((n, min(n.bit_length() - 1, levels)))
-        n >>= launches[-1][1]
-    return launches
+def tree_plan(n, sms, blocks_per_sm=TREE_BLOCKS_PER_SM, min_bottom=TREE_MIN_BOTTOM):
+    """K13's plan for a tree of n leaves on a card of `sms` SMs: the levels
+    that each stage of its one launch hashes, from the leaves up.  A tree
+    whose first level is at most a node a thread of one block is one
+    stage.  Else stage 0's subtrees, a block each, are the largest (at
+    most 2^TREE_LEVELS leaves) that leave blocks_per_sm blocks an SM, and
+    no smaller than 2^min_bottom leaves; the levels above split as evenly
+    as stages of at most TREE_LEVELS levels allow."""
+    total = n.bit_length() - 1
+    if n <= 2 * TREE_THREADS:
+        return [total]
+    bottom = TREE_LEVELS
+    while bottom > min_bottom and n >> bottom < blocks_per_sm * sms:
+        bottom -= 1
+    rest = total - bottom
+    stages = -(-rest // TREE_LEVELS)
+    return [bottom] + [rest // stages + (i < rest % stages) for i in range(stages)]
+
+
+def tree_groups(n, plan):
+    """The ticket counters a tree of n leaves takes under `plan`: a group
+    (a subtree) of every stage above the first."""
+    groups, m = 0, n >> plan[0]
+    for levels in plan[1:]:
+        m >>= levels
+        groups += m
+    return groups
+
+
+_TREE_COUNTERS = {}
+
+
+def _tree_counters(device, groups):
+    """K13's int32 ticket counters on `device`: at least `groups` words, all
+    0 (the last block of each group sets its counter back to 0).  One
+    scratch a device: the trees that share it must run one after another,
+    as they do on one stream (merkle_tree enqueues every tree on the
+    current stream)."""
+    counters = _TREE_COUNTERS.get(device)
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(max(groups, 1024), dtype=torch.int32, device=device)
+        _TREE_COUNTERS[device] = counters
+    return counters
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index):
+    """The SM count of card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_leaves(leaves):
@@ -182,24 +231,25 @@ def merkle_tree_plain(leaves):
     return nodes
 
 
-def merkle_tree(leaves):
+def merkle_tree(leaves, plan=None):
     """The flat node array of a BLAKE3 Merkle tree over (N, 8) uint32 leaf
-    digests (merkle_tree_plain's): on the card K13's launches of
-    tree_launches(N), all on the leaves' stream."""
+    digests (merkle_tree_plain's): on the card one K13 launch under
+    tree_plan(N, the card's SMs), or `plan`, on the current stream."""
     _check_leaves(leaves)
     if leaves.device.type == "cpu":
         return merkle_tree_plain(leaves)
     n = leaves.shape[0]
     leaves = leaves.contiguous()
     cuda_lib.require_limbs("merkle_tree", leaves.view(n, 2, 4))
+    if plan is None:
+        plan = tree_plan(n, device_sms(leaves.device.index or 0))
     nodes = torch.empty((n, 8), dtype=torch.uint32, device=leaves.device)
-    level = leaves
-    for m, levels in tree_launches(n):
-        code = cuda_lib.lib().distaff_merkle_tree(
-            cuda_lib.ptr(level), cuda_lib.ptr(nodes), m, levels, cuda_lib.stream(nodes))
-        cuda_lib.check(code, "merkle_tree")
-        cuda_lib.LAUNCHES["merkle_tree"] += 1
-        level = nodes[m >> levels : 2 * (m >> levels)]
+    counters = _tree_counters(leaves.device, tree_groups(n, plan))
+    code = cuda_lib.lib().distaff_merkle_tree(
+        cuda_lib.ptr(leaves), cuda_lib.ptr(nodes), cuda_lib.ptr(counters), n, len(plan),
+        (ctypes.c_int * len(plan))(*plan), cuda_lib.stream(nodes))
+    cuda_lib.check(code, "merkle_tree")
+    cuda_lib.LAUNCHES["merkle_tree"] += 1
     return nodes
 
 

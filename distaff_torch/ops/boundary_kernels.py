@@ -65,6 +65,11 @@ def boundary_columns_plain(lde, i_parts, f_parts, xb_root, start=0):
     return combine(i_parts), combine(f_parts)
 
 
+def boundary_table_keys(n, xb_root, device):
+    """The keys of K10's power tables over n points: x^b = xb_root^k."""
+    return [tiles.factors_key(n, xb_root, 1, device)]
+
+
 def boundary_args(lde, i_parts, f_parts, xb_root):
     """K10's arguments beside the LDE: the (4, R) weights w1i, w2i, w1f,
     w2f as 16R host words (a kernel parameter, like the constants), x^b's
@@ -73,7 +78,7 @@ def boundary_args(lde, i_parts, f_parts, xb_root):
     weights = (i_parts[0], i_parts[1], f_parts[0], f_parts[1])
     weight_words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for row in weights for v in row
                     for k in range(4)]
-    tables = tiles._store_factors(lde.shape[1], int(xb_root), 1, lde.device)
+    tables, = tiles.tables(boundary_table_keys(lde.shape[1], xb_root, lde.device))
     constants = (i_parts[2], i_parts[3], f_parts[2], f_parts[3])
     words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in constants for k in range(4)]
     return weight_words, tables, words

@@ -118,12 +118,38 @@ def _binary_tool(name):
 def sass(stem):
     """The SASS of csrc/<stem>.cu's object (cuobjdump --dump-sass), or None
     where no cuobjdump is installed."""
+    return sass_file(next(o for o in _objects() if o.name.startswith(stem + "-")))
+
+
+# the integer opcodes whose mix shows a kernel's split over the SM's two
+# integer pipes: IADD3, LOP3, SHF and PRMT issue to the integer-only pipe,
+# IMAD (all its forms) to the FMA pipe; IMMA is the int8 tensor cores'
+PIPE_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IMMA")
+
+
+def sass_file(path):
+    """The SASS of a compiled object or library (cuobjdump --dump-sass), or
+    None where no cuobjdump is installed."""
     tool = _binary_tool("cuobjdump")
     if tool is None:
         return None
-    obj = next(o for o in _objects() if o.name.startswith(stem + "-"))
-    return subprocess.run([tool, "--dump-sass", str(obj)], capture_output=True, text=True,
+    return subprocess.run([tool, "--dump-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
+
+
+def opcode_counts(sass_text, opcodes=PIPE_OPCODES):
+    """How many instructions of each base opcode (the mnemonic before its
+    first '.') the SASS text holds, predicated ones included."""
+    counts = dict.fromkeys(opcodes, 0)
+    for line in sass_text.splitlines():
+        if "*/" not in line:
+            continue
+        words = line.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words and words[0].split(".")[0] in counts:
+            counts[words[0].split(".")[0]] += 1
+    return counts
 
 
 def lib():
@@ -137,6 +163,7 @@ def lib():
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         llp = ctypes.POINTER(ctypes.c_longlong)
         u32p = ctypes.POINTER(ctypes.c_uint32)
+        i32p = ctypes.POINTER(ctypes.c_int)
         handle.distaff_ntt_pass.argtypes = [
             vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
         handle.distaff_field_binary.argtypes = [
@@ -154,8 +181,8 @@ def lib():
             vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp, vp]
         handle.distaff_syn_div.argtypes = [
             vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, u32p, vp, vp, vp, vp, vp]
-        handle.distaff_power_series.argtypes = [vp, i32, ll, vp, vp]
-        handle.distaff_merkle_tree.argtypes = [vp, vp, ll, i32, vp]
+        handle.distaff_power_series.argtypes = [vp, vp, i32, llp, i32p, llp, llp, vp]
+        handle.distaff_merkle_tree.argtypes = [vp, vp, vp, ll, i32, i32p, vp]
         handle.distaff_trace_absorb.argtypes = [
             vp, ll, i32, ll, vp, vp, vp, ll, i32, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_ulonglong, vp]

@@ -237,13 +237,19 @@ def deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, start=0):
     return add(composed, mul(mul(sub(c_lde, c_at_z), u), kc))
 
 
+def compose_table_keys(n, root, incr, device):
+    """The keys of K7's power tables over n points: x = root^i and
+    x^incr."""
+    return [tiles.factors_key(n, root, 1, device),
+            tiles.factors_key(n, pow(int(root), int(incr), M), 1, device)]
+
+
 def compose_args(lde, root, incr, scalars):
     """K7's arguments after the pointers' tensors: (lde stride, regs, n,
     tables (x lo, x hi, x^incr lo, x^incr hi; hi None up to 1024 points),
     the scalars as 32 host words)."""
     n = lde.shape[1]
-    x_lo, x_hi = tiles._store_factors(n, int(root), 1, lde.device)
-    i_lo, i_hi = tiles._store_factors(n, pow(int(root), int(incr), M), 1, lde.device)
+    (x_lo, x_hi), (i_lo, i_hi) = tiles.tables(compose_table_keys(n, root, incr, lde.device))
     words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in scalars for k in range(4)]
     return lde.stride(0) // 4, lde.shape[0], n, (x_lo, x_hi, i_lo, i_hi), words
 

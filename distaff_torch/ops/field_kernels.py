@@ -24,10 +24,11 @@ results.  Bound by memory traffic.
 
 K12 `power_series` (csrc/power_series.cu, power_series.cuh) replaces the
 JAX package's distaff_tpu/ops/tiles.py::_ps_tile, _ps_tiles_batched and
-power_series on distaff_tpu/math/field_jax.py::power_series_dev: [c x^0 ..
-c x^(n-1)] for host ints x and c in one launch, each block doubling its
-tile of powers in shared memory from the host's squarings of x.  Bound by
-memory traffic.
+power_series on distaff_tpu/math/field_jax.py::power_series_dev: tables
+[c x^0 .. c x^(n-1)] for host ints x and c, a list of them in one launch
+(a proof's tables: ops/tiles.build_tables), each row one multiply of two
+small tables of x's powers that each block makes from the host's squarings
+of x.  Bound by memory traffic; a proof's tables are latency.
 
 K5 `butterfly` (csrc/butterfly.cu) replaces the TPU kernel
 distaff_tpu/ops/field_pallas.py::_butterfly_kernel (launched by
@@ -334,6 +335,8 @@ def inv_batch(a):
 # ------------------------------------------------------------------------------------------------
 
 POWER_SERIES_TILE = 1024        # power_series.cuh kTile: the rows of a block
+POWER_SERIES_TABLES = 64        # power_series.cuh kMaxTables: the tables of a launch
+POWER_SERIES_LANES = 32         # power_series.cuh kLanes
 
 
 def power_series_factors(x, n, c=1):
@@ -362,34 +365,60 @@ def power_series_plain(x, n, device, c=1):
 
 
 def power_series_ops(n):
-    """K12's multiplies for n rows, from its code: each block's doublings
-    (one a row of its table but the first) and stores (one a row), and the
-    prefix's (one a set bit of the block's first row above the tile)."""
+    """K12's multiplies for a table of n rows, from its code: a block's 32
+    powers x^l and 32 powers x^(32 l) (four multiplies each), its prefix's
+    five shuffle steps and the product with x^(32 l) in each of 32 lanes,
+    and one multiply a row."""
     blocks = -(-n // POWER_SERIES_TILE)
-    table = min(n, POWER_SERIES_TILE)
-    prefix = sum(bin(b).count("1") for b in range(blocks))
-    return blocks * (table - 1) + n + prefix
+    return blocks * POWER_SERIES_LANES * (4 + 4 + 5 + 1) + n
+
+
+def power_series_many(specs, device):
+    """The tables [c x^0 .. c x^(n-1)] for each (x, n, c) of `specs` (host
+    ints), as (n, 4) uint32 limb tensors on `device`: on the card one K12
+    launch for up to POWER_SERIES_TABLES tables (views of one buffer), their
+    factors uploaded in one copy; the plain version on the CPU."""
+    from ..math import field_torch as ft
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [power_series_plain(x, n, device, c) for x, n, c in specs]
+    tables = [None] * len(specs)
+    todo = [k for k, (_, n, _) in enumerate(specs) if n > 0]
+    for k, (_, n, _) in enumerate(specs):
+        if n <= 0:
+            tables[k] = ft.zeros((0,), device)
+    for start in range(0, len(todo), POWER_SERIES_TABLES):
+        chunk = todo[start:start + POWER_SERIES_TABLES]
+        factors, offsets, counts, rows, outs = [], [], [], [], []
+        for k in chunk:
+            x, n, c = specs[k]
+            offsets.append(len(factors))
+            factors += power_series_factors(x, n, c)
+            counts.append(len(factors) - offsets[-1])
+            outs.append(sum(rows))
+            rows.append(n)
+        limbs = ft.from_ints(factors, device)
+        cuda_lib.require_limbs("power_series", limbs)
+        out = torch.empty((sum(rows), 4), dtype=torch.uint32, device=device)
+        k_tables = len(chunk)
+        code = cuda_lib.lib().distaff_power_series(
+            cuda_lib.ptr(limbs), cuda_lib.ptr(out), k_tables,
+            (ctypes.c_longlong * k_tables)(*offsets), (ctypes.c_int * k_tables)(*counts),
+            (ctypes.c_longlong * k_tables)(*rows), (ctypes.c_longlong * k_tables)(*outs),
+            cuda_lib.stream(out))
+        cuda_lib.check(code, "power_series")
+        cuda_lib.LAUNCHES["power_series"] += 1
+        for k, first, n in zip(chunk, outs, rows):
+            tables[k] = out[first:first + n]
+    return tables
 
 
 def power_series(x, n, device, c=1):
     """[c x^0 .. c x^(n-1)] as an (n, 4) uint32 limb tensor on `device` for
     host ints x and c: one K12 launch on the card, the plain version on the
     CPU."""
-    from ..math import field_torch as ft
-
-    device = torch.device(device)
-    if n <= 0:
-        return ft.zeros((0,), device)
-    if device.type == "cpu":
-        return power_series_plain(x, n, device, c)
-    factors = ft.from_ints(power_series_factors(x, n, c), device)
-    cuda_lib.require_limbs("power_series", factors)
-    out = torch.empty((n, 4), dtype=torch.uint32, device=device)
-    code = cuda_lib.lib().distaff_power_series(
-        cuda_lib.ptr(factors), factors.shape[0], n, cuda_lib.ptr(out), cuda_lib.stream(out))
-    cuda_lib.check(code, "power_series")
-    cuda_lib.LAUNCHES["power_series"] += 1
-    return out
+    return power_series_many([(x, n, c)], device)[0]
 
 
 # ------------------------------------------------------------------------------------------------

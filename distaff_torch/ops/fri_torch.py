@@ -141,6 +141,13 @@ def fold_words(special_x, root, stride, q):
     return [(v >> (32 * k)) & 0xFFFFFFFF for v in values for k in range(4)]
 
 
+def fold_table_keys(n, stride, root, device):
+    """The keys of K9's power tables for a layer of n points at `stride`:
+    those of root over the LDE domain's n * stride points (the same for
+    every layer of a proof)."""
+    return [tiles.factors_key(n * stride, root, 1, device)]
+
+
 def fri_fold(column, special_x, root, stride=1, digests=False):
     """One FRI layer folded at the host int special_x: column (4q, 4) limbs,
     the layer's evaluations over the domain of w_L = root^stride (order 4q;
@@ -160,7 +167,7 @@ def fri_fold(column, special_x, root, stride=1, digests=False):
         return fri_fold_plain(column, special_x, root, stride, digests=digests)
     cuda_lib.require_limbs("fri_fold", column)
     column = column.contiguous()
-    lo, hi = tiles._store_factors(n * stride, int(root), 1, column.device)
+    (lo, hi), = tiles.tables(fold_table_keys(n, stride, root, column.device))
     out = torch.empty((q, 4), dtype=torch.uint32, device=column.device)
     leaves = (torch.empty((q // 4, 8), dtype=torch.uint32, device=column.device)
               if digests else None)

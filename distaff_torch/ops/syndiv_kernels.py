@@ -105,13 +105,20 @@ def syn_div_ops(n, degree):
     return muls, adds
 
 
+def syn_div_table_keys(n, x_last, device):
+    """The keys of K11's power tables at n points: b = x_last's (c = 1) and
+    1/b's (c = 1/b)."""
+    b = int(x_last) % M
+    b_inv = hostfield.inv(b)
+    return [tiles.factors_key(n, b, 1, device), tiles.factors_key(n, b_inv, b_inv, device)]
+
+
 def syn_div_args(n, x_last, device):
     """K11's arguments beside the polynomials: the power tables of b =
     x_last (c = 1) and of 1/b (c = 1/b) at n points, cached (hi None up to
     1024 points), and b and -x_last as 4 host words each."""
     b = int(x_last) % M
-    b_inv = hostfield.inv(b)
-    return (tiles._store_factors(n, b, 1, device), tiles._store_factors(n, b_inv, b_inv, device),
+    return (*tiles.tables(syn_div_table_keys(n, x_last, device)),
             [(v >> (32 * k)) & 0xFFFFFFFF for v in (b, hostfield.neg(b)) for k in range(4)])
 
 

@@ -30,35 +30,106 @@ LEAF = fk.MAX_LEAF
 # NTT
 # ------------------------------------------------------------------------------------------------
 
-# power tables (K1's, K4's, K7's, K9's, K10's, K11's), each built by K12
-# launches once per device, size, root and constant
+# power tables (K1's, K4's, K7's, K9's, K10's, K11's) by key: a prover
+# builds every table of its proof in one K12 launch at its start
+# (build_tables, from the keys of each user's *_table_keys function), and a
+# table that no plan built is built on first use (tables)
 _TABLES = {}
 _LOG_LO = 10
 
 
-def _cached(key, build):
-    if key not in _TABLES:
-        _TABLES[key] = build()
-    return _TABLES[key]
+def device_key(device):
+    """A device as the tables' keys name it: a card with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def twiddle_key(m, root_int, device):
+    """The key of the m/2 powers of a size-m root: a pass's butterfly
+    twiddles."""
+    return ("tw", device_key(device), m, int(root_int))
+
+
+def factors_key(n, root_int, c_int, device):
+    """The key of (lo, hi) with lo[x] = c w^x for x < min(n, 1024) and
+    hi[y] = w^(1024 y), so that c w^e = lo[e % 1024] * hi[e // 1024] for e <
+    n; hi is None for n <= 1024."""
+    return ("factors", device_key(device), n, int(root_int), int(c_int))
+
+
+def _series(key):
+    """The K12 tables (x, n, c) of a key."""
+    if key[0] == "tw":
+        _, _, m, root = key
+        return [(root, m // 2, 1)]
+    _, _, n, root, c = key
+    size = min(n, 1 << _LOG_LO)
+    return [(root, size, c)] + ([(pow(root, size, M), n // size, 1)] if n > size else [])
+
+
+def build_tables(keys):
+    """Build every table of `keys` that the cache lacks, in one K12 launch
+    a device (the plain version on the CPU).  Returns the keys built."""
+    missing = list(dict.fromkeys(k for k in keys if k not in _TABLES))
+    for device in dict.fromkeys(k[1] for k in missing):
+        mine = [k for k in missing if k[1] == device]
+        series = [_series(k) for k in mine]
+        built = iter(fk.power_series_many([t for ts in series for t in ts], device))
+        for key, ts in zip(mine, series):
+            lo, *hi = (next(built) for _ in ts)
+            _TABLES[key] = lo if key[0] == "tw" else (lo, hi[0] if hi else None)
+    return missing
+
+
+def tables(keys):
+    """The tables of `keys`, each built where the cache lacks it."""
+    build_tables(keys)
+    return [_TABLES[k] for k in keys]
 
 
 def _stage_twiddles(m, root_int, device):
     """The m/2 powers of a size-m root: a pass's butterfly twiddles."""
-    return _cached(("tw", str(device), m, root_int),
-                   lambda: fk.power_series(root_int, m // 2, device))
+    return tables([twiddle_key(m, root_int, device)])[0]
 
 
 def _store_factors(n, root_int, c_int, device):
-    """(lo, hi) with lo[x] = c w^x for x < min(n, 1024) and hi[y] =
-    w^(1024 y), so that c w^e = lo[e % 1024] * hi[e // 1024] for e < n; hi
-    is None for n <= 1024."""
-    def build():
-        size = min(n, 1 << _LOG_LO)
-        lo = fk.power_series(root_int, size, device, c_int)
-        if n <= size:
-            return lo, None
-        return lo, fk.power_series(pow(root_int, size, M), n // size, device)
-    return _cached(("factors", str(device), n, root_int, c_int), build)
+    """(lo, hi) of factors_key(n, root_int, c_int)."""
+    return tables([factors_key(n, root_int, c_int, device)])[0]
+
+
+def _split(n, leaf):
+    """A four-step transform's n = n1 * n2: pass A's size n2, pass B's n1."""
+    n2 = min(leaf, 1 << (n.bit_length() // 2))
+    return n // n2, n2
+
+
+def transform_keys(n, root_int, c_int, device, leaf=LEAF):
+    """The keys of the tables that a transform of n points at root_int,
+    times c_int, takes (_ntt_into's, through its recursion)."""
+    root_int, c_int = int(root_int), int(c_int)
+    if n == 1:
+        return []
+    if n <= leaf:
+        return [twiddle_key(n, root_int, device)] + (
+            [] if c_int == 1 else [factors_key(1, root_int, c_int, device)])
+    n1, n2 = _split(n, leaf)
+    keys = [factors_key(n, root_int, c_int, device),
+            twiddle_key(n2, pow(root_int, n1, M), device)]
+    if n1 <= leaf:
+        return keys + [twiddle_key(n1, pow(root_int, n2, M), device)]
+    return keys + transform_keys(n1, pow(root_int, n2, M), 1, device, leaf)
+
+
+def ntt_keys(n, root_int, device):
+    """The table keys of ntt_batched to n points at root_int."""
+    return transform_keys(n, root_int, 1, device)
+
+
+def intt_keys(n, root_int, device):
+    """The table keys of intt_batched over n points at root_int."""
+    return transform_keys(n, pow(int(root_int), n - 1, M), hostfield.inv(n), device)
 
 
 def _ntt_into(values, n_in, dst, n, root_int, c_int, leaf):
@@ -75,8 +146,7 @@ def _ntt_into(values, n_in, dst, n, root_int, c_int, leaf):
     # n = n1 * n2, k = k2*n1 + k1, j = j1*n2 + j2: pass A transforms each
     # column k1 over k2 (size n2) and multiplies by c w^(k1*j2); pass B
     # transforms each column j2 over k1 (size n1) into j1*n2 + j2
-    n2 = min(leaf, 1 << (n.bit_length() // 2))
-    n1 = n // n2
+    n1, n2 = _split(n, leaf)
     lo, hi = _store_factors(n, root_int, c_int, device)
     tw2 = _stage_twiddles(n2, pow(root_int, n1, M), device)
     scratch = torch.empty((b, n, 4), dtype=torch.uint32, device=device)

@@ -199,13 +199,18 @@ def transition(lde, tables):
     return air_kernels.air_transition(lde, tables)
 
 
+def air_table_keys(n_ev, device):
+    """The keys of the power tables air_tables reads: those of D_ev's root
+    (K4's x^incr lookups)."""
+    return [tiles.factors_key(n_ev, field.get_root_of_unity(n_ev), 1, device)]
+
+
 def air_tables(evaluator, device):
     """The AirTables of an evaluator on `device`: periodic constants, MDS
     matrices, transcript coefficients, groups, their degree-adjustment
     exponents and the power tables of D_ev's root (cached by ops/tiles)."""
     n_ev = evaluator.domain_size
-    root_ev = field.get_root_of_unity(n_ev)
-    x_lo, x_hi = tiles._store_factors(n_ev, root_ev, 1, device)
+    (x_lo, x_hi), = tiles.tables(air_table_keys(n_ev, device))
     groups = tuple(tuple(cs) for _, cs in evaluator.t_degree_groups)
 
     def limbs(rows):

@@ -3,7 +3,7 @@ the domain-sized work on the device:
 
 1. trace LDE           - batched NTTs per register (kernel K1)
 2. trace Merkle tree   - leaf rows hashed on device (K3), the tree in one
-                         to three launches (K13, as every blake3 tree);
+                         launch (K13, as every blake3 tree);
                          with another hash than blake3 the trees of
                          steps 2, 5 and 7 are hashed on the host
 3. constraint eval     - boundary columns in one launch (K10) and
@@ -17,6 +17,11 @@ the domain-sized work on the device:
                          + device layer trees
 8. PoW + queries       - host grinding and sampling
 9. proof assembly      - device gathers, one batched copy to the host
+
+Before step 1, every power table that the kernels of these steps read is
+built in one launch of kernel K12 (proof_table_keys, ops/tiles.
+build_tables); a process's later proofs of the same geometry find them
+cached.
 
 Where the LDE does not fit (stark/trace_table.py's streaming LDE), step 1
 only interpolates, step 2 extends the registers four at a time, each group
@@ -111,6 +116,9 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove(device='cuda'): no CUDA device is available")
     clock = _StepClock(device)
+    from ..ops import tiles
+
+    tiles.build_tables(proof_table_keys(trace.unextended_length(), trace.domain_size(), device))
 
     # 1 ----- extend execution trace -------------------------------------------------------------
     trace.extend(device, part=lambda name: clock.part(1, name))
@@ -143,8 +151,6 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     clock.done(4, "constraint polynomial")
 
     # 5 ----- commit to constraint polynomial evaluations ----------------------------------------
-    from ..ops import tiles
-
     constraint_lde = tiles.ntt(constraint_poly, lde_root, n=domain_size)
     constraint_tree = _build_constraint_tree(constraint_lde, options.hash_fn)
     clock.done(5, "constraint tree")
@@ -197,6 +203,36 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     )
     clock.done(9, "proof assembly")
     return proof
+
+
+def proof_table_keys(trace_length, domain_size, device):
+    """The keys of every power table that a proof's kernels read, from its
+    geometry alone (the trace, LDE and D_ev domains and their roots), so
+    that one K12 launch builds them all before step 1: step 1's and step
+    5's transforms (K1), K10's and K4's (step 3), step 4's inverse
+    transform and K11's, K7's (step 6) and K9's (step 7).  The streamed
+    path's transforms (the four-register groups of step 2, step 6's two
+    sums) go to the LDE domain at its root, as step 1's does: its keys are
+    the materialized path's."""
+    from ..ops import boundary_kernels, deep_kernels, fri_torch, syndiv_kernels, tiles
+    from .constraints import device_eval
+    from .constraints.evaluator import get_boundary_constraint_adjustment_degree
+
+    n_ev = trace_length * MAX_CONSTRAINT_DEGREE
+    root_n = field.get_root_of_unity(trace_length)
+    root = field.get_root_of_unity(domain_size)
+    root_ev = field.get_root_of_unity(n_ev)
+    xb_root = field.exp(root_ev, get_boundary_constraint_adjustment_degree(trace_length))
+    return (tiles.intt_keys(trace_length, root_n, device)
+            + tiles.ntt_keys(domain_size, root, device)
+            + boundary_kernels.boundary_table_keys(n_ev, xb_root, device)
+            + device_eval.air_table_keys(n_ev, device)
+            + tiles.intt_keys(n_ev, root_ev, device)
+            + syndiv_kernels.syn_div_table_keys(
+                n_ev, field.exp(root_n, trace_length - 1), device)
+            + deep_kernels.compose_table_keys(
+                domain_size, root, utils.get_incremental_trace_degree(trace_length), device)
+            + fri_torch.fold_table_keys(domain_size, 1, root, device))
 
 
 # ------------------------------------------------------------------------------------------------

@@ -3,9 +3,9 @@ each against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13] [k15]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13] [k15] [b3]
 
-(all nine by default).
+(all ten by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -37,10 +37,11 @@ thread and one (four lanes a leaf), with and without the leaf digests, built wit
 with blocks of 64, 128 or 256 threads at every size (probe_k9); and K11 at the 2^16, 2^18 and 2^20
 proofs' step 4 built without its look-back, its R chain, its epilogue,
 and with only its loads and scans (probe_k11); and K13 at every tree of
-the 2^16 proof and at 2^23 and 2^25 leaves under other launch plans
-(K13_PLANS: other subtree sizes, levels split evenly over the launches,
-the top levels in a launch of their own) and built with 128, 512 or 1024
-threads a block (probe_k13).  Times
+the 2^16 proof and at 2^23-2^25 leaves under other plans (_k13_plans:
+other bottom subtrees, other splits of the stages above) and built with
+other adds and rotates in its compression (K13_VARIANTS)
+(probe_k13); and K3, K9 and K14 built with the compression on the
+compiler's adds in place of the FMA pipe's (probe_b3).  Times
 come from CUDA events around calls queued behind a spin kernel
 (tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
 difference from the production build raises (but K10's, K11's and the
@@ -162,48 +163,105 @@ K11_VARIANTS = {
     "tile 512, 128 threads x 4": ((), ("SYN_DIV_THREADS=128",)),
 }
 K11_MIN_TILE = 512
-K13_THREADS = "constexpr int kThreads = 256;"
-# variant: patches
+# K13's compression (csrc/merkle_tree.cuh, blake3.cuh): variant -> patches
+K13_HASH = "    blake3::hash_block(cv, msg);\n"
+
+
+# a policy whose rotates in kRotates (bit 0 by 16, 1 by 12, 2 by 8, 3 by 7)
+# also leave the integer-only pipe: the halves of the 64-bit product
+# x 2^(32 - n) (IMAD.WIDE) added by an IMAD
+B3_FMA_ROTATES = ("blake3.cuh", "#define B3_G(add, a, b, c, d, mx, my)", r"""
+template <int kRotates>
+struct FmaRotates : FmaAdds {
+    template <int n>
+    F128_FN uint32_t rot(uint32_t x) const {
+        constexpr int bit = n == 16 ? 0 : n == 12 ? 1 : n == 8 ? 2 : 3;
+        if (!((kRotates >> bit) & 1)) return rotr(x, n);
+#ifdef __CUDA_ARCH__
+        uint32_t lo, hi;
+        asm("{\n\t.reg .u64 t;\n\tmul.wide.u32 t, %2, %3;\n\tmov.b64 {%0, %1}, t;\n\t}"
+            : "=r"(lo), "=r"(hi) : "r"(x), "r"(one << (32 - n)));
+        return (*this)(lo, hi);
+#else
+        return rotr(x, n);
+#endif
+    }
+};
+
+#define B3_G(add, a, b, c, d, mx, my)""")
+
+
+def _k13_hash(column, diagonal):
+    """Patches of K13's node hash onto these add policies of the column and
+    the diagonal steps (FmaRotates<mask> moves rotates too)."""
+    return (B3_FMA_ROTATES,
+            ("merkle_tree.cuh", K13_HASH,
+             f"    {{ const blake3::{column} c{{{{blake3::one()}}}}; const blake3::{diagonal} "
+             f"d{{{{blake3::one()}}}}; blake3::hash_block(cv, msg, c, d); }}\n"))
+
+
 K13_VARIANTS = {
-    f"{t} threads a block": (("merkle_tree.cuh", K13_THREADS, f"constexpr int kThreads = {t};"),)
-    for t in (128, 512, 1024)
+    "the compiler's adds (AluAdds, the parent's)": (
+        ("merkle_tree.cuh", K13_HASH,
+         "    blake3::hash_block(cv, msg, blake3::AluAdds{}, blake3::AluAdds{});\n"),),
+    "three-input adds as IADD3, two-input as IMAD": (
+        ("blake3.cuh", "        return (*this)((*this)(x, y), z);", "        return x + y + z;"),),
+    "the first round's column step on IMAD too": (
+        ("blake3.cuh", "compress(cv, m, 0, 64, kChunkStart | kChunkEnd | kRoot, AluAdds{}, column,",
+         "compress(cv, m, 0, 64, kChunkStart | kChunkEnd | kRoot, column, column,"),),
+    "rotates by 7 on the FMA pipe": _k13_hash("FmaRotates<8>", "FmaRotates<8>"),
+    "the diagonal steps' rotates by 7 on the FMA pipe": _k13_hash("FmaAdds", "FmaRotates<8>"),
+    "the diagonal steps' rotates by 16 on the FMA pipe": _k13_hash("FmaAdds", "FmaRotates<1>"),
+    "the diagonal steps' rotates by 16 and 7 on the FMA pipe": _k13_hash("FmaAdds",
+                                                                        "FmaRotates<9>"),
+    "rotates by 16 and 7 on the FMA pipe": _k13_hash("FmaRotates<9>", "FmaRotates<9>"),
 }
-K13_SIZES = [1 << k for k in (25, 23, 21, 20, 19, 17, 15, 13, 11, 9, 7, 5)]
+K13_SIZES = [1 << k for k in (25, 24, 23, 21, 20, 19, 17, 15, 13, 11, 9, 7, 5)]
 
 
-def _tree_plan(n, cap, top=0, even=True):
-    """K13's launches [(m, levels)] for a tree of n leaves: at most `cap`
-    levels a launch from the bottom up, and the top `top` levels (where the
-    tree has more) in a launch of their own; with `even` the levels below
-    the top split as evenly as the launches allow, else `cap` a launch."""
-    total = n.bit_length() - 1
-    tail = [top] if top and total > top else []
-    body = total - sum(tail)
-    parts = -(-body // cap)
-    sizes = ([body // parts + (i < body % parts) for i in range(parts)] if even
-             else [cap] * (body // cap) + ([body % cap] if body % cap else []))
-    plan, m = [], n
-    for levels in sizes + tail:
-        plan.append((m, levels))
-        m >>= levels
-    return plan
+def _upper_split(plan, cap):
+    """The plan with its stages above the first split evenly into stages
+    of at most `cap` levels."""
+    rest = sum(plan[1:])
+    stages = -(-rest // cap)
+    return plan[:1] + [rest // stages + (i < rest % stages) for i in range(stages)]
 
 
-K13_PLANS = {
-    "11 levels a launch (production)": None,
-    **{f"{k} levels a launch": (lambda n, k=k: _tree_plan(n, k, even=False))
-       for k in (10, 9, 8, 7)},
-    "even, at most 11 a launch": lambda n: _tree_plan(n, 11),
-    "even, at most 9 a launch": lambda n: _tree_plan(n, 9),
-    "top 6 alone, 11 a launch below": lambda n: _tree_plan(n, 11, 6, even=False),
-    **{f"top {t} alone, even below": (lambda n, t=t: _tree_plan(n, 11, t)) for t in (6, 5, 4)},
-}
+def _k13_plans(sms):
+    """K13's plans by name: n -> levels of each stage (None: production)."""
+    from ..ops import blake3_torch as b3
+
+    return {
+        "production (one block up to 2^9 leaves, else a block an SM, bottom 2^8 at least, "
+        "11 levels a stage above)": None,
+        **{f"bottom 2^{m} at least": (lambda n, m=m: b3.tree_plan(n, sms, min_bottom=m))
+           for m in (6, 7, 9, 10)},
+        **{f"{k} blocks an SM": (lambda n, k=k: b3.tree_plan(n, sms, blocks_per_sm=k))
+           for k in (2, 4)},
+        "bottom 2^11 (0 blocks an SM)": lambda n: b3.tree_plan(n, sms, blocks_per_sm=0),
+        **{f"stages above of at most {c} levels": (
+            lambda n, c=c: _upper_split(b3.tree_plan(n, sms), c)) for c in (3, 5, 9)},
+    }
+
+
+# K3, K9 and K14 built with the parent's compression: blake3.cuh's defaults
+# on the compiler's adds (AluAdds) in place of FmaAdds
+B3_ALU = (("blake3.cuh", "    const FmaAdds adds{one()};\n    compress(",
+           "    const AluAdds adds;\n    compress("),
+          ("blake3.cuh", "    const FmaAdds adds{one()};\n    hash_block(",
+           "    const AluAdds adds;\n    hash_block("))
+
+
 # variant: patches
 K10_VARIANTS = {
     "copies only": (K10_PRODUCT, K10_EPILOGUE),
     "copies and product": (K10_EPILOGUE,),
     "copies and epilogue": (K10_PRODUCT,),
 }
+
+
+# the SASS opcode mix of each variant build, by name
+BUILD_OPCODES = {}
 
 
 def _build(name, source, patches=(), defines=()):
@@ -226,6 +284,9 @@ def _build(name, source, patches=(), defines=()):
             raise RuntimeError(f"air_probe: {name} failed to build:\n{proc.stderr[-3000:]}")
         spills = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
                   if "spill" in line or "registers" in line]
+        text = cuda_lib.sass_file(work / "lib.so")
+        if text is not None:
+            BUILD_OPCODES[name] = cuda_lib.opcode_counts(text)
         return ctypes.CDLL(str(work / "lib.so")), spills
     finally:
         shutil.rmtree(work, ignore_errors=True)      # the loaded library stays mapped
@@ -669,57 +730,132 @@ def probe_k11():
                   flush=True)
 
 
+def _swapped(entry, handle):
+    """cuda_lib's library with `entry` taken from another build's handle
+    (the wrappers then launch that build)."""
+    production = cuda_lib.lib()
+    fn = getattr(handle, entry)
+    fn.argtypes = getattr(production, entry).argtypes
+    fn.restype = ctypes.c_int
+
+    class Library:
+        def __getattr__(self, name):
+            return fn if name == entry else getattr(production, name)
+    return Library()
+
+
+def _with_library(library, fn):
+    """fn() with cuda_lib's library replaced by `library`."""
+    def run():
+        saved = cuda_lib._lib
+        cuda_lib._lib = library
+        try:
+            return fn()
+        finally:
+            cuda_lib._lib = saved
+    return run
+
+
 def probe_k13():
     """K13 on random leaf digests at K13_SIZES: the production build under
-    each launch plan of K13_PLANS, then each build of K13_VARIANTS under the
+    each plan of _k13_plans, then each build of K13_VARIANTS under the
     production plan, each tree held equal to the production build's; per
-    plan the sum over the 2^16 proof's ten trees."""
+    plan the sum over the 2^16 proof's ten trees.  The SASS opcode mix of
+    each build is printed."""
     from ..ops import blake3_torch as b3
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     trees = [(n, random_elements(gen, (n, 2)).view(n, 8)) for n in K13_SIZES]
-    proof_trees = [n for n in K13_SIZES if n <= 1 << 21]
+    proof_trees = [1 << k for k in (21, 20, 19, 17, 15, 13, 11, 9, 7, 5)]
     spills = [line.strip() for line in cuda_lib.ptxas_report("merkle_tree")
               if "spill" in line or "registers" in line]
     print(f"K13 production: {'; '.join(spills)}", flush=True)
+    sass = cuda_lib.sass("merkle_tree")
+    if sass is not None:
+        print(f"K13 production SASS: {cuda_lib.opcode_counts(sass)}", flush=True)
     want = {n: b3.merkle_tree(leaves) for n, leaves in trees}
-    p = cuda_lib.ptr
+    sms = b3.device_sms(0)
 
-    def report(name, fn, plan_of):
+    def report(name, plan_of, library=None):
         times, launches = {}, {}
         for n, leaves in trees:
-            plan = plan_of(n)
-
-            def run(leaves=leaves, plan=plan):
-                nodes = torch.empty((n, 8), dtype=torch.uint32, device="cuda")
-                level = leaves
-                for m, levels in plan:
-                    cuda_lib.check(fn(p(level), p(nodes), m, levels, cuda_lib.stream(nodes)),
-                                   "merkle_tree")
-                    level = nodes[m >> levels : 2 * (m >> levels)]
-                return nodes
-
-            if not torch.equal(run(), want[n]):
-                raise AssertionError(f"air_probe: K13 {name} differs at {n} leaves")
-            times[n], launches[n] = time_ms(run, 20, 7, queued=True), len(plan)
+            plan = (plan_of or (lambda n: b3.tree_plan(n, sms)))(n)
+            run = lambda leaves=leaves, plan=plan: b3.merkle_tree(leaves, plan)
+            if library is not None:
+                run = _with_library(library, run)
+            for _ in range(3):
+                if not torch.equal(run(), want[n]):
+                    raise AssertionError(f"air_probe: K13 {name} differs at {n} leaves")
+            times[n], launches[n] = time_ms(run, 20, 7, queued=True), plan
         print(f"K13 {name}: " + ", ".join(
-            f"2^{n.bit_length() - 1} {times[n]:.4f} ms ({launches[n]})" for n, _ in trees)
-            + f"; the 2^16 proof's trees {sum(times[n] for n in proof_trees):.4f} ms in "
-            f"{sum(launches[n] for n in proof_trees)} launches", flush=True)
+            f"2^{n.bit_length() - 1} {times[n]:.4f} ms {launches[n]}" for n, _ in trees)
+            + f"; the 2^16 proof's trees {sum(times[n] for n in proof_trees):.4f} ms",
+            flush=True)
 
-    for name, plan_of in K13_PLANS.items():
-        report(name, cuda_lib.lib().distaff_merkle_tree, plan_of or b3.tree_launches)
+    for name, plan_of in _k13_plans(sms).items():
+        report(name, plan_of)
     with ThreadPoolExecutor(len(K13_VARIANTS)) as pool:
         built = dict(zip(K13_VARIANTS, pool.map(
-            lambda kv: _build("k13-" + kv[0].split()[0], "merkle_tree.cu", kv[1]),
-            K13_VARIANTS.items())))
-    for name, (handle, spills) in built.items():
-        fn = handle.distaff_merkle_tree
-        fn.argtypes = cuda_lib.lib().distaff_merkle_tree.argtypes
-        fn.restype = ctypes.c_int
-        print(f"K13 {name}: {'; '.join(spills)}", flush=True)
-        report(name, fn, b3.tree_launches)
+            lambda kv: _build(f"k13-{list(K13_VARIANTS).index(kv[0])}", "merkle_tree.cu",
+                              kv[1]), K13_VARIANTS.items())))
+    for k, (name, (handle, spills)) in enumerate(built.items()):
+        print(f"K13 {name}: {'; '.join(spills)}; SASS {BUILD_OPCODES.get(f'k13-{k}')}",
+              flush=True)
+        report(name, None, _swapped("distaff_merkle_tree", handle))
+
+
+def probe_b3():
+    """K3, K9 and K14 as built (blake3.cuh's compression on FmaAdds: its
+    adds as IMAD on the FMA pipe) against builds on the compiler's adds
+    (AluAdds, the parent's): K3 over 2^21 rows of 320 bytes, K9 at the 2^16 proof's first
+    layer (2^19 rows, with the leaf digests), K14 at a middle block of
+    (4, 2^21) and (4, 2^25) points; each held equal and timed, with the
+    SASS opcode mix of each build."""
+    import random
+
+    from ..math import field as hostfield
+    from ..ops import blake3_torch as b3
+    from ..ops import fri_torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = random_elements(gen, (1 << 21, 20))
+    column = random_elements(gen, (1 << 21,))
+    special_x = random.Random(3).randrange(hostfield.M)
+    root = hostfield.get_root_of_unity(1 << 21)
+    groups = [random_elements(gen, (4, d)) for d in (1 << 21, 1 << 25)]
+    cvs = [random_elements(gen, (d, 2)).view(d, 8) for d in (1 << 21, 1 << 25)]
+    cases = {
+        "blake3_rows": [("K3, 2^21 rows of 320 B", lambda: b3.hash_rows(rows))],
+        "fri_fold": [("K9, 2^19 rows with the leaf digests",
+                      lambda: fri_torch.fri_fold(column, special_x, root, 1, digests=True))],
+        "trace_absorb": [(f"K14, a middle block of (4, 2^{d.bit_length() - 1})",
+                          lambda g=g, cv=cv: b3.trace_absorb(g, cv.clone(), 1, 320))
+                         for g, cv, d in zip(groups, cvs, (1 << 21, 1 << 25))],
+    }
+    with ThreadPoolExecutor(len(cases)) as pool:
+        built = dict(zip(cases, pool.map(
+            lambda stem: _build(f"b3-{stem}", f"{stem}.cu", B3_ALU), cases)))
+    for stem, runs in cases.items():
+        handle, spills = built[stem]
+        entry = "distaff_" + stem
+        sass = cuda_lib.sass(stem)
+        if sass is not None:
+            print(f"{stem} production SASS: {cuda_lib.opcode_counts(sass)}", flush=True)
+        print(f"{stem} on AluAdds: {'; '.join(spills)}; SASS {BUILD_OPCODES.get(f'b3-{stem}')}",
+              flush=True)
+        library = _swapped(entry, handle)
+        for name, run in runs:
+            want, got = run(), _with_library(library, run)()
+            same = all(map(torch.equal, want, got)) if isinstance(want, tuple) else \
+                torch.equal(want, got)
+            if not same:
+                raise AssertionError(f"air_probe: {name} on AluAdds differs")
+            times = [time_ms(fn, 20, 7, queued=True)
+                     for fn in (run, _with_library(library, run)) * 2]
+            print(f"{name}: production (FmaAdds) {times[0]:.4f}, {times[2]:.4f} ms; "
+                  f"AluAdds {times[1]:.4f}, {times[3]:.4f} ms", flush=True)
 
 
 def main(argv=None):
@@ -727,7 +863,7 @@ def main(argv=None):
 
     probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
               "k9": probe_k9, "k10": probe_k10, "k11": probe_k11, "k13": probe_k13,
-              "k15": probe_k15}
+              "k15": probe_k15, "b3": probe_b3}
     names = (sys.argv[1:] if argv is None else argv) or list(probes)
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")

@@ -16,6 +16,7 @@ import distaff_torch
 from distaff_torch import examples, ProofOptions
 from distaff_torch.stark import serde
 from distaff_torch.utils import hasher
+from test_torch_prove import TableLog
 
 from distaff_tpu import examples as jax_examples
 from distaff_tpu import verify as jax_verify
@@ -70,19 +71,26 @@ _proofs = {}
 
 
 def _proved(name):
-    """The example proved on the CPU (once a module run): (program, inputs,
-    outputs, expected, proof)."""
+    """The example proved on the CPU (once a module run), its power tables
+    logged (test_torch_prove.TableLog): (program, inputs, outputs, expected,
+    proof, the log)."""
     if name not in _proofs:
         program, inputs, num_outputs, expected = examples.EXAMPLES[name](*PROVED[name])
-        outputs, proof = distaff_torch.execute(
-            program, inputs, num_outputs, ProofOptions(*OPTIONS), device="cpu")
-        _proofs[name] = program, inputs, outputs, expected, proof
+        with pytest.MonkeyPatch.context() as monkeypatch, TableLog(monkeypatch) as log:
+            outputs, proof = distaff_torch.execute(
+                program, inputs, num_outputs, ProofOptions(*OPTIONS), device="cpu")
+        _proofs[name] = program, inputs, outputs, expected, proof, log
     return _proofs[name]
 
 
 @pytest.mark.parametrize("name", sorted(examples.EXAMPLES))
+def test_example_proof_builds_only_its_planned_tables(name):
+    _proved(name)[5].check()
+
+
+@pytest.mark.parametrize("name", sorted(examples.EXAMPLES))
 def test_example_proves_and_verifies_on_cpu(name):
-    program, inputs, outputs, expected, proof = _proved(name)
+    program, inputs, outputs, expected, proof, _ = _proved(name)
     assert outputs == expected
     public = inputs.get_public_inputs()
     assert distaff_torch.verify(program.hash, public, outputs, proof)
@@ -95,7 +103,7 @@ def test_example_proves_and_verifies_on_cpu(name):
 @pytest.mark.parametrize("name", sorted(examples.EXAMPLES))
 def test_jax_verifier_accepts_the_ports_proof(name):
     # the JAX package's verifier is host code: it compiles nothing
-    program, inputs, outputs, _, proof = _proved(name)
+    program, inputs, outputs, _, proof, _ = _proved(name)
     blob = serde.serialize(proof)
     assert jax_verify(program.hash, inputs.get_public_inputs(), outputs,
                       jax_serde.deserialize(blob))

@@ -411,37 +411,102 @@ _PS_HARNESS = r"""
 #include <vector>
 #include "power_series.cuh"
 
-// K12 on the CPU, a block at a time, each phase for every thread before
-// the next phase
-extern "C" void power_series_host(const void* factors, int count, long long n, void* out) {
+// K12's launch on the CPU, a block at a time, each phase for every thread
+// before the next: warp 0's lanes x^l, warp 1's lanes (its five shuffle
+// steps as the same products over an array of 32 lanes), then every
+// thread's rows.  Returns the launch's blocks, or -1 for a list the kernel
+// does not take.
+extern "C" long long power_series_host(const void* factors, void* out, int tables,
+                                       const long long* factor_offsets, const int* counts,
+                                       const long long* rows, const long long* out_offsets) {
     using namespace power_series;
-    const Args a{(const uint4*)factors, count, n, (uint4*)out};
-    std::vector<uint4> table(kTile);
-    uint4 prefix;
-    for (long long block = 0; block < blocks(a); ++block) {
-        for (int tid = 0; tid < kThreads; ++tid) start(a, table.data(), &prefix, block, tid);
-        for (int k = 0; k < steps(a); ++k)
-            for (int tid = 0; tid < kThreads; ++tid) double_step(a, table.data(), k, tid);
-        for (int tid = 0; tid < kThreads; ++tid) store(a, table.data(), &prefix, block, tid);
+    Args a{(const uint4*)factors, (uint4*)out, 0, {}};
+    const long long blocks = set_tables(a, tables, factor_offsets, counts, rows, out_offsets);
+    std::vector<uint4> low(kLanes), high(kLanes);
+    for (long long block = 0; block < blocks; ++block) {
+        const Table& t = a.table[table_of(a, block)];
+        const long long b = block - t.first_block;
+        u128 p[kLanes], h[kLanes], q[kLanes];
+        for (int lane = 0; lane < kLanes; ++lane) {
+            low[lane] = f128::to_limbs(power(a, t, 0, lane));
+            p[lane] = prefix_factor(a, t, b, lane);
+            h[lane] = power(a, t, 5, lane);
+        }
+        for (int d = 1; d < kLanes; d <<= 1) {
+            for (int lane = 0; lane < kLanes; ++lane) q[lane] = f128::mul(p[lane], p[lane ^ d]);
+            for (int lane = 0; lane < kLanes; ++lane) p[lane] = q[lane];
+        }
+        for (int lane = 0; lane < kLanes; ++lane) high[lane] = f128::to_limbs(f128::mul(p[lane], h[lane]));
+        for (int tid = 0; tid < kThreads; ++tid) store(a, t, b, low.data(), high.data(), tid);
     }
+    return blocks;
 }
 """
 
 
-def test_power_series_kernel_body_matches_plain(tmp_path):
+@pytest.fixture(scope="module")
+def k12_body(tmp_path_factory):
+    """csrc/power_series.cuh built with g++ as a host function of one
+    launch over a list of tables, called as the wrapper launches it."""
     import ctypes
 
+    tmp = tmp_path_factory.mktemp("k12")
     csrc = Path(fk.__file__).resolve().parent.parent / "csrc"
-    (tmp_path / "harness.cpp").write_text(_PS_HARNESS)
+    (tmp / "harness.cpp").write_text(_PS_HARNESS)
     subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared", "-I", str(csrc),
-                    str(tmp_path / "harness.cpp"), "-o", str(tmp_path / "libps.so")], check=True)
-    lib = ctypes.CDLL(str(tmp_path / "libps.so"))
-    lib.power_series_host.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                                      ctypes.c_void_p]
+                    str(tmp / "harness.cpp"), "-o", str(tmp / "libps.so")], check=True)
+    lib = ctypes.CDLL(str(tmp / "libps.so"))
+    llp = ctypes.POINTER(ctypes.c_longlong)
+    lib.power_series_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, llp,
+                                      ctypes.POINTER(ctypes.c_int), llp, llp]
+    lib.power_series_host.restype = ctypes.c_longlong
+
+    def launch(specs):
+        """The tables of specs [(x, n, c)] from one launch of the harness,
+        laid out as power_series_many lays them out."""
+        factors, offsets, counts, rows, outs = [], [], [], [], []
+        for x, n, c in specs:
+            offsets.append(len(factors))
+            factors += fk.power_series_factors(x, n, c)
+            counts.append(len(factors) - offsets[-1])
+            outs.append(sum(rows))
+            rows.append(n)
+        limbs = ft.from_ints(factors, "cpu")
+        out = torch.zeros((sum(rows), 4), dtype=torch.uint32)
+        k = len(specs)
+        blocks = lib.power_series_host(
+            limbs.data_ptr(), out.data_ptr(), k, (ctypes.c_longlong * k)(*offsets),
+            (ctypes.c_int * k)(*counts), (ctypes.c_longlong * k)(*rows),
+            (ctypes.c_longlong * k)(*outs))
+        assert blocks == sum(-(-n // fk.POWER_SERIES_TILE) for n in rows)
+        return [out[o:o + n] for o, n in zip(outs, rows)]
+    return launch
+
+
+def test_power_series_kernel_body_matches_plain(k12_body):
     root = jax_host_field.get_root_of_unity(1 << 12)
-    for x, c in ((PS_X, PS_C), (root, 1), (root, PS_C)):
-        for n in PS_SIZES:
-            factors = ft.from_ints(fk.power_series_factors(x, n, c), "cpu")
-            out = torch.zeros((n, 4), dtype=torch.uint32)
-            lib.power_series_host(factors.data_ptr(), factors.shape[0], n, out.data_ptr())
-            assert torch.equal(out, fk.power_series_plain(x, n, "cpu", c)), (x, n, c)
+    specs = [(x, n, c) for x, c in ((PS_X, PS_C), (root, 1), (root, PS_C)) for n in PS_SIZES]
+    for (x, n, c), got in zip(specs, k12_body(specs)):
+        assert torch.equal(got, fk.power_series_plain(x, n, "cpu", c)), (x, n, c)
+
+
+def test_power_series_kernel_body_mixed_list_matches_jax_series(k12_body):
+    # one launch over a table of one row, a ragged one, 2048 rows and 2^20
+    # rows (1024 blocks: the prefix takes ten squarings), with c != 1,
+    # against the JAX package's tiled series times c
+    from distaff_tpu.ops import tiles as jax_tiles
+
+    root = jax_host_field.get_root_of_unity(1 << 20)
+    specs = [(PS_X, 1, PS_C), (root, 3000, PS_C), (PS_X, 2048, 1), (root, 1 << 20, PS_C)]
+    for (x, n, c), got in zip(specs, k12_body(specs)):
+        want = np.asarray(jax_tiles.scale(jax_tiles.power_series(x, n), c))
+        assert np.array_equal(got.numpy(), want.reshape(n, 4)), (n, c)
+
+
+def test_power_series_many_is_each_table_on_the_cpu():
+    root = jax_host_field.get_root_of_unity(1 << 12)
+    specs = [(PS_X, 1, PS_C), (root, 0, 1), (root, 1500, PS_C)]
+    got = fk.power_series_many(specs, "cpu")
+    assert [t.shape[0] for t in got] == [1, 0, 1500]
+    for (x, n, c), table in zip(specs, got):
+        assert torch.equal(table, fk.power_series_plain(x, n, "cpu", c))

@@ -306,3 +306,118 @@ def test_choose_on_a_non_binary_condition_raises_assertion_error():
     inputs = ProgramInputs.from_public([3, 4, 2, 5, 0, 6, 7, 8])
     with pytest.raises(AssertionError, match="CHOOSE.*non-binary"):
         distaff_torch.execute(program, inputs, 8, ProofOptions(16, 10, 2), device="cpu")
+
+
+# ------------------------------------------------------------------------------------------------
+# the power tables: planned at the proof's start, built in one K12 launch
+# ------------------------------------------------------------------------------------------------
+
+class TableLog:
+    """Over a proof: the keys that its start plans (the first build_tables
+    call), every key that a table user asks for (tiles.tables), and every
+    table built after the plan.  On the CPU the plain versions of K7, K9,
+    K10 and K11 read no table, so their wrappers here also make the calls
+    that ask for the card's tables (compose_args, fold_table_keys,
+    boundary_args, syn_div_args) with the proof's own arguments.  A context
+    manager around the proof: the table cache is emptied on entry, and the
+    keys it holds are kept on exit."""
+
+    def __init__(self, monkeypatch):
+        from distaff_torch.ops import (boundary_kernels, deep_kernels, fri_torch,
+                                       syndiv_kernels, tiles)
+
+        self.planned, self.asked, self.late = None, set(), []
+        build, tables = tiles.build_tables, tiles.tables
+
+        def logged_build(keys):
+            built = build(keys)
+            if self.planned is None:
+                self.planned = list(keys)
+            else:
+                self.late.extend(built)
+            return built
+
+        def logged_tables(keys):
+            self.asked.update(keys)
+            return tables(keys)
+
+        def asking(module, name, ask):
+            real = getattr(module, name)
+
+            def wrapper(*args):
+                ask(*args)
+                return real(*args)
+            monkeypatch.setattr(module, name, wrapper)
+
+        monkeypatch.setattr(tiles, "build_tables", logged_build)
+        monkeypatch.setattr(tiles, "tables", logged_tables)
+        asking(deep_kernels, "deep_compose", lambda lde, c, w1, w2, root, incr, scalars:
+               deep_kernels.compose_args(lde, root, incr, scalars))
+        asking(boundary_kernels, "boundary_columns", boundary_kernels.boundary_args)
+        asking(syndiv_kernels, "syn_div", lambda polys3, degree, x_last:
+               syndiv_kernels.syn_div_args(polys3.shape[1], x_last, polys3.device))
+        monkeypatch.setattr(fri_torch, "fri_fold", self._fold(fri_torch, logged_tables))
+        self.tiles, self.kept = tiles, None
+
+    def __enter__(self):
+        self.tiles._TABLES.clear()
+        return self
+
+    def __exit__(self, *exc):
+        self.kept = set(self.tiles._TABLES)
+
+    @staticmethod
+    def _fold(fri_torch, ask):
+        real = fri_torch.fri_fold
+
+        def fold(column, special_x, root, stride=1, digests=False):
+            ask(fri_torch.fold_table_keys(column.shape[0], stride, root, column.device))
+            return real(column, special_x, root, stride, digests)
+        return fold
+
+    def check(self):
+        """The proof built its planned tables and no other, and asked for
+        every one of them."""
+        assert self.planned, "the proof planned no table"
+        assert self.late == []
+        assert self.kept == set(self.planned)
+        assert self.asked == set(self.planned)
+
+
+def _bench_rung(log2_trace):
+    # bench.py's sizing: 3N/64 unrolled iterations pad to exactly 2^k steps
+    n_iter = (1 << log2_trace) * 3 // 64
+    program = assembly.compile(f"begin repeat.{n_iter} swap dup.2 drop add end end")
+    return program, ProgramInputs.from_public([1, 0]), ProofOptions()
+
+
+@pytest.mark.parametrize("case", ["golden", "bench 2^10", "golden streamed"])
+def test_proof_builds_only_its_planned_tables(monkeypatch, case):
+    # the golden case, bench.py's smallest rung (its default options: ext
+    # 32) and the golden case forced to stream
+    program, inputs, options = _bench_rung(10) if case == "bench 2^10" else _golden_case()
+    if case == "golden streamed":
+        monkeypatch.setenv("DISTAFF_STREAM_LDE", "1")
+    with TableLog(monkeypatch) as log:
+        outputs, proof = distaff_torch.execute(program, inputs, 1, options, device="cpu")
+    log.check()
+    if case != "bench 2^10":
+        assert hashlib.sha256(serde.serialize(proof)).hexdigest() == GOLDEN_SHA256
+    assert distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof)
+
+
+@pytest.mark.parametrize("log2_trace,ext,count", [
+    (6, 16, 11), (10, 32, 20), (16, 32, 21), (18, 32, 23), (20, 32, 25), (22, 32, 24)])
+def test_proof_tables_fit_one_launch(log2_trace, ext, count):
+    # the K12 tables a proof plans (a twiddle table or a store-factor lo,
+    # and a hi above 1024 points), one launch's worth: 21, 23 and 25 at the
+    # bench's 2^16, 2^18 and 2^20 rungs, the launches a first proof made
+    # when K12 built a table a launch
+    from distaff_torch.ops import tiles
+    from distaff_torch.stark.prover import proof_table_keys
+
+    n = 1 << log2_trace
+    keys = proof_table_keys(n, n * ext, "cpu")
+    assert all(key[1] == "cpu" for key in keys)
+    series = [s for key in dict.fromkeys(keys) for s in tiles._series(key)]
+    assert len(series) == count <= 64              # kMaxTables
