@@ -12,13 +12,15 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --tree-times
     python3 chip_smoke.py --wsum-times
+    python3 chip_smoke.py --inv-times
 
 The second form only prints step times (step_times below), the third only
 the times of K9 and K11 at the proofs' shapes (kernel_times below), the
 fourth only the times of the Merkle trees of the 2^16 proof and of 2^23 to
 2^25 leaves, of a first proof's power tables and of the other kernels on
 the BLAKE3 compression (tree_times below), the fifth only the times of K7
-and K15 at the proofs' calls (wsum_times below): a copy of this file
+and K15 at the proofs' calls (wsum_times below), the sixth only those of
+K6 and of K2's exp_const at M - 2 (inv_times below): a copy of this file
 placed at the root of another checkout times that checkout's port, so
 that two versions compare on one card in one call.
 
@@ -33,20 +35,26 @@ Phases, in order; any failure raises and exits non-zero:
                 IMAD, LOP3, SHF, PRMT and IMMA in the SASS of K3, K9, K13
                 and K14 (their compression's split over the two integer
                 pipes) and of K7, K10 and K15 (whose IMMA tensor-core
-                instructions must not be 0), and the card's name and power
-                limit
+                instructions must not be 0), IMAD's forms (IMAD.WIDE,
+                IMAD.HI, IMAD.X, IMAD.MOV) beside IADD3, LOP3, SHF, SEL and
+                ISETP in K2's exp_kernel and K6, and the card's name and
+                power limit
   2. kernels  - K1 ntt_pass at every pass the 2^16 proof launches (its
                 NTTs run on random inputs of their shapes, each pass
                 recorded and launched again), one row each,
-                K2 add/sub/mul/exp_const at 2^21 elements, over every pair of
-                edge values (the PTX multiply's carries) and on the broadcast
-                operands of the main path, K3 blake3_rows at 2^21 rows of 320
+                K2 add/sub/mul at 2^21 elements, over every pair of edge
+                values (the PTX multiply's carries) and on the broadcast
+                operands of the main path, K2 exp_const at 2^21 and 2^21 -
+                2077 elements at every exponent of tests/test_torch_field.py's
+                EXPONENTS (the row at M - 2, with its schedule's bound and
+                square-and-multiply's), K3 blake3_rows at 2^21 rows of 320
                 bytes, K4
                 air_transition at (20, 2^19) on the stride slice of the 2^16
                 Fibonacci LDE (bad steps 0), on a copy with one value altered
                 (bad steps > 0) and on random registers, K5 butterfly at 2^19
                 pairs, K6 inv_batch at 2^21 elements with zeros and edge
-                values and on a ragged length, K7 deep_compose over the 2^16
+                values and at INV_LENGTHS (1, 255, 2049, 2^21 - 2077), each
+                also all zeros, K7 deep_compose over the 2^16
                 proof's LDE domain ((20, 2^21), its tables and exponent) on
                 random inputs and with x - z and x - zg vanishing at two
                 points, then at (2, 2^21) with the streamed prover's
@@ -191,6 +199,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from distaff_torch.ops import field_kernels as fk
 from distaff_torch.tools.timing import time_ms
 
 GOLDEN_SHA256 = "876d9f49cddbe11a3b360c04245d3b29712b6309a1eb446af835b123c729c842"
@@ -210,15 +219,22 @@ SEED = 20261016
 # a modular add or sub is 4 carry-chained adds, 4 trial subtractions and 4
 # selects; a modular multiply is 16 wide 32x32->64 multiply-adds with 16
 # carry adds, the fold of the high half through the 46-bit R (8 + 8), the
-# second fold (4 + 4) and the final conditional subtraction (8); a BLAKE3
-# compression is 7 rounds x 8 G x 12 (2 three-input adds, 2 adds, 4 xors,
-# 4 rotates) plus the 8 output xors.  K4's field operations per row are
+# second fold (4 + 4) and the final conditional subtraction (8), a
+# squaring the same with 10 wide products and 8 adds that double the cross
+# products (field_kernels.MUL_OPS, SQR_OPS, which also choose K2's
+# exp_const schedule); a BLAKE3 compression is 7 rounds x 8 G x 12 (2
+# three-input adds, 2 adds, 4 xors, 4 rotates) plus the 8 output xors.
+# K4's field operations per row are
 # counted from its own code (air_kernels.air_ops_per_row: the row
-# evaluator built for the host counts them at this run's depths).  K6's
-# bound: one read and one write of 16 bytes an element (2^21 elements: 67
-# MB, 0.020 ms) against 3 multiplies an element, Montgomery's least; its
-# floor in practice is the latency of a block's one dependent inversion
-# chain.  K7's bound (compose_bound) is the larger of its bytes (the LDE
+# evaluator built for the host counts them at this run's depths).  K2's
+# exp_const: the squarings and multiplies of the schedule it runs
+# (field_kernels.exp_schedule), a squaring at SQR_OPS.  K6's bound: one
+# read and one write of 16 bytes an element (2^21 elements: 67 MB, 0.020
+# ms) against 3 multiplies an element,
+# Montgomery's least; at the FMA pipe's 64 lanes its multiplies take
+# longer (tools/air_probe.py k2exp counts a multiply's instructions on each
+# pipe), and a block's one inversion is a dependent chain.  K7's bound
+# (compose_bound) is the larger of its bytes (the LDE
 # and the constraint evaluations read once, the output written once, the
 # weights and its tables) at 3.35 TB/s, its int8 product (2 x 64 x 16R byte
 # operations a point) at the tensor cores' 1,979 TOP/s, and its epilogue's
@@ -257,7 +273,6 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 ISSUE_LANES_PER_SM = 128
 ADD_OPS = SUB_OPS = 12
-MUL_OPS = 64
 REDUCE_OPS = 31 * 3 + 8 + 32
 COMPRESS_OPS = 7 * 8 * 12 + 8
 # phase 2 builds the 2^16 proof's largest tree this many times in a row
@@ -298,6 +313,12 @@ K2_OPS = ("field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const")
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
               "butterfly")
 BENCH_SIZES = (14, 18, 20)
+# phase 2 holds K6 also at these lengths (and each all zeros), and K2's
+# exp_const also at this seeded random exponent (tests/test_torch_field.py's
+# EXPONENTS); --inv-times times both at these sizes
+INV_LENGTHS = (1, 255, 2049, (1 << 21) - 2077)
+EXP_RANDOM = 0xFC80BE13E9BB466A287385820942DC06
+INV_TIMES = (18, 20, 21)
 # K4's geometries on this run's paths: the bench program's (also the kernel
 # bench's AIR_DEPTHS and the fibonacci example's), the golden program's, and
 # those of the other examples at their defaults (collatz, comparison,
@@ -397,18 +418,14 @@ def phase_kernels(ops_rate):
     count = 1 << 21
     a = random_elements(gen, (count,))
     c = random_elements(gen, (count,))
-    for op, cost, line in (("mul", MUL_OPS, 248), ("add", ADD_OPS, 123), ("sub", SUB_OPS, 137)):
+    for op, cost, line in (("mul", fk.MUL_OPS, 248), ("add", ADD_OPS, 123),
+                           ("sub", SUB_OPS, 137)):
         kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
         rows.append(check_kernel(
             f"field_ew.{op}", f"{count} x {count}", lambda k=kern: k(a, c),
             lambda p=plain: p(a, c), 50, 3, 3 * count * 16, count * cost, ops_rate,
             k2, f"distaff_tpu/math/field_jax.py:{line}"))
-    e = hostfield.M - 2                                   # inv_batch's exponent
-    chain = (e.bit_length() - 1) + (bin(e).count("1") - 1)
-    rows.append(check_kernel(
-        "field_ew.exp_const", f"{count}", lambda: fk.exp_const(a, e),
-        lambda: fk.exp_const_plain(a, e), 5, 1, 2 * count * 16, count * chain * MUL_OPS,
-        ops_rate, k2, "distaff_tpu/math/field_jax.py:279"))
+    rows.append(check_exp_const(gen, ops_rate, a))
 
     # the PTX multiply's carries: K2 over every pair of edge values
     x, y = edge_pairs(ft)
@@ -420,18 +437,21 @@ def phase_kernels(ops_rate):
           flush=True)
 
     # K6 at 2^21 with every 1000th element zero and the edge values in
-    # front, then on a length that leaves its last tile ragged
+    # front, then at INV_LENGTHS (a ragged last block among them) and all
+    # zeros
     z = a.clone()
     z[::1000] = ft.zeros((), "cuda")
     z[1:x.shape[0] + 1] = x
     rows.append(check_kernel(
         "inv_batch", f"{count}, zeros and edge values", lambda: fk.inv_batch(z),
-        lambda: fk.inv_batch_plain(z), 50, 1, 2 * count * 16, count * 3 * MUL_OPS, ops_rate,
-        "distaff_torch/csrc/inv_batch.cu", "distaff_tpu/math/field_jax.py:338"))
-    ragged = z[:count - 2077]
-    check_equal("inv_batch", f"{ragged.shape[0]}", lambda: fk.inv_batch(ragged),
-                lambda: fk.inv_batch_plain(ragged))
-    print(f"kernel inv_batch at {ragged.shape[0]}: equal to plain", flush=True)
+        lambda: fk.inv_batch_plain(z), 50, 1, 2 * count * 16, count * 3 * fk.MUL_OPS,
+        ops_rate, "distaff_torch/csrc/inv_batch.cu", "distaff_tpu/math/field_jax.py:338"))
+    for length in INV_LENGTHS:
+        for what, values in (("", z[:length]), (", all zeros", torch.zeros_like(z[:length]))):
+            check_equal("inv_batch", f"{length}{what}", lambda v=values: fk.inv_batch(v),
+                        lambda v=values: fk.inv_batch_plain(v))
+    print(f"kernel inv_batch at {', '.join(map(str, INV_LENGTHS))}, each also all zeros: equal "
+          f"to plain", flush=True)
 
     # K2's broadcasts: a constant operand (the power series' doublings
     # before K12), and neg (a zero scalar minus a column) and a register of
@@ -450,7 +470,7 @@ def phase_kernels(ops_rate):
         kern, plain = getattr(fk, op), getattr(fk, op + "_plain")
         check_kernel(f"field_ew.{op}", shape, lambda k=kern, x=x, y=y: k(x, y),
                      lambda p=plain, x=x, y=y: p(x, y), 50, 1, elements * 16,
-                     n * (MUL_OPS if op == "mul" else ADD_OPS), ops_rate, k2, "")
+                     n * (fk.MUL_OPS if op == "mul" else ADD_OPS), ops_rate, k2, "")
 
     # K3: trace rows of the 2^16 rung (20 registers = 320 bytes) hashed in
     # place from the (R, D, 4) LDE
@@ -474,6 +494,45 @@ def phase_kernels(ops_rate):
     rows.append(check_syn_div(gen, ops_rate))
     rows.extend(check_power_series(ops_rate))
     return rows
+
+
+def exp_bound(count, steps):
+    """exp_const's bound by operations for `count` elements under a
+    schedule: its squarings at SQR_OPS and its multiplies at MUL_OPS."""
+    squarings, multiplies = fk.exp_schedule_ops(steps)
+    return 2 * count * 16, count * (squarings * fk.SQR_OPS + multiplies * fk.MUL_OPS)
+
+
+def check_exp_const(gen, ops_rate, a):
+    """K2's exp_const at every exponent of EXPONENTS on `a` (2^21 elements)
+    and on a ragged count, equal to exp_const_plain; the row of e = M - 2
+    (the Fermat inverse: the kernel bench's), with the bound of its schedule
+    and, printed beside it, that of square-and-multiply's 250 multiplies
+    (the parent design's yardstick)."""
+    from distaff_torch.crypto.ark_constants import INV_ALPHA
+
+    m = fk.M
+    count = a.shape[0]
+    ragged = a[:count - 2077]
+    for e in (0, 1, 2, 3, m - 1, 2**127, INV_ALPHA, EXP_RANDOM, (1 << 128) - 1):
+        for x in (a, ragged):
+            check_equal("field_ew.exp_const", f"{x.shape[0]}, e = {e:#x}",
+                        lambda x=x, e=e: fk.exp_const(x, e),
+                        lambda x=x, e=e: fk.exp_const_plain(x, e))
+    check_equal("field_ew.exp_const", f"{ragged.shape[0]}, e = M - 2",
+                lambda: fk.exp_const(ragged, m - 2), lambda: fk.exp_const_plain(ragged, m - 2))
+    print(f"kernel field_ew.exp_const at {count} and {ragged.shape[0]}, e = 0, 1, 2, 3, M - 1, "
+          f"2^127, INV_ALPHA, a random e, 2^128 - 1 and M - 2: equal to plain", flush=True)
+    steps = fk.exp_schedule(m - 2)
+    row = check_kernel("field_ew.exp_const", f"{count}, e = M - 2", lambda: fk.exp_const(a, m - 2),
+                       lambda: fk.exp_const_plain(a, m - 2), 5, 1, *exp_bound(count, steps),
+                       ops_rate, "distaff_torch/csrc/field_ew.cu",
+                       "distaff_tpu/math/field_jax.py:279")
+    old, old_by = bound(*exp_bound(count, fk.window_schedule(m - 2, 1)), ops_rate)
+    print(f"kernel field_ew.exp_const: the schedule's {fk.exp_schedule_ops(steps)} squarings and "
+          f"multiplies bound it at {row['bound_ms']:.4f} ms; square-and-multiply's 127 and 123 "
+          f"at {old:.4f} ms by {old_by}", flush=True)
+    return row
 
 
 class PassRecorder:
@@ -615,7 +674,7 @@ def pass_bound(args):
         multiplies += points                 # the four-step twiddle or 1/n
     tables = m // 2 + sum(t.shape[0] for t in (lo, hi) if t is not None)
     return ((reads + points + tables) * 16,
-            butterflies * (ADD_OPS + SUB_OPS) + multiplies * MUL_OPS)
+            butterflies * (ADD_OPS + SUB_OPS) + multiplies * fk.MUL_OPS)
 
 
 def check_passes(gen, ops_rate, log2_trace, last=False):
@@ -806,7 +865,7 @@ def air_bounds(tables, r, n):
     table_bytes = sum(t.numel() * t.element_size() for t in (
         tables.dec_ark, tables.masks, tables.stk_ark, tables.mds, tables.cc, *tables.x_tables()))
     return ((r + 1) * n * 16 + table_bytes,
-            n * (muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
+            n * (muls * fk.MUL_OPS + adds * ADD_OPS + subs * SUB_OPS))
 
 
 def check_air_examples(gen, ops_rate):
@@ -870,7 +929,7 @@ def check_butterfly(gen, ops_rate):
     return check_kernel(
         "butterfly", f"{pairs} pairs", lambda: fk.butterfly_stage(a, b, w),
         lambda: fk.butterfly_stage_plain(a, b, w), 50, 3, pairs * 80,
-        pairs * (ADD_OPS + SUB_OPS + MUL_OPS), ops_rate,
+        pairs * (ADD_OPS + SUB_OPS + fk.MUL_OPS), ops_rate,
         "distaff_torch/csrc/butterfly.cu", "distaff_tpu/ops/field_pallas.py:171")
 
 
@@ -889,7 +948,7 @@ def compose_bound(regs, n):
 
     product, reductions, muls, adds, subs = dk.deep_compose_ops(regs)
     return {"bound_bytes": compose_bytes(regs, n),
-            "bound_ops": n * (reductions * REDUCE_OPS + muls * MUL_OPS + adds * ADD_OPS
+            "bound_ops": n * (reductions * REDUCE_OPS + muls * fk.MUL_OPS + adds * ADD_OPS
                               + subs * SUB_OPS),
             "tensor_ops": n * product}
 
@@ -1007,7 +1066,7 @@ def boundary_bound(regs, n):
 
     product, reductions, muls, adds = bk.boundary_ops(regs)
     return {"bound_bytes": ((regs + 2) * n + 4 * regs + power_tables(n)) * 16,
-            "bound_ops": n * (reductions * REDUCE_OPS + muls * MUL_OPS + adds * ADD_OPS),
+            "bound_ops": n * (reductions * REDUCE_OPS + muls * fk.MUL_OPS + adds * ADD_OPS),
             "tensor_ops": n * product}
 
 
@@ -1075,7 +1134,7 @@ def fold_bound(q, order):
 
     muls, adds, subs = fri_torch.fri_fold_ops(q, order)
     return ((5 * q + power_tables(order)) * 16 + q // 4 * 32,
-            muls * MUL_OPS + adds * ADD_OPS + subs * SUB_OPS + q // 4 * COMPRESS_OPS)
+            muls * fk.MUL_OPS + adds * ADD_OPS + subs * SUB_OPS + q // 4 * COMPRESS_OPS)
 
 
 def check_fri_fold(gen, ops_rate, log2_trace):
@@ -1158,7 +1217,7 @@ def check_poly_eval(gen, ops_rate, log2_trace):
             "poly_eval", eval_key(polys, points), lambda: dk.poly_eval(polys, points),
             lambda: dk.poly_eval_plain(polys, points), 20, 1,
             (regs * length + count * regs + count * dk.POLY_EVAL_SQUARINGS) * 16,
-            count * regs * length * (MUL_OPS + ADD_OPS), ops_rate,
+            count * regs * length * (fk.MUL_OPS + ADD_OPS), ops_rate,
             "distaff_torch/csrc/poly_eval.cu", "distaff_tpu/stark/prover.py:636")
         row["key"] = ("poly_eval", log2_trace, eval_key(polys, points))
         rows.append(row)
@@ -1186,7 +1245,7 @@ def syn_div_bound(n, degree):
     from distaff_torch.ops import syndiv_kernels as sk
 
     muls, adds = sk.syn_div_ops(n, degree)
-    return (4 * n + 2 * power_tables(n)) * 16, muls * MUL_OPS + adds * ADD_OPS
+    return (4 * n + 2 * power_tables(n)) * 16, muls * fk.MUL_OPS + adds * ADD_OPS
 
 
 def check_syn_div(gen, ops_rate):
@@ -1246,7 +1305,7 @@ def series_bound(specs):
     from distaff_torch.ops import field_kernels as fk
 
     rows = sum(n + len(fk.power_series_factors(x, n, c)) for x, n, c in specs)
-    return rows * 16, sum(fk.power_series_ops(n) for _, n, _ in specs) * MUL_OPS
+    return rows * 16, sum(fk.power_series_ops(n) for _, n, _ in specs) * fk.MUL_OPS
 
 
 def proof_tables(log2_trace):
@@ -1647,6 +1706,36 @@ def wsum_times():
         del polys
 
 
+def inv_times():
+    """K6 inv_batch and K2's exp_const at e = M - 2 (the same function) at
+    2^INV_TIMES elements, on random values with zeros, each held against
+    the other and timed as phase 2 times a kernel, with K6's bytes bound;
+    tagged with the directory of the checkout whose package ran.  It uses
+    only what every version of the port has."""
+    import os
+
+    import distaff_torch
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import field_kernels as fk
+    from distaff_torch.tools.timing import random_elements
+
+    tag = os.path.basename(os.path.dirname(os.path.dirname(
+        os.path.abspath(distaff_torch.__file__))))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    for log_n in INV_TIMES:
+        n = 1 << log_n
+        a = random_elements(gen, (n,))
+        a[::1000] = ft.zeros((), "cuda")
+        check_equal("inv_batch", f"{n}", lambda: fk.inv_batch(a), lambda: fk.exp_const(a, fk.M - 2))
+        inv_ms = time_ms(lambda: fk.inv_batch(a), 50, KERNEL_TRIALS, queued=True)
+        exp_ms = time_ms(lambda: fk.exp_const(a, fk.M - 2), 5, KERNEL_TRIALS, queued=True)
+        print(f"[{tag}] 2^{log_n} elements: inv_batch {inv_ms:.4f} ms (bytes bound "
+              f"{2 * n * 16 / HBM_BYTES_PER_S * 1e3:.4f} ms), exp_const at M - 2 {exp_ms:.4f} ms",
+              flush=True)
+        del a
+
+
 def tree_times():
     """The times of K13 at every tree the 2^16 proof builds (tree_sizes) and
     at TREE_TIMES_LARGE leaves, on random leaf digests, each tree held
@@ -1657,8 +1746,9 @@ def tree_times():
     bytes, K9 at the 2^16 proof's first layer (2^19 rows, with the leaf
     digests), K14 at a middle block of (4, 2^21) and (4, 2^25) points.
     Each line is tagged with the directory of the checkout whose package
-    ran; it uses only what the port has had since K13, so that a copy of
-    this file times an older checkout's kernels."""
+    ran; it uses only what the port has had since K13 and field_kernels'
+    MUL_OPS (K9's and K12's bounds), so that a copy of this file times an
+    older checkout's kernels."""
     import os
     import random
 
@@ -2818,14 +2908,19 @@ def main():
                              "tables and K3, K9 and K14")
     parser.add_argument("--wsum-times", action="store_true",
                         help="only print the times of K7 and K15 at the proofs' calls")
+    parser.add_argument("--inv-times", action="store_true",
+                        help="only print the times of K6 and of K2's exp_const at M - 2")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.step_times or args.kernel_times or args.tree_times or args.wsum_times:
+    if args.step_times or args.kernel_times or args.tree_times or args.wsum_times or \
+            args.inv_times:
         from distaff_torch.tools.timing import card_line
 
         print(card_line(), flush=True)
+        if args.inv_times:
+            inv_times()
         if args.wsum_times:
             wsum_times()
         if args.tree_times:
@@ -2880,6 +2975,20 @@ def main():
               flush=True)
         if stem in ("deep_compose", "boundary_columns", "coeff_wsum") and counts["IMMA"] == 0:
             raise AssertionError(f"{stem}: no IMMA instruction in its SASS")
+    # the multiply's kernels off the proof: IMAD's forms against the
+    # integer-only pipe's adds and logic (tools/air_probe.py k2exp splits
+    # them into a squaring's and a multiply's)
+    for name, stem, kernel in (("K2 exp_const", "field_ew", "exp_kernel"),
+                               ("K6", "inv_batch", "inv_batch_kernel")):
+        sass = cuda_lib.sass(stem)
+        if sass is None:
+            print(f"{name} SASS: no cuobjdump found, opcodes not counted", flush=True)
+            continue
+        sass = cuda_lib.function_sass(sass, kernel)
+        counts = cuda_lib.opcode_counts(sass, cuda_lib.MULTIPLY_OPCODES)
+        fma, alu = cuda_lib.pipe_counts(sass)
+        print(f"{name} SASS opcodes: " + ", ".join(f"{op} {k}" for op, k in counts.items())
+              + f"; FMA pipe {fma}, integer-only pipe {alu}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 

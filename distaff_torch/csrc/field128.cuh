@@ -21,8 +21,9 @@
 // exp_const and K4 on the card, PERF.md).  The header also compiles as
 // plain C++ (the qualifiers below vanish, and mul takes the portable u128
 // code), so its functions can be checked on a host without a GPU; the CPU
-// tests also run the PTX text of mul_limbs through an interpreter of its
-// instructions.
+// tests also run the PTX text of mul_limbs and of sqr_limbs (the squaring
+// of K2's exp_const, 10 limb products in place of 16) through an
+// interpreter of their instructions.
 
 #pragma once
 #include <cstdint>
@@ -190,6 +191,113 @@ __device__ __forceinline__ uint4 mul_limbs(uint4 a, uint4 b) {
         : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w));
     return r;
 }
+
+// The device squaring, a^2 mod M in one carry chain: 10 limb products in
+// place of mul_limbs' 16.  The 6 cross products a_i a_j (i < j) are summed
+// once (p1-p6: a0 a_j, then a1 a_j, then a2 a3; the sum is below 2^224, so
+// no row carries out of its last limb), the sum is doubled by carried adds,
+// and the 4 squares a_i^2 are added on the diagonal; then the folds of
+// mul_limbs, unchanged.  Operands: %0-%3 the result, %4-%7 a.
+__device__ __forceinline__ uint4 sqr_limbs(uint4 a) {
+    uint4 r;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, a2, a3;\n\t"
+        ".reg .u32 p0, p1, p2, p3, p4, p5, p6, p7;\n\t"
+        ".reg .u32 t0, t1, t2, t3, t4, t5, u0, u1, u2, u3, u4;\n\t"
+        ".reg .u32 d0, d1, d2, d3, bw;\n\t"
+        ".reg .pred under;\n\t"
+        "mov.b32 a0, %4;\n\t"
+        "mov.b32 a1, %5;\n\t"
+        "mov.b32 a2, %6;\n\t"
+        "mov.b32 a3, %7;\n\t"
+        // cross products, row a0: p[1..5) = a0 (a1, a2, a3)
+        "mul.lo.u32 p1, a0, a1;\n\t"
+        "mul.lo.u32 p2, a0, a2;\n\t"
+        "mul.lo.u32 p3, a0, a3;\n\t"
+        "mad.hi.cc.u32 p2, a0, a1, p2;\n\t"
+        "madc.hi.cc.u32 p3, a0, a2, p3;\n\t"
+        "madc.hi.u32 p4, a0, a3, 0;\n\t"
+        // row a1: p[3..6) += a1 (a2, a3)
+        "mad.lo.cc.u32 p3, a1, a2, p3;\n\t"
+        "madc.lo.cc.u32 p4, a1, a3, p4;\n\t"
+        "addc.u32 p5, 0, 0;\n\t"
+        "mad.hi.cc.u32 p4, a1, a2, p4;\n\t"
+        "madc.hi.u32 p5, a1, a3, p5;\n\t"
+        // row a2: p[5..7) += a2 a3
+        "mad.lo.cc.u32 p5, a2, a3, p5;\n\t"
+        "madc.hi.u32 p6, a2, a3, 0;\n\t"
+        // twice the cross products
+        "add.cc.u32 p1, p1, p1;\n\t"
+        "addc.cc.u32 p2, p2, p2;\n\t"
+        "addc.cc.u32 p3, p3, p3;\n\t"
+        "addc.cc.u32 p4, p4, p4;\n\t"
+        "addc.cc.u32 p5, p5, p5;\n\t"
+        "addc.cc.u32 p6, p6, p6;\n\t"
+        "addc.u32 p7, 0, 0;\n\t"
+        // the squares on the diagonal
+        "mul.lo.u32 p0, a0, a0;\n\t"
+        "mad.hi.cc.u32 p1, a0, a0, p1;\n\t"
+        "madc.lo.cc.u32 p2, a1, a1, p2;\n\t"
+        "madc.hi.cc.u32 p3, a1, a1, p3;\n\t"
+        "madc.lo.cc.u32 p4, a2, a2, p4;\n\t"
+        "madc.hi.cc.u32 p5, a2, a2, p5;\n\t"
+        "madc.lo.cc.u32 p6, a3, a3, p6;\n\t"
+        "madc.hi.u32 p7, a3, a3, p7;\n\t"
+        // first fold: t = p[0..4) + p[4..8) * R, R's low limb then its high one
+        "mad.lo.cc.u32 t0, p4, 0xFFFFFFFFU, p0;\n\t"
+        "madc.lo.cc.u32 t1, p5, 0xFFFFFFFFU, p1;\n\t"
+        "madc.lo.cc.u32 t2, p6, 0xFFFFFFFFU, p2;\n\t"
+        "madc.lo.cc.u32 t3, p7, 0xFFFFFFFFU, p3;\n\t"
+        "addc.u32 t4, 0, 0;\n\t"
+        "mad.hi.cc.u32 t1, p4, 0xFFFFFFFFU, t1;\n\t"
+        "madc.hi.cc.u32 t2, p5, 0xFFFFFFFFU, t2;\n\t"
+        "madc.hi.cc.u32 t3, p6, 0xFFFFFFFFU, t3;\n\t"
+        "madc.hi.cc.u32 t4, p7, 0xFFFFFFFFU, t4;\n\t"
+        "addc.u32 t5, 0, 0;\n\t"
+        "mad.lo.cc.u32 t1, p4, 0x2CFFU, t1;\n\t"
+        "madc.lo.cc.u32 t2, p5, 0x2CFFU, t2;\n\t"
+        "madc.lo.cc.u32 t3, p6, 0x2CFFU, t3;\n\t"
+        "madc.lo.cc.u32 t4, p7, 0x2CFFU, t4;\n\t"
+        "addc.u32 t5, t5, 0;\n\t"
+        "mad.hi.cc.u32 t2, p4, 0x2CFFU, t2;\n\t"
+        "madc.hi.cc.u32 t3, p5, 0x2CFFU, t3;\n\t"
+        "madc.hi.cc.u32 t4, p6, 0x2CFFU, t4;\n\t"
+        "madc.hi.u32 t5, p7, 0x2CFFU, t5;\n\t"
+        // second fold: u = t[0..4) + (t4 + 2^32 t5) * R, u4 the carry into bit 128
+        "mad.lo.cc.u32 u0, t4, 0xFFFFFFFFU, t0;\n\t"
+        "madc.hi.cc.u32 u1, t4, 0xFFFFFFFFU, t1;\n\t"
+        "madc.hi.cc.u32 u2, t4, 0x2CFFU, t2;\n\t"
+        "addc.cc.u32 u3, t3, 0;\n\t"
+        "addc.u32 u4, 0, 0;\n\t"
+        "mad.lo.cc.u32 u1, t4, 0x2CFFU, u1;\n\t"
+        "madc.hi.cc.u32 u2, t5, 0xFFFFFFFFU, u2;\n\t"
+        "addc.cc.u32 u3, u3, 0;\n\t"
+        "addc.u32 u4, u4, 0;\n\t"
+        "mad.lo.cc.u32 u1, t5, 0xFFFFFFFFU, u1;\n\t"
+        "madc.lo.cc.u32 u2, t5, 0x2CFFU, u2;\n\t"
+        "addc.cc.u32 u3, u3, 0;\n\t"
+        "addc.u32 u4, u4, 0;\n\t"
+        // third fold: u += u4 * R
+        "mad.lo.cc.u32 u0, u4, 0xFFFFFFFFU, u0;\n\t"
+        "madc.lo.cc.u32 u1, u4, 0x2CFFU, u1;\n\t"
+        "addc.cc.u32 u2, u2, 0;\n\t"
+        "addc.u32 u3, u3, 0;\n\t"
+        // u - M unless that borrows; M = 0xFFFFFFFF_FFFFFFFF_FFFFD300_00000001
+        "sub.cc.u32 d0, u0, 0x00000001U;\n\t"
+        "subc.cc.u32 d1, u1, 0xFFFFD300U;\n\t"
+        "subc.cc.u32 d2, u2, 0xFFFFFFFFU;\n\t"
+        "subc.cc.u32 d3, u3, 0xFFFFFFFFU;\n\t"
+        "subc.u32 bw, 0, 0;\n\t"
+        "setp.ne.u32 under, bw, 0;\n\t"
+        "selp.b32 %0, u0, d0, under;\n\t"
+        "selp.b32 %1, u1, d1, under;\n\t"
+        "selp.b32 %2, u2, d2, under;\n\t"
+        "selp.b32 %3, u3, d3, under;\n\t"
+        "}"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w));
+    return r;
+}
 #endif
 
 // hi 2^128 + lo mod M for any 256-bit value: two folds of the high half
@@ -238,6 +346,15 @@ F128_FN u128 mul(u128 a, u128 b) {
 #endif
 }
 
+// a^2 mod M: sqr_limbs on the card, the multiply's host code elsewhere.
+F128_FN u128 sqr(u128 a) {
+#ifdef __CUDA_ARCH__
+    return from_limbs(sqr_limbs(to_limbs(a)));
+#else
+    return mul(a, a);
+#endif
+}
+
 // The digits of a sum of byte-limb products: a product of two elements
 // split into 16 bytes each has 31 digits, digit d the sum of the byte
 // products of weight 2^(8d).
@@ -271,35 +388,63 @@ F128_FN u128 reduce_digits(const uint32_t* digits, int stride) {
     return reduce_wide(lo, hi);
 }
 
-// a^(-1) = a^(M-2) (0 for 0) by the binary extended Euclidean algorithm:
-// u = a and v = M with x1 a = u and x2 a = v (mod M) throughout; each step
-// halves u or v (x1 or x2 with it, (x + M) / 2 = (x >> 1) + (M >> 1) + 1 for
-// odd x) or subtracts the smaller from the larger, until u or v is 1.  At
-// most 256 halvings and as many subtractions, a chain of shifts and adds:
-// for one thread alone it is shorter than the ~250 dependent multiplies of
-// a^(M-2) (K6's inversion of a block's total, PERF.md).
+// the trailing zero bits of x != 0
+F128_FN int trailing_zeros(u128 x) {
+    const u64 lo = (u64)x, hi = (u64)(x >> 64);
+#ifdef __CUDA_ARCH__
+    return lo ? __ffsll((long long)lo) - 1 : 63 + __ffsll((long long)hi);
+#else
+    return lo ? __builtin_ctzll(lo) : 64 + __builtin_ctzll(hi);
+#endif
+}
+
+// a^(-1) mod M (0 for 0) by Kaliski's almost Montgomery inverse, for the
+// one thread that inverts a block's product (K6, K7).  The loop keeps M =
+// u s + v r (so r, s < M) and a r = -u 2^k, a s = v 2^k (mod M), with u
+// and v odd: each step subtracts the smaller of the two from the larger
+// and shifts out the difference's trailing zeros (Kaliski's halvings of
+// one bit a step, merged), doubling r or s as often: no modular halving,
+// 73-105 steps, until u = v = 1.  Then M - r = a^(-1) 2^k, and the 2^k
+// comes out 32 bits at a time: x <- (x + m M) / 2^j with m = -x mod 2^j,
+// exact since M = 1 mod 2^40, and below M since x < M and m < 2^j.  For
+// one thread alone this chain of shifts and adds is shorter than the binary
+// extended Euclid's up to 256 modular halvings and than the ~140 dependent
+// multiplies of a^(M-2) (tools/air_probe.py k6, PERF.md).
 F128_FN u128 inv(u128 a) {
     if (a == 0) return 0;
-    const u128 half = (modulus() >> 1) + 1;
-    u128 u = a, v = modulus(), x1 = 1, x2 = 0;
-    while (u != 1 && v != 1) {
-        while ((u & 1) == 0) {
-            u >>= 1;
-            x1 = (x1 & 1) ? (x1 >> 1) + half : x1 >> 1;
-        }
-        while ((v & 1) == 0) {
-            v >>= 1;
-            x2 = (x2 & 1) ? (x2 >> 1) + half : x2 >> 1;
-        }
-        if (u >= v) {
+    const u128 m_ = modulus();
+    int k = trailing_zeros(a);
+    u128 u = m_, v = a >> k, r = 0, s = 1;
+    while (u != v) {
+        int t;
+        if (u > v) {
             u -= v;
-            x1 = sub(x1, x2);
+            t = trailing_zeros(u);
+            u >>= t;
+            r += s;
+            s <<= t;
         } else {
             v -= u;
-            x2 = sub(x2, x1);
+            t = trailing_zeros(v);
+            v >>= t;
+            s += r;
+            r <<= t;
         }
+        k += t;
     }
-    return u == 1 ? x1 : x2;
+    u128 x = m_ - r;
+    while (k > 0) {
+        const int j = k < 32 ? k : 32;
+        const u128 m = (0 - x) & (((u128)1 << j) - 1);
+        // x + m M = x + m + m 2^128 - 45 m 2^40, as top 2^128 + lo
+        const u128 t = x + m;
+        const u128 d = (m * 45) << 40;
+        const u128 lo = t - d;
+        const u128 top = m + (t < x) - (lo > t);
+        x = (top << (128 - j)) | (lo >> j);
+        k -= j;
+    }
+    return x;
 }
 
 // base^e by square-and-multiply from the low exponent bit, as

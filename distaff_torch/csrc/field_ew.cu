@@ -7,11 +7,21 @@
 //
 // Bound on this card: add, sub and mul move 48 bytes per element against
 // at most ~120 integer instructions, so they are bound by memory traffic;
-// exp_const runs a 128-step square-and-multiply chain per element and is
-// bound by operations.  One thread per element, operands read as 16-byte
-// vectors.  exp_const serves a general constant exponent (the kernel
-// bench); the prover's inverses go through K6 (inv_batch.cu), which runs
-// one chain a block instead of one an element.
+// exp_const is bound by the multiplies it issues, on the FMA pipe.  One
+// thread per element, operands read as 16-byte vectors.  exp_const serves
+// a general constant exponent (the kernel bench); the prover's inverses go
+// through K6 (inv_batch.cu), which runs one chain a block instead of one an
+// element.
+//
+// exp_const runs a schedule that the host builds from the exponent and
+// passes in the kernel's parameter (field_kernels.exp_schedule): the same
+// short list of steps for every thread, "square k times", "multiply by
+// table entry j", "store as entry j", "load entry j", "one", with x in
+// entry 0 of a per-thread table.  For e = M - 2 (the Fermat inverse) the
+// schedule takes 127 squarings and 12 multiplies from the powers
+// x^(2^(2^k) - 1), against square-and-multiply's 127 and 123; any other e
+// takes the cheaper of that chain and a sliding window.  Squarings go
+// through field128.cuh's sqr_limbs (10 limb products in place of 16).
 //
 // Operands may be broadcast or strided: the wrapper collapses the output's
 // batch dimensions (size-1 dimensions dropped, neighbours that are
@@ -75,12 +85,42 @@ __global__ void binary_kernel(const uint4* __restrict__ a, const uint4* __restri
     }
 }
 
-__global__ void exp_kernel(const uint4* __restrict__ a, uint4* __restrict__ out,
-                           long long n, unsigned long long e_lo, unsigned long long e_hi) {
-    const f128::u128 e = ((f128::u128)e_hi << 64) | e_lo;
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
-        out[i] = f128::to_limbs(f128::pow(f128::from_limbs(a[i]), e));
+// exp_const's schedule: kExpSteps steps at most, each an operation in its
+// high byte and its argument in the low one (field_kernels.exp_schedule)
+constexpr int kExpSteps = 256;
+constexpr int kExpTable = 16;
+enum ExpOp { kExpSqr = 0, kExpMul = 1, kExpStore = 2, kExpLoad = 3, kExpOne = 4 };
+
+struct ExpSchedule {
+    int steps;
+    uint16_t step[kExpSteps];
+};
+
+__global__ void __launch_bounds__(kThreads)
+exp_kernel(const uint4* __restrict__ a, uint4* __restrict__ out, long long n,
+           const __grid_constant__ ExpSchedule s) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+        f128::u128 table[kExpTable];
+        f128::u128 acc = f128::from_limbs(a[i]);
+        table[0] = acc;
+        for (int k = 0; k < s.steps; ++k) {
+            const int op = s.step[k] >> 8, arg = s.step[k] & 0xFF;
+            if (op == kExpSqr) {
+#pragma unroll 1
+                for (int j = 0; j < arg; ++j) acc = f128::sqr(acc);
+            } else if (op == kExpMul) {
+                acc = f128::mul(acc, table[arg]);
+            } else if (op == kExpStore) {
+                table[arg] = acc;
+            } else if (op == kExpLoad) {
+                acc = table[arg];
+            } else {
+                acc = 1;
+            }
+        }
+        out[i] = f128::to_limbs(acc);
+    }
 }
 
 }  // namespace
@@ -116,11 +156,21 @@ extern "C" int distaff_field_binary(int op, int ndim, const void* a, const void*
     return (int)cudaGetLastError();
 }
 
-extern "C" int distaff_field_exp(const void* a, void* out, long long n,
-                                 unsigned long long e_lo, unsigned long long e_hi, void* stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+// out[i] = a[i]^e for i < n, e given by its schedule: `count` steps
+extern "C" int distaff_field_exp(const void* a, void* out, long long n, const uint16_t* steps,
+                                 int count, void* stream) {
+    if (n < 0 || count < 0 || count > kExpSteps) return (int)cudaErrorInvalidValue;
+    ExpSchedule s;
+    s.steps = count;
+    for (int k = 0; k < count; ++k) {
+        const int op = steps[k] >> 8, arg = steps[k] & 0xFF;
+        if (op > kExpOne || (op == kExpSqr && arg == 0) ||
+            ((op == kExpMul || op == kExpStore || op == kExpLoad) && arg >= kExpTable))
+            return (int)cudaErrorInvalidValue;
+        s.step[k] = steps[k];
+    }
     if (n == 0) return (int)cudaSuccess;
     exp_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint4*)a, (uint4*)out, n, e_lo, e_hi);
+        (const uint4*)a, (uint4*)out, n, s);
     return (int)cudaGetLastError();
 }

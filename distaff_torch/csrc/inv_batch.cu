@@ -5,89 +5,53 @@
 // inversion that the JAX prover's DEEP composition takes on an accelerator
 // (prover.py, `use_scan_inv`): a log-depth prefix and suffix product over
 // the whole batch and one Fermat chain on its total.  The port's proof no
-// longer calls it (K7 deep_compose inverts inside its own blocks on the
-// same product tree); the kernel bench does.  On this card nothing
-// carries across blocks, so each block inverts its own range of tiles with
-// one chain, and the grid holds no more blocks than the card keeps resident
-// at once, so that the chains of all blocks run together:
-//   - a tile is T x K consecutive elements (256 threads x 8), a thread's
-//     element k at tile offset k T + thread, so loads and stores are
-//     coalesced; zeros count as ones in the products and map back to zero
-//     at the end, as inv_batch_scan does;
-//   - a thread runs through its elements of the block's tiles keeping the
-//     running product, and writes each prefix to `out` as scratch;
-//   - the block's threads meet in inv_block.cuh's product tree (shared
-//     with K7 deep_compose), which inverts the block's product once
-//     (field128.cuh's inv, binary extended Euclid: K6 takes 0.084 ms at
-//     2^21 with it and 0.116 ms with square-and-multiply's 250 dependent
-//     multiplies, tools/air_probe.py, PERF.md) and gives each thread the
-//     inverse of its own product;
-//   - a thread then walks back through its elements: inv(a_e) = inv(q_e)
-//     q_(e-1) and inv(q_(e-1)) = inv(q_e) a_e, q the prefixes it wrote.
-// That is Montgomery's 3 multiplies an element, about 3 more a thread and one
-// chain a block, against the 250 multiplies of a Fermat chain for every
-// element (K2's exp_const).  The inverse is unique, so every result equals
-// exp_const(a, M - 2).
+// longer calls it (K7 deep_compose inverts inside its own blocks); the
+// kernel bench does.  On this card nothing carries across blocks, so each
+// block inverts its own range with one inversion, and the grid holds no
+// more blocks than the card keeps resident at once, so that the
+// inversions of all blocks run together.  The passes and the tree are
+// inv_batch.cuh's.
 //
-// Bound on this card: bytes (16 read and 16 written an element; 3
-// multiplies an element are below that).  The scratch prefixes add a write
-// and a read an element, which the 50 MB L2 mostly keeps; the floor in
-// practice is the latency of the passes' dependent multiplies and of one
-// inversion.
+// Bound on this card: bytes (16 read and 16 written an element) against
+// Montgomery's 3 multiplies an element; a multiply issues 67 instructions
+// to the FMA pipe and 66 to the integer-only one (tools/air_probe.py
+// k2exp), so at 64 lanes an SM each the multiplies take longer than the
+// bytes.  A block's inversion is a dependent chain of ~90 steps on one
+// thread that no other work of the block hides (~11 us), and the tree
+// around it ~10 dependent multiplies.  The design keeps a thread's state
+// small (one product, no branch around a multiply, ~45 registers) so that
+// warps hide each other's latencies, meets in a tree of warp shuffles that
+// forms every product but the inverse beside the inversion, and inverts by
+// Kaliski's almost Montgomery inverse (field128.cuh's inv).  A thread takes
+// at least kMinElements (16) elements where that leaves every SM a block,
+// so that the tree's ~12 multiplies a thread stay well below the passes'
+// (at 2^20 elements: 2 blocks an SM, not 4).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "field128.cuh"
-#include "inv_block.cuh"
+#include "inv_batch.cuh"
 
 namespace {
 
-using f128::u128;
+using inv_batch::Args;
+using inv_batch::kThreads;
+using inv_batch::u128;
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kTile = kThreads * kPerThread;
+// a thread's least elements while every SM keeps a block (the tree's
+// multiplies amortized)
+constexpr long long kMinElements = 16;
 
-// block b inverts tiles [b P, (b + 1) P) of a into out, P = tiles_per_block
-__global__ void __launch_bounds__(kThreads)
-inv_batch_kernel(const uint4* __restrict__ a, uint4* __restrict__ out, long long n,
-                 long long tiles_per_block) {
-    __shared__ u128 tree[2 * kThreads];
+// at most 64 registers a thread: 4-6 blocks an SM
+__global__ void __launch_bounds__(kThreads, 4) inv_batch_kernel(const Args g) {
+    __shared__ uint4 tree[inv_batch::kWarps + 1];
     const int tid = threadIdx.x;
-    const long long first = (long long)blockIdx.x * tiles_per_block * kTile + tid;
-    const long long last = first + tiles_per_block * kTile;     // past the thread's last element
-
-    // the running product of the thread's elements (zeros as ones), each
-    // prefix written to out
-    u128 run = 1;
-    for (long long t = first; t < last && t < n; t += kTile) {
-#pragma unroll
-        for (int k = 0; k < kPerThread; k++) {
-            const long long i = t + (long long)k * kThreads;
-            if (i < n) {
-                const u128 v = f128::from_limbs(a[i]);
-                if (v != 0) run = f128::mul(run, v);
-                out[i] = f128::to_limbs(run);
-            }
-        }
-    }
-
-    // 1 / (the thread's product) from the block's tree; then back through
-    // the elements, last first
-    u128 inv_q = inv_block::inverse_of_total<kThreads>(tree, run);
-    for (long long t = first + (tiles_per_block - 1) * kTile; t >= first; t -= kTile) {
-#pragma unroll
-        for (int k = kPerThread - 1; k >= 0; k--) {
-            const long long i = t + (long long)k * kThreads;
-            if (i >= n) continue;
-            const long long prev = k ? i - kThreads : i - kTile + (kPerThread - 1) * kThreads;
-            const u128 q_prev = k || t > first ? f128::from_limbs(out[prev]) : 1;
-            const u128 v = f128::from_limbs(a[i]);
-            out[i] = f128::to_limbs(v == 0 ? 0 : f128::mul(inv_q, q_prev));
-            if (v != 0) inv_q = f128::mul(inv_q, v);
-        }
-    }
+    const long long b = blockIdx.x;
+    const long long count = inv_batch::count(g, b, tid);
+    const u128 q = inv_batch::forward(g, b, tid, count);
+    const u128 inv_q = inv_batch::invert_total(q, tree);
+    inv_batch::backward(g, b, tid, count, inv_q);
 }
 
 }  // namespace
@@ -96,9 +60,9 @@ inv_batch_kernel(const uint4* __restrict__ a, uint4* __restrict__ out, long long
 extern "C" int distaff_inv_batch(const void* a, void* out, long long n, void* stream) {
     if (n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
-    static int resident = 0;                 // blocks the card keeps resident at once
+    static int sms = 0, resident = 0;       // the card's SMs, the blocks it keeps resident
     if (resident == 0) {
-        int device, sms, per_sm;
+        int device, per_sm;
         cudaError_t e = cudaGetDevice(&device);
         if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
         if (e == cudaSuccess)
@@ -106,10 +70,19 @@ extern "C" int distaff_inv_batch(const void* a, void* out, long long n, void* st
         if (e != cudaSuccess) return (int)e;
         resident = sms * per_sm;
     }
-    const long long tiles = (n + kTile - 1) / kTile;
-    const long long per_block = (tiles + resident - 1) / resident;
-    const long long blocks = (tiles + per_block - 1) / per_block;
-    inv_batch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint4*)a, (uint4*)out, n, per_block);
+    Args g;
+    g.a = (const uint4*)a;
+    g.out = (uint4*)out;
+    g.n = n;
+    // as few elements a thread as fill the resident blocks, but at least
+    // kMinElements while that leaves a block an SM
+    const long long all = (long long)resident * kThreads, one = (long long)sms * kThreads;
+    const long long spread = (n + all - 1) / all;
+    long long least = (n + one - 1) / one;
+    if (least > kMinElements) least = kMinElements;
+    g.per_thread = spread > least ? spread : least;
+    const long long per_block = g.per_thread * kThreads;
+    const long long blocks = (n + per_block - 1) / per_block;
+    inv_batch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(g);
     return (int)cudaGetLastError();
 }

@@ -1,13 +1,13 @@
-// Montgomery's trick across the threads of a block, shared by K6 inv_batch
-// and K7 deep_compose: each thread brings the product of its own elements
+// Montgomery's trick across the threads of a block, for K7 deep_compose:
+// each thread brings the product of its own elements
 // (zeros counted as ones, so the product is never zero) and gets back that
 // product's inverse, for one field inversion a block.
 //
 // The threads' products go into a binary tree in shared memory, in heap
 // order: thread t's product is leaf kThreads + t, node j the product of its
 // children 2j and 2j + 1, node 1 the block's product.  log2(kThreads)
-// levels go up, one thread inverts the root (field128.cuh's inv, a binary
-// extended Euclid), and log2(kThreads) levels come down, the inverse of a
+// levels go up, one thread inverts the root (field128.cuh's inv, Kaliski's
+// inverse, as K6's), and log2(kThreads) levels come down, the inverse of a
 // node giving its children's: 1/L = R/(LR) and 1/R = L/(LR), written over
 // the children in place.  One multiply a node up and two down: about 3 a
 // thread, and one inversion a block.

@@ -125,6 +125,16 @@ def sass(stem):
 # integer pipes: IADD3, LOP3, SHF and PRMT issue to the integer-only pipe,
 # IMAD (all its forms) to the FMA pipe; IMMA is the int8 tensor cores'
 PIPE_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IMMA")
+# the mix of the field multiply's kernels (K2's exp_const, K6): IMAD's
+# forms (wide, high half, carry-in, the moves ptxas puts on the FMA pipe)
+# beside the integer-only pipe's adds, logic and selects
+MULTIPLY_OPCODES = ("IMAD", "IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD.MOV", "IADD3", "LOP3",
+                    "SHF", "SEL", "ISETP")
+# the opcodes of the two pipes, for a per-pipe count: the FMA pipe's IMAD,
+# and the integer-only pipe's
+FMA_PIPE_OPCODES = ("IMAD",)
+ALU_PIPE_OPCODES = ("IADD3", "LOP3", "SHF", "PRMT", "SEL", "ISETP", "LEA", "MOV", "IMNMX",
+                    "PLOP3")
 
 
 def sass_file(path):
@@ -137,9 +147,22 @@ def sass_file(path):
                           check=True).stdout
 
 
+def function_sass(sass_text, name):
+    """The SASS of the functions whose (mangled) name contains `name`."""
+    keep, lines = False, []
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            keep = name in line.split("Function :", 1)[1]
+        elif keep:
+            lines.append(line)
+    return "\n".join(lines)
+
+
 def opcode_counts(sass_text, opcodes=PIPE_OPCODES):
-    """How many instructions of each base opcode (the mnemonic before its
-    first '.') the SASS text holds, predicated ones included."""
+    """How many instructions of each opcode the SASS text holds, predicated
+    ones included: an opcode without a '.' counts every form of it (IMAD:
+    IMAD.WIDE, IMAD.HI ... too), one with a '.' the forms it begins (IMAD.WIDE:
+    IMAD.WIDE and IMAD.WIDE.U32)."""
     counts = dict.fromkeys(opcodes, 0)
     for line in sass_text.splitlines():
         if "*/" not in line:
@@ -147,9 +170,19 @@ def opcode_counts(sass_text, opcodes=PIPE_OPCODES):
         words = line.split("*/", 1)[1].split()
         if words and words[0].startswith("@"):
             words = words[1:]
-        if words and words[0].split(".")[0] in counts:
-            counts[words[0].split(".")[0]] += 1
+        if not words:
+            continue
+        mnemonic = words[0].rstrip(";")
+        for op in opcodes:
+            if mnemonic == op or mnemonic.startswith(op + "."):
+                counts[op] += 1
     return counts
+
+
+def pipe_counts(sass_text):
+    """(FMA-pipe, integer-only-pipe) instructions of a SASS text."""
+    fma = sum(opcode_counts(sass_text, FMA_PIPE_OPCODES).values())
+    return fma, sum(opcode_counts(sass_text, ALU_PIPE_OPCODES).values())
 
 
 def lib():
@@ -168,8 +201,7 @@ def lib():
             vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
         handle.distaff_field_binary.argtypes = [
             i32, i32, vp, vp, vp, ll, llp, llp, llp, vp]
-        handle.distaff_field_exp.argtypes = [
-            vp, vp, ll, ctypes.c_ulonglong, ctypes.c_ulonglong, vp]
+        handle.distaff_field_exp.argtypes = [vp, vp, ll, ctypes.POINTER(ctypes.c_uint16), i32, vp]
         handle.distaff_blake3_rows.argtypes = [vp, vp, ll, i32, ll, ll, vp]
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]

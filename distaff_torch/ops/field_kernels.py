@@ -14,13 +14,16 @@ K2 `field_ew` (csrc/field_ew.cu) replaces the in-kernel limb arithmetic of
 both Pallas kernels (field_pallas.py _add_limbs, _sub_limbs, _mul_limbs)
 and the XLA arithmetic of distaff_tpu/math/field_jax.py (add, sub, mul,
 exp_const): elementwise over broadcast operands.  add/sub/mul are bound by
-memory traffic, exp_const by operations.
+memory traffic, exp_const by operations: a schedule that the host builds
+from the exponent (exp_schedule), its squarings on a dedicated squaring.
 
-K6 `inv_batch` (csrc/inv_batch.cu) replaces the XLA batch inversion
-distaff_tpu/math/field_jax.py::inv_batch_scan (Montgomery's trick): every
-element's inverse, zero to zero, with one Fermat chain a block.  Its plain
-version is `exp_const_plain(a, M - 2)`, another algorithm with the same
-results.  Bound by memory traffic.
+K6 `inv_batch` (csrc/inv_batch.cu, inv_batch.cuh) replaces the XLA batch
+inversion distaff_tpu/math/field_jax.py::inv_batch_scan (Montgomery's
+trick): every element's inverse, zero to zero, with one inversion a block
+(Kaliski's almost Montgomery inverse).  Its plain version is
+`exp_const_plain(a, M - 2)`, another algorithm with the same results.
+Bound by its multiplies on the card's two integer pipes, and by one
+inversion's latency at small sizes.
 
 K12 `power_series` (csrc/power_series.cu, power_series.cuh) replaces the
 JAX package's distaff_tpu/ops/tiles.py::_ps_tile, _ps_tiles_batched and
@@ -290,6 +293,120 @@ def mul(a, b):
     return _binary("mul", a, b)
 
 
+# exp_const's schedule (field_ew.cu): steps of one operation and one
+# argument, the same for every element, x in table entry 0
+EXP_SQR, EXP_MUL, EXP_STORE, EXP_LOAD, EXP_ONE = range(5)
+EXP_STEPS = 256                 # field_ew.cu kExpSteps
+EXP_TABLE = 16                  # field_ew.cu kExpTable
+EXP_WINDOW = 4                  # the sliding window's bits: 2^(w-1) odd powers and x^2
+
+
+def _runs(e):
+    """The runs of ones of e from its top bit: (length, lowest bit) each."""
+    runs, i = [], e.bit_length() - 1
+    while i >= 0:
+        if (e >> i) & 1:
+            low = i
+            while low > 0 and (e >> (low - 1)) & 1:
+                low -= 1
+            runs.append((i - low + 1, low))
+            i = low - 1
+        else:
+            i -= 1
+    return runs
+
+
+def _ones_schedule(e):
+    """x^e from the powers t_k = x^(2^(2^k) - 1) in entries k = 0..K, 2^K
+    the longest power of two within a run of ones: t_(k+1) = t_k^(2^(2^k))
+    t_k, then each run of ones of e appended to the result as pieces of
+    power-of-two lengths L (r = r^(2^L) t, a run's leading zeros folded into
+    its first squarings).  For e = M - 2 (82 ones, 010010, 40 ones) that is
+    127 squarings and 12 multiplies."""
+    runs = _runs(e)
+    top = max(length for length, _ in runs).bit_length() - 1
+    steps = []
+    for k in range(top):
+        steps += [(EXP_SQR, 1 << k), (EXP_MUL, k), (EXP_STORE, k + 1)]
+    acc, zeros, prev_low = top, 0, None
+    for length, low in runs:
+        if prev_low is not None:
+            zeros = prev_low - (low + length)
+        pieces = [k for k in reversed(range(top + 1)) if (length >> k) & 1]
+        if prev_low is None:                 # the top run starts from an entry
+            if pieces[0] != acc:
+                steps.append((EXP_LOAD, pieces[0]))
+            pieces = pieces[1:]
+        for k in pieces:
+            steps += [(EXP_SQR, zeros + (1 << k)), (EXP_MUL, k)]
+            zeros = 0
+        prev_low = low
+    if prev_low:
+        steps.append((EXP_SQR, prev_low))
+    return steps
+
+
+def window_schedule(e, width):
+    """x^e by a left-to-right sliding window of `width` bits: entry j holds
+    x^(2j + 1) for the odd window values up to the largest one, the entry
+    after them x^2."""
+    windows, i = [], e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            i -= 1
+            continue
+        low = max(i - width + 1, 0)
+        while not (e >> low) & 1:
+            low += 1
+        windows.append(((e >> low) & ((1 << (i - low + 1)) - 1), low))
+        i = low - 1
+    odd = (max(v for v, _ in windows) + 1) // 2
+    steps = []
+    if odd > 1:
+        steps += [(EXP_SQR, 1), (EXP_STORE, odd), (EXP_LOAD, 0)]
+        for j in range(1, odd):
+            steps += [(EXP_MUL, odd), (EXP_STORE, j)]
+    acc = odd - 1
+    value, prev_low = windows[0]
+    if value // 2 != acc:
+        steps.append((EXP_LOAD, value // 2))
+    for value, low in windows[1:]:
+        steps += [(EXP_SQR, prev_low - low), (EXP_MUL, value // 2)]
+        prev_low = low
+    if prev_low:
+        steps.append((EXP_SQR, prev_low))
+    return steps
+
+
+def exp_schedule_ops(steps):
+    """(squarings, multiplies) that a schedule runs an element."""
+    return (sum(arg for op, arg in steps if op == EXP_SQR),
+            sum(1 for op, _ in steps if op == EXP_MUL))
+
+
+def exp_schedule(e):
+    """The steps (operation, argument) of field_ew.cu's exp_kernel for x^e,
+    0 <= e < 2^128: the cheaper, at SQR_OPS a squaring and MUL_OPS a
+    multiply, of the x^(2^(2^k) - 1) chain and the sliding window of
+    EXP_WINDOW bits; for e = 0 the one step "one" (0^0 = 1)."""
+    if e == 0:
+        return [(EXP_ONE, 0)]
+    candidates = (_ones_schedule(e), window_schedule(e, EXP_WINDOW))
+    return min(candidates, key=lambda steps: _schedule_cost(*exp_schedule_ops(steps)))
+
+
+# 32-bit instructions of a multiply and of a squaring at their leanest: 16
+# (10) wide 32x32->64 multiply-adds with as many carry adds (and the 8 adds
+# that double the squaring's cross products), then the two folds of the
+# high half through R and the conditional subtraction, 32
+MUL_OPS = 16 + 16 + 32
+SQR_OPS = 10 + 10 + 8 + 32
+
+
+def _schedule_cost(squarings, multiplies):
+    return squarings * SQR_OPS + multiplies * MUL_OPS
+
+
 def exp_const(a, e):
     """a^e elementwise for a host-int exponent 0 <= e < 2^128 (0^0 == 1)."""
     e = int(e)
@@ -298,11 +415,13 @@ def exp_const(a, e):
     if _on_cpu(a):
         return exp_const_plain(a, e)
     cuda_lib.require_limbs("field_ew.exp_const", a)
+    steps = exp_schedule(e)
     a = a.contiguous()
     out = torch.empty_like(a)
+    words = (ctypes.c_uint16 * len(steps))(*[op << 8 | arg for op, arg in steps])
     code = cuda_lib.lib().distaff_field_exp(
-        cuda_lib.ptr(a), cuda_lib.ptr(out), a.numel() // 4,
-        e & ((1 << 64) - 1), e >> 64, cuda_lib.stream(a))
+        cuda_lib.ptr(a), cuda_lib.ptr(out), a.numel() // 4, words, len(steps),
+        cuda_lib.stream(a))
     cuda_lib.check(code, "field_ew.exp_const")
     cuda_lib.LAUNCHES["field_ew.exp_const"] += 1
     return out

@@ -1,11 +1,12 @@
-"""K4's, K6's-K11's, K13's and K15's design choices measured on the card,
-each against the kernel with that one choice undone.
+"""K2's exp_const, K4's, K6's-K11's, K13's and K15's design choices
+measured on the card, each against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
-    python -m distaff_torch.tools.air_probe [k4] [k6] [k7] [k8] [k9] [k10] [k11] [k13] [k15] [b3]
+    python -m distaff_torch.tools.air_probe [k4] [k6] [k2exp] [k7] [k8] [k9] [k10] [k11] [k13]
+        [k15] [b3] [--parent-csrc DIR]
 
-(all ten by default).
+(all eleven by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -19,9 +20,17 @@ of distaff_torch/csrc and held equal to the production build:
   128-registers    __launch_bounds__(128, 4): at most 128 registers a
                    thread, 16 warps an SM instead of 8, more spills
 
-and K6 at 2^14, 2^20 and 2^21 with the block total inverted by the binary
-extended Euclid (production) and by square-and-multiply (f128::pow, 250
-dependent multiplies); and K7 at the 2^16 and 2^18 proofs' calls and the
+and K6 at 2^14, 2^18, 2^20 and 2^21 split into its phases (builds that
+stop after the forward pass, the tree, the inversion: K6_SPLITS), with
+the block's product inverted by Kaliski's inverse (production), the
+binary extended Euclid, exp_const's x^(2^(2^k) - 1) chain and
+square-and-multiply, and at other shapes (K6_VARIANTS), and with
+--parent-csrc another checkout's K6 split the same way (probe_k6); K2's
+exp_const at M - 2 under its schedule's squarings and multiplies apart,
+under square-and-multiply's schedule, built with the squarings as general
+multiplies, and the instructions of one squaring and one multiply on each
+integer pipe with the per-pipe bounds they give (probe_k2exp); and K7 at
+the 2^16 and 2^18 proofs' calls and the
 streamed 2^16 proof's with other points an inversion (DEEP_ROUND_PAIRS),
 one block an SM, cp.async copies in place of the bulk copies
 (WSUM_CP_ASYNC) and other ring depths (WSUM_MAX_STAGES), and built
@@ -48,6 +57,7 @@ difference from the production build raises (but K10's, K11's and the
 K7_DROPS and K15_DROPS builds, which drop work by design).
 """
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -116,8 +126,178 @@ K15_DROPS = {
     "copies only": (("coeff_wsum.cu", "store(a, blockIdx.x + k * gridDim.x, digits, "
                      "threadIdx.x);", "(void)k; (void)digits;"), NO_PRODUCT),
 }
-K6_VARIANT = ("inv_block.cuh", "tree[1] = f128::inv(tree[1]);",
-              "tree[1] = f128::pow(tree[1], f128::modulus() - 2);")
+# K6: builds that stop after a phase (not held: their outputs are wrong by
+# design), so that the time splits into the forward pass, the tree, the
+# inversion and the backward pass; builds with other inversions of the
+# block's product and other shapes (held equal)
+K6_TREE = "const u128 inv_q = inv_batch::invert_total(q, tree);"
+K6_BACK = "inv_batch::backward(g, b, tid, count, inv_q);"
+K6_ROOT = "f128::inv(f128::from_limbs(shared[kWarps]))"
+K6_KEEP = "if (count > 0) g.out[inv_batch::element(g, b, tid, 0)] = f128::to_limbs(inv_q);"
+K6_SPLITS = {
+    "forward only": (("inv_batch.cu", K6_TREE, "const u128 inv_q = q;"),
+                     ("inv_batch.cu", K6_BACK, K6_KEEP)),
+    "forward and tree": (("inv_batch.cuh", K6_ROOT, "f128::from_limbs(shared[kWarps])"),
+                         ("inv_batch.cu", K6_BACK, K6_KEEP)),
+    "forward, tree and inversion": (("inv_batch.cu", K6_BACK, K6_KEEP),),
+    "all but the inversion": (("inv_batch.cuh", K6_ROOT, "f128::from_limbs(shared[kWarps])"),),
+}
+# the Fermat inverse w^(M - 2) by exp_const's schedule for M - 2: t_k =
+# w^(2^(2^k) - 1) for k <= 6, then 82 = 64 + 16 + 2 ones, 010010, 40 = 32 + 8
+# ones; 127 squarings on sqr_limbs and 12 multiplies
+FERMAT_CHAIN = (
+    "[&] {\n"
+    "    u128 t[7], r = f128::from_limbs(shared[kWarps]);\n"
+    "    t[0] = r;\n"
+    "    for (int k = 0; k < 6; ++k) {\n"
+    "        for (int j = 0; j < (1 << k); ++j) r = f128::sqr(r);\n"
+    "        t[k + 1] = r = f128::mul(r, t[k]);\n"
+    "    }\n"
+    "    const int squarings[6] = {16, 2, 2, 3, 33, 8}, entry[6] = {4, 1, 0, 0, 5, 3};\n"
+    "    for (int s = 0; s < 6; ++s) {\n"
+    "        for (int j = 0; j < squarings[s]; ++j) r = f128::sqr(r);\n"
+    "        r = f128::mul(r, t[entry[s]]);\n"
+    "    }\n"
+    "    return r;\n"
+    "}()")
+# the block's product inverted by lane 0 of warp 0 ahead of the shuffle that
+# broadcasts it, in place of thread 0 between two barriers
+K6_IN_WARP = ("inv_batch.cuh", """        __syncwarp();
+        if (lane < kWarps) shared[lane] = f128::to_limbs(other_warps);
+        if (lane == 0) shared[kWarps] = f128::to_limbs(w);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+        shared[kWarps] = f128::to_limbs(f128::inv(f128::from_limbs(shared[kWarps])));
+    others = f128::mul(others, f128::from_limbs(shared[warp]));""", """        u128 inv = 0;
+        if (lane == 0) inv = f128::inv(w);
+        uint4 r = f128::to_limbs(inv);
+        r.x = __shfl_sync(0xFFFFFFFFu, r.x, 0);
+        r.y = __shfl_sync(0xFFFFFFFFu, r.y, 0);
+        r.z = __shfl_sync(0xFFFFFFFFu, r.z, 0);
+        r.w = __shfl_sync(0xFFFFFFFFu, r.w, 0);
+        if (lane < kWarps)
+            shared[lane] = f128::to_limbs(f128::mul(f128::from_limbs(r), other_warps));
+        if (lane == 0) shared[kWarps] = f128::to_limbs(1);
+    }
+    __syncthreads();
+    others = f128::mul(others, f128::from_limbs(shared[warp]));""")
+# Kaliski's inverse one bit a step (a halving or a subtraction and a
+# halving), in place of a subtraction and all the trailing zeros a step
+K6_ONE_BIT = ("field128.cuh", """    int k = trailing_zeros(a);
+    u128 u = m_, v = a >> k, r = 0, s = 1;
+    while (u != v) {
+        int t;
+        if (u > v) {
+            u -= v;
+            t = trailing_zeros(u);
+            u >>= t;
+            r += s;
+            s <<= t;
+        } else {
+            v -= u;
+            t = trailing_zeros(v);
+            v >>= t;
+            s += r;
+            r <<= t;
+        }
+        k += t;
+    }
+""", """    u128 u = m_, v = a, r = 0, s = 1;
+    int k = 0;
+    while (u != v) {
+        if ((u & 1) == 0) {
+            u >>= 1;
+            s <<= 1;
+        } else if ((v & 1) == 0) {
+            v >>= 1;
+            r <<= 1;
+        } else if (u > v) {
+            u = (u - v) >> 1;
+            r += s;
+            s <<= 1;
+        } else {
+            v = (v - u) >> 1;
+            s += r;
+            r <<= 1;
+        }
+        ++k;
+    }
+""")
+# the binary extended Euclid (the parent's f128::inv): u = w, v = M with x1 w
+# = u and x2 w = v (mod M); halvings of u or v with modular halvings of x1
+# or x2, and subtractions, until u or v is 1
+EUCLID = (
+    "[&] {\n"
+    "    const u128 half = (f128::modulus() >> 1) + 1;\n"
+    "    u128 u = f128::from_limbs(shared[kWarps]), v = f128::modulus(), x1 = 1, x2 = 0;\n"
+    "    while (u != 1 && v != 1) {\n"
+    "        while ((u & 1) == 0) {\n"
+    "            u >>= 1;\n"
+    "            x1 = (x1 & 1) ? (x1 >> 1) + half : x1 >> 1;\n"
+    "        }\n"
+    "        while ((v & 1) == 0) {\n"
+    "            v >>= 1;\n"
+    "            x2 = (x2 & 1) ? (x2 >> 1) + half : x2 >> 1;\n"
+    "        }\n"
+    "        if (u >= v) {\n"
+    "            u -= v;\n"
+    "            x1 = f128::sub(x1, x2);\n"
+    "        } else {\n"
+    "            v -= u;\n"
+    "            x2 = f128::sub(x2, x1);\n"
+    "        }\n"
+    "    }\n"
+    "    return u == 1 ? x1 : x2;\n"
+    "}()")
+K6_MIN = "constexpr long long kMinElements = 16;"
+# variant: patches (each held equal)
+K6_VARIANTS = {
+    "the block's inverse by Kaliski's steps of one bit": (K6_ONE_BIT,),
+    "the block's inverse by the binary extended Euclid (the parent's)": (
+        ("inv_batch.cuh", K6_ROOT, EUCLID),),
+    "the block's inverse by the x^(2^(2^k) - 1) chain (139 operations)": (
+        ("inv_batch.cuh", K6_ROOT, FERMAT_CHAIN),),
+    "the block's inverse by square-and-multiply (250 multiplies)": (
+        ("inv_batch.cuh", K6_ROOT,
+         "f128::pow(f128::from_limbs(shared[kWarps]), f128::modulus() - 2)"),),
+    "the loops not unrolled": (
+        ("inv_batch.cuh", "constexpr int kUnroll = 4;", "constexpr int kUnroll = 1;"),),
+    "at least 8 elements a thread": (("inv_batch.cu", K6_MIN, K6_MIN.replace("16", "8")),),
+    "at least 32 elements a thread": (("inv_batch.cu", K6_MIN, K6_MIN.replace("16", "32")),),
+    "as few elements a thread as fill the resident blocks": (
+        ("inv_batch.cu", K6_MIN, K6_MIN.replace("16", "1")),),
+    "the inversion in warp 0, ahead of a shuffle": (K6_IN_WARP,),
+}
+# the parent's K6 (inv_block.cuh's tree, prefixes through out), built from
+# another checkout's csrc (--parent-csrc) and split the same way
+K6_PARENT_TREE = "u128 inv_q = inv_block::inverse_of_total<kThreads>(tree, run);"
+K6_PARENT_KEEP = " if (n > 0) { out[first] = f128::to_limbs(inv_q); return; }"
+K6_PARENT_ROOT = ("inv_block.cuh", "tree[1] = f128::inv(tree[1]);", "")
+K6_PARENT_SPLITS = {
+    "forward only": (("inv_batch.cu", K6_PARENT_TREE, "u128 inv_q = run;" + K6_PARENT_KEEP),),
+    "forward and tree": (("inv_batch.cu", K6_PARENT_TREE, K6_PARENT_TREE + K6_PARENT_KEEP),
+                         K6_PARENT_ROOT),
+    "forward, tree and inversion": (("inv_batch.cu", K6_PARENT_TREE,
+                                     K6_PARENT_TREE + K6_PARENT_KEEP),),
+    "all but the inversion": (K6_PARENT_ROOT,),
+    "as it is": (),
+}
+# K2 exp_const: builds with the squarings as general multiplies (held),
+# and with one more squaring or multiply a step, whose SASS less the
+# production build's is one operation's instructions (not held)
+EXP_SQR = "for (int j = 0; j < arg; ++j) acc = f128::sqr(acc);"
+EXP_MUL = "acc = f128::mul(acc, table[arg]);"
+EXP_VARIANTS = {
+    "squarings as general multiplies": (
+        ("field_ew.cu", EXP_SQR, "for (int j = 0; j < arg; ++j) acc = f128::mul(acc, acc);"),),
+}
+EXP_EXTRA = {
+    "squaring": (("field_ew.cu", EXP_SQR,
+                  "for (int j = 0; j < arg; ++j) acc = f128::sqr(f128::sqr(acc));"),),
+    "multiply": (("field_ew.cu", EXP_MUL,
+                  "acc = f128::mul(f128::mul(acc, table[arg]), table[arg]);"),),
+}
 K10_PRODUCT = ("boundary_columns.cu",
                "wsum::product(l.pitch, group_regs(a, l, at.g), shared_address(a_s),\n"
                "                      shared_address(b_s + at.slot * l.slot_bytes), warp & 3, "
@@ -260,16 +440,18 @@ K10_VARIANTS = {
 }
 
 
-# the SASS opcode mix of each variant build, by name
+# the SASS opcode mix of each variant build, and its SASS, by name
 BUILD_OPCODES = {}
+BUILD_SASS = {}
 
 
-def _build(name, source, patches=(), defines=()):
-    """A copy of csrc with the (file, text, replacement) `patches` applied,
-    `source` built into a library: (ctypes handle, ptxas' spill lines)."""
+def _build(name, source, patches=(), defines=(), csrc=None):
+    """A copy of csrc (or of another checkout's csrc directory) with the
+    (file, text, replacement) `patches` applied, `source` built into a
+    library: (ctypes handle, ptxas' spill lines)."""
     work = Path(tempfile.mkdtemp(prefix=f"air_probe-{name}-"))
     try:
-        for f in cuda_lib.CSRC.glob("*.cu*"):
+        for f in Path(csrc or cuda_lib.CSRC).glob("*.cu*"):
             shutil.copy(f, work)
         for file, old, new in patches:
             text = (work / file).read_text()
@@ -287,6 +469,7 @@ def _build(name, source, patches=(), defines=()):
         text = cuda_lib.sass_file(work / "lib.so")
         if text is not None:
             BUILD_OPCODES[name] = cuda_lib.opcode_counts(text)
+            BUILD_SASS[name] = text
         return ctypes.CDLL(str(work / "lib.so")), spills
     finally:
         shutil.rmtree(work, ignore_errors=True)      # the loaded library stays mapped
@@ -352,30 +535,159 @@ def probe_k4():
             print(f"K4 {name}, {layout}: {ms:.4f} ms", flush=True)
 
 
-def probe_k6():
-    from ..ops import field_kernels as fk
-
-    handle, _ = _build("k6-pow", "inv_batch.cu", (K6_VARIANT,))
+def _inv_entry(handle):
     fn = handle.distaff_inv_batch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+    def run(a):
+        out = torch.empty_like(a)
+        cuda_lib.check(fn(cuda_lib.ptr(a), cuda_lib.ptr(out), a.shape[0], cuda_lib.stream(a)),
+                       "inv_batch (probe build)")
+        return out
+    return run
+
+
+K6_SIZES = (14, 18, 20, 21)
+
+
+def probe_k6(parent_csrc=None):
+    """K6 at 2^14, 2^18, 2^20 and 2^21 elements: the production build, the
+    builds of K6_SPLITS (stopped after a phase), then K6_VARIANTS (held
+    equal); with a parent checkout's csrc, its K6 split the same way
+    (K6_PARENT_SPLITS).  Each build's ptxas line and SASS mix (IMAD's forms,
+    the integer-only pipe's) is printed."""
+    from ..ops import field_kernels as fk
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    for log_n in (14, 20, 21):
-        a = random_elements(gen, (1 << log_n,))
+    xs = {k: random_elements(gen, (1 << k,)) for k in K6_SIZES}
+    want = {k: fk.inv_batch(a) for k, a in xs.items()}
+    sass = cuda_lib.sass("inv_batch")
+    if sass is not None:
+        mix = cuda_lib.opcode_counts(cuda_lib.function_sass(sass, "inv_batch_kernel"),
+                                     cuda_lib.MULTIPLY_OPCODES)
+        print(f"K6 production SASS: {mix}", flush=True)
+    print("K6 production: " + ", ".join(
+        f"2^{k} {time_ms(lambda a=a: fk.inv_batch(a), 50, 7, queued=True):.4f} ms"
+        for k, a in xs.items()), flush=True)
+    builds = {f"split: {name}": (patches, (), None, False) for name, patches in K6_SPLITS.items()}
+    builds.update({name: (patches, (), None, True) for name, patches in K6_VARIANTS.items()})
+    if parent_csrc:
+        builds.update({f"parent, {name}": (patches, (), parent_csrc, name == "as it is")
+                       for name, patches in K6_PARENT_SPLITS.items()})
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = dict(zip(builds, pool.map(
+            lambda kv: _build(f"k6-{list(builds).index(kv[0])}", "inv_batch.cu", kv[1][0],
+                              kv[1][1], kv[1][2]), builds.items())))
+    for k, (name, (handle, spills)) in enumerate(built.items()):
+        run, held = _inv_entry(handle), builds[name][3]
+        text = BUILD_SASS.get(f"k6-{k}")
+        mix = cuda_lib.opcode_counts(cuda_lib.function_sass(text, "inv_batch_kernel"),
+                                     cuda_lib.MULTIPLY_OPCODES) if text else None
+        times = []
+        for log_n, a in xs.items():
+            if held and not torch.equal(run(a), want[log_n]):
+                raise AssertionError(f"air_probe: K6 {name} differs at 2^{log_n}")
+            times.append(f"2^{log_n} {time_ms(lambda a=a: run(a), 50, 7, queued=True):.4f} ms")
+        print(f"K6 {name}: {', '.join(times)}{' (held equal)' if held else ''}; "
+              f"{'; '.join(spills)}; SASS {mix}", flush=True)
 
-        def pow_run():
-            out = torch.empty_like(a)
-            cuda_lib.check(fn(cuda_lib.ptr(a), cuda_lib.ptr(out), a.shape[0],
-                              cuda_lib.stream(a)), "inv_batch (pow)")
-            return out
 
-        if not torch.equal(pow_run(), fk.inv_batch(a)):
-            raise AssertionError("air_probe: K6 with f128::pow differs from the production build")
-        gcd = time_ms(lambda: fk.inv_batch(a), 50, 7, queued=True)
-        chain = time_ms(pow_run, 50, 7, queued=True)
-        print(f"K6 at 2^{log_n}: binary Euclid {gcd:.4f} ms, square-and-multiply {chain:.4f} ms",
-              flush=True)
+def _exp_entry(handle):
+    fn = handle.distaff_field_exp
+    fn.argtypes = cuda_lib.lib().distaff_field_exp.argtypes
+    fn.restype = ctypes.c_int
+
+    def run(a, steps):
+        out = torch.empty_like(a)
+        words = (ctypes.c_uint16 * len(steps))(*[op << 8 | arg for op, arg in steps])
+        cuda_lib.check(fn(cuda_lib.ptr(a), cuda_lib.ptr(out), a.shape[0], words, len(steps),
+                          cuda_lib.stream(a)), "exp_const (probe build)")
+        return out
+    return run
+
+
+def probe_k2exp():
+    """K2's exp_const at e = M - 2 (2^18, 2^20, 2^21 elements): the
+    production build under its schedule, under the schedule's squarings
+    alone and its multiplies alone, and under square-and-multiply's
+    schedule (the sliding window of 1 bit: 127 squarings, 123 multiplies);
+    the build with the squarings as general multiplies (EXP_VARIANTS, held
+    equal) under both schedules; then the instructions of one squaring and
+    of one multiply on each pipe (the SASS of exp_kernel built with one
+    more of each, less the production build's: EXP_EXTRA), and the
+    per-pipe bound of each schedule and of K6's 3 multiplies an element at
+    64 lanes an SM."""
+    from ..ops import field_kernels as fk
+
+    e = fk.M - 2
+    chain = fk.exp_schedule(e)
+    binary = fk.window_schedule(e, 1)
+    schedules = {
+        "the schedule (127 squarings, 12 multiplies)": chain,
+        "its squarings alone": [st for st in chain if st[0] != fk.EXP_MUL],
+        "its multiplies alone": [st for st in chain if st[0] != fk.EXP_SQR],
+        "square-and-multiply (127 squarings, 123 multiplies)": binary,
+    }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    xs = {k: random_elements(gen, (1 << k,)) for k in (18, 20, 21)}
+    want = {k: fk.exp_const(a, e) for k, a in xs.items()}
+    production = _exp_entry(cuda_lib.lib())
+    builds = {**EXP_VARIANTS, **{f"one more {op}": patches for op, patches in EXP_EXTRA.items()}}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = dict(zip(builds, pool.map(
+            lambda kv: _build(f"exp-{list(builds).index(kv[0])}", "field_ew.cu", kv[1]),
+            builds.items())))
+    runs = {"production": production, **{name: _exp_entry(built[name][0]) for name in EXP_VARIANTS}}
+    for build, run in runs.items():
+        for name, steps in schedules.items():
+            if name in (list(schedules)[0], list(schedules)[3]):
+                for k, a in xs.items():
+                    if not torch.equal(run(a, steps), want[k]):
+                        raise AssertionError(f"air_probe: exp_const {build}, {name} differs")
+            elif build != "production":
+                continue
+            times = ", ".join(
+                f"2^{k} {time_ms(lambda a=a: run(a, steps), 5, 7, queued=True):.4f} ms"
+                for k, a in xs.items())
+            print(f"exp_const {build}, {name}: {times}", flush=True)
+    text = cuda_lib.sass("field_ew")
+    if text is None:
+        print("exp_const: no cuobjdump found, instructions not counted", flush=True)
+        return
+    base = cuda_lib.pipe_counts(cuda_lib.function_sass(text, "exp_kernel"))
+    mix = cuda_lib.opcode_counts(cuda_lib.function_sass(text, "exp_kernel"),
+                                 cuda_lib.MULTIPLY_OPCODES)
+    print(f"exp_kernel production SASS: {mix}; FMA pipe {base[0]}, integer-only pipe {base[1]}",
+          flush=True)
+    per_op = {}
+    for op in EXP_EXTRA:
+        name = f"exp-{list(builds).index(f'one more {op}')}"
+        extra = cuda_lib.pipe_counts(cuda_lib.function_sass(BUILD_SASS[name], "exp_kernel"))
+        per_op[op] = (extra[0] - base[0], extra[1] - base[1])
+        print(f"one {op}: FMA pipe {per_op[op][0]}, integer-only pipe {per_op[op][1]} "
+              f"instructions", flush=True)
+    rate = _pipe_rate()
+    n = 1 << 21
+    for name, (squarings, multiplies) in (
+            ("exp_const, the schedule", fk.exp_schedule_ops(chain)),
+            ("exp_const, square-and-multiply", fk.exp_schedule_ops(binary)),
+            ("K6, 3 multiplies an element", (0, 3))):
+        pipes = [squarings * per_op["squaring"][p] + multiplies * per_op["multiply"][p]
+                 for p in (0, 1)]
+        print(f"per-pipe bound of {name} at 2^21: FMA pipe {n * pipes[0] / rate * 1e3:.4f} ms, "
+              f"integer-only pipe {n * pipes[1] / rate * 1e3:.4f} ms", flush=True)
+
+
+def _pipe_rate():
+    """Instructions a pipe of 64 lanes an SM issues a second, at the card's
+    maximum SM clock."""
+    clock_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * 64 * float(clock_mhz) * 1e6
 
 
 def _k7_case(regs, n, seed):
@@ -861,14 +1173,18 @@ def probe_b3():
 def main(argv=None):
     import sys
 
-    probes = {"k4": probe_k4, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
-              "k9": probe_k9, "k10": probe_k10, "k11": probe_k11, "k13": probe_k13,
-              "k15": probe_k15, "b3": probe_b3}
-    names = (sys.argv[1:] if argv is None else argv) or list(probes)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("probes", nargs="*", help="the probes to run (all by default)")
+    parser.add_argument("--parent-csrc", help="k6 also splits the K6 of this csrc directory "
+                                              "(another checkout's, its K6_PARENT_SPLITS)")
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    probes = {"k4": probe_k4, "k6": lambda: probe_k6(args.parent_csrc), "k2exp": probe_k2exp,
+              "k7": probe_k7, "k8": probe_k8, "k9": probe_k9, "k10": probe_k10,
+              "k11": probe_k11, "k13": probe_k13, "k15": probe_k15, "b3": probe_b3}
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")
     print(f"device: {card_line()}", flush=True)
-    for name in names:
+    for name in args.probes or list(probes):
         probes[name]()
 
 

@@ -14,10 +14,13 @@ operation, with its time and the time per butterfly, element or row:
                    its result must equal tiles.ntt's
   mul              one K2 multiply of n elements
   power_series     the n powers of the domain root (one K12 launch)
-  inv_batch        the batch inverse of n elements (K6, Montgomery's trick);
+  inv_batch        the batch inverse of n elements (K6, Montgomery's trick:
+                   one product a thread, the prefixes through the output,
+                   a warp-shuffle tree and one Kaliski inversion a block);
                    its result must equal exp_const's
   exp_const        n elements to the power M - 2 (K2 exp_const, the
-                   per-element Fermat inverse)
+                   per-element Fermat inverse: 127 squarings and 12
+                   multiplies of its host-built schedule)
   blake3           K3 over n/4 rows of 64 bytes
   air_transition   K4 over a random (20, n, 4) domain (the bench program's
                    20 registers)

@@ -18,6 +18,7 @@ from distaff_tpu.math import field as jax_host_field
 from distaff_tpu.math import field_jax as fj
 from distaff_tpu.math import quartic
 import distaff_torch
+from distaff_torch.crypto.ark_constants import INV_ALPHA
 from distaff_torch.interop import limbs_from_numpy, limbs_to_numpy
 from distaff_torch.math import field_torch as ft
 from distaff_torch.ops import field_kernels as fk
@@ -169,6 +170,112 @@ def test_fold_rows_matches_quartic_interpolation():
     assert ft.to_ints(got).tolist() == want
 
 
+def _run_schedule(x, steps):
+    """field_ew.cu's exp_kernel over Python ints: its steps on x, with x in
+    table entry 0."""
+    table = [None] * fk.EXP_TABLE
+    table[0] = acc = x
+    for op, arg in steps:
+        if op == fk.EXP_SQR:
+            for _ in range(arg):
+                acc = acc * acc % M
+        elif op == fk.EXP_MUL:
+            acc = acc * table[arg] % M
+        elif op == fk.EXP_STORE:
+            table[arg] = acc
+        elif op == fk.EXP_LOAD:
+            acc = table[arg]
+        else:
+            assert op == fk.EXP_ONE
+            acc = 1
+    return acc
+
+
+# K2 exp_const's exponents: the edge cases, the Fermat inverse (K6's and the
+# kernel bench's), 2^127, the S-box inverse and a seeded random 128-bit e
+EXPONENTS = [0, 1, 2, 3, M - 2, M - 1, 2**127, INV_ALPHA,
+             random.Random(15).randrange(1 << 128), (1 << 128) - 1]
+
+
+@pytest.mark.parametrize("e", EXPONENTS)
+def test_exp_schedule_matches_host_pow(e):
+    # the schedule that the host builds for K2's exp_kernel, run over Python
+    # ints as the kernel runs it, equals pow(x, e, M) (0^0 = 1); every step
+    # is one that the kernel takes (field_ew.cu checks the same)
+    steps = fk.exp_schedule(e)
+    assert len(steps) <= fk.EXP_STEPS
+    for op, arg in steps:
+        assert 0 <= op <= fk.EXP_ONE and 0 <= arg < 256
+        assert op != fk.EXP_SQR or arg > 0
+        assert op not in (fk.EXP_MUL, fk.EXP_STORE, fk.EXP_LOAD) or arg < fk.EXP_TABLE
+    rng = random.Random(e % 1000)
+    for x in EDGE + [M - 3] + [rng.randrange(M) for _ in range(20)]:
+        assert _run_schedule(x, steps) == pow(x, e, M), (hex(e), hex(x))
+    squarings, multiplies = fk.exp_schedule_ops(steps)
+    if e == M - 2:
+        # the x^(2^(2^k) - 1) chain: 127 squarings (e's bits below its top
+        # one) and 12 multiplies, against square-and-multiply's 127 + 123
+        assert (squarings, multiplies) == (127, 12)
+    if e:
+        assert squarings >= e.bit_length() - fk.EXP_WINDOW   # a first window's bits
+
+
+def test_exp_schedule_of_random_exponents():
+    # any e below 2^128: seeded random exponents of every length, each
+    # schedule within the kernel's step limit and equal to pow
+    rng = random.Random(16)
+    for bits in range(1, 129):
+        e = rng.randrange(1 << (bits - 1), 1 << bits)
+        steps = fk.exp_schedule(e)
+        assert len(steps) <= fk.EXP_STEPS
+        x = rng.randrange(M)
+        assert _run_schedule(x, steps) == pow(x, e, M), hex(e)
+
+
+@pytest.mark.parametrize("e", [0, 2**64 + 7])
+def test_exp_schedule_matches_field_jax(e):
+    # the kernel's schedule over the edge pairs against field_jax.exp_const
+    # at the exponents compiled above (no new XLA compile)
+    a, _ = _edge_pairs()
+    want = np.asarray(fj.exp_const(a, e))
+    steps = fk.exp_schedule(e)
+    got = [_run_schedule(int(sum(int(v) << (32 * k) for k, v in enumerate(row))), steps)
+           for row in a]
+    assert [int(sum(int(v) << (32 * k) for k, v in enumerate(row))) for row in want] == got
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_110exp_kernelEPK5uint4PS0_x12ExpSchedule
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;   /* 0x00000a00ff017624 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;            /* 0x0000000504027225 */
+        /*0020*/                   IMAD.HI.U32 R6, R4, R5, R6 ;              /* 0x0000000504067227 */
+        /*0030*/              @!P0 IADD3.X R7, RZ, R7, RZ, P1, !PT ;         /* 0x00000007ff078210 */
+        /*0040*/                   LOP3.LUT R8, R8, 0x1, RZ, 0xc0, !PT ;     /* 0x0000000108087812 */
+        /*0050*/                   SEL R9, R2, R3, !P2 ;                     /* 0x0000000302097207 */
+\t\tFunction : _ZN12_GLOBAL__N_113binary_kernelILi2EEEvPK5uint4S3_PS1_x9Broadcast
+        /*0000*/                   IMAD R2, R4, R5, RZ ;                     /* 0x0000000504027224 */
+        /*0010*/                   SHFL.IDX R3, R4, RZ, 0x1f ;               /* 0x00001fff04037589 */
+"""
+
+
+def test_sass_opcode_counts_by_function_and_pipe():
+    # the counts phase 1 of chip_smoke.py and tools/air_probe.py print: an
+    # opcode without a '.' counts all its forms, one with a '.' those it
+    # begins; a function's section alone; IMAD on the FMA pipe, the rest
+    # of these on the integer-only pipe (SHFL is neither)
+    from distaff_torch.ops import cuda_lib
+
+    exp = cuda_lib.function_sass(_SASS, "exp_kernel")
+    assert cuda_lib.opcode_counts(exp, cuda_lib.MULTIPLY_OPCODES) == {
+        "IMAD": 3, "IMAD.WIDE": 1, "IMAD.HI": 1, "IMAD.X": 0, "IMAD.MOV": 1, "IADD3": 1,
+        "LOP3": 1, "SHF": 0, "SEL": 1, "ISETP": 0}
+    assert cuda_lib.pipe_counts(exp) == (3, 3)
+    assert cuda_lib.pipe_counts(cuda_lib.function_sass(_SASS, "binary_kernel")) == (1, 0)
+    assert cuda_lib.opcode_counts(_SASS)["IMAD"] == 4
+
+
 def test_wrapper_on_cpu_uses_plain_version():
     a, b = (_port(x) for x in _edge_pairs())
     assert torch.equal(fk.mul(a, b), fk.mul_plain(a, b))
@@ -227,8 +334,8 @@ def arithmetic_harness(tmp_path_factory):
 
 def test_kernel_arithmetic_header_matches_host_ints(arithmetic_harness):
     # csrc/field128.cuh, the arithmetic of the kernels, compiles as plain
-    # C++: check its host branch against Python integers (inv: the binary
-    # extended Euclid that K6 runs once a block)
+    # C++: check its host branch against Python integers (inv: Kaliski's
+    # inverse that K6 and K7 run once a block)
     rng = random.Random(0)
     cases = [(x, y, rng.choice([0, 1, 2, M - 2, rng.randrange(M)])) for x in EDGE for y in EDGE]
     cases += [(rng.randrange(M), rng.randrange(M), rng.randrange(1 << 64)) for _ in range(500)]
@@ -281,11 +388,12 @@ def test_reduce_digits_matches_host_ints(arithmetic_harness):
 # the device multiply: field128.cuh's PTX run by an interpreter of its instructions
 # ------------------------------------------------------------------------------------------------
 
-def _ptx_mul_limbs():
-    """The instructions of field128.cuh's mul_limbs and its operand names,
-    in order (%0-%3 the result, then a and b)."""
+def _ptx_mul_limbs(signature="mul_limbs(uint4 a, uint4 b)"):
+    """The instructions of field128.cuh's mul_limbs (or of the function of
+    another signature there) and its operand names, in order (%0-%3 the
+    result, then a and b)."""
     src = (Path(distaff_torch.__file__).resolve().parent / "csrc" / "field128.cuh").read_text()
-    body = src[src.index("mul_limbs(uint4 a, uint4 b)"):]
+    body = src[src.index(signature):]
     body = re.sub(r"//[^\n]*", "", body[body.index("asm("):body.index(");")])
     template, operands = body.split(":", 1)
     text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
@@ -376,6 +484,192 @@ def test_device_multiply_ptx_matches_host_ints():
         out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
         got = sum(out[k] << (32 * k) for k in range(4))
         assert got == x * y % M, (hex(x), hex(y))
+
+
+def test_device_squaring_ptx_matches_host_ints():
+    # the PTX carry chain of field128.cuh's sqr_limbs (K2's exp_const
+    # squarings: the 6 cross products once, doubled, and the 4 squares)
+    # against Python integers, on the edge values, limbs of all ones below
+    # M, squares whose first fold carries into bit 128 and random elements
+    instructions, names = _ptx_mul_limbs("sqr_limbs(uint4 a)")
+    assert names == ["r.x", "r.y", "r.z", "r.w", "a.x", "a.y", "a.z", "a.w"]
+    assert sum(ins.split(".")[0] in ("mul", "mad", "madc") for ins in instructions) == \
+        20 + 25                  # 10 products lo and hi, then mul_limbs' folds
+    rng = random.Random(2)
+    values = EDGE + [M - 3, 2**64 + 1, 2**128 - 2**96 - 1, 2**96 - 1, (1 << 127) - 1,
+                     2**32 - 1, 2**128 - 2**64 - 1, M - 2**32]
+    values += [(1 << 32) * k - 1 for k in (2**32 - 1, 2**64 - 1, 2**96 - 2**64)]
+    values += [rng.randrange(M) for _ in range(300)]
+    # x = 2^127 + 2^63 - u with u near R / 2: x^2 = h 2^128 + l whose first
+    # fold t = l + h R lies within t_hi R below a multiple of 2^128, so that
+    # the second fold carries into bit 128 (about half of them)
+    r = (45 << 40) - 1
+
+    def second_fold_carries(x):
+        t = x * x % (1 << 128) + (x * x >> 128) * r
+        return t % (1 << 128) + (t >> 128) * r >= 1 << 128
+
+    folds = [(1 << 127) + (1 << 63) - (r - 1) // 2 - rng.randrange(-1 << 17, 1 << 17)
+             for _ in range(40)]
+    assert sum(map(second_fold_carries, folds)) >= 10
+    for x in values + folds:
+        limbs = [(x >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
+        out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
+        got = sum(out[k] << (32 * k) for k in range(4))
+        assert got == x * x % M, hex(x)
+
+
+# ------------------------------------------------------------------------------------------------
+# K6 inv_batch: its passes (csrc/inv_batch.cuh) built with g++, a block and a
+# thread at a time, the tree's shuffles over an array of lanes
+# ------------------------------------------------------------------------------------------------
+
+_K6_HARNESS = r"""
+#include "inv_batch.cuh"
+#include <cstdio>
+#include <vector>
+using namespace inv_batch;
+using f128::u128;
+static u128 parse(const char* s) {
+    u128 v = 0;
+    for (; *s; ++s) v = v * 16 + (*s <= '9' ? *s - '0' : (*s | 32) - 'a' + 10);
+    return v;
+}
+int main(int argc, char** argv) {
+    char h[40];
+    if (argc > 1) {                       // "inverse": one element a line
+        while (scanf("%39s", h) == 1) {
+            const u128 r = f128::inv(parse(h));
+            printf("%016llx%016llx\n", (unsigned long long)(r >> 64), (unsigned long long)r);
+        }
+        return 0;
+    }
+    long long n, per_thread;
+    if (scanf("%lld %lld", &n, &per_thread) != 2) return 1;
+    std::vector<uint4> a(n), out(n);
+    for (long long i = 0; i < n; ++i) {
+        if (scanf("%39s", h) != 1) return 1;
+        a[i] = f128::to_limbs(parse(h));
+    }
+    Args g{a.data(), out.data(), n, per_thread};
+    const long long blocks = (n + per_thread * kThreads - 1) / (per_thread * kThreads);
+    for (long long b = 0; b < blocks; ++b) {
+        std::vector<u128> q(kThreads), v(kThreads), others(kThreads);
+        for (int t = 0; t < kThreads; ++t)
+            v[t] = q[t] = forward(g, b, t, count(g, b, t));
+        // invert_total: the butterflies of shuffles, lane by lane
+        for (int l = 0; l < 5; ++l) {
+            std::vector<u128> partner(kThreads);
+            for (int t = 0; t < kThreads; ++t) partner[t] = v[t ^ (1 << l)];
+            for (int t = 0; t < kThreads; ++t) {
+                v[t] = f128::mul(v[t], partner[t]);
+                others[t] = l ? f128::mul(others[t], partner[t]) : partner[t];
+            }
+        }
+        std::vector<u128> warp_inv(kWarps), w(32), other_warps(32, 1);
+        const int levels = kWarps == 1 ? 0 : kWarps == 2 ? 1 : kWarps == 4 ? 2 : 3;
+        for (int lane = 0; lane < 32; ++lane) w[lane] = v[32 * (lane % kWarps)];
+        for (int l = 0; l < levels; ++l) {
+            std::vector<u128> partner(32);
+            for (int lane = 0; lane < 32; ++lane) partner[lane] = w[lane ^ (1 << l)];
+            for (int lane = 0; lane < 32; ++lane) {
+                w[lane] = f128::mul(w[lane], partner[lane]);
+                other_warps[lane] = l ? f128::mul(other_warps[lane], partner[lane]) : partner[lane];
+            }
+        }
+        const u128 root = f128::inv(w[0]);
+        for (int lane = 0; lane < kWarps; ++lane)
+            warp_inv[lane] = f128::mul(root, other_warps[lane]);
+        for (int t = 0; t < kThreads; ++t)
+            backward(g, b, t, count(g, b, t), f128::mul(warp_inv[t >> 5], others[t]));
+    }
+    for (long long i = 0; i < n; ++i) {
+        const u128 r = f128::from_limbs(out[i]);
+        printf("%016llx%016llx\n", (unsigned long long)(r >> 64), (unsigned long long)r);
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k6_harness(tmp_path_factory):
+    """csrc/inv_batch.cuh built with g++ (blocks of 64 threads, two warps,
+    and of the card's 256) into programs that run K6 on their standard
+    input: n, elements a thread, then the elements (or, with an argument,
+    elements to invert alone by f128::inv)."""
+    tmp = tmp_path_factory.mktemp("inv_batch")
+    csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
+    (tmp / "k6.cpp").write_text(_K6_HARNESS)
+    built = {}
+    for threads in (64, 256):
+        built[threads] = tmp / f"k6_{threads}"
+        subprocess.run(["g++", "-O1", "-std=c++17", f"-DK6_THREADS={threads}", "-I", str(csrc),
+                        str(tmp / "k6.cpp"), "-o", str(built[threads])], check=True, timeout=120)
+    return built
+
+
+def _k6_values(n, kind, seed):
+    rng = random.Random(seed)
+    if kind == "all M - 1":
+        return [M - 1] * n
+    values = [rng.randrange(M) for _ in range(n)]
+    if kind == "zeros and edge values":
+        for i in range(0, n, 7):
+            values[i] = 0
+        values[1:1 + len(EDGE)] = EDGE[:max(0, n - 1)]
+        values = values[:n]
+    return values
+
+
+def test_inv_batch_block_inverse_matches_host_ints(k6_harness):
+    # the inversion of a block's product (field128.cuh's inv, Kaliski's
+    # almost Montgomery inverse and the division by 2^k in 32-bit steps)
+    # against pow(a, M - 2, M): the edge values, 2^k (the longest and
+    # shortest loops) and seeded random elements
+    rng = random.Random(7)
+    values = [v for v in EDGE if v] + [M - 3, 3, 2**127 - 1, 2**128 - 2**96 - 1]
+    values += [1 << k for k in range(128)] + [rng.randrange(1, M) for _ in range(2000)]
+    feed = "\n".join(f"{v:x}" for v in values)
+    out = subprocess.run([str(k6_harness[64]), "inverse"], input=feed, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.split()
+    assert [int(x, 16) for x in out] == [pow(v, M - 2, M) for v in values]
+
+
+# (threads, n, elements a thread): one element; ragged lengths in one block
+# and over several
+K6_CASES = [(64, 1, 1), (64, 255, 4), (64, 2049, 11), (64, 5000, 24), (256, 2049, 8),
+            (256, 9000, 13), (256, 4096, 40)]
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros and edge values", "all M - 1"])
+def test_inv_batch_kernel_body_matches_plain(k6_harness, kind):
+    # K6's forward and backward passes and its tree, run as the card runs
+    # them, against inv_batch_plain (exp_const_plain(a, M - 2)) on the same
+    # values: zero to zero
+    values = _k6_values(5000 if kind != "random" else 9000, kind, 6)
+    want = limbs_to_numpy(fk.inv_batch_plain(_port(np.asarray(
+        [[(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)] for v in values], dtype=np.uint32))))
+    want = [int(sum(int(x) << (32 * k) for k, x in enumerate(row))) for row in want]
+    for build, n, per_thread in K6_CASES:
+        if n > len(values):
+            continue
+        feed = f"{n} {per_thread}\n" + "\n".join(f"{v:x}" for v in values[:n])
+        out = subprocess.run([str(k6_harness[build])], input=feed, capture_output=True,
+                             text=True, check=True, timeout=120).stdout.split()
+        assert [int(x, 16) for x in out] == want[:n], (build, n, per_thread)
+
+
+@pytest.mark.parametrize("table", ["K6_SPLITS", "K6_VARIANTS", "EXP_VARIANTS", "EXP_EXTRA"])
+def test_probe_patches_match_the_kernel_sources(table):
+    # tools/air_probe.py builds K6's and exp_const's variants from patched
+    # copies of csrc/: every text it replaces must be in the source it
+    # patches, once, or the probe raises on the card after its first builds
+    from distaff_torch.tools import air_probe
+
+    csrc = Path(distaff_torch.__file__).resolve().parent / "csrc"
+    for name, entry in getattr(air_probe, table).items():
+        for file, old, _ in entry:
+            assert (csrc / file).read_text().count(old) == 1, (name, file, old)
 
 
 # ------------------------------------------------------------------------------------------------
