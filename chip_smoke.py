@@ -2,8 +2,9 @@
 each against its plain PyTorch version at the main path's shapes, proves
 and verifies the bench's Fibonacci program on the card, runs the kernel
 bench, proves the six examples and the CLI on the card, proves the
-bench's larger rungs, and proves with the streaming LDE up to 2^22 steps,
-whose extended trace does not fit the card.
+bench's larger rungs, proves with the streaming LDE up to 2^22 steps,
+whose extended trace does not fit the card, and proves over a mesh of
+slots of the card (distaff_torch/parallel/).
 
 Usage (from the root of the repository, on a machine with the card):
 
@@ -178,6 +179,24 @@ Phases, in order; any failure raises and exits non-zero:
                 tree; K2 never), and the
                 last piece of each call of K4, K7, K10, K14 and K15 held
                 against the plain versions (LastPieces)
+  9. mesh     - distaff_torch/parallel/ on MESH_SLOTS slots of the card
+                (check_offsets): each launch that a slot of the 2^16
+                proof makes at its rows, at the last slot's shapes, held
+                against its plain version at the same offset, a row each
+                (K1's first pass of the sharded constraint LDE at the
+                slot's first column, K4 with its 8-row halo, also at slot
+                1, both equal to the whole slice's launch at their rows,
+                K10 and K7 at their first point, K9 on the slot's rows of
+                the first FRI layer); parallel.mesh.dryrun_step(4) on the
+                card equal to it on 4 CPU slots; DISTAFF_MESH_DEVICES=2
+                raising on one card (with two or more cards, the 2^16 proof
+                on cuda:0,cuda:1 instead); then MESH_PROOFS, each proved on
+                its slots of the card (k slots on one card: no scaling),
+                verified, a tampered output rejected, its bytes those of
+                phase 4, 7 or 8's single-device proof, its time, peak
+                memory, launches and RECORDED_SHARDINGS printed, every
+                stage of MESH_STAGES split over all its slots and the
+                split kernels' launches those of mesh_launches
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -337,6 +356,16 @@ LAST_PIECE = 21
 # the leaf and size of the recursive transform phase 7 holds against its
 # plain version: two levels of recursion, 16^2 < 2^10 < 2^14
 SMALL_LEAF, SMALL_LOG2 = 16, 14
+# phase 9: the mesh's slots on the card (parallel/mesh.py), the proofs on
+# them (tag, rung, slots, streamed) and the stages each must record split
+# over all its slots (parallel/mesh_stages.RECORDED_SHARDINGS)
+MESH_SLOTS = 4
+MESH_PROOFS = (("2^16 on 4 slots", 16, ["cuda:0"] * 4, False),
+               ("2^16 on 8 slots", 16, ["cuda:0"] * 8, False),
+               ("2^18 on 4 slots", 18, ["cuda:0"] * 4, False),
+               ("2^16 streamed on 4 slots", 16, ["cuda:0"] * 4, True))
+MESH_STAGES = ("transition", "boundaries", "composition", "fri_fold", "constraint_intt",
+               "constraint_lde", "merkle_subtrees")
 # the golden case with hash_fn="sha3": the JAX package's proof bytes before
 # the options (tests/test_torch_prove.py pins them and says how they were made)
 SHA3_BODY_SHA256 = "73fd09242cd8ffc781def7cd68416ea83fd41c59d63a94c570d15a03340ba74b"
@@ -968,7 +997,8 @@ def deep_compose_first(lde, c_lde, w1, w2, root, incr, scalars, n):
         cuda_lib.ptr(lde), stride, regs, n, cuda_lib.ptr(c_lde), cuda_lib.ptr(w1),
         cuda_lib.ptr(w2), *[ctypes.c_void_p(None) if t is None else cuda_lib.ptr(t)
                             for t in tables], dk.LOG_LO,
-        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), cuda_lib.stream(out)), "deep_compose")
+        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), 0, cuda_lib.stream(out)),
+        "deep_compose")
     return out
 
 
@@ -1744,7 +1774,9 @@ def tree_times():
     first 2^16 proof (proof_tables), all its calls timed as one; then the
     other kernels on blake3.cuh's compression: K3 over 2^21 rows of 320
     bytes, K9 at the 2^16 proof's first layer (2^19 rows, with the leaf
-    digests), K14 at a middle block of (4, 2^21) and (4, 2^25) points.
+    digests), K14 at a middle block of (4, 2^21) and (4, 2^25) points,
+    and K8 at the 2^16 proof's two calls ((20, 2^16) at two points, (1,
+    2^19) at one; random coefficients and points).
     Each line is tagged with the directory of the checkout whose package
     ran; it uses only what the port has had since K13 and field_kernels'
     MUL_OPS (K9's and K12's bounds), so that a copy of this file times an
@@ -1821,6 +1853,16 @@ def tree_times():
               lambda: b3.trace_absorb(group, cv, 1, 320, None, ev[16:], 2),
               absorb_bound(d, 4, 2), 20 if d < 1 << 23 else 5)
         del group, cv, ev
+    from distaff_torch.ops import deep_kernels as dk
+
+    rng = random.Random(SEED + 6)
+    for regs, length, count in ((20, 1 << MAIN_LOG2_TRACE, 2), (1, 8 << MAIN_LOG2_TRACE, 1)):
+        polys = random_elements(gen, (regs, length))
+        points = [rng.randrange(hostfield.M) for _ in range(count)]
+        timed(f"K8 at ({regs}, {length}) x {count} point(s)",
+              lambda: dk.poly_eval(polys, points),
+              (regs * length * 16, regs * length * count * (fk.MUL_OPS + ADD_OPS)))
+        del polys
 
 
 def print_step4(log2_trace, lines):
@@ -2118,8 +2160,13 @@ class ProofCalls:
             self.hashes.append((rows, counter))
         return self.real["_launch"](rows, out, counter)
 
-    def air(self, lde, tables):
-        return self.record(self.airs, "air_transition", (lde, tables))
+    def air(self, lde, tables, *shard):
+        # (first, halo) of a slot's share; the calls recorded are whole domains
+        if shard[1:2] not in ((), (None,)):
+            raise ValueError("ProofCalls records single-device proofs")
+        if self.keep:
+            self.airs.append((lde, tables))
+        return self.real["air_transition"](lde, tables, *shard)
 
     def compose(self, *args):
         return self.record(self.composes, "deep_compose", args)
@@ -2715,8 +2762,11 @@ class LastPieces:
                            torch.stack(out)[:, a:].cpu()))
         return out
 
-    def air(self, lde, tables):
-        out = self.real["air_transition"](lde, tables)
+    def air(self, lde, tables, *shard):
+        # (first, halo) of a slot's share; the calls recorded are whole domains
+        if shard[1:2] not in ((), (None,)):
+            raise ValueError("LastPieces records single-device proofs")
+        out = self.real["air_transition"](lde, tables, *shard)
         n, cycle = lde.shape[1], tables.dec_ark.shape[1]
         a = self.start(n)
         self.calls.append(("air_transition", boundary_key(lde), a,
@@ -2877,6 +2927,296 @@ def phase_stream(ops_rate):
     return rows, keyed
 
 
+def mesh_env(devices, stream=False):
+    """The environment of a proof on a mesh of these slots (parallel/
+    mesh.py), streamed where `stream`; returns the values to restore."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("DISTAFF_MESH_DEVICES", "DISTAFF_STREAM_LDE")}
+    os.environ["DISTAFF_MESH_DEVICES"] = ",".join(devices)
+    if stream:
+        os.environ["DISTAFF_STREAM_LDE"] = "1"
+    return saved
+
+
+def restore_env(saved):
+    import os
+
+    for key, value in saved.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+
+
+def mesh_launches(domain, slots, streamed, regs):
+    """The launches a proof over an LDE domain of `domain` points on `slots`
+    slots of the card makes of the
+    kernels that the mesh splits, from its geometry (parallel/
+    mesh_stages.py): K4, K10 and K7 once a slot; K11 once, on the home
+    slot; K9 once a slot on each layer of at least 4 rows a slot, once on
+    each smaller one; K13 once a slot on the trace's and the constraints'
+    trees and on each split layer's, once on each other layer's; K3 once a
+    slot on the trace's rows (but streamed) and each split layer's rows,
+    once on the first layer that folds on the home slot (K9's digests hash
+    the rest); K12 once a card (the caller sets it); K2 and K6 never."""
+    from distaff_torch.stark import fri
+
+    want = {"air_transition": slots, "boundary_columns": slots, "deep_compose": slots,
+            "syn_div": 1, "power_series": 1, "inv_batch": 0, **{k: 0 for k in K2_OPS}}
+    trees, folds, rows = 2 * slots, 0, 0 if streamed else slots
+    q, home = domain // 4, False
+    while True:
+        split = not home and q >= 4 * slots
+        trees += slots if split else 1
+        rows += slots if split else (1 if not home else 0)
+        home = home or not split
+        if 4 * q <= fri.MAX_REMAINDER_LENGTH:
+            break
+        folds += slots if split else 1
+        q //= 4
+    want.update(merkle_tree=trees, fri_fold=folds, blake3_rows=rows)
+    if streamed:
+        want.update(trace_absorb=-(-regs // 4), coeff_wsum=1)
+    return want
+
+
+def check_offsets(gen, ops_rate, slots=MESH_SLOTS):
+    """Each kernel that the 2^16 proof launches at a slot's rows on a mesh
+    of `slots` slots, at those shapes, held against its plain version at
+    the same offset (tolerance zero), a row each, at the last slot (whose
+    K4 halo wraps to slot 0's first rows): K1's first pass of the sharded
+    constraint LDE (its twiddles at the slot's global columns), K4 with its
+    8-row halo (also at slot 1, and both equal to the whole slice's launch
+    at those rows), K10 and K7 at their first point, and K9 on the slot's
+    rows of the first FRI layer."""
+    import random
+
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import air_kernels, boundary_kernels as bk, deep_kernels as dk
+    from distaff_torch.ops import fri_torch, tiles
+    from distaff_torch.parallel import ntt_sharded as ns
+    from distaff_torch.stark import utils as stark_utils
+    from distaff_torch.stark.constraints.device_eval import air_tables, transition_plain_shard
+    from distaff_torch.tools.timing import random_elements
+
+    rows, last = [], slots - 1
+    rng = random.Random(SEED + 9)
+    domain = 1 << (MAIN_LOG2_TRACE + 5)
+    n_ev = domain // 4
+    root = hostfield.get_root_of_unity(domain)
+
+    def row(name, shape, kernel, plain, bound_bytes, bound_ops, source, replaces, tensor_ops=0):
+        out = check_kernel(name, f"mesh slot {last} of {slots}: {shape}", kernel, plain, 20, 1,
+                           bound_bytes, bound_ops, ops_rate, source, replaces, tensor_ops)
+        out["key"] = ("mesh", name)
+        rows.append(out)
+
+    # K1: step 1 of the constraint LDE split over the slots (the constraint
+    # polynomial's 2^19 coefficients zero extended to 2^21 points)
+    n1, n2 = ns._split(domain)
+    c = n1 // slots
+    points = n_ev // n1
+    src = random_elements(gen, (1, points, c))
+    tw = tiles._stage_twiddles(n2, pow(root, n1, hostfield.M), "cuda")
+    lo, hi = tiles._store_factors(domain, root, 1, "cuda")
+    args = (src, None, tw, 1, c, (points * c, 1, c), (n2 * c, 1, c), points * c, lo, hi)
+    out = torch.zeros((1, n2, c, 4), dtype=torch.uint32, device="cuda")
+    want = torch.zeros_like(out)
+    row("ntt_pass", f"sharded transform step 1, first column {last * c}: "
+        f"{pass_key(*args[:1], out, *args[2:])}",
+        lambda: fk.ntt_pass(src, out, *args[2:], first=last * c),
+        lambda: fk.ntt_pass_plain(src, want, *args[2:], first=last * c),
+        *pass_bound((src, out) + args[2:]), "distaff_torch/csrc/ntt_pass.cu",
+        "distaff_tpu/ops/field_pallas.py:252")
+    del src, out, want
+
+    # K4 and K10 on the slots' rows of the 2^16 Fibonacci LDE's slice
+    trace, evaluator = fibonacci_case()
+    whole = trace.lde_dev[:, ::4]
+    tables = air_tables(evaluator, "cuda")
+    regs, n_ev = whole.shape[0], whole.shape[1]
+    share = n_ev // slots
+    full, _ = air_kernels.air_transition(whole, tables)
+    for s in (last, 1):
+        first = s * share
+        part = whole[:, first:first + share]
+        nxt = (first + share) % n_ev
+        halo = whole[:, nxt:nxt + 8].contiguous()
+        kernel = lambda: air_kernels.air_transition(part, tables, first, halo)
+        plain = lambda: transition_plain_shard(part, tables, first, halo)
+        if s == last:
+            row("air_transition", f"({regs}, {share}) rows from {first}, halo from {nxt}",
+                kernel, plain, *air_bounds(tables, regs, share),
+                "distaff_torch/csrc/air_transition.cu",
+                "distaff_tpu/stark/constraints/device_eval.py:121")
+        else:
+            check_equal("air_transition", f"slot {s}", kernel, plain)
+        got, bad = kernel()
+        if not torch.equal(got, full[first:first + share]) or int(bad) != 0:
+            raise AssertionError(f"air_transition at slot {s}: its rows differ from the whole "
+                                 f"slice's launch, or {int(bad)} bad steps")
+    print(f"kernel air_transition at slots {last} and 1 of {slots} with their halos: equal to "
+          f"plain and to the whole slice's launch at their rows, no bad step", flush=True)
+    first = last * share
+    part = whole[:, first:first + share]
+    i_parts, f_parts = evaluator.boundary_weight_vectors(regs)
+    xb = hostfield.exp(hostfield.get_root_of_unity(n_ev), evaluator.b_degree_adj)
+    row("boundary_columns", f"{boundary_key(part)} rows from {first}",
+        lambda: bk.boundary_columns(part, i_parts, f_parts, xb, first, n_ev),
+        lambda: bk.boundary_columns_plain(part, i_parts, f_parts, xb, first),
+        source="distaff_torch/csrc/boundary_columns.cu",
+        replaces="distaff_tpu/stark/prover.py:385", **boundary_bound(regs, share))
+    del trace, evaluator, whole, full, part
+
+    # K7 on the slot's points of the LDE domain, random inputs
+    share = domain // slots
+    first = last * share
+    lde = random_elements(gen, (regs, share))
+    c_lde = random_elements(gen, (share,))
+    w1, w2 = random_elements(gen, (regs,)), random_elements(gen, (regs,))
+    incr = stark_utils.get_incremental_trace_degree(1 << MAIN_LOG2_TRACE)
+    scalars = [rng.randrange(hostfield.M) for _ in range(8)]
+    row("deep_compose", f"({regs}, {share}) points from {first}",
+        lambda: dk.deep_compose(lde, c_lde, w1, w2, root, incr, scalars, first, domain),
+        lambda: dk.deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, first),
+        source="distaff_torch/csrc/deep_compose.cu",
+        replaces="distaff_tpu/stark/prover.py:643", **compose_bound(regs, share))
+    del lde, c_lde
+
+    # K9 on the slot's rows of the first FRI layer (without digests)
+    q = domain // 4
+    share = q // slots
+    first = last * share
+    column = random_elements(gen, (4 * share,))
+    special_x = rng.randrange(hostfield.M)
+    muls, adds, subs = fri_torch.fri_fold_ops(share, domain)
+    row("fri_fold", f"{share} rows from {first} of a {q}-row layer",
+        lambda: fri_torch.fri_fold(column, special_x, root, 1, first=first, layer_rows=q),
+        lambda: fri_torch.fri_fold_plain(column, special_x, root, 1, first=first),
+        (5 * share + power_tables(domain)) * 16,
+        muls * fk.MUL_OPS + adds * ADD_OPS + subs * SUB_OPS, "distaff_torch/csrc/fri_fold.cu",
+        "distaff_tpu/ops/fri_jax.py:53")
+    return rows
+
+
+def phase_mesh(ops_rate):
+    """The mesh (distaff_torch/parallel/): the offset launches held
+    (check_offsets); parallel.mesh.dryrun_step on 4 slots of the card equal
+    to the same step on 4 CPU slots (the plain versions); the configured
+    mesh DISTAFF_MESH_DEVICES=2 raising on a machine of one card (else the
+    2^16 proof on cuda:0,cuda:1); then each proof of MESH_PROOFS on its
+    slots of the card: verified, a tampered output rejected, its bytes
+    those of the single-device proof of phase 4, 7 or 8, its time, peak
+    device memory, launches and RECORDED_SHARDINGS printed, every stage of
+    MESH_STAGES recorded on all its slots and the launches of the split
+    kernels those of mesh_launches.  k slots on one card show no scaling.
+    Returns the rows and a Counter of launches by ("mesh", kernel) (the 2^16
+    proof on 4 slots)."""
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.parallel import mesh as pm, mesh_stages
+    from distaff_torch.stark import serde
+    from distaff_torch.tools.timing import card_line
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    rows = check_offsets(gen, ops_rate)
+    torch.cuda.empty_cache()
+
+    got = pm.dryrun_step(MESH_SLOTS, devices=["cuda:0"] * MESH_SLOTS)
+    want = pm.dryrun_step(MESH_SLOTS, devices=["cpu"] * MESH_SLOTS)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("dryrun_step on the card's slots differs from the CPU slots'")
+    print(f"mesh: dryrun_step({MESH_SLOTS}) on {MESH_SLOTS} slots of cuda:0 equal to "
+          f"{MESH_SLOTS} CPU slots ({tuple(got.shape)})", flush=True)
+
+    cards = torch.cuda.device_count()
+    saved = mesh_env(["2"])
+    try:
+        if cards < 2:
+            try:
+                pm.configured_mesh("cuda")
+            except RuntimeError as e:
+                print(f"mesh: DISTAFF_MESH_DEVICES=2 on {cards} card raises: {e}", flush=True)
+            else:
+                raise AssertionError("DISTAFF_MESH_DEVICES=2 did not raise on one card")
+            print("mesh: the multi-card placement was not exercised (one card)", flush=True)
+    finally:
+        restore_env(saved)
+    proofs = list(MESH_PROOFS)
+    if cards >= 2:
+        proofs.insert(0, (f"2^{MAIN_LOG2_TRACE} on cuda:0,cuda:1", MAIN_LOG2_TRACE,
+                          ["cuda:0", "cuda:1"], False))
+
+    keyed = Counter()
+    inputs = ProgramInputs.from_public([1, 0])
+    options = ProofOptions()
+    card = card_line()
+    for tag, log2_trace, devices, streamed in proofs:
+        program = fibonacci_program(assembly, log2_trace)
+        tiles._TABLES.clear()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        mesh_stages.RECORDED_SHARDINGS.clear()
+        saved = mesh_env(devices, streamed)
+        try:
+            outputs, proof, prove_s, _ = timed_execute(program, inputs, options, stepped=False)
+        finally:
+            restore_env(saved)
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        recorded = dict(mesh_stages.RECORDED_SHARDINGS)
+        data = serde.serialize(proof)
+        digest = hashlib.sha256(data).hexdigest()
+        public = inputs.get_public_inputs()
+        if not distaff_torch.verify(program.hash, public, outputs, proof):
+            raise AssertionError(f"mesh proof {tag} does not verify")
+        tampered = [(outputs[0] + 1) % hostfield.M] + outputs[1:]
+        try:
+            distaff_torch.verify(program.hash, public, tampered, proof)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"mesh proof {tag}: a tampered output verifies")
+        info = proof.trace_info
+        regs = 15 + info.ctx_depth + info.loop_depth + info.stack_depth
+        domain = proof.trace_length() * options.extension_factor()
+        del proof
+        print(f"mesh proof {tag} ({card}; {len(devices)} slots on "
+              f"{len(set(devices))} card(s): no scaling measured): {prove_s:.3f} s, peak device "
+              f"memory {peak} bytes (single device: {MATERIALIZED[log2_trace][1]}), {len(data)} "
+              f"bytes sha256 {digest}", flush=True)
+        print(f"mesh proof {tag} RECORDED_SHARDINGS: "
+              f"{json.dumps({k: [a, list(v)] for k, (a, v) in recorded.items()})}", flush=True)
+        print(f"mesh proof {tag} launches: {json.dumps(launches)}", flush=True)
+        if digest != MATERIALIZED[log2_trace][0]:
+            raise AssertionError(f"mesh proof {tag}: its bytes differ from the single-device "
+                                 f"proof's")
+        stages = MESH_STAGES + (("stream_ntt", "composition_wsum_lde") if streamed else ())
+        off = [st for st in stages if st not in recorded or len(recorded[st][1]) != len(devices)]
+        if off:
+            raise AssertionError(f"mesh proof {tag}: stages not split over its slots: {off}")
+        want = mesh_launches(domain, len(devices), streamed, regs)
+        want["power_series"] = len(set(devices))
+        wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        if wrong or launches["ntt_pass"] == 0 or launches["poly_eval"] == 0:
+            raise AssertionError(f"mesh proof {tag}: launches (made, expected) {wrong}")
+        print(f"mesh proof {tag}: verified, a tampered output rejected, the single-device "
+              f"bytes, every stage split over its {len(devices)} slots, the split kernels' "
+              f"launches as planned", flush=True)
+        if (log2_trace, len(devices), streamed) == (16, MESH_SLOTS, False):
+            for name in ("ntt_pass", "air_transition", "boundary_columns", "deep_compose",
+                         "fri_fold"):
+                keyed[("mesh", name)] += launches[name]
+    return rows, keyed
+
+
 def phase_bench():
     """The kernel bench at BENCH_SIZES; it raises if ntt_stagewise and
     tiles.ntt differ at any size.  Returns the launches of its run."""
@@ -2999,7 +3339,7 @@ def main():
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
-    for phase in (phase_examples, phase_ladder, phase_stream):
+    for phase in (phase_examples, phase_ladder, phase_stream, phase_mesh):
         phase_rows, phase_keyed = phase(ops_rate)
         rows += phase_rows
         keyed += phase_keyed

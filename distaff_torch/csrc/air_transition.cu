@@ -13,6 +13,11 @@
 // writes one element.  The trace-step rows
 // (j % 8 == 0) other than the last step's, whose wrap-around transition is
 // legitimately nonzero, add one to `bad` where the result is nonzero.
+// On a slot of a mesh (parallel/mesh_stages.transition_sharded) a launch
+// takes the rows [first, first + rows) of the domain: its slice holds
+// those rows, j is first + its row, and the 8 rows after its last come
+// from `halo` (the next slot's first 8, the first slot's at the last);
+// without a halo the slice is the whole domain and wraps around.
 //
 // Bound on this card: operations.  A row does a few hundred 128-bit field
 // multiplies (air_kernels.air_ops_per_row counts them from this code)
@@ -62,22 +67,39 @@ constexpr int kStagedBytes = kRegs * kRows * (int)sizeof(uint4);
 // stride of 64 bytes, otherwise fill the L2 and evict the registers the
 // evaluator spills (about twice K4's time with ordinary loads:
 // tools/air_probe.py, PERF.md).
+// The launch's rows: [first, first + count) of the n-row domain, the 8
+// rows after them in halo ((R, 8) register-major), or the whole domain
+// (first 0, count n) wrapping around where halo is null.
+struct Shard {
+    long long first, count;
+    const uint4* halo;
+};
+
 __global__ void __launch_bounds__(kThreads)
-air_transition_kernel(air::Inputs in, uint4* __restrict__ out, int* __restrict__ bad) {
+air_transition_kernel(air::Inputs in, Shard shard, uint4* __restrict__ out,
+                      int* __restrict__ bad) {
     extern __shared__ uint4 rows[];
     const long long j0 = (long long)blockIdx.x * kThreads;
     for (int e = threadIdx.x; e < kRegs * kRows; e += kThreads) {
         const int r = e / kRows;
         long long row = j0 + (e - r * kRows);
-        while (row >= in.n) row -= in.n;                     // the last step wraps around
+        if (shard.halo && row >= shard.count) {
+            // past the halo: a row no thread reads as its next state
+            const long long h = row - shard.count;
+            rows[e] = __ldcs(shard.halo + r * air::kStepRows +
+                             (h < air::kStepRows ? h : air::kStepRows - 1));
+            continue;
+        }
+        while (row >= shard.count) row -= shard.count;       // the last step wraps around
         rows[e] = __ldcs(in.trace + row * in.row_stride + r * in.reg_stride);
     }
     __syncthreads();
-    const long long j = j0 + threadIdx.x;
-    if (j >= in.n) return;
+    const long long i = j0 + threadIdx.x;
+    if (i >= shard.count) return;
+    const long long j = shard.first + i;
     const f128::u128 v = air::eval_row<AIR_CTX, AIR_LOOP, AIR_STACK>(
         in, rows + threadIdx.x, rows + threadIdx.x + air::kStepRows, kRows, j);
-    out[j] = f128::to_limbs(v);
+    out[i] = f128::to_limbs(v);
     if (v != 0 && j % air::kStepRows == 0 && j != in.n - air::kStepRows) atomicAdd(bad, 1);
 }
 
@@ -94,18 +116,24 @@ extern "C" int distaff_air_layout(int* depths, int* degrees) {
     return Geometry::kCount;
 }
 
-// trace: the (R, n) slice, element strides reg_stride and row_stride; the
-// tables as described in air_row.cuh::Inputs, incr with one exponent per
-// degree group (groups of them, < n, n a power of two), x_hi may be null;
-// out: (n, 4) limbs; bad: one int32 counter, added to.
+// trace: the (R, count) slice of the rows [first, first + count) of the
+// n-row domain, element strides reg_stride and row_stride, and halo the (R,
+// 8) rows after them (contiguous), or null where the slice is the whole
+// domain (first 0, count n); the tables as described in air_row.cuh::
+// Inputs, incr with one exponent per degree group (groups of them, < n, n
+// a power of two), x_hi may be null; out: (count, 4) limbs; bad: one int32
+// counter, added to.
 extern "C" int distaff_air_transition(
     const void* trace, long long n, long long reg_stride, long long row_stride,
     const void* dec_ark, const void* masks, const void* stk_ark, int cycle, const void* mds,
     const void* cc, const long long* incr, int groups, const void* x_lo, const void* x_hi,
-    int log_lo, void* out, void* bad, void* stream) {
+    int log_lo, void* out, void* bad, long long first, long long count, const void* halo,
+    void* stream) {
     if (n < air::kStepRows || (n & (n - 1)) || cycle < 1 || groups != Geometry::kGroups ||
-        log_lo < 0 || log_lo > 30)
+        log_lo < 0 || log_lo > 30 || first < 0 || count < 1 || first + count > n ||
+        (!halo && (first != 0 || count != n)))
         return (int)cudaErrorInvalidValue;
+    const Shard shard{first, count, (const uint4*)halo};
     air::Inputs in;
     in.trace = (const uint4*)trace;
     in.n = n;
@@ -126,8 +154,8 @@ extern "C" int distaff_air_transition(
             air_transition_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStagedBytes);
         if (e != cudaSuccess) return (int)e;
     }
-    const long long blocks = (n + kThreads - 1) / kThreads;
+    const long long blocks = (count + kThreads - 1) / kThreads;
     air_transition_kernel<<<(unsigned)blocks, kThreads, kStagedBytes, (cudaStream_t)stream>>>(
-        in, (uint4*)out, (int*)bad);
+        in, shard, (uint4*)out, (int*)bad);
     return (int)cudaGetLastError();
 }

@@ -6,6 +6,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "per_device.cuh"
 #include "boundary_columns.cuh"
 
 namespace {
@@ -85,18 +86,20 @@ extern "C" int distaff_boundary_columns(const void* lde, long long reg_stride,
                                         long long point_stride, int regs, long long n,
                                         const uint32_t* weights, const void* xb_lo,
                                         const void* xb_hi, int log_lo,
-                                        const uint32_t* constants, void* out, void* stream) {
+                                        const uint32_t* constants, void* out, long long first,
+                                        void* stream) {
     if (regs < 1 || regs > kMaxRegisters || n < 0 || point_stride < 1 || reg_stride < 0 ||
-        log_lo < 0 || log_lo > 30)
+        log_lo < 0 || log_lo > 30 || first < 0)
         return (int)cudaErrorInvalidValue;
     Args a{(const uint4*)lde, reg_stride, point_stride, regs, n, (const uint4*)xb_lo,
-           (const uint4*)xb_hi, log_lo, {}, (uint4*)out, {}};
+           (const uint4*)xb_hi, log_lo, {}, (uint4*)out, {}, first};
     std::memcpy(a.c, constants, sizeof(a.c));
     for (int s = 0; s < kSums; ++s)
         std::memcpy(a.w + s * kMaxRegisters, weights + 4 * s * regs, sizeof(uint4) * regs);
     if (tiles(a) == 0) return (int)cudaSuccess;
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        boundary_columns_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedBytes);
+    static std::atomic<int> limit_set[per_device::kMaxDevices];
+    const cudaError_t configured =
+        per_device::shared_limit(limit_set, boundary_columns_kernel, kSharedBytes);
     if (configured != cudaSuccess) return (int)configured;
     const int bytes = shared_bytes(layout(regs));
     cudaError_t err;

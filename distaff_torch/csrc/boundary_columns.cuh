@@ -101,6 +101,7 @@ struct Args {
     uint4 c[4];              // c1i, c2i, c1f, c2f
     uint4* out;              // (2, n): i, then f
     uint4 w[kSums * kMaxRegisters];   // w_(s,r) at s kMaxRegisters + r: w1i, w2i, w1f, w2f
+    long long first;         // point k is x^b at first + k: 0 but on a slot of a mesh
 };
 
 // Shared memory: A (kRows rows of `pitch` bytes), then a ring of `stages`
@@ -205,7 +206,7 @@ F128_FN u128 sum_value(const Args& a, const uint32_t* digits, int tid) {
 F128_FN void finish(const Args& a, long long tile, int tid, u128 base, u128 adj) {
     const long long k = tile * kTile + (tid >> 1) % kTile;
     if (k >= a.n) return;
-    const u128 xb = points::table_power(a.xb_lo, a.xb_hi, a.log_lo, k);
+    const u128 xb = points::table_power(a.xb_lo, a.xb_hi, a.log_lo, a.first + k);
     a.out[(tid >> 7) * a.n + k] = f128::to_limbs(f128::add(base, f128::mul(xb, adj)));
 }
 

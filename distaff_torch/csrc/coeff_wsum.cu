@@ -5,6 +5,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "per_device.cuh"
 #include "coeff_wsum.cuh"
 
 namespace {
@@ -37,8 +38,9 @@ extern "C" int distaff_coeff_wsum(const void* polys, long long reg_stride, int r
                  (uint4*)out};
     const long long tiles = wsum::tiles(a.polys);
     if (tiles == 0) return (int)cudaSuccess;
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        coeff_wsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wsum::kSharedBytes);
+    static std::atomic<int> limit_set[per_device::kMaxDevices];
+    const cudaError_t configured =
+        per_device::shared_limit(limit_set, coeff_wsum_kernel, wsum::kSharedBytes);
     if (configured != cudaSuccess) return (int)configured;
     const int bytes = wsum::shared_bytes(wsum::ring(regs, 0));
     cudaError_t err;

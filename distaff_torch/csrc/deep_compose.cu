@@ -6,6 +6,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "per_device.cuh"
 #include "deep_compose.cuh"
 
 #ifndef DEEP_MIN_BLOCKS
@@ -58,18 +59,20 @@ extern "C" int distaff_deep_compose(const void* lde, long long lde_stride, int r
                                     long long n, const void* c_lde, const void* w1,
                                     const void* w2, const void* x_lo, const void* x_hi,
                                     const void* i_lo, const void* i_hi, int log_lo,
-                                    const uint32_t* scalars, void* out, void* stream) {
+                                    const uint32_t* scalars, void* out, long long first,
+                                    void* stream) {
     if (regs < 1 || regs > kMaxRegisters || n < 0 || lde_stride < n || log_lo < 0 ||
-        log_lo > 30)
+        log_lo > 30 || first < 0)
         return (int)cudaErrorInvalidValue;
     Args a{{(const uint4*)lde, lde_stride, regs, n, (const uint4*)w1, (const uint4*)w2},
            (const uint4*)c_lde, (const uint4*)x_lo, (const uint4*)x_hi, (const uint4*)i_lo,
-           (const uint4*)i_hi, log_lo, {}, (uint4*)out};
+           (const uint4*)i_hi, log_lo, {}, (uint4*)out, first};
     std::memcpy(&a.s, scalars, sizeof(a.s));
     const long long tiles = wsum::tiles(a.lde);
     if (tiles == 0) return (int)cudaSuccess;
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        deep_compose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wsum::kSharedBytes);
+    static std::atomic<int> limit_set[per_device::kMaxDevices];
+    const cudaError_t configured =
+        per_device::shared_limit(limit_set, deep_compose_kernel, wsum::kSharedBytes);
     if (configured != cudaSuccess) return (int)configured;
     const int bytes = wsum::shared_bytes(wsum::ring(regs, kSumsBytes));
     cudaError_t err;

@@ -107,6 +107,7 @@ struct Args {
     int log_lo;
     Scalars s;
     uint4* out;              // (n,)
+    long long first;         // point i is x = root^(first + i): 0 but on a slot of a mesh
 };
 
 // Tile k of the block: its sum s = sum_of(tid), point point_of(tid) into
@@ -144,8 +145,8 @@ struct Inputs {
 
 F128_FN Inputs fetch(const Args& a, long long i) {
     Inputs in;
-    in.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, i);
-    in.xi = points::table_entries(a.i_lo, a.i_hi, a.log_lo, i);
+    in.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, a.first + i);
+    in.xi = points::table_entries(a.i_lo, a.i_hi, a.log_lo, a.first + i);
     in.c = points::load_stream(a.c_lde + i);
     return in;
 }
@@ -191,7 +192,7 @@ struct Back {
 
 F128_FN Back fetch_back(const Args& a, long long i) {
     Back b;
-    b.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, i);
+    b.x = points::table_entries(a.x_lo, a.x_hi, a.log_lo, a.first + i);
     b.y = a.out[i];
     return b;
 }

@@ -5,6 +5,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "per_device.cuh"
 #include "fri_fold.cuh"
 
 namespace {
@@ -43,22 +44,20 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int distaff_fri_fold(const void* column, long long q, int rows, const void* lo,
                                 const void* hi, int log_lo, long long stride,
                                 const uint32_t* constants, void* out, void* digests,
-                                void* stream) {
+                                long long start, long long layer_q, void* stream) {
     if (q < 1 || stride < 1 || log_lo < 0 || log_lo > 30 || (rows != 1 && rows != 4) ||
-        (q % 4 && (rows != 1 || digests)))
+        (q % 4 && (rows != 1 || digests)) || start < 0 || (layer_q && start + q > layer_q) ||
+        ((start || layer_q) && digests))
         return (int)cudaErrorInvalidValue;
     fri_fold::Args a{(const uint4*)column, q, rows,
                      (int)(q % 4 ? q : fri_fold::kLeafRows / rows), (const uint4*)lo,
-                     (const uint4*)hi, log_lo, stride, {}, (uint4*)out, (uint32_t*)digests};
+                     (const uint4*)hi, log_lo, stride, {}, (uint4*)out, (uint32_t*)digests,
+                     start, layer_q};
     std::memcpy(&a.k, constants, sizeof(a.k));
-    static int sms = 0;
-    if (sms == 0) {
-        int device = 0;
-        cudaError_t e = cudaGetDevice(&device);
-        if (e == cudaSuccess)
-            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-        if (e != cudaSuccess) return (int)e;
-    }
+    static std::atomic<int> sm_counts[per_device::kMaxDevices];
+    int sms = 0;
+    const cudaError_t e = per_device::sm_count(sm_counts, &sms);
+    if (e != cudaSuccess) return (int)e;
     const int block = fri_fold::block_threads(a, sms);
     const long long blocks = fri_fold::blocks(a, block);
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;

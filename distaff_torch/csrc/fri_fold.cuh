@@ -105,6 +105,9 @@ struct Args {
     Constants k;
     uint4* out;              // (q,)
     uint32_t* digests;       // (q/4, 8) BLAKE3 of the rows (out[i + j q/4], j < 4), or null
+    // on a slot of a mesh, the launch's rows are the rows [start, start + q)
+    // of a layer of layer_q rows (0: the launch's q, a whole layer)
+    long long start, layer_q;
 };
 
 // threads of a layer
@@ -118,9 +121,11 @@ F128_FN long long first_row(const Args& a, long long g) {
     return g / a.lanes + (g % a.lanes) * a.rows * spacing(a);
 }
 
-// The exponent of w in 1/x0 = w_L^(-r): stride ((4q - r) mod 4q)
+// The exponent of w in 1/x0 = w_L^(-r) at the launch's row r, the layer's
+// row start + r: stride ((4 layer_q - start - r) mod 4 layer_q)
 F128_FN long long inverse_exponent(const Args& a, long long r) {
-    return r ? a.stride * (4 * a.q - r) : 0;
+    const long long global = a.start + r, q = a.layer_q ? a.layer_q : a.q;
+    return global ? a.stride * (4 * q - global) : 0;
 }
 
 // x / 2 mod M (M is odd)

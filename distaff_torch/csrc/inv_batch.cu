@@ -30,6 +30,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "per_device.cuh"
 #include "field128.cuh"
 #include "inv_batch.cuh"
 
@@ -60,16 +61,19 @@ __global__ void __launch_bounds__(kThreads, 4) inv_batch_kernel(const Args g) {
 extern "C" int distaff_inv_batch(const void* a, void* out, long long n, void* stream) {
     if (n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
-    static int sms = 0, resident = 0;       // the card's SMs, the blocks it keeps resident
-    if (resident == 0) {
-        int device, per_sm;
-        cudaError_t e = cudaGetDevice(&device);
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inv_batch_kernel, kThreads, 0);
-        if (e != cudaSuccess) return (int)e;
-        resident = sms * per_sm;
-    }
+    // the card's SMs, and the blocks it keeps resident
+    static std::atomic<int> sm_counts[per_device::kMaxDevices], residents[per_device::kMaxDevices];
+    int sms = 0, resident = 0;
+    cudaError_t e = per_device::sm_count(sm_counts, &sms);
+    if (e == cudaSuccess)
+        e = per_device::cached(residents, &resident, [&](int, int* v) {
+            int per_sm = 0;
+            const cudaError_t r =
+                cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inv_batch_kernel, kThreads, 0);
+            *v = sms * per_sm;
+            return r;
+        });
+    if (e != cudaSuccess) return (int)e;
     Args g;
     g.a = (const uint4*)a;
     g.out = (uint4*)out;

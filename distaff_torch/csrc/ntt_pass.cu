@@ -5,6 +5,7 @@
 #include <cstdint>
 
 #include "ntt_pass.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -30,17 +31,18 @@ extern "C" int distaff_ntt_pass(const void* in, void* out, const void* tw, const
                                 const void* hi, long long batch, int log_cols, int log_m,
                                 long long in_bs, long long in_cs, long long in_ps,
                                 long long n_in, long long out_bs, long long out_cs,
-                                long long out_ps, int log_lo, void* stream) {
+                                long long out_ps, int log_lo, long long first,
+                                void* stream) {
     if (log_m < 1 || log_m > ntt_pass::kMaxLogM || log_cols < 0 || log_cols > 40 ||
-        batch < 0 || log_lo < 0 || log_lo > 40)
+        batch < 0 || log_lo < 0 || log_lo > 40 || first < 0)
         return (int)cudaErrorInvalidValue;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ntt_pass::kTilePoints * (int)sizeof(uint4));
+    static std::atomic<int> configured[per_device::kMaxDevices];
+    const cudaError_t attr = per_device::shared_limit(
+        configured, ntt_pass_kernel, ntt_pass::kTilePoints * (int)sizeof(uint4));
     if (attr != cudaSuccess) return (int)attr;
     const ntt_pass::Args p = ntt_pass::make_args(in, out, tw, lo, hi, batch, log_cols, log_m,
                                                  in_bs, in_cs, in_ps, n_in, out_bs, out_cs,
-                                                 out_ps, log_lo);
+                                                 out_ps, log_lo, first);
     const long long blocks = ntt_pass::blocks(p);
     if (blocks == 0) return (int)cudaSuccess;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;

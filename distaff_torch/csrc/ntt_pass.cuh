@@ -12,10 +12,12 @@
 // a point whose offset in its batch row, t * in_cs + k * in_ps, is n_in or
 // more is not read and counts as zero (the zero extension of an LDE).
 // Output point j goes to out[b * out_bs + t * out_cs + j * out_ps], times
-// lo[e mod 2^log_lo] * hi[e >> log_lo] for e = t * j where lo is given (the
-// four-step twiddle w^(k1 * j2) of pass A from two small power tables, with
-// the inverse transform's 1/n folded into lo), times lo[e] alone where hi is
-// not.
+// lo[e mod 2^log_lo] * hi[e >> log_lo] for e = (first + t) * j where lo is
+// given (the four-step twiddle w^(k1 * j2) of pass A from two small power
+// tables, with the inverse transform's 1/n folded into lo; `first`, 0 but
+// on a slot of a mesh, is the global index of column 0, so that a slot's
+// columns take their global twiddles: parallel/ntt_sharded.py), times lo[e]
+// alone where hi is not.
 //
 // Bound on this card: operations.  A transform does (m/2) log2(m)
 // butterflies (one add, one sub, one 128-bit modular multiply each) against
@@ -77,16 +79,18 @@ struct Args {
     long long out_bs, out_cs, out_ps;
     int log_cols, log_m, log_lo;
     bool sparse;         // some points of a column are not read (n_in)
+    long long first;     // the global index of column 0 in the store factors' exponent
 };
 
 F128_FN Args make_args(const void* in, void* out, const void* tw, const void* lo,
                        const void* hi, long long batch, int log_cols, int log_m,
                        long long in_bs, long long in_cs, long long in_ps, long long n_in,
-                       long long out_bs, long long out_cs, long long out_ps, int log_lo) {
+                       long long out_bs, long long out_cs, long long out_ps, int log_lo,
+                       long long first = 0) {
     const long long span = ((1LL << log_cols) - 1) * in_cs + ((1LL << log_m) - 1) * in_ps + 1;
     return Args{(const uint4*)in, (uint4*)out, (const uint4*)tw, (const uint4*)lo,
                 (const uint4*)hi, batch, in_bs, in_cs, in_ps, n_in, out_bs, out_cs, out_ps,
-                log_cols, log_m, log_lo, n_in < span};
+                log_cols, log_m, log_lo, n_in < span, first};
 }
 
 // The 16-byte slot of tile index s: its low 3 bits (the slot in a 128-byte
@@ -248,7 +252,7 @@ F128_FN void store_tile(const Args& p, const uint4* tile, long long block, int t
         const long long t = g & ((1LL << p.log_cols) - 1);
         uint4 v = tile[swz((bitrev(j, p.log_m) << log_c) + c)];
         if (p.lo) {
-            const long long e = t * j;
+            const long long e = (p.first + t) * j;
             uint4 f = load_ro(p.lo + (e & ((1LL << p.log_lo) - 1)));
             if (p.hi) f = mul_elems(f, load_ro(p.hi + (e >> p.log_lo)));
             v = mul_elems(v, f);

@@ -7,6 +7,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "per_device.cuh"
 #include "syn_div.cuh"
 
 namespace {
@@ -148,8 +149,9 @@ extern "C" int distaff_syn_div(const void* polys, long long row_stride, long lon
     std::memcpy(&g.neg_e, neg_e, sizeof(g.neg_e));
     const long long nt = tiles(g);
     if (nt > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        syn_div_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Shared));
+    static std::atomic<int> limit_set[per_device::kMaxDevices];
+    const cudaError_t configured =
+        per_device::shared_limit(limit_set, syn_div_kernel, (int)sizeof(Shared));
     if (configured != cudaSuccess) return (int)configured;
     const cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e = cudaMemsetAsync(flags, 0, (2 * nt + 1) * sizeof(uint32_t), s);

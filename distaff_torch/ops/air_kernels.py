@@ -85,10 +85,11 @@ def degree_groups(degrees):
                  for degree in sorted(set(degrees)))
 
 
-def check_inputs(lde, t):
+def check_inputs(lde, t, n=None):
     """Raise unless the slice and the tables fit each other and the depths
-    fit the kernel."""
-    r, n = lde.shape[0], lde.shape[1]
+    fit the kernel; n is the domain's size where the slice holds a window
+    of it (default its own rows)."""
+    r, n = lde.shape[0], lde.shape[1] if n is None else n
     depths = t.depths()
     if not (0 <= t.ctx_depth <= MAX_CTX and 0 <= t.loop_depth <= MAX_LOOP
             and 0 <= t.stack_depth <= MAX_STACK):
@@ -142,7 +143,7 @@ def air_lib(depths):
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         handle.distaff_air_transition.argtypes = [
             vp, ll, ll, ll, vp, vp, vp, i32, vp, vp, ctypes.POINTER(ll), i32, vp, vp, i32, vp,
-            vp, vp]
+            vp, ll, ll, vp, vp]
         handle.distaff_air_transition.restype = i32
         handle.distaff_air_layout.argtypes = [vp, vp]
         handle.distaff_air_layout.restype = i32
@@ -159,28 +160,50 @@ def ptxas_report(depths):
     return cuda_lib.ptxas_lines(air_lib(depths)[2])
 
 
-def air_transition(lde, tables):
+def check_shard(lde, tables, first, halo):
+    """Raise unless the (R, count, 4) rows [first, first + count) of D_ev
+    and the (R, 8, 4) halo of the 8 rows after them fit the tables' domain
+    (a window of whole trace steps, at least one)."""
+    n, count = tables.domain(), lde.shape[1]
+    check_inputs(lde, tables, n)
+    if halo.shape != (lde.shape[0], STEP_ROWS, 4) or first % STEP_ROWS or \
+            count % STEP_ROWS or not 0 <= first < first + count <= n:
+        raise ValueError(f"air_transition: rows [{first}, {first + count}) of {n} with a halo "
+                         f"of {tuple(halo.shape)}")
+
+
+def air_transition(lde, tables, first=0, halo=None):
     """(R, n, 4) LDE slice over D_ev on the card (any row and register
     strides, limbs contiguous) -> (combined (n, 4) column, bad count as a
-    (1,) int32 tensor on the same device), in one launch."""
-    check_inputs(lde, tables)
+    (1,) int32 tensor on the same device), in one launch.  With a `halo`
+    (R, 8, 4), the slice holds the rows [first, first + count) of D_ev
+    alone (a slot's, parallel/mesh_stages.transition_sharded), halo the 8
+    after them, and the column is theirs; without, it is the whole domain."""
     t = tables
+    if halo is None:
+        if first:
+            raise ValueError("air_transition: a window of the domain needs its halo")
+        check_inputs(lde, t)
+    else:
+        check_shard(lde, t, first, halo)
+        halo = halo.contiguous()
     cuda_lib.require_limbs("air_transition", lde, t.dec_ark, t.masks, t.stk_ark, t.mds,
-                           t.cc, *t.x_tables())
+                           t.cc, *t.x_tables(), *([] if halo is None else [halo]))
     handle, groups, _ = air_lib(t.depths())
     if tuple(tuple(g) for g in t.groups) != groups:
         raise ValueError(f"air_transition: the tables' degree groups are not those of the "
                          f"kernel built for depths {t.depths()}")
     dec_ark, masks, stk_ark = t.dec_ark.contiguous(), t.masks.contiguous(), t.stk_ark.contiguous()
     mds, cc = t.mds.contiguous(), t.cc.contiguous()
-    n = lde.shape[1]
-    out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
+    count = lde.shape[1]
+    out = torch.empty((count, 4), dtype=torch.uint32, device=lde.device)
     bad = torch.zeros((1,), dtype=torch.int32, device=lde.device)
     p = cuda_lib.ptr
     code = handle.distaff_air_transition(
-        p(lde), n, lde.stride(0) // 4, lde.stride(1) // 4,
+        p(lde), t.domain(), lde.stride(0) // 4, lde.stride(1) // 4,
         p(dec_ark), p(masks), p(stk_ark), dec_ark.shape[1], p(mds), p(cc),
-        *series_args(t), p(out), p(bad), cuda_lib.stream(lde))
+        *series_args(t), p(out), p(bad), first, count,
+        ctypes.c_void_p(None) if halo is None else p(halo), cuda_lib.stream(lde))
     cuda_lib.check(code, "air_transition")
     cuda_lib.LAUNCHES["air_transition"] += 1
     return out, bad

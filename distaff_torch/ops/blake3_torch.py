@@ -193,13 +193,15 @@ _TREE_COUNTERS = {}
 def _tree_counters(device, groups):
     """K13's int32 ticket counters on `device`: at least `groups` words, all
     0 (the last block of each group sets its counter back to 0).  One
-    scratch a device: the trees that share it must run one after another,
-    as they do on one stream (merkle_tree enqueues every tree on the
-    current stream)."""
-    counters = _TREE_COUNTERS.get(device)
+    scratch a device and stream: the trees that share it run one after
+    another, on that stream (merkle_tree enqueues every tree on the
+    current stream; two slots of a mesh on one card each hash on their own
+    stream, parallel/mesh.py)."""
+    key = cuda_lib.stream_key(device)
+    counters = _TREE_COUNTERS.get(key)
     if counters is None or counters.numel() < groups:
         counters = torch.zeros(max(groups, 1024), dtype=torch.int32, device=device)
-        _TREE_COUNTERS[device] = counters
+        _TREE_COUNTERS[key] = counters
     return counters
 
 

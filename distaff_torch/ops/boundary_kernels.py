@@ -70,41 +70,47 @@ def boundary_table_keys(n, xb_root, device):
     return [tiles.factors_key(n, xb_root, 1, device)]
 
 
-def boundary_args(lde, i_parts, f_parts, xb_root):
+def boundary_args(lde, i_parts, f_parts, xb_root, domain=None):
     """K10's arguments beside the LDE: the (4, R) weights w1i, w2i, w1f,
     w2f as 16R host words (a kernel parameter, like the constants), x^b's
-    tables (lo, hi; hi None up to 1024 points) and the four constants as
-    16 host words."""
+    tables over `domain` points (default the LDE's; lo, hi; hi None up to
+    1024 points) and the four constants as 16 host words."""
     weights = (i_parts[0], i_parts[1], f_parts[0], f_parts[1])
     weight_words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for row in weights for v in row
                     for k in range(4)]
-    tables, = tiles.tables(boundary_table_keys(lde.shape[1], xb_root, lde.device))
+    tables, = tiles.tables(boundary_table_keys(domain or lde.shape[1], xb_root, lde.device))
     constants = (i_parts[2], i_parts[3], f_parts[2], f_parts[3])
     words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in constants for k in range(4)]
     return weight_words, tables, words
 
 
-def boundary_columns(lde, i_parts, f_parts, xb_root):
+def boundary_columns(lde, i_parts, f_parts, xb_root, first=0, domain=None):
     """The first- and last-step boundary columns over the n = lde.shape[1]
     points k of D_ev (n a power of two): lde (R, n, 4) registers, any point
     stride (the LDE's stride slice, read in place); i_parts and f_parts the
     (w1, w2, c1, c2) host ints of evaluator.boundary_weight_vectors; x^b at
-    point k = xb_root^k.  Returns the two (n, 4) columns."""
+    point k = xb_root^k.  Returns the two (n, 4) columns.  On a slot of a
+    mesh lde holds the points [first, first + n) of a domain of `domain`
+    points (a power of two), and the columns are theirs."""
     regs, n = lde.shape[0], lde.shape[1]
     if lde.dim() != 3 or n < 1 or n & (n - 1) or not 1 <= regs <= MAX_REGISTERS or any(
             len(parts[0]) != regs or len(parts[1]) != regs for parts in (i_parts, f_parts)):
         raise ValueError(f"boundary_columns: expected (R <= {MAX_REGISTERS}, n a power of two, "
                          f"4) registers and R weights a sum, got {tuple(lde.shape)}")
+    domain = n if domain is None else domain
+    if first < 0 or first + n > domain or domain & (domain - 1):
+        raise ValueError(f"boundary_columns: points [{first}, {first + n}) of {domain}")
     if fk._on_cpu(lde):
-        return boundary_columns_plain(lde, i_parts, f_parts, xb_root)
+        return boundary_columns_plain(lde, i_parts, f_parts, xb_root, first)
     cuda_lib.require_limbs("boundary_columns", lde)
-    weights, (lo, hi), words = boundary_args(lde, i_parts, f_parts, xb_root)
+    weights, (lo, hi), words = boundary_args(lde, i_parts, f_parts, xb_root, domain)
     out = torch.empty((2, n, 4), dtype=torch.uint32, device=lde.device)
     code = cuda_lib.lib().distaff_boundary_columns(
         cuda_lib.ptr(lde), lde.stride(0) // 4, lde.stride(1) // 4, regs, n,
         (ctypes.c_uint32 * len(weights))(*weights),
         cuda_lib.ptr(lo), ctypes.c_void_p(None) if hi is None else cuda_lib.ptr(hi),
-        tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), cuda_lib.ptr(out), cuda_lib.stream(out))
+        tiles._LOG_LO, (ctypes.c_uint32 * 16)(*words), cuda_lib.ptr(out), first,
+        cuda_lib.stream(out))
     cuda_lib.check(code, "boundary_columns")
     cuda_lib.LAUNCHES["boundary_columns"] += 1
     return out[0], out[1]

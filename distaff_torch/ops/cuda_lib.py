@@ -198,7 +198,7 @@ def lib():
         u32p = ctypes.POINTER(ctypes.c_uint32)
         i32p = ctypes.POINTER(ctypes.c_int)
         handle.distaff_ntt_pass.argtypes = [
-            vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
+            vp, vp, vp, vp, vp, ll, i32, i32, ll, ll, ll, ll, ll, ll, ll, i32, ll, vp]
         handle.distaff_field_binary.argtypes = [
             i32, i32, vp, vp, vp, ll, llp, llp, llp, vp]
         handle.distaff_field_exp.argtypes = [vp, vp, ll, ctypes.POINTER(ctypes.c_uint16), i32, vp]
@@ -206,11 +206,12 @@ def lib():
         handle.distaff_butterfly.argtypes = [vp, vp, vp, vp, vp, ll, vp]
         handle.distaff_inv_batch.argtypes = [vp, vp, ll, vp]
         handle.distaff_deep_compose.argtypes = [
-            vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, u32p, vp, vp]
+            vp, ll, i32, ll, vp, vp, vp, vp, vp, vp, vp, i32, u32p, vp, ll, vp]
         handle.distaff_poly_eval.argtypes = [vp, vp, vp, vp, ll, ll, i32, u32p, vp]
-        handle.distaff_fri_fold.argtypes = [vp, ll, i32, vp, vp, i32, ll, u32p, vp, vp, vp]
+        handle.distaff_fri_fold.argtypes = [
+            vp, ll, i32, vp, vp, i32, ll, u32p, vp, vp, ll, ll, vp]
         handle.distaff_boundary_columns.argtypes = [
-            vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp, vp]
+            vp, ll, ll, i32, ll, u32p, vp, vp, i32, u32p, vp, ll, vp]
         handle.distaff_syn_div.argtypes = [
             vp, ll, ll, ll, vp, vp, vp, vp, i32, u32p, u32p, vp, vp, vp, vp, vp]
         handle.distaff_power_series.argtypes = [vp, vp, i32, llp, i32p, llp, llp, vp]
@@ -244,19 +245,32 @@ def stream(tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
 
 
+def stream_key(device):
+    """(device, current stream's handle): the key of a kernel's scratch
+    that the launches on one stream share (launches in order there), so
+    that two streams of one card, a mesh's slots, never share it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (str(device), None)
+    return (str(device), torch.cuda.current_stream(device).cuda_stream)
+
+
 def ptr(tensor):
     return ctypes.c_void_p(tensor.data_ptr())
 
 
 def require_limbs(what, *tensors):
-    """Raise unless every tensor is a uint32 limb tensor on the first card
-    whose limb axis is contiguous and 16-byte aligned (the kernels read
-    whole elements as 16-byte vectors)."""
+    """Raise unless every tensor is a uint32 limb tensor on the current
+    card (a launch goes to the current device: a mesh's slot launches under
+    torch.cuda.device of its card) whose limb axis is contiguous and
+    16-byte aligned (the kernels read whole elements as 16-byte vectors)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: expected a CUDA tensor, got one on {t.device}")
-        if t.device.index not in (None, 0):
-            raise ValueError(f"{what}: the kernels run on cuda:0 only, got {t.device}")
+        current = torch.cuda.current_device()
+        if t.device.index != current:
+            raise ValueError(f"{what}: a tensor on {t.device}, the current device is "
+                             f"cuda:{current}")
         if t.dtype != torch.uint32 or t.shape[-1] != 4 or t.stride(-1) != 1:
             raise ValueError(
                 f"{what}: expected (..., 4) uint32 limbs, got {t.dtype} {tuple(t.shape)} "

@@ -102,8 +102,10 @@ _TICKETS = {}
 
 def _tickets(rows, device):
     """K8's per-row counters on `device`, zero between launches (the row's
-    last block resets its own): allocated once, grown when needed."""
-    key = str(device)
+    last block resets its own): allocated once a device and stream (the
+    launches that share them run one after another on it), grown when
+    needed."""
+    key = cuda_lib.stream_key(device)
     if key not in _TICKETS or _TICKETS[key].shape[0] < rows:
         _TICKETS[key] = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
     return _TICKETS[key]
@@ -244,22 +246,26 @@ def compose_table_keys(n, root, incr, device):
             tiles.factors_key(n, pow(int(root), int(incr), M), 1, device)]
 
 
-def compose_args(lde, root, incr, scalars):
+def compose_args(lde, root, incr, scalars, domain=None):
     """K7's arguments after the pointers' tensors: (lde stride, regs, n,
     tables (x lo, x hi, x^incr lo, x^incr hi; hi None up to 1024 points),
-    the scalars as 32 host words)."""
+    the scalars as 32 host words); the tables cover `domain` points
+    (default n)."""
     n = lde.shape[1]
-    (x_lo, x_hi), (i_lo, i_hi) = tiles.tables(compose_table_keys(n, root, incr, lde.device))
+    (x_lo, x_hi), (i_lo, i_hi) = tiles.tables(
+        compose_table_keys(domain or n, root, incr, lde.device))
     words = [(int(v) % M >> (32 * k)) & 0xFFFFFFFF for v in scalars for k in range(4)]
     return lde.stride(0) // 4, lde.shape[0], n, (x_lo, x_hi, i_lo, i_hi), words
 
 
-def deep_compose(lde, c_lde, w1, w2, root, incr, scalars):
+def deep_compose(lde, c_lde, w1, w2, root, incr, scalars, first=0, domain=None):
     """The DEEP composition over the n = lde.shape[1] points x = root^i of
     the LDE domain (n a power of two): lde (R, n, 4) register evaluations, c_lde (n, 4) the
     constraint polynomial's, w1 and w2 (R, 4) the weights of A1 and A2,
     incr the exponent of x's degree adjustment and scalars the host ints
-    (z, zg, s1, s2, c(z), k1, k2, kc).  Returns (n, 4) limbs."""
+    (z, zg, s1, s2, c(z), k1, k2, kc).  Returns (n, 4) limbs.  On a slot
+    of a mesh the inputs are the points [first, first + n) of a domain of
+    `domain` points (a power of two), and so is the result."""
     if len(scalars) != 8 or lde.dim() != 3 or c_lde.shape != lde.shape[1:] or \
             w1.shape != (lde.shape[0], 4) or w2.shape != w1.shape:
         raise ValueError(f"deep_compose: shapes {tuple(lde.shape)}, {tuple(c_lde.shape)}, "
@@ -267,19 +273,22 @@ def deep_compose(lde, c_lde, w1, w2, root, incr, scalars):
     n = lde.shape[1]
     if n < 1 or n & (n - 1):
         raise ValueError(f"deep_compose: the domain's size must be a power of two, got {n}")
+    domain = n if domain is None else domain
+    if first < 0 or first + n > domain or domain & (domain - 1):
+        raise ValueError(f"deep_compose: points [{first}, {first + n}) of {domain}")
     if fk._on_cpu(lde, c_lde, w1, w2):
-        return deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars)
+        return deep_compose_plain(lde, c_lde, w1, w2, root, incr, scalars, first)
     cuda_lib.require_limbs("deep_compose", lde, c_lde, w1, w2)
     c_lde, w1, w2 = c_lde.contiguous(), w1.contiguous(), w2.contiguous()
     if lde.stride(1) != 4:
         raise ValueError("deep_compose: each register's points must be contiguous")
-    stride, regs, n, tables, words = compose_args(lde, root, incr, scalars)
+    stride, regs, n, tables, words = compose_args(lde, root, incr, scalars, domain)
     out = torch.empty((n, 4), dtype=torch.uint32, device=lde.device)
     nul = ctypes.c_void_p(None)
     code = cuda_lib.lib().distaff_deep_compose(
         cuda_lib.ptr(lde), stride, regs, n, cuda_lib.ptr(c_lde), cuda_lib.ptr(w1),
         cuda_lib.ptr(w2), *[nul if t is None else cuda_lib.ptr(t) for t in tables], LOG_LO,
-        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), cuda_lib.stream(out))
+        (ctypes.c_uint32 * 32)(*words), cuda_lib.ptr(out), first, cuda_lib.stream(out))
     cuda_lib.check(code, "deep_compose")
     cuda_lib.LAUNCHES["deep_compose"] += 1
     return out

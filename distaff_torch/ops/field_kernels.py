@@ -554,16 +554,17 @@ def _pass_offsets(batch, columns, m, strides, device):
 
 
 def ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in,
-                   lo=None, hi=None, columns=None):
+                   lo=None, hi=None, columns=None, first=0):
     """ntt_pass's function on int64 limbs: a gather of the transforms, the
     Pease leaf of ntt_leaf64, the store factors and a scatter into dst.
-    With `columns` = (first, stop), the transforms of those columns alone
-    (so that a wide pass can be held a piece at a time)."""
+    With `columns` = (start, stop), the transforms of those columns alone
+    (so that a wide pass can be held a piece at a time); `first` is
+    ntt_pass's."""
     m = 2 * tw.shape[0]
     device = src.device
-    first, stop = columns or (0, cols)
-    col = torch.arange(first, stop, device=device)
-    k = stop - first
+    start, stop = columns or (0, cols)
+    col = torch.arange(start, stop, device=device)
+    k = stop - start
     idx, in_row = _pass_offsets(batch, col, m, src_strides, device)
     valid = in_row < n_in
     idx = torch.where(valid[None], idx, 0).reshape(-1)
@@ -571,7 +572,7 @@ def ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in,
     x = x.view(batch * k, m, 4) * valid.repeat(batch, 1)[..., None]
     y = ntt_leaf64(x, tw.to(torch.int64)).view(batch, k, m, 4)
     if lo is not None:
-        e = (col[:, None] * torch.arange(m, device=device)[None, :]).reshape(-1)
+        e = ((col[:, None] + first) * torch.arange(m, device=device)[None, :]).reshape(-1)
         log_lo = lo.shape[0].bit_length() - 1
         f = lo.to(torch.int64).index_select(0, e & (lo.shape[0] - 1))
         if hi is not None:
@@ -589,15 +590,18 @@ def _pass_span(batch, cols, m, strides, limit):
     return (batch - 1) * bs + min(limit, (cols - 1) * cs + (m - 1) * ps + 1)
 
 
-def ntt_pass(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None):
+def ntt_pass(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None, hi=None,
+             first=0):
     """One pass of the four-step NTT into dst: for b < batch and t < cols
     (a power of two), the natural-order NTT of size m = 2 * len(tw) of the
     points k of (b, t) at src element b*bs + t*cs + k*ps (src_strides =
     (bs, cs, ps), in (4,)-limb elements of the contiguous src), points whose
     offset t*cs + k*ps in their row is n_in or more counting as zero; output
     point j goes to dst element b*bs + t*cs + j*ps (dst_strides), times
-    lo[e % len(lo)] * hi[e // len(lo)], e = t*j, where lo is given (times
-    lo[e] alone, e < len(lo), without hi).  tw holds the m/2 powers of the
+    lo[e % len(lo)] * hi[e // len(lo)], e = (first + t)*j, where lo is given
+    (times lo[e] alone, e < len(lo), without hi): `first` is the global
+    index of column 0 where the columns are a slot's share of a larger
+    pass (parallel/ntt_sharded.py), 0 otherwise.  tw holds the m/2 powers of the
     size-m root; m is a power of two in [2, MAX_LEAF].  Returns dst."""
     m = 2 * tw.shape[0]
     if m < 2 or m > MAX_LEAF or m & (m - 1) or cols < 1 or cols & (cols - 1) or batch < 1:
@@ -614,23 +618,26 @@ def ntt_pass(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo=None,
     if src.data_ptr() < dst.data_ptr() + dst.numel() * 4 and \
             dst.data_ptr() < src.data_ptr() + src.numel() * 4:
         raise ValueError("ntt_pass: src and dst overlap")
-    exponents = (cols - 1) * (m - 1) + 1
+    exponents = (first + cols - 1) * (m - 1) + 1
     if lo is not None and exponents > lo.shape[0] * (hi.shape[0] if hi is not None else 1):
         raise ValueError(f"ntt_pass: factor tables of {lo.shape[0]} x "
                          f"{1 if hi is None else hi.shape[0]} cover fewer than {exponents} exponents")
+    if first < 0:
+        raise ValueError(f"ntt_pass: first column {first}")
     if lo is not None and lo.shape[0] & (lo.shape[0] - 1):
         raise ValueError(f"ntt_pass: lo must have a power-of-two length, got {lo.shape[0]}")
     if hi is not None and lo is None:
         raise ValueError("ntt_pass: hi needs lo")
     if _on_cpu(*tensors):
-        return ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo, hi)
+        return ntt_pass_plain(src, dst, tw, batch, cols, src_strides, dst_strides, n_in, lo, hi,
+                              first=first)
     cuda_lib.require_limbs("ntt_pass", *tensors)
     nul = ctypes.c_void_p(None)
     code = cuda_lib.lib().distaff_ntt_pass(
         cuda_lib.ptr(src), cuda_lib.ptr(dst), cuda_lib.ptr(tw),
         cuda_lib.ptr(lo) if lo is not None else nul, cuda_lib.ptr(hi) if hi is not None else nul,
         batch, cols.bit_length() - 1, m.bit_length() - 1, *src_strides, n_in, *dst_strides,
-        0 if lo is None else lo.shape[0].bit_length() - 1, cuda_lib.stream(dst))
+        0 if lo is None else lo.shape[0].bit_length() - 1, first, cuda_lib.stream(dst))
     cuda_lib.check(code, "ntt_pass")
     cuda_lib.LAUNCHES["ntt_pass"] += 1
     return dst

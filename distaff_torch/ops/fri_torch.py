@@ -108,21 +108,23 @@ def fri_fold_ops(q, order):
     return q // rows * thread + 4 * q, 7 * q, 4 * q
 
 
-def fri_fold_plain(column, special_x, root, stride=1, rows=None, digests=False):
+def fri_fold_plain(column, special_x, root, stride=1, rows=None, digests=False, first=0):
     """fri_fold's function on plain tensors: the power series of x0 = w_L^i
     and of x0^-3 = w_L^-3i (w_L = root^stride) and fold_rows, on K2's plain
     versions.  With `rows` = (start, stop), the rows [start, stop) alone;
     with `digests`, (folded column, the BLAKE3 of its quartic rows on K3's
-    plain version: the next Merkle tree's leaves)."""
-    if rows is not None and digests:
+    plain version: the next Merkle tree's leaves).  With `first`, the
+    column holds a slot's rows [first, first + q) of a larger layer (each
+    quarter's values of them, as fri_fold takes them)."""
+    if (rows is not None or first) and digests:
         raise ValueError("fri_fold_plain: the digests need the whole layer")
     q = column.shape[0] // 4
     start, stop = rows or (0, q)
     device = column.device
     w = pow(int(root), stride, M)
     inv3 = pow(hostfield.inv(w), 3, M)
-    x0 = fk.power_series_plain(w, stop - start, device, pow(w, start, M))
-    x0_inv3 = fk.power_series_plain(inv3, stop - start, device, pow(inv3, start, M))
+    x0 = fk.power_series_plain(w, stop - start, device, pow(w, first + start, M))
+    x0_inv3 = fk.power_series_plain(inv3, stop - start, device, pow(inv3, first + start, M))
     ys = transpose_quartic(column, 1)[start:stop]
     out = fold_rows(ys, x0, x0_inv3, ft.constant(special_x, device))
     if not digests:
@@ -148,26 +150,33 @@ def fold_table_keys(n, stride, root, device):
     return [tiles.factors_key(n * stride, root, 1, device)]
 
 
-def fri_fold(column, special_x, root, stride=1, digests=False):
+def fri_fold(column, special_x, root, stride=1, digests=False, first=0, layer_rows=None):
     """One FRI layer folded at the host int special_x: column (4q, 4) limbs,
     the layer's evaluations over the domain of w_L = root^stride (order 4q;
     root's power tables, 4q*stride points, are K1's of the LDE domain).
     Row i holds column[i + j q] at the nodes w_L^i I^j.  Returns the (q, 4)
     folded column; with `digests` also the (q/4, 8) BLAKE3 digests of its
-    quartic rows, the next layer's Merkle leaves."""
+    quartic rows, the next layer's Merkle leaves.  On a slot of a mesh
+    the column holds the rows [first, first + q) of a layer of
+    `layer_rows` rows (its four quarters' values of them, quarter j at
+    [j q, (j + 1) q)), without digests, and the result is their fold."""
     n = column.shape[0]
     if column.dim() != 2 or column.shape[1] != 4 or n < 4 or n & (n - 1) or stride < 1 or \
             stride & (stride - 1):
         raise ValueError(f"fri_fold: expected a (4q, 4) column of a power of two points and a "
                          f"power-of-two stride, got {tuple(column.shape)} and {stride}")
     q = n // 4
+    layer_rows = q if layer_rows is None else layer_rows
     if digests and q < 4:
         raise ValueError(f"fri_fold: {q} folded points make no quartic leaf row")
+    if first < 0 or first + q > layer_rows or (layer_rows != q and (digests or q < 4)):
+        raise ValueError(f"fri_fold: rows [{first}, {first + q}) of {layer_rows} (a slot's "
+                         f"rows fold at least 4, without digests)")
     if fk._on_cpu(column):
-        return fri_fold_plain(column, special_x, root, stride, digests=digests)
+        return fri_fold_plain(column, special_x, root, stride, digests=digests, first=first)
     cuda_lib.require_limbs("fri_fold", column)
     column = column.contiguous()
-    (lo, hi), = tiles.tables(fold_table_keys(n, stride, root, column.device))
+    (lo, hi), = tiles.tables(fold_table_keys(4 * layer_rows, stride, root, column.device))
     out = torch.empty((q, 4), dtype=torch.uint32, device=column.device)
     leaves = (torch.empty((q // 4, 8), dtype=torch.uint32, device=column.device)
               if digests else None)
@@ -177,7 +186,8 @@ def fri_fold(column, special_x, root, stride=1, digests=False):
         cuda_lib.ptr(column), q, rows_per_thread(q, sms), cuda_lib.ptr(lo),
         nul if hi is None else cuda_lib.ptr(hi), tiles._LOG_LO, stride,
         (ctypes.c_uint32 * 32)(*fold_words(special_x, root, stride, q)), cuda_lib.ptr(out),
-        nul if leaves is None else cuda_lib.ptr(leaves), cuda_lib.stream(out))
+        nul if leaves is None else cuda_lib.ptr(leaves), first,
+        0 if layer_rows == q else layer_rows, cuda_lib.stream(out))
     cuda_lib.check(code, "fri_fold")
     cuda_lib.LAUNCHES["fri_fold"] += 1
     return (out, leaves) if digests else out

@@ -17,6 +17,8 @@ place, with one transpose.  An NTT has a unique result, so the values are
 those of the JAX package's Pease kernels bit for bit.
 """
 
+import contextlib
+
 import torch
 
 from ..math import field as hostfield
@@ -76,11 +78,29 @@ def build_tables(keys):
     for device in dict.fromkeys(k[1] for k in missing):
         mine = [k for k in missing if k[1] == device]
         series = [_series(k) for k in mine]
-        built = iter(fk.power_series_many([t for ts in series for t in ts], device))
+        with _on(device):
+            built = iter(fk.power_series_many([t for ts in series for t in ts], device))
+            _settle(device)
         for key, ts in zip(mine, series):
             lo, *hi = (next(built) for _ in ts)
             _TABLES[key] = lo if key[0] == "tw" else (lo, hi[0] if hi else None)
     return missing
+
+
+def _on(device):
+    """The context that launches on `device`: its card, for a card."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _settle(device):
+    """Wait for tables built on a side stream (a mesh slot's, parallel/
+    mesh.py): every stream of the card reads the cache."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        if stream != torch.cuda.default_stream(device):
+            stream.synchronize()
 
 
 def tables(keys):

@@ -144,11 +144,11 @@ def transition_plain(lde, tables, rows=None):
     current = _device_state(tables, [TorchCol(lde[i]) for i in range(r_count)])
     next_state = _device_state(tables, [TorchCol(nxt[i]) for i in range(r_count)])
 
-    cycle = tables.dec_ark.shape[1]
+    phase = rows % tables.dec_ark.shape[1]
 
-    def tile(rows):
-        return [TorchCol(rows[k][None].expand(n // cycle, cycle, 4).reshape(n, 4))
-                for k in range(rows.shape[0])]
+    def tile(table):
+        # each row's entry of the periodic table, whatever row the slice starts at
+        return [TorchCol(table[k].index_select(0, phase)) for k in range(table.shape[0])]
 
     dec, stk = _air(tables.ctx_depth, tables.loop_depth, tables.stack_depth)
     num_decoder = dec.constraint_count()
@@ -190,13 +190,36 @@ def transition_plain_rows(lde, tables, start, stop):
     return combined[:stop - start]
 
 
-def transition(lde, tables):
+def transition_plain_shard(lde, tables, first, halo):
+    """K4's plain version on a slot's rows: (R, count, 4) rows [first,
+    first + count) of D_ev and the (R, 8, 4) halo of the 8 rows after them
+    -> (their combined (count, 4) column, the count of their trace-step
+    rows, the domain's last step left out, where it is nonzero, as a (1,)
+    int32 tensor).  first and count are multiples of 8 (whole steps)."""
+    air_kernels.check_shard(lde, tables, first, halo)
+    count, n = lde.shape[1], tables.domain()
+    # the halo's rows are the window's last step: their own next state (the
+    # window's first rows) is wrong, and their results are dropped
+    window = torch.cat([lde, halo], dim=1)
+    rows = torch.arange(first, first + count + MAX_CONSTRAINT_DEGREE, device=lde.device) % n
+    combined = transition_plain(window, tables, rows)[0][:count].contiguous()
+    steps = torch.arange(first, first + count, MAX_CONSTRAINT_DEGREE, device=lde.device)
+    nonzero = combined[::MAX_CONSTRAINT_DEGREE].view(torch.int32).ne(0).sum(dim=1).gt(0)
+    bad = (nonzero & steps.ne(n - MAX_CONSTRAINT_DEGREE)).sum().to(torch.int32).reshape(1)
+    return combined, bad
+
+
+def transition(lde, tables, first=0, halo=None):
     """K4's wrapper: its plain version for a slice on the CPU, one launch of
-    the kernel for a slice on the card (ops/air_kernels.air_transition)."""
+    the kernel for a slice on the card (ops/air_kernels.air_transition).
+    With a `halo`, lde holds a slot's rows [first, first + count) of D_ev
+    and halo the 8 rows after them (air_kernels.air_transition)."""
     if lde.device.type == "cpu":
+        if halo is not None:
+            return transition_plain_shard(lde, tables, first, halo)
         air_kernels.check_inputs(lde, tables)
         return transition_plain(lde, tables)
-    return air_kernels.air_transition(lde, tables)
+    return air_kernels.air_transition(lde, tables, first, halo)
 
 
 def air_table_keys(n_ev, device):

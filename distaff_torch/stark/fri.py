@@ -45,42 +45,61 @@ def reduce(evaluations_dev, domain_root, options, part=None):
     built from those leaf digests (K3 hashes the first layer's rows alone).
     `part`, if given, is called with the name in PARTS of each piece of
     work as it ends.
+
+    Evaluations split by rows over a mesh (a parallel.mesh.Sharded) fold
+    on the mesh (the JAX package's fri.py:92-104): each layer laid out as
+    each slot's rows of it (one all-to-all), its tree over the slots'
+    rows (K3 on each slot, a tiled tree), and its fold K9 on each slot's
+    rows, without the digests, whose leaves hold values of every slot.  A
+    layer too small to split (parallel/mesh_stages.fold_fits) and those
+    after it fold on the home slot as above.
     """
     from ..crypto.merkle_dev import commit
+    from ..parallel.mesh import Sharded
 
     part = part or (lambda name: None)
     hash_leaves = options.hash_fn == "blake3"
     tree_results = []
     value_results = []
 
-    p_column = evaluations_dev
-    p_values = fri_torch.transpose_quartic(p_column, 1)
-    p_tree = commit(p_values, options.hash_fn)
-    part("layer trees")
-
     # layer L's nodes are powers of w^(4^L): K9 reads them from the power
     # tables of the LDE domain's root w at that stride
     stride = 1
-    while p_values.shape[0] * 4 > MAX_REMAINDER_LENGTH:
-        special_x = rand.prng(p_tree.root(), field.M)
+    column, leaves = evaluations_dev, None
+    while True:
+        sharded = isinstance(column, Sharded)
+        if sharded:
+            from ..parallel import mesh_stages
+
+            q = column.share() * column.mesh.size // 4
+            if not mesh_stages.fold_fits(q, column.mesh):
+                column, sharded = column.gather(), False
+        if sharded:
+            layout = mesh_stages.fold_layout(column, q)
+            values = mesh_stages.layer_rows(layout)
+            tree = commit(values, options.hash_fn)
+        else:
+            values = fri_torch.transpose_quartic(column, 1)
+            q = values.shape[0]
+            tree = (commit(leaves, "blake3", leaves=True) if leaves is not None
+                    else commit(values, options.hash_fn))
+        part("layer trees")
+        tree_results.append(tree)
+        value_results.append(values)
+        if q * 4 <= MAX_REMAINDER_LENGTH:
+            break
+
+        special_x = rand.prng(tree.root(), field.M)
         part("root draws")
-        folded = fri_torch.fri_fold(p_column, special_x, domain_root, stride,
-                                    digests=hash_leaves)
+        if sharded:
+            column = mesh_stages.fold_sharded(layout, special_x, domain_root, stride,
+                                              layout.mesh)
+        else:
+            folded = fri_torch.fri_fold(column, special_x, domain_root, stride,
+                                        digests=hash_leaves)
+            column, leaves = folded if hash_leaves else (folded, None)
         part("folds (K9)")
         stride *= 4
-
-        column, leaves = folded if hash_leaves else (folded, None)
-        c_values = fri_torch.transpose_quartic(column, 1)
-        c_tree = (commit(leaves, "blake3", leaves=True) if hash_leaves
-                  else commit(c_values, options.hash_fn))
-        part("layer trees")
-
-        tree_results.append(p_tree)
-        value_results.append(p_values)
-        p_column, p_tree, p_values = column, c_tree, c_values
-
-    tree_results.append(p_tree)
-    value_results.append(p_values)
     return tree_results, value_results
 
 
@@ -88,18 +107,24 @@ def build_proof(trees, values, positions, batch):
     """Openings of every layer at the augmented query positions; the device
     gathers ride the caller's TransferBatch (one copy to the host)."""
     from ..ops.gather import gather_rows_dev
+    from ..parallel.mesh import Sharded
+    from ..parallel.mesh_stages import take
 
     positions = list(positions)
-    domain_size = trees[0].leaves().shape[0] * 4
+    first = values[0]
+    domain_size = 4 * (first.share() * first.mesh.size if isinstance(first, Sharded)
+                       else first.shape[0])
 
     pending = []
     for i in range(len(trees) - 1):
         positions = get_augmented_positions(positions, domain_size)
         pending.append(
             (trees[i], trees[i].prove_batch_async(positions, batch),
-             batch.add(gather_rows_dev(values[i], positions)), len(positions)))
+             batch.add(take(values[i], positions) if isinstance(values[i], Sharded)
+                       else gather_rows_dev(values[i], positions)), len(positions)))
         domain_size //= 4
-    last_ref = batch.add(values[-1])
+    last = values[-1]
+    last_ref = batch.add(last.gather() if isinstance(last, Sharded) else last)
 
     layers = []
     for tree, pending_proof, rows_ref, n_pos in pending:

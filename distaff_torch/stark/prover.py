@@ -36,6 +36,15 @@ and the parts of steps 1, 3, 6 and 7 as "step <i> part <name>: <ms> ms"
 that level is enabled every step and part ends with a device synchronize,
 so the times are the device's and not the enqueue's.
 
+With DISTAFF_MESH_DEVICES set (parallel/mesh.py), the stages that the
+JAX package shards run split over a mesh of slots, where it places them
+(distaff_tpu/stark/prover.py, trace_table.py, fri.py): the LDE by
+registers, steps 3, 6 and 7 and the trees by rows, and the transforms of
+steps 4 and 5 (and of the streamed LDE and of step 6's sums) as four-step
+transforms over the slots; K11 runs on the home slot after step 4's
+gather, K8 and the host's steps where they always do.  The proof's bytes
+are the single-device proof's.
+
 With DISTAFF_DEBUG set to anything but "0", the prover runs the JAX
 package's three debug checks (the reference's debug_assert!s) and raises
 AssertionError where one fails: the transition constraints vanish at every
@@ -115,13 +124,18 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove(device='cuda'): no CUDA device is available")
-    clock = _StepClock(device)
     from ..ops import tiles
+    from ..parallel.mesh import configured_mesh
 
-    tiles.build_tables(proof_table_keys(trace.unextended_length(), trace.domain_size(), device))
+    mesh = configured_mesh(device)
+    if mesh is not None:
+        device = mesh.home
+    clock = _StepClock(device)
+    tiles.build_tables(proof_table_keys(trace.unextended_length(), trace.domain_size(), device,
+                                        mesh))
 
     # 1 ----- extend execution trace -------------------------------------------------------------
-    trace.extend(device, part=lambda name: clock.part(1, name))
+    trace.extend(device, part=lambda name: clock.part(1, name), mesh=mesh)
     domain_size = trace.domain_size()
     lde_root = field.get_root_of_unity(domain_size)
     clock.done(1, "extend trace")
@@ -141,7 +155,7 @@ def prove(trace, inputs, outputs, options, device="cuda"):
 
     # 4 ----- combine into the constraint polynomial ---------------------------------------------
     constraint_poly = _combine_constraint_polys(
-        evaluator, i_evals, f_evals, t_evals, trace.unextended_length())
+        evaluator, i_evals, f_evals, t_evals, trace.unextended_length(), trace.mesh)
     del i_evals, f_evals, t_evals
     if trace.streaming:
         # the slice over D_ev has no reader past step 4
@@ -151,7 +165,8 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     clock.done(4, "constraint polynomial")
 
     # 5 ----- commit to constraint polynomial evaluations ----------------------------------------
-    constraint_lde = tiles.ntt(constraint_poly, lde_root, n=domain_size)
+    constraint_lde = _extend_column_dev(constraint_poly, lde_root, domain_size, trace.mesh,
+                                        trace.rows_mesh(), "constraint_lde")
     constraint_tree = _build_constraint_tree(constraint_lde, options.hash_fn)
     clock.done(5, "constraint tree")
 
@@ -205,7 +220,7 @@ def prove(trace, inputs, outputs, options, device="cuda"):
     return proof
 
 
-def proof_table_keys(trace_length, domain_size, device):
+def proof_table_keys(trace_length, domain_size, device, mesh=None):
     """The keys of every power table that a proof's kernels read, from its
     geometry alone (the trace, LDE and D_ev domains and their roots), so
     that one K12 launch builds them all before step 1: step 1's and step
@@ -213,7 +228,18 @@ def proof_table_keys(trace_length, domain_size, device):
     transform and K11's, K7's (step 6) and K9's (step 7).  The streamed
     path's transforms (the four-register groups of step 2, step 6's two
     sums) go to the LDE domain at its root, as step 1's does: its keys are
-    the materialized path's."""
+    the materialized path's.  On a mesh: those on each distinct device of
+    the mesh (one K12 launch a device), and the sharded transforms' (steps
+    4 and 5, parallel/ntt_sharded.py)."""
+    if mesh is not None:
+        from ..parallel import ntt_sharded as ns
+
+        n_ev = trace_length * MAX_CONSTRAINT_DEGREE
+        keys = [k for d in mesh.devices() for k in proof_table_keys(trace_length, domain_size, d)]
+        for n, keys_of in ((domain_size, ns.ntt_keys), (n_ev, ns.intt_keys)):
+            if ns.fits(n, mesh):
+                keys += keys_of(n, field.get_root_of_unity(n), mesh)
+        return keys
     from ..ops import boundary_kernels, deep_kernels, fri_torch, syndiv_kernels, tiles
     from .constraints import device_eval
     from .constraints.evaluator import get_boundary_constraint_adjustment_degree
@@ -247,11 +273,21 @@ def _evaluate_constraints_columnar(evaluator, trace, clock, debug=False):
     device_eval.py:319-324)."""
     from .constraints.device_eval import evaluate_transition_device
 
-    i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace)
-    clock.part(3, "boundary columns")
-    t_evals, bad = evaluate_transition_device(evaluator, trace)
+    mesh = trace.rows_mesh()
+    if mesh is not None:
+        # each slot's rows of D_ev (parallel/mesh_stages.py)
+        from ..parallel import mesh_stages
+
+        i_evals, f_evals = mesh_stages.boundaries_sharded(evaluator, trace, mesh)
+        clock.part(3, "boundary columns")
+        t_evals, bad = mesh_stages.transition_sharded(evaluator, trace, mesh)
+    else:
+        i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace)
+        clock.part(3, "boundary columns")
+        t_evals, bad = evaluate_transition_device(evaluator, trace)
+        bad = [bad]
     if debug:
-        total = int(bad.sum())
+        total = sum(int(b.sum()) for b in bad)
         assert total == 0, f"transition constraints not satisfied at {total} trace steps"
     clock.part(3, "transition (K4 tables and launch)")
     return i_evals, f_evals, t_evals
@@ -310,15 +346,75 @@ def _evaluate_boundaries_device(evaluator, trace):
 # step 4: combine boundary/transition polynomials with their divisors
 # ------------------------------------------------------------------------------------------------
 
-def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length):
+def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length, mesh=None):
     """iNTT the three combined columns in one batch (K1), then divide each
     by its zero-polynomial and sum, in one call of kernel K11.  Returns the
-    constraint polynomial as (n_ev, 4) limbs."""
+    constraint polynomial as (n_ev, 4) limbs.  Columns split over a mesh
+    take the sharded transform (parallel/ntt_sharded.py), gathered to the
+    home slot for K11 (one chained scan); where it does not split, they
+    are gathered first."""
     from ..ops import syndiv_kernels, tiles
+    from ..parallel.mesh import Sharded
 
-    ev_root = field.get_root_of_unity(evaluator.domain_size)
-    polys3 = tiles.intt_batched(torch.stack([i_evals, f_evals, t_evals]), ev_root)
+    n_ev = evaluator.domain_size
+    ev_root = field.get_root_of_unity(n_ev)
+    columns = (i_evals, f_evals, t_evals)
+    ntt_mesh = _mesh_for_transform(n_ev, mesh)
+    if ntt_mesh is not None:
+        from ..parallel import mesh_stages, ntt_sharded as ns
+
+        split = [mesh_stages.rows_of(c, ntt_mesh) for c in columns]
+        stacked = []
+        with ntt_mesh.stage():
+            for slot, parts in zip(ntt_mesh.slots, zip(*(c.parts for c in split))):
+                with slot.run():
+                    stacked.append(torch.stack(parts))
+        transformed = ns.transform(Sharded(ntt_mesh, stacked, 1, "rows"), ntt_mesh,
+                                   pow(ev_root, n_ev - 1, M), n_ev, field.inv(n_ev))
+        mesh_stages._record("constraint_intt", transformed.axis, ntt_mesh)
+        polys3 = ns.gather(transformed, n_ev)
+    else:
+        columns = [c.gather() if isinstance(c, Sharded) else c for c in columns]
+        polys3 = tiles.intt_batched(torch.stack(columns), ev_root)
     return syndiv_kernels.syn_div(polys3, trace_length, evaluator.get_x_at_last_step())
+
+
+def _mesh_for_transform(n, mesh):
+    """The mesh, if a transform of n points splits over it (parallel/
+    ntt_sharded.fits); else None."""
+    from ..parallel import ntt_sharded as ns
+
+    return mesh if mesh is not None and ns.fits(n, mesh) else None
+
+
+def _extend_column_dev(values, root_int, n, mesh, rows_mesh, stage):
+    """The transform of values ((n_in, 4) coefficients on the home device,
+    zero extended) to n points: on a mesh the sharded four-step
+    (parallel/ntt_sharded.py, recorded as `stage`), laid out by rows where
+    the rows are split (rows_mesh), else gathered; K1 on the home device
+    otherwise (scattered by rows where they are split)."""
+    from ..ops import tiles
+    from ..parallel.mesh import Sharded
+
+    ntt_mesh = _mesh_for_transform(n, mesh)
+    if ntt_mesh is not None:
+        from ..parallel import mesh_stages, ntt_sharded as ns
+
+        columns = ns.transform(values[None] if values.dim() == 2 else values, ntt_mesh,
+                               root_int, n)
+        mesh_stages._record(stage, columns.axis, ntt_mesh)
+        if rows_mesh is None:
+            out = ns.gather(columns, n)
+            return out[0] if values.dim() == 2 else out
+        rows = ns.columns_to_rows(columns, n)
+        if values.dim() == 2:
+            return Sharded(ntt_mesh, [p[0] for p in rows.parts], 0, "rows")
+        return rows
+    if values.dim() == 2:
+        out = tiles.ntt(values, root_int, n=n)
+        return out if rows_mesh is None else rows_mesh.scatter(out, 0, "rows")
+    out = tiles.ntt_batched(values, root_int, n=n)
+    return out if rows_mesh is None else rows_mesh.scatter(out, 1, "rows")
 
 
 def _validate_constraint_poly_degree(constraint_poly, trace_length):
@@ -345,6 +441,11 @@ def _build_constraint_tree(constraint_lde, hash_name):
     leaves are the evaluation bytes themselves (reference prover.rs:84-86)."""
     from ..crypto.merkle_dev import commit
 
+    from ..parallel.mesh import Sharded
+
+    if isinstance(constraint_lde, Sharded):
+        return commit(Sharded(constraint_lde.mesh, [p.reshape(-1, 8) for p in constraint_lde.parts],
+                              0, "rows"), hash_name, leaves=True)
     d = constraint_lde.shape[0]
     return commit(constraint_lde.reshape(d // 2, 8), hash_name, leaves=True)
 
@@ -362,7 +463,7 @@ def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc
     A1 and A2 themselves: the weighted sums of the coefficients (K15)
     extended to the LDE domain (K1), weighted (1, 0) and (0, 1), which is
     exact.  `part` is called with the name of each part as it ends."""
-    from ..ops import deep_kernels, tiles
+    from ..ops import deep_kernels
     from ..ops.hostsync import TransferBatch
 
     device = trace.polys_dev.device
@@ -385,17 +486,28 @@ def _build_composition_evaluations(trace, constraint_poly, constraint_lde, z, cc
     w1 = ft.from_ints(np.array(cc.trace1[:r_count], dtype=object), device)
     w2 = ft.from_ints(np.array(cc.trace2[:r_count], dtype=object), device)
     root = field.get_root_of_unity(trace.domain_size())
+    mesh = trace.rows_mesh()
     lde = trace.lde_dev
     if trace.streaming:
         sums = deep_kernels.coeff_wsum(trace.polys_dev, w1, w2)
-        lde = tiles.ntt_batched(sums, root, n=trace.domain_size())       # (2, D, 4)
+        lde = _extend_column_dev(sums, root, trace.domain_size(), trace.mesh, mesh,
+                                 "composition_wsum_lde")                # (2, D, 4)
         del sums
         w1 = ft.from_ints(np.array([1, 0], dtype=object), device)
         w2 = ft.from_ints(np.array([0, 1], dtype=object), device)
         part("A1 and A2 (K15, K1)")
-    composed = deep_kernels.deep_compose(
-        lde, constraint_lde, w1, w2, root,
-        utils.get_incremental_trace_degree(trace_length),
-        (z, next_z, s1, s2, c_at_z, cc.t1_degree, cc.t2_degree, cc.constraints))
+    if mesh is not None:
+        # each slot's rows of the LDE domain (parallel/mesh_stages.py)
+        from ..parallel import mesh_stages
+
+        composed = (mesh_stages.compose_sharded_from_sums(
+            lde, constraint_lde, z, cc, s1, s2, c_at_z, mesh, trace_length) if trace.streaming
+                    else mesh_stages.compose_sharded(
+                        trace, constraint_lde, z, cc, s1, s2, c_at_z, mesh))
+    else:
+        composed = deep_kernels.deep_compose(
+            lde, constraint_lde, w1, w2, root,
+            utils.get_incremental_trace_degree(trace_length),
+            (z, next_z, s1, s2, c_at_z, cc.t1_degree, cc.t2_degree, cc.constraints))
     part("composition (K7)")
     return composed, DeepValues(trace_state1, trace_state2)

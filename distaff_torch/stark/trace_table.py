@@ -19,6 +19,15 @@ chooses: "1" streams, "0" never does (and raises MemoryError where the LDE
 does not fit), "auto" (the default) streams where extend_bytes() exceeds
 the budget: DISTAFF_HBM_BUDGET_BYTES where it is set, else the card's free
 memory (on the CPU, no budget: auto never streams).
+
+On a mesh (parallel/mesh.py) the budget is a device's, counted once for
+each distinct device of the mesh (four slots on one card do not claim four
+cards' memory).  Materialized, each slot extends its share of the
+registers (padded with zero registers to a multiple of the slots), and one
+all-to-all lays the LDE out by rows, `lde_rows`, a slot's rows of every
+register; where the rows do not split over the slots it is gathered to
+the home device instead.  Streaming, each group's transform is split over
+the slots (parallel/ntt_sharded.py) and gathered for its absorb.
 """
 
 import os
@@ -62,6 +71,8 @@ class TraceTable:
 
         self.polys_dev = None               # (R, N, 4) device limb coefficients
         self.lde_dev = None                 # (R, N*ext, 4) device limb evaluations
+        self.mesh = None                    # the mesh the trace was extended on, or None
+        self.lde_rows = None                # on a mesh: the LDE split by rows, (R, N*ext/k, 4)
         # streaming: lde_dev stays None, and the commitment writes the
         # evaluation domain's slice and the leaf digests
         self.streaming = False
@@ -80,14 +91,31 @@ class TraceTable:
         return self._register_count
 
     def is_extended(self):
-        return self.lde_dev is not None or (self.streaming and self.polys_dev is not None)
+        return self.lde_dev is not None or self.lde_rows is not None or (
+            self.streaming and self.polys_dev is not None)
+
+    def rows_mesh(self):
+        """The mesh whose slots take the rows of D_ev and of the LDE domain
+        (stages 3 to 9), or None: the trace's mesh where its rows split
+        (parallel/mesh_stages.transition_fits)."""
+        from ..parallel import mesh_stages
+
+        n_ev = self.trace_length * MAX_CONSTRAINT_DEGREE
+        mesh = self.mesh
+        if mesh is None or mesh.size & (mesh.size - 1) or \
+                not mesh_stages.transition_fits(n_ev, mesh):
+            return None
+        return mesh
 
     def ev_slice(self):
         """The trace over the evaluation domain D_ev, every (ext / 8)-th
         point of the LDE: a strided view of the LDE, or the slice that the
-        streaming commitment wrote."""
+        streaming commitment wrote (on a mesh, gathered)."""
         if self.streaming:
             return self.lde_stride_dev
+        if self.lde_rows is not None:
+            from ..parallel import mesh_stages
+            return mesh_stages.ev_rows(self, self.mesh).gather()
         return self.lde_dev[:, ::self.extension_factor // MAX_CONSTRAINT_DEGREE]
 
     # states --------------------------------------------------------------------------------------
@@ -121,20 +149,23 @@ class TraceTable:
             return torch.cuda.mem_get_info(device)[0]
         return None
 
-    def extend(self, device, part=None):
+    def extend(self, device, part=None, mesh=None):
         """Interpolate every register and evaluate it over the extended
-        domain, on `device`, or when streaming only interpolate (the
-        commitment extends the registers a group at a time).  `part`, if
-        given, is called with the name of each part as it ends (the
-        prover's step-1 part log)."""
+        domain, on `device` (on a mesh, its home device), or when streaming
+        only interpolate (the commitment extends the registers a group at
+        a time).  `part`, if given, is called with the name of each part as
+        it ends (the prover's step-1 part log)."""
         if self.is_extended():
             raise RuntimeError("trace table has already been extended")
-        device = torch.device(device)
+        device = torch.device(device) if mesh is None else mesh.home
+        self.mesh = mesh
         n = self.trace_length
         domain = self.domain_size()
         r_count = self._register_count
         lde_bytes = self.extend_bytes()
         budget = self._budget(device)
+        if budget is not None and mesh is not None:
+            budget *= len(mesh.devices())
         over = budget is not None and lde_bytes > budget
         mode = os.environ.get("DISTAFF_STREAM_LDE", "auto")
         self.streaming = mode == "1" or (mode == "auto" and over)
@@ -156,7 +187,28 @@ class TraceTable:
             if part:
                 part("interpolation")
             return
+        if mesh is not None:
+            self._extend_mesh(regs, n, domain, part)
+            return
         self.polys_dev, self.lde_dev = self._extend_tiled(regs, n, domain, part)
+
+    def _extend_mesh(self, regs, n, domain, part=None):
+        """The register-split LDE (K1 on each slot's registers), the
+        polynomials gathered to the home device, and the LDE laid out by
+        rows (one all-to-all) or, where the rows do not split, gathered."""
+        from ..parallel import mesh as pm
+
+        r_count = self._register_count
+        polys, lde = pm.extend_registers(regs, n, domain, self.mesh)
+        self.polys_dev = polys.gather(r_count)
+        if part:
+            part("LDE (registers on the slots)")
+        if self.rows_mesh() is not None:
+            self.lde_rows = pm.registers_to_rows(lde, r_count)
+        else:
+            self.lde_dev = lde.gather(r_count)
+        if part:
+            part("all-to-all to rows")
 
     def _extend_tiled(self, regs, n, domain, part=None):
         """iNTT of all registers at once (two K1 passes, 1/n on the first
@@ -189,9 +241,23 @@ class TraceTable:
         self.lde_stride_dev = torch.empty((r_count, domain >> shift, 4), dtype=torch.uint32,
                                           device=self.polys_dev.device)
         self._leaf_digests = b3.absorb_rows(
-            lambda lo: tiles.ntt_batched(self.polys_dev[lo:lo + b3.BLOCK_REGISTERS], root,
-                                         n=domain),
+            lambda lo: self._extend_group(self.polys_dev[lo:lo + b3.BLOCK_REGISTERS], root),
             r_count, self.lde_stride_dev, shift)
+
+    def _extend_group(self, polys, root):
+        """A group's LDE for the streaming commitment: K1 on the home device,
+        or on a mesh the transform split over the slots (four-step, parallel/
+        ntt_sharded.py) and gathered for the absorb."""
+        from ..ops import tiles
+        from ..parallel import mesh_stages, ntt_sharded as ns
+
+        domain = self.domain_size()
+        mesh = self.mesh
+        if mesh is not None and ns.fits(domain, mesh):
+            columns = ns.transform(polys, mesh, root, domain)
+            mesh_stages._record("stream_ntt", columns.axis, mesh)
+            return ns.gather(columns, domain)
+        return tiles.ntt_batched(polys, root, n=domain)
 
     def build_merkle_tree(self, hash_name):
         """The trace commitment: a leaf for each point of the LDE, the
@@ -200,13 +266,21 @@ class TraceTable:
         leaves are the digests of the streaming pass (blake3 only, as in
         the JAX package)."""
         from ..crypto.merkle_dev import commit
+        from ..parallel.mesh import Sharded
+
+        mesh = self.rows_mesh()
         if self.streaming:
             if hash_name != "blake3":
                 raise AssertionError("streaming commitment is blake3-only; set "
                                      "DISTAFF_STREAM_LDE=0 for other hash functions")
             if self._leaf_digests is None:
                 self._stream_commit()
-            return commit(self._leaf_digests, hash_name, leaves=True)
+            leaves = self._leaf_digests
+            return commit(leaves if mesh is None else mesh.scatter(leaves, 0, "rows"),
+                          hash_name, leaves=True)
+        if self.lde_rows is not None:
+            return commit(Sharded(self.mesh, [p.permute(1, 0, 2) for p in self.lde_rows.parts],
+                                  0, "rows"), hash_name)
         return commit(self.lde_dev.permute(1, 0, 2), hash_name)
 
     def get_register_values_at_async(self, positions, batch):
@@ -218,6 +292,9 @@ class TraceTable:
             from ..ops.deep_kernels import poly_eval
             root = field.get_root_of_unity(self.domain_size())
             rows = poly_eval(self.polys_dev, [field.exp(root, int(p)) for p in positions])
+        elif self.lde_rows is not None:
+            from ..parallel.mesh_stages import take
+            rows = take(self.lde_rows, positions).transpose(0, 1)
         else:
             from ..ops.gather import gather_rows_dev
             rows = gather_rows_dev(self.lde_dev, positions, axis=1).transpose(0, 1)

@@ -515,7 +515,8 @@ def probe_k4():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                        *[ctypes.c_void_p] * 3, ctypes.c_int, *[ctypes.c_void_p] * 2,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, *[ctypes.c_void_p] * 2,
-                       ctypes.c_int, *[ctypes.c_void_p] * 3]
+                       ctypes.c_int, *[ctypes.c_void_p] * 2, ctypes.c_longlong,
+                       ctypes.c_longlong, *[ctypes.c_void_p] * 2]
         fn.restype = ctypes.c_int
 
         def run(x):
@@ -523,8 +524,8 @@ def probe_k4():
             bad = torch.zeros((1,), dtype=torch.int32, device="cuda")
             cuda_lib.check(fn(p(x), n, x.stride(0) // 4, x.stride(1) // 4, p(t.dec_ark),
                               p(t.masks), p(t.stk_ark), t.dec_ark.shape[1], p(t.mds), p(t.cc),
-                              *air_kernels.series_args(t), p(out), p(bad),
-                              cuda_lib.stream(x)), name)
+                              *air_kernels.series_args(t), p(out), p(bad), 0, n,
+                              ctypes.c_void_p(None), cuda_lib.stream(x)), name)
             return out
 
         print(f"K4 {name}: {'; '.join(spills)}", flush=True)
@@ -742,7 +743,7 @@ def probe_k7():
                 out = torch.empty((n, 4), dtype=torch.uint32, device="cuda")
                 cuda_lib.check(fn(p(lde), stride, regs, n, p(c_lde), p(w1), p(w2),
                                   *[nul if t is None else p(t) for t in tables], dk.LOG_LO,
-                                  (ctypes.c_uint32 * 32)(*words), p(out),
+                                  (ctypes.c_uint32 * 32)(*words), p(out), 0,
                                   cuda_lib.stream(out)), name)
                 return out
 
@@ -845,7 +846,7 @@ def probe_k10():
                 cuda_lib.check(fn(p(x), x.stride(0) // 4, x.stride(1) // 4, regs, n,
                                   (ctypes.c_uint32 * len(weights))(*weights), p(lo),
                                   ctypes.c_void_p(None) if hi is None else p(hi), tiles._LOG_LO,
-                                  (ctypes.c_uint32 * 16)(*words), p(out),
+                                  (ctypes.c_uint32 * 16)(*words), p(out), 0,
                                   cuda_lib.stream(out)), name)
                 return out
 
@@ -942,7 +943,7 @@ def probe_k9():
             leaves = torch.empty((q // 4, 8), dtype=torch.uint32, device="cuda")
             cuda_lib.check(fn(p(column), q, rows, p(lo), nul if hi is None else p(hi),
                               tiles._LOG_LO, stride, words, p(out), p(leaves) if digests else nul,
-                              cuda_lib.stream(out)), "fri_fold")
+                              0, 0, cuda_lib.stream(out)), "fri_fold")
             return (out, leaves) if digests else out
 
         return run

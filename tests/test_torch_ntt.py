@@ -299,8 +299,8 @@ def test_kernel_body_matches_plain_pass(monkeypatch, kernel_body, leaf, log_n):
     # 2^14 is two passes of 128 and 2^11 one pass of 2048 (two columns a tile)
     real = fk.ntt_pass_plain
 
-    def both(src, dst, tw, batch, cols, ss, ds, n_in, lo=None, hi=None):
-        want = real(src, dst.clone(), tw, batch, cols, ss, ds, n_in, lo, hi)
+    def both(src, dst, tw, batch, cols, ss, ds, n_in, lo=None, hi=None, first=0):
+        want = real(src, dst.clone(), tw, batch, cols, ss, ds, n_in, lo, hi, first=first)
         p = lambda t: None if t is None else t.data_ptr()
         m = 2 * tw.shape[0]
         kernel_body.ntt_pass_host(p(src), p(dst), p(tw), p(lo), p(hi), batch,
