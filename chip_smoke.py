@@ -3,8 +3,9 @@ each against its plain PyTorch version at the main path's shapes, proves
 and verifies the bench's Fibonacci program on the card, runs the kernel
 bench, proves the six examples and the CLI on the card, proves the
 bench's larger rungs, proves with the streaming LDE up to 2^22 steps,
-whose extended trace does not fit the card, and proves over a mesh of
-slots of the card (distaff_torch/parallel/).
+whose extended trace does not fit the card, proves over a mesh of slots
+of the card (distaff_torch/parallel/), and proves the Python VM's traces
+(distaff_torch/processor/) and holds the tensor-core leaf NTT (K16).
 
 Usage (from the root of the repository, on a machine with the card):
 
@@ -27,16 +28,17 @@ that two versions compare on one card in one call.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
-                K4's (K1-K3, K5-K15) in its own call and links them, and K4
+                K4's (K1-K3, K5-K16) in its own call and links them, and K4
                 once for each depth triple of AIR_TRIPLES (its library is
                 built per geometry); g++ builds native/*.cpp and K4's host
                 row evaluator (all into distaff_torch/_build/); prints each
                 build's seconds, ptxas' register and spill lines for K1, for
-                K4 at each triple and for K6-K15, the counts of IADD3,
+                K4 at each triple and for K6-K16, the counts of IADD3,
                 IMAD, LOP3, SHF, PRMT and IMMA in the SASS of K3, K9, K13
                 and K14 (their compression's split over the two integer
-                pipes) and of K7, K10 and K15 (whose IMMA tensor-core
-                instructions must not be 0), IMAD's forms (IMAD.WIDE,
+                pipes) and of K7, K10, K15 and K16 (whose IMMA tensor-core
+                instructions must not be 0; K16's two pipes' counts too),
+                IMAD's forms (IMAD.WIDE,
                 IMAD.HI, IMAD.X, IMAD.MOV) beside IADD3, LOP3, SHF, SEL and
                 ISETP in K2's exp_kernel and K6, and the card's name and
                 power limit
@@ -119,8 +121,10 @@ Phases, in order; any failure raises and exits non-zero:
                 the tables cached: K12 never
   5. bench    - the kernel bench (distaff_torch/tools/kernel_bench.py) at
                 2^14, 2^18 and 2^20, which holds ntt_stagewise (K5) equal to
-                tiles.ntt (K1) at each size; K5, K2's exp_const, K6 and
-                K1-K3 must launch
+                tiles.ntt (K1) at each size, and K16 (min(4096, n / 256)
+                leaves) equal to K1 at 256 points, with both rates in
+                Gbutterflies/s; K5, K2's exp_const, K6, K16 and K1-K3 must
+                launch
   6. examples - K4 at each example's depths and evaluation domain (at its
                 defaults) and K10 at its register count and domain (point
                 stride 4) on random registers, equal to their plain
@@ -197,6 +201,19 @@ Phases, in order; any failure raises and exits non-zero:
                 memory, launches and RECORDED_SHARDINGS printed, every
                 stage of MESH_STAGES split over all its slots and the
                 split kernels' launches those of mesh_launches
+ 10. processor - the bench's 2^16 program and the six examples through
+                the Python VM (processor.execute_u64), each trace equal to
+                the native VM's, the two step 0 times printed, proved on
+                cuda through TraceTable and stark.prove (launches counted
+                from 0: every kernel of the main path must launch) with the
+                bytes of phase 4's or phase 6's proof of the same program,
+                verified; then K16 leaf256 at LEAF_SHAPES ((4096, 256), the
+                JAX benchmark's, and (163840, 256), the 2^16 LDE's points
+                in 256-point leaves) on random leaves with rows of 0, 1 and
+                M - 1, at the 256th root and its inverse, equal to its
+                plain version and to K1 (tiles.ntt_batched), one launch a
+                call, timed beside K1 (a row each), and at a ragged
+                (4083, 256)
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -330,7 +347,7 @@ K3_ROW_LAUNCHES = 2
 # K2's operations: a proof launches none of them
 K2_OPS = ("field_ew.add", "field_ew.sub", "field_ew.mul", "field_ew.exp_const")
 BENCH_PATH = ("ntt_pass", "field_ew.mul", "field_ew.exp_const", "inv_batch", "blake3_rows",
-              "butterfly")
+              "butterfly", "leaf256")
 BENCH_SIZES = (14, 18, 20)
 # phase 2 holds K6 also at these lengths (and each all zeros), and K2's
 # exp_const also at this seeded random exponent (tests/test_torch_field.py's
@@ -366,6 +383,13 @@ MESH_PROOFS = (("2^16 on 4 slots", 16, ["cuda:0"] * 4, False),
                ("2^16 streamed on 4 slots", 16, ["cuda:0"] * 4, True))
 MESH_STAGES = ("transition", "boundaries", "composition", "fri_fold", "constraint_intt",
                "constraint_lde", "merkle_subtrees")
+# phase 10: K16 at the JAX benchmark's 4096 leaves and at the 2^16 LDE's 20 x 2^21 points
+# cut into 256-point leaves, and a ragged batch; example name -> sha256 of phase 6's proof
+LEAF_SHAPES = (4096, 20 * (1 << 21) // 256)
+LEAF_RAGGED = 4096 - 13
+K16 = "distaff_torch/csrc/leaf256.cu"
+K16_REPLACES = "distaff_tpu/ops/mxu_ntt.py:156"
+EXAMPLE_PROOFS = {}
 # the golden case with hash_fn="sha3": the JAX package's proof bytes before
 # the options (tests/test_torch_prove.py pins them and says how they were made)
 SHA3_BODY_SHA256 = "73fd09242cd8ffc781def7cd68416ea83fd41c59d63a94c570d15a03340ba74b"
@@ -2050,6 +2074,7 @@ def phase_examples(ops_rate):
             outputs, proof, prove_s, _ = timed_execute(program, inputs, ProofOptions(),
                                                        stepped=False, num_outputs=num_outputs)
         launches = dict(cuda_lib.LAUNCHES)
+        EXAMPLE_PROOFS[name] = hashlib.sha256(serde.serialize(proof)).hexdigest()
         public = inputs.get_public_inputs()
         if outputs != expected:
             raise AssertionError(f"example {name}: outputs {outputs}, expected {expected}")
@@ -3217,6 +3242,120 @@ def phase_mesh(ops_rate):
     return rows, keyed
 
 
+def prove_processor_trace(program, inputs, num_outputs, options):
+    """Step 0 through the Python VM (processor.execute_u64) and through the
+    native VM, timed, their words held equal; then the processor's trace
+    proved on cuda through TraceTable and stark.prove with the launches
+    counted from 0.  Returns (outputs, proof, Python seconds, native
+    seconds, launches)."""
+    from distaff_torch import native, processor, stark
+    from distaff_torch.ops import cuda_lib, tiles
+    from distaff_torch.stark import TraceTable
+
+    t0 = time.perf_counter()
+    words, ctx, loop = processor.execute_u64(program, inputs)
+    python_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_words, native_ctx, native_loop = native.execute_u64(program, inputs)
+    native_s = time.perf_counter() - t0
+    if (ctx, loop) != (native_ctx, native_loop) or words.shape != native_words.shape or \
+            not (words == native_words).all():
+        raise AssertionError(f"the Python VM's trace {words.shape} ({ctx}, {loop}) is not the "
+                             f"native VM's {native_words.shape} ({native_ctx}, {native_loop})")
+    tiles._TABLES.clear()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    trace = TraceTable(words, ctx, loop, options.extension_factor())
+    outputs = trace.get_last_state().user_stack[:num_outputs]
+    proof = stark.prove(trace, inputs.get_public_inputs(), outputs, options, "cuda")
+    torch.cuda.synchronize()
+    return outputs, proof, python_s, native_s, dict(cuda_lib.LAUNCHES)
+
+
+def check_leaf256(gen, ops_rate, leaves):
+    """K16 over `leaves` random leaves (rows of 0, 1 and M - 1 in front) at
+    the 256th root and its inverse, equal to its plain version and to K1
+    (tiles.ntt_batched, one pass), one launch a call; the forward transform
+    timed as phase 2 times a kernel, K1 beside it.  Returns K16's row."""
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.math import field_torch as ft
+    from distaff_torch.ops import cuda_lib, mxu_ntt, tiles
+    from distaff_torch.tools.timing import random_elements
+
+    x = random_elements(gen, (leaves, 256), "cuda")
+    for row, v in enumerate((0, 1, ft.M - 1)):
+        x[row] = ft.constant(v, "cuda")
+    root = hostfield.get_root_of_unity(256)
+    shape = f"({leaves}, 256)"
+    for r, what in ((root, "forward"), (hostfield.inv(root), "inverse")):
+        before = cuda_lib.LAUNCHES["leaf256"]
+        got, err = check_equal("leaf256", f"{shape} {what}", lambda: mxu_ntt.leaf_ntt256(x, r),
+                               lambda: mxu_ntt.leaf_ntt256_plain(x, r))
+        if cuda_lib.LAUNCHES["leaf256"] - before != 1:
+            raise AssertionError(f"leaf256 at {shape}: {cuda_lib.LAUNCHES['leaf256'] - before} "
+                                 f"launches for one call")
+        if not torch.equal(got, tiles.ntt_batched(x, r)):
+            raise AssertionError(f"leaf256 at {shape} {what}: K16 and K1 differ")
+    bound_bytes, tensor_ops, reductions = mxu_ntt.leaf256_work(leaves)
+    row = check_kernel("leaf256", f"{shape} forward", lambda: mxu_ntt.leaf_ntt256(x, root),
+                       lambda: mxu_ntt.leaf_ntt256_plain(x, root), 20, 1,
+                       bound_bytes + mxu_ntt.kernel_entries(root, "cuda").numel() * 4,
+                       reductions * REDUCE_OPS, ops_rate, K16, K16_REPLACES, tensor_ops)
+    row["k1_ms"] = time_ms(lambda: tiles.ntt_batched(x, root), 20, KERNEL_TRIALS, queued=True)
+    rate = leaves * 128 * 8 / row["ms"] / 1e6
+    print(f"leaf256 at {shape}: K16 equal to plain and to K1 (forward and inverse), one launch a "
+          f"call; K16 {row['ms']:.4f} ms ({rate:.1f} Gbutterflies/s), K1 {row['k1_ms']:.4f} ms "
+          f"({leaves * 128 * 8 / row['k1_ms'] / 1e6:.1f})", flush=True)
+    return row
+
+
+def phase_processor(ops_rate):
+    """The Python VM's traces of the 2^16 bench program and the six examples
+    equal to the native VM's, each proved on cuda through TraceTable and
+    stark.prove with the bytes of phase 4's or phase 6's proof of the same
+    program, verified, every kernel of the main path launched; then K16
+    against its plain version and K1 at LEAF_SHAPES (a row each) and a
+    ragged batch.  Returns the rows and an empty Counter."""
+    import distaff_torch
+    from distaff_torch import assembly, examples, ProgramInputs, ProofOptions
+    from distaff_torch.math import field as hostfield
+    from distaff_torch.ops import mxu_ntt
+    from distaff_torch.stark import serde
+    from distaff_torch.tools.timing import random_elements
+
+    cases = [(f"2^{MAIN_LOG2_TRACE}", fibonacci_program(assembly, MAIN_LOG2_TRACE),
+              ProgramInputs.from_public([1, 0]), 1, MATERIALIZED[MAIN_LOG2_TRACE][0])]
+    for name, example in examples.EXAMPLES.items():
+        program, inputs, num_outputs, _ = example()
+        cases.append((f"example {name}", program, inputs, num_outputs, EXAMPLE_PROOFS[name]))
+    for tag, program, inputs, num_outputs, digest in cases:
+        outputs, proof, python_s, native_s, launches = prove_processor_trace(
+            program, inputs, num_outputs, ProofOptions())
+        got = hashlib.sha256(serde.serialize(proof)).hexdigest()
+        if got != digest:
+            raise AssertionError(f"processor path, {tag}: proof sha256 {got}, the native "
+                                 f"path's {digest}")
+        if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+            raise AssertionError(f"processor path, {tag}: the proof does not verify")
+        idle = [k for k in MAIN_PATH if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"processor path, {tag}: kernels not launched {idle}")
+        print(f"processor path, {tag}: trace length {proof.trace_length()}, step 0 in the Python "
+              f"VM {python_s:.3f} s against the native VM's {native_s:.3f} s, traces equal; "
+              f"proved on cuda with the native path's bytes (sha256 {got[:16]}...), verified; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    rows = [check_leaf256(gen, ops_rate, leaves) for leaves in LEAF_SHAPES]
+    x = random_elements(gen, (LEAF_RAGGED, 256), "cuda")
+    root = hostfield.get_root_of_unity(256)
+    check_equal("leaf256", f"({LEAF_RAGGED}, 256)", lambda: mxu_ntt.leaf_ntt256(x, root),
+                lambda: mxu_ntt.leaf_ntt256_plain(x, root))
+    print(f"leaf256 at ({LEAF_RAGGED}, 256), a ragged last tile: equal to plain", flush=True)
+    return rows, Counter()
+
+
 def phase_bench():
     """The kernel bench at BENCH_SIZES; it raises if ntt_stagewise and
     tiles.ntt differ at any size.  Returns the launches of its run."""
@@ -3282,7 +3421,7 @@ def main():
         fn(*args)
         return time.perf_counter() - t0
 
-    builds = {"kernels K1-K3, K5-K15": (cuda_lib.lib,), "native runtime": (native.lib,),
+    builds = {"kernels K1-K3, K5-K16": (cuda_lib.lib,), "native runtime": (native.lib,),
               "K4 host evaluator": (air_kernels.host_lib,)}
     builds.update({f"K4 at {d}": (air_kernels.air_lib, d) for d in AIR_TRIPLES})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -3297,23 +3436,27 @@ def main():
     for name, stem in (("K6", "inv_batch"), ("K7", "deep_compose"), ("K8", "poly_eval"),
                        ("K9", "fri_fold"), ("K10", "boundary_columns"), ("K11", "syn_div"),
                        ("K12", "power_series"), ("K13", "merkle_tree"), ("K14", "trace_absorb"),
-                       ("K15", "coeff_wsum")):
+                       ("K15", "coeff_wsum"), ("K16", "leaf256")):
         for line in cuda_lib.ptxas_report(stem):
             print(f"{name} {line.strip()}", flush=True)
     # the integer opcode mix of the kernels on blake3.cuh's compression (K3,
     # K9, K13, K14: IMAD on the FMA pipe, the rest on the integer-only pipe)
-    # and of those on the int8 tensor cores (K7, K10, K15: IMMA)
+    # and of those on the int8 tensor cores (K7, K10, K15, K16: IMMA; K16's
+    # two integer pipes too: its fragments' byte_perms and its reductions)
     for name, stem in (("K3", "blake3_rows"), ("K9", "fri_fold"), ("K13", "merkle_tree"),
                        ("K14", "trace_absorb"), ("K7", "deep_compose"),
-                       ("K10", "boundary_columns"), ("K15", "coeff_wsum")):
+                       ("K10", "boundary_columns"), ("K15", "coeff_wsum"), ("K16", "leaf256")):
         sass = cuda_lib.sass(stem)
         if sass is None:
             print(f"{name} SASS: no cuobjdump found, opcodes not counted", flush=True)
             continue
         counts = cuda_lib.opcode_counts(sass)
-        print(f"{name} SASS opcodes: " + ", ".join(f"{op} {k}" for op, k in counts.items()),
-              flush=True)
-        if stem in ("deep_compose", "boundary_columns", "coeff_wsum") and counts["IMMA"] == 0:
+        pipes = "; FMA pipe {}, integer-only pipe {}".format(*cuda_lib.pipe_counts(sass)) \
+            if stem == "leaf256" else ""
+        print(f"{name} SASS opcodes: " + ", ".join(f"{op} {k}" for op, k in counts.items())
+              + pipes, flush=True)
+        if stem in ("deep_compose", "boundary_columns", "coeff_wsum", "leaf256") and \
+                counts["IMMA"] == 0:
             raise AssertionError(f"{stem}: no IMMA instruction in its SASS")
     # the multiply's kernels off the proof: IMAD's forms against the
     # integer-only pipe's adds and logic (tools/air_probe.py k2exp splits
@@ -3339,7 +3482,7 @@ def main():
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
-    for phase in (phase_examples, phase_ladder, phase_stream, phase_mesh):
+    for phase in (phase_examples, phase_ladder, phase_stream, phase_mesh, phase_processor):
         phase_rows, phase_keyed = phase(ops_rate)
         rows += phase_rows
         keyed += phase_keyed

@@ -6,8 +6,10 @@ JAX package's host AIR sweep, is not built: the port evaluates the
 transition constraints on the device, kernel K4.)  The library is compiled at first use with g++ and the
 flags of native/Makefile into the port's build directory (see
 distaff_torch/build.py); the committed binary under native/ is never
-loaded, and nothing is written there.  A failed build or load raises: the
-port has no pure-Python VM to fall back to.
+loaded, and nothing is written there.  A failed build or load raises,
+although the port has a pure-Python VM (distaff_torch/processor/): no
+silent fallback, since a broken build would hide behind a step 0 over
+ten times slower.
 """
 
 import ctypes

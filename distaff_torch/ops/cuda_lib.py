@@ -47,6 +47,7 @@ LAUNCHES = {
     "merkle_tree": 0,
     "trace_absorb": 0,
     "coeff_wsum": 0,
+    "leaf256": 0,
 }
 
 _lib = None
@@ -220,6 +221,7 @@ def lib():
             vp, ll, i32, ll, vp, vp, vp, ll, i32, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_ulonglong, vp]
         handle.distaff_coeff_wsum.argtypes = [vp, ll, i32, ll, vp, vp, vp, vp]
+        handle.distaff_leaf256.argtypes = [vp, vp, vp, ll, vp]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
@@ -227,7 +229,7 @@ def lib():
                    handle.distaff_fri_fold, handle.distaff_boundary_columns,
                    handle.distaff_syn_div, handle.distaff_power_series,
                    handle.distaff_merkle_tree, handle.distaff_trace_absorb,
-                   handle.distaff_coeff_wsum):
+                   handle.distaff_coeff_wsum, handle.distaff_leaf256):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

@@ -6,7 +6,8 @@ Usage (from the root of the repository):
     python -m distaff_torch.tools.kernel_bench [--device cpu] [log2_n ...]
 
 (default sizes 14 18 20, on cuda).  At each size n it prints one line per
-operation, with its time and the time per butterfly, element or row:
+operation, with its time and the time per butterfly, element or row
+(and the rate in Gbutterflies/s for the transforms):
 
   tiles.ntt        the NTT of n points: one K1 pass up to 2048 points,
                    two above (the four-step, twiddles on the first store)
@@ -24,6 +25,12 @@ operation, with its time and the time per butterfly, element or row:
   blake3           K3 over n/4 rows of 64 bytes
   air_transition   K4 over a random (20, n, 4) domain (the bench program's
                    20 registers)
+  leaf256          min(4096, n / 256) leaves (at least one) of 256 random
+                   points through K16, the 256-point NTT as byte-limb
+                   products on the int8 tensor cores (ops/mxu_ntt.py; the
+                   JAX benchmarks.py's device_mxu_leaf256_Gbutterflies_per_s:
+                   4096 leaves of a 2^20-point input); its result must equal
+  leaf256 via K1   tiles.ntt_batched's, one K1 pass at the same shape
 
 On cuda the times come from CUDA events around calls queued behind a
 spin kernel (median of 3 trials), checked to have been queued in full
@@ -77,7 +84,7 @@ def bench(log2_sizes, device="cuda"):
     """Run the bench; returns one dict per line printed."""
     from ..math import field as hostfield
     from ..math import field_torch as ft
-    from ..ops import blake3_torch, field_kernels, tiles
+    from ..ops import blake3_torch, field_kernels, mxu_ntt, tiles
     from ..stark.constraints import device_eval
     from .timing import random_elements
 
@@ -91,6 +98,8 @@ def bench(log2_sizes, device="cuda"):
 
     def line(log_n, op, ms, count=None, unit=None):
         per = f"{ms / count * 1e6:9.3f} ns/{unit}" if count else ""
+        if unit == "butterfly":
+            per += f"  {count / ms / 1e6:9.3f} Gbf/s"
         print(f"2^{log_n:<3} {op:<16} {ms:10.4f} ms  {per}", flush=True)
         rows.append({"log2_n": log_n, "op": op, "ms": ms,
                      "ns_per": ms / count * 1e6 if count else None, "per": unit})
@@ -121,6 +130,16 @@ def bench(log2_sizes, device="cuda"):
         line(log_n, "air_transition", timer(lambda: device_eval.transition(lde, tables)),
              n, "row")
         del lde, tables
+        leaves = random_elements(gen, (min(4096, max(1, n // 256)), 256), device)
+        root256 = hostfield.get_root_of_unity(256)
+        if not torch.equal(mxu_ntt.leaf_ntt256(leaves, root256),
+                           tiles.ntt_batched(leaves, root256)):
+            raise AssertionError(f"2^{log_n}: leaf256 and tiles.ntt_batched differ")
+        butterflies = leaves.shape[0] * 128 * 8
+        line(log_n, "leaf256", timer(lambda: mxu_ntt.leaf_ntt256(leaves, root256)),
+             butterflies, "butterfly")
+        line(log_n, "leaf256 via K1", timer(lambda: tiles.ntt_batched(leaves, root256)),
+             butterflies, "butterfly")
     return rows
 
 

@@ -170,7 +170,7 @@ def test_kernel_bench_runs_on_cpu(capsys):
     rows = kernel_bench.bench([7], device="cpu")
     assert [r["op"] for r in rows] == [
         "tiles.ntt", "ntt_stagewise", "mul", "power_series", "inv_batch", "exp_const",
-        "blake3 32x64B", "air_transition"]
+        "blake3 32x64B", "air_transition", "leaf256", "leaf256 via K1"]
     assert all(r["ms"] > 0 for r in rows)
     assert "2^7   air_transition" in capsys.readouterr().out
 
