@@ -37,7 +37,13 @@ Phases, in order; any failure raises and exits non-zero:
                 IMAD, LOP3, SHF, PRMT and IMMA in the SASS of K3, K9, K13
                 and K14 (their compression's split over the two integer
                 pipes) and of K7, K10, K15 and K16 (whose IMMA tensor-core
-                instructions must not be 0; K16's two pipes' counts too),
+                instructions must not be 0; K16's two pipes' counts too,
+                then its resident warps (at least 16 an SM), no spills, its
+                IMMA a leaf (fewer than the dense product's 1,024, covering
+                no more K bytes than the 544 live k-steps; printed beside
+                those 544 as one m16n8k32 each, over or within), its PRMT
+                and two pipes' instructions a leaf with each pipe's floor
+                and the IMMA's at (163840, 256): k16_report),
                 IMAD's forms (IMAD.WIDE,
                 IMAD.HI, IMAD.X, IMAD.MOV) beside IADD3, LOP3, SHF, SEL and
                 ISETP in K2's exp_kernel and K6, and the card's name and
@@ -227,6 +233,7 @@ import gc
 import hashlib
 import json
 import logging
+import re
 import subprocess
 import sys
 import time
@@ -389,6 +396,19 @@ LEAF_SHAPES = (4096, 20 * (1 << 21) // 256)
 LEAF_RAGGED = 4096 - 13
 K16 = "distaff_torch/csrc/leaf256.cu"
 K16_REPLACES = "distaff_tpu/ops/mxu_ntt.py:156"
+# K16's SASS holds one inlined copy of its tile body a stage, and each runs
+# twice a leaf (stage A: two n8 tiles of vectors a leaf; stage B: sixteen
+# k2 over eight leaves); its design wants at least this many warps an SM
+# and no byte products beyond the live k-steps
+K16_RUNS_PER_LEAF = 2
+K16_MIN_WARPS = 16
+K16_LIVE_MMA = 544                  # a leaf: the live (digit, k-step) pairs, an m16n8k32 each
+K16_DENSE_MMA = 1024                # a leaf: every k-step of BIGMAT's 496 rows
+IMMA_K = {"16832": 32, "16816": 16}  # the K bytes of an m16n8k32 and of an m16n8k16
+# int8 mma.sync rates, ops/s, at 8 chains a warp and 16 warps an SM on an
+# NVIDIA H100 80GB HBM3 at 700 W (tools/air_probe.py k16): an m16n8k16
+# takes 0.68 of an m16n8k32's time for half its work
+MMA_SYNC_OPS_PER_S = {"16832": 1270.6e12, "16816": 927.8e12}
 EXAMPLE_PROOFS = {}
 # the golden case with hash_fn="sha3": the JAX package's proof bytes before
 # the options (tests/test_torch_prove.py pins them and says how they were made)
@@ -3309,6 +3329,56 @@ def check_leaf256(gen, ops_rate, leaves):
     return row
 
 
+def k16_report(ops_rate):
+    """K16's design on the card: no spills in ptxas' report, at least
+    K16_MIN_WARPS resident an SM, fewer IMMA a leaf than the dense
+    product's K16_DENSE_MMA and no more K bytes than the K16_LIVE_MMA live
+    k-steps (no zero k-step issued); prints its IMMA a leaf against
+    K16_LIVE_MMA, its opcode mix and its floors at (163840, 256): each
+    integer pipe's instructions at 64 lanes a clock an SM (half of
+    `ops_rate`'s 128 issue lanes), the IMMA at the mma.sync rates
+    (MMA_SYNC_OPS_PER_S) and their operations at the dense int8 rate."""
+    from distaff_torch.ops import cuda_lib, mxu_ntt
+
+    for line in cuda_lib.ptxas_report("leaf256"):
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and spill.groups() != ("0", "0"):
+            raise AssertionError(f"leaf256 spills: {line.strip()}")
+    warps = mxu_ntt.resident_warps()
+    if warps < K16_MIN_WARPS:
+        raise AssertionError(f"leaf256: {warps} warps resident an SM, fewer than {K16_MIN_WARPS}")
+    sass = cuda_lib.sass("leaf256")
+    if sass is None:
+        print(f"K16: {warps} warps resident an SM; SASS not counted (no cuobjdump)", flush=True)
+        return
+    mix = cuda_lib.opcode_mix(sass)
+    counts = cuda_lib.opcode_counts(sass)
+    fma, alu = cuda_lib.pipe_counts(sass)
+    imma = {shape: sum(k for op, k in mix.items() if op.startswith("IMMA." + shape))
+            * K16_RUNS_PER_LEAF for shape in IMMA_K}
+    total = sum(imma.values())
+    k_bytes = sum(imma[shape] * IMMA_K[shape] for shape in IMMA_K)
+    if total != counts["IMMA"] * K16_RUNS_PER_LEAF:
+        raise AssertionError(f"leaf256: IMMA of other shapes than {list(IMMA_K)}: {mix}")
+    if not 0 < total < K16_DENSE_MMA or k_bytes > K16_LIVE_MMA * 32:
+        raise AssertionError(f"leaf256: {imma['16832']} m16n8k32 and {imma['16816']} m16n8k16 "
+                             f"a leaf ({k_bytes} K bytes, the live k-steps' "
+                             f"{K16_LIVE_MMA * 32})")
+    leaves = LEAF_SHAPES[1]
+    pipe_ms = [count * K16_RUNS_PER_LEAF * leaves * 64 / ops_rate * 1e3 for count in (fma, alu)]
+    ops = {shape: imma[shape] * 2 * 16 * 8 * IMMA_K[shape] for shape in IMMA_K}
+    mma_ms = sum(ops[shape] / MMA_SYNC_OPS_PER_S[shape] for shape in IMMA_K) * leaves * 1e3
+    dense_ms = sum(ops.values()) * leaves / INT8_OPS_PER_S * 1e3
+    print(f"K16: {warps} warps resident an SM; a leaf {total} IMMA ({imma['16832']} m16n8k32, "
+          f"{imma['16816']} m16n8k16), {'over' if total > K16_LIVE_MMA else 'within'} the "
+          f"{K16_LIVE_MMA} live k-steps as one m16n8k32 each; {k_bytes} K bytes of their "
+          f"{K16_LIVE_MMA * 32}; {counts['PRMT'] * K16_RUNS_PER_LEAF} PRMT, FMA pipe "
+          f"{fma * K16_RUNS_PER_LEAF}, integer-only pipe {alu * K16_RUNS_PER_LEAF}; floors at "
+          f"({leaves}, 256): FMA pipe {pipe_ms[0]:.4f} ms, integer-only pipe {pipe_ms[1]:.4f} "
+          f"ms, IMMA at the mma.sync rates {mma_ms:.4f} ms (their operations at the dense int8 "
+          f"rate {dense_ms:.4f} ms)", flush=True)
+
+
 def phase_processor(ops_rate):
     """The Python VM's traces of the 2^16 bench program and the six examples
     equal to the native VM's, each proved on cuda through TraceTable and
@@ -3472,12 +3542,13 @@ def main():
         fma, alu = cuda_lib.pipe_counts(sass)
         print(f"{name} SASS opcodes: " + ", ".join(f"{op} {k}" for op, k in counts.items())
               + f"; FMA pipe {fma}, integer-only pipe {alu}", flush=True)
+    ops_rate = int32_ops_per_s()
+    k16_report(ops_rate)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     for line in cuda_lib.ptxas_report("ntt_pass"):
         print(f"K1 {line.strip()}", flush=True)
-    ops_rate = int32_ops_per_s()
     rows = phase_kernels(ops_rate)
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])

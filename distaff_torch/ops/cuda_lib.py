@@ -18,6 +18,7 @@ wrapper adds one where it launches its kernel and nowhere else.
 import ctypes
 import shutil
 import subprocess
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -159,24 +160,31 @@ def function_sass(sass_text, name):
     return "\n".join(lines)
 
 
-def opcode_counts(sass_text, opcodes=PIPE_OPCODES):
-    """How many instructions of each opcode the SASS text holds, predicated
-    ones included: an opcode without a '.' counts every form of it (IMAD:
-    IMAD.WIDE, IMAD.HI ... too), one with a '.' the forms it begins (IMAD.WIDE:
-    IMAD.WIDE and IMAD.WIDE.U32)."""
-    counts = dict.fromkeys(opcodes, 0)
+def opcode_mix(sass_text):
+    """A Counter of the SASS text's instructions by full mnemonic
+    (IMAD.MOV.U32, IMMA.16832.U8.U8 ...), predicated ones included."""
+    mix = Counter()
     for line in sass_text.splitlines():
         if "*/" not in line:
             continue
         words = line.split("*/", 1)[1].split()
         if words and words[0].startswith("@"):
             words = words[1:]
-        if not words:
-            continue
-        mnemonic = words[0].rstrip(";")
+        if words:
+            mix[words[0].rstrip(";")] += 1
+    return mix
+
+
+def opcode_counts(sass_text, opcodes=PIPE_OPCODES):
+    """How many instructions of each opcode the SASS text holds, predicated
+    ones included: an opcode without a '.' counts every form of it (IMAD:
+    IMAD.WIDE, IMAD.HI ... too), one with a '.' the forms it begins (IMAD.WIDE:
+    IMAD.WIDE and IMAD.WIDE.U32)."""
+    counts = dict.fromkeys(opcodes, 0)
+    for mnemonic, k in opcode_mix(sass_text).items():
         for op in opcodes:
             if mnemonic == op or mnemonic.startswith(op + "."):
-                counts[op] += 1
+                counts[op] += k
     return counts
 
 
@@ -222,6 +230,7 @@ def lib():
             ctypes.c_ulonglong, vp]
         handle.distaff_coeff_wsum.argtypes = [vp, ll, i32, ll, vp, vp, vp, vp]
         handle.distaff_leaf256.argtypes = [vp, vp, vp, ll, vp]
+        handle.distaff_leaf256_blocks_per_sm.argtypes = [i32p, i32p]
         for fn in (handle.distaff_ntt_pass, handle.distaff_field_binary,
                    handle.distaff_field_exp, handle.distaff_blake3_rows,
                    handle.distaff_butterfly, handle.distaff_inv_batch,
@@ -229,7 +238,8 @@ def lib():
                    handle.distaff_fri_fold, handle.distaff_boundary_columns,
                    handle.distaff_syn_div, handle.distaff_power_series,
                    handle.distaff_merkle_tree, handle.distaff_trace_absorb,
-                   handle.distaff_coeff_wsum, handle.distaff_leaf256):
+                   handle.distaff_coeff_wsum, handle.distaff_leaf256,
+                   handle.distaff_leaf256_blocks_per_sm):
             fn.restype = i32
         handle.distaff_cuda_error_string.argtypes = [i32]
         handle.distaff_cuda_error_string.restype = ctypes.c_char_p

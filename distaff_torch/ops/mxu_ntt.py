@@ -20,10 +20,15 @@ element, and 31 digits reduce mod M once.
 
 K16 `leaf256` (csrc/leaf256.cu, leaf256.cuh) replaces distaff_tpu/ops/
 mxu_ntt.py::_leaf256_impl with its _matrices and _reduce_digits: both
-stages of a tile of 32 leaves in one launch, stage A's elements kept in
-shared memory for stage B; design and bound in the header.  Like the JAX
-function it is off the prover's path (the prover's leaves are K1's): the
-kernel bench and chip_smoke.py drive it.
+stages of a tile of 8 leaves in one launch, stage A's elements kept in
+shared memory for stage B.  It reads the same products the other way
+round: the matrix's 16 byte planes side by side are one fixed A operand
+(`kernel_entries` lays them out in mma's fragment order), and digit d takes
+the window of the data's planes d, d - 1, ..., d - 15 as B, so the k-steps
+that meet no plane are skipped and each lane reduces the digits of its own
+elements; design and bound in the header.  Like the JAX function it is off
+the prover's path (the prover's leaves are K1's): the kernel bench and
+chip_smoke.py drive it.
 
 `leaf_ntt256` takes its plain version for a tensor on the CPU and launches
 K16 for a tensor on the card, or raises.  The plain version is the JAX
@@ -31,6 +36,8 @@ algorithm on int64 tensors (the byte products summed as float64 matrix
 products, exact: every sum is below 2^24), so it launches nothing on any
 device.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -46,7 +53,7 @@ LEAF = N1 * N2          # 256
 DIGITS = 31             # output digits of a 16 x 16-byte limb convolution
 _R2 = (1 << 256) % M    # 2^256 mod M, < 2^91
 _R2_HALFWORDS = tuple((_R2 >> (16 * k)) & 0xFFFF for k in range(6))
-ENTRY_WORDS = 5         # leaf256.cuh kEntryWords: an entry's four limbs and a zero word
+KSTEPS = 8              # leaf256.cuh kKSteps: 32-byte k-steps, planes 2kk and 2kk + 1
 PLAIN_CHUNK = 4096      # leaves a step of the plain version
 
 # by (root, device): the stage matrices as bytes, and K16's entries
@@ -98,17 +105,24 @@ def _matrices(root256_int, device):
     return _MATRICES[key]
 
 
+def fragments(limbs8):
+    """(m, 16, 16, 16) entry bytes [m, i, j, p] -> K16's A fragments of
+    each matrix: (m, 8, 32, 4) uint32, [m, kk, lane, r] the word of mma's
+    register a_r at k-step kk for lane (g, t) = (lane // 4, lane % 4): row
+    g + 8 (r % 2) of the planes side by side, byte e plane 2kk + r // 2 of
+    entry (row, 4t + e)."""
+    kk, g, t, r, e = np.indices((KSTEPS, 8, 4, 4, 4))
+    words = limbs8[:, g + 8 * (r & 1), 4 * t + e, 2 * kk + (r >> 1)]
+    return np.ascontiguousarray(words).view(np.uint32).reshape(limbs8.shape[0], KSTEPS, 32, 4)
+
+
 def kernel_entries(root256_int, device):
-    """K16's matrices: (17, 256, 5) uint32 on `device`, W then C[0..15],
-    entry (i, j) of each at row 16 i + j as its four limbs and a zero word
-    (leaf256.cuh builds the tensor-core fragments of BIGMAT from them)."""
+    """K16's matrices: W then C[0..15] as their A fragments, (17, 8, 32, 4)
+    uint32 on `device` (`fragments`)."""
     key = (int(root256_int) % M, str(torch.device(device)))
     if key not in _ENTRIES:
         wa, c = stage_entries(root256_int)
-        limbs = _entry_bytes([wa] + c).view(np.uint32).reshape(1 + N2, N1 * N1, 4)
-        words = np.zeros((1 + N2, N1 * N1, ENTRY_WORDS), dtype=np.uint32)
-        words[..., :4] = limbs
-        _ENTRIES[key] = torch.from_numpy(words).to(device)
+        _ENTRIES[key] = torch.from_numpy(fragments(_entry_bytes([wa] + c))).to(device)
     return _ENTRIES[key]
 
 
@@ -191,8 +205,23 @@ def leaf_ntt256(values, root256_int):
     return out
 
 
+def resident_warps():
+    """Warps of K16 resident on an SM of the current card, by its registers
+    and shared memory."""
+    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.check(cuda_lib.lib().distaff_leaf256_blocks_per_sm(ctypes.byref(blocks),
+                                                                 ctypes.byref(warps)),
+                   "leaf256 occupancy")
+    return blocks.value * warps.value
+
+
 def leaf256_work(leaves):
     """K16's least work for `leaves` leaves: (bytes moved: the leaves read
-    and written once, int8 tensor-core operations: 2 x (496 x 256 x 16)
-    multiply-adds a stage, digit reductions: two an element)."""
-    return 2 * leaves * LEAF * 16, leaves * 2 * 2 * (N2 * DIGITS) * 256 * 16, leaves * 2 * LEAF
+    and written once, int8 tensor-core operations: the fewest byte products
+    the function needs, 16 x 16 x 256 multiply-adds (two operations each)
+    an application of a stage matrix to a vector, 32 applications a leaf,
+    digit reductions: two an element).  The byte products are not BIGMAT's
+    2 x 496 x 256 x 16 a leaf: half of BIGMAT's bytes are zero (256 of its
+    496 (d, q) pairs carry a byte), and K16 skips them."""
+    return (2 * leaves * LEAF * 16, leaves * 2 * 2 * N2 * (N1 * N1 * 256),
+            leaves * 2 * LEAF)

@@ -1,12 +1,12 @@
-"""K2's exp_const, K4's, K6's-K11's, K13's and K15's design choices
+"""K2's exp_const, K4's, K6's-K11's, K13's, K15's and K16's design choices
 measured on the card, each against the kernel with that one choice undone.
 
 Usage (from the root of the repository, on a machine with the card):
 
     python -m distaff_torch.tools.air_probe [k4] [k6] [k2exp] [k7] [k8] [k9] [k10] [k11] [k13]
-        [k15] [b3] [--parent-csrc DIR]
+        [k15] [b3] [k16] [--parent-csrc DIR]
 
-(all eleven by default).
+(all twelve by default).
 
 K4 at the bench program's depths (1, 0, 4) on the 2^16 Fibonacci LDE slice
 (the (20, 2^19) stride-4 view the proof passes) and on a contiguous copy of
@@ -50,11 +50,15 @@ the 2^16 proof and at 2^23-2^25 leaves under other plans (_k13_plans:
 other bottom subtrees, other splits of the stages above) and built with
 other adds and rotates in its compression (K13_VARIANTS)
 (probe_k13); and K3, K9 and K14 built with the compression on the
-compiler's adds in place of the FMA pipe's (probe_b3).  Times
+compiler's adds in place of the FMA pipe's (probe_b3); and K16 at
+(4096, 256) and (163840, 256) with its even digits' k-steps as two
+m16n8k16, and built with its products alone and its reductions alone,
+K1 beside (probe_k16).  Times
 come from CUDA events around calls queued behind a spin kernel
 (tools/timing.time_ms); ptxas' spill line of each build is printed.  Any
-difference from the production build raises (but K10's, K11's and the
-K7_DROPS and K15_DROPS builds, which drop work by design).
+difference from the production build raises (but K10's, K11's, K16's
+split builds and the K7_DROPS and K15_DROPS builds, which drop work by
+design).
 """
 
 import argparse
@@ -1171,6 +1175,138 @@ def probe_b3():
                   f"AluAdds {times[1]:.4f}, {times[3]:.4f} ms", flush=True)
 
 
+# K16 builds: (patches, held equal to the production build)
+K16_TAKE = "            take(s[i], k, acc[0][i], acc[1][i], acc[2][i], acc[3][i]);"
+K16_FINISH = "    for (int i = 0; i < 4; ++i) y[i] = finish(s[i], reduced);"
+K16_K32 = "        mma(c, a, b0, b1);\n"
+K16_K16 = "        mma16(c, a0, a1, b0);\n"
+K16_BOUNDS = "__launch_bounds__(kThreads, kMinBlocks)"
+K16_VARIANTS = {
+    "bound of 2 blocks": ((("leaf256.cu", K16_BOUNDS, "__launch_bounds__(kThreads, 2)"),), True),
+    "W once": ((("leaf256.cu", "        load_fragments(frags, 0, lane, a);\n", ""),
+                ("leaf256.cu", "#pragma unroll 1\n    for (int r = 0; r < kATiles; ++r) {\n",
+                 "    load_fragments(frags, 0, thread_index() & 31, a);\n#pragma unroll 1\n"
+                 "    for (int r = 0; r < kATiles; ++r) {\n")), True),
+    "products-only": ((("leaf256.cu", K16_TAKE,
+                        "            s[i].pend ^= acc[0][i] ^ acc[1][i] ^ acc[2][i] ^ acc[3][i];"),
+                       ("leaf256.cu", K16_FINISH,
+                        "    for (int i = 0; i < 4; ++i) y[i] = make_uint4(s[i].pend, reduced, "
+                        "0, 0);")), False),
+    "no-products": ((("leaf256.cu", K16_K32, "        c[2] += b0 ^ a[2];\n"),
+                     ("leaf256.cu", K16_K16, "        c[0] += b0 ^ a0;\n")), False),
+}
+K16_LEAVES = (4096, 163840)
+# the int8 mma.sync rate alone: CHAINS independent accumulators a warp
+IMMA_RATE_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void imma_rate(int* out, int iters) {
+    const uint32_t a0 = threadIdx.x * 0x9E3779B9u, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7;
+    const uint32_t b0 = a0 * 11, b1 = a0 * 13;
+    int c[CHAINS][4] = {};
+    for (int it = 0; it < iters; ++it)
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k)
+#if K16
+            asm volatile("mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+                         "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+                         : "+r"(c[k][0]), "+r"(c[k][1]), "+r"(c[k][2]), "+r"(c[k][3])
+                         : "r"(a0), "r"(a1), "r"(b0));
+#else
+            asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+                         "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                         : "+r"(c[k][0]), "+r"(c[k][1]), "+r"(c[k][2]), "+r"(c[k][3])
+                         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+#endif
+    int sum = 0;
+    for (int k = 0; k < CHAINS; ++k) sum += c[k][0] + c[k][1] + c[k][2] + c[k][3];
+    out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+extern "C" int imma_rate_launch(int* out, int blocks, int threads, int iters, void* stream) {
+    imma_rate<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def _imma_rate():
+    """The card's int8 mma.sync rate, m16n8k32 and m16n8k16, at 2, 4 and 8
+    independent chains a warp and 16 or 32 warps an SM (the tensor floor of
+    a design on mma.sync, and what it needs in flight)."""
+    work = Path(tempfile.mkdtemp(prefix="air_probe-imma-"))
+    (work / "imma.cu").write_text(IMMA_RATE_SOURCE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 2048
+    out = torch.empty(4 * sms * threads, dtype=torch.int32, device="cuda")
+    for k16 in (0, 1):
+        for chains in (2, 4, 8):
+            lib = work / f"imma-{k16}-{chains}.so"
+            command = [cuda_lib.nvcc_path(), "-gencode", cuda_lib.ARCH, "-O3", "-Xcompiler",
+                       "-fPIC", "-shared", f"-DK16={k16}", f"-DCHAINS={chains}",
+                       str(work / "imma.cu"), "-o", str(lib)]
+            subprocess.run(command, check=True, capture_output=True)
+            handle = ctypes.CDLL(str(lib))
+            handle.imma_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_void_p]
+            for blocks in (2 * sms, 4 * sms):
+                run = lambda blocks=blocks: cuda_lib.check(handle.imma_rate_launch(
+                    cuda_lib.ptr(out), blocks, threads, iters, cuda_lib.stream(out)), "imma_rate")
+                ms = time_ms(run, 3, 5, queued=True)
+                ops = blocks * threads // 32 * iters * chains * 2 * 16 * 8 * (16 if k16 else 32)
+                print(f"int8 mma.sync m16n8k{16 if k16 else 32}, {chains} chains a warp, "
+                      f"{blocks * threads // 32 // sms} warps an SM: "
+                      f"{ops / ms / 1e9:.1f} TOPS ({ms:.4f} ms)", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def probe_k16(sass_dir=None):
+    """The int8 mma.sync rate (_imma_rate), then K16 at (4096, 256) and
+    (163840, 256) as built and as the builds of K16_VARIANTS (held equal):
+    a launch bound of 2 blocks (more registers, fewer warps), W's fragments
+    held across the tiles, and split into its products alone (the reductions replaced by an xor) and
+    its loads, planes and reductions alone (each mma replaced by an xor and
+    an add), K1 beside; ptxas' lines and the SASS opcode mix of each."""
+    from ..math import field as hostfield
+    from ..ops import mxu_ntt, tiles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    root = hostfield.get_root_of_unity(256)
+    cases = [random_elements(gen, (n, 256)) for n in K16_LEAVES]
+    spills = [line.strip() for line in cuda_lib.ptxas_report("leaf256")
+              if "spill" in line or "registers" in line]
+    sass = cuda_lib.sass("leaf256")
+    print(f"K16 production: {'; '.join(spills)}; SASS "
+          f"{cuda_lib.opcode_counts(sass) if sass is not None else None}", flush=True)
+    with ThreadPoolExecutor(len(K16_VARIANTS)) as pool:
+        built = dict(zip(K16_VARIANTS, pool.map(
+            lambda kv: _build(f"k16-{kv[0]}", "leaf256.cu", kv[1][0]),
+            K16_VARIANTS.items())))
+    for name, (handle, lines) in built.items():
+        print(f"K16 {name}: {'; '.join(lines)}; SASS {BUILD_OPCODES.get(f'k16-{name}')}",
+              flush=True)
+    for name, text in [("production", sass)] + [(n, BUILD_SASS.get(f"k16-{n}")) for n in built]:
+        if text is not None and sass_dir:
+            Path(sass_dir, f"k16-{name.replace(', ', '-').replace(' ', '-')}.sass").write_text(text)
+        if text is not None:
+            print(f"K16 {name} SASS, every opcode: "
+                  f"{dict(cuda_lib.opcode_mix(text).most_common(24))}", flush=True)
+    _imma_rate()
+    for x in cases:
+        run = lambda x=x: mxu_ntt.leaf_ntt256(x, root)
+        want = run()
+        times = {"production": time_ms(run, 20, 7, queued=True)}
+        for name, (handle, _) in built.items():
+            variant = _with_library(_swapped("distaff_leaf256", handle), run)
+            if K16_VARIANTS[name][1] and not torch.equal(variant(), want):
+                raise AssertionError(f"air_probe: K16 {name} differs at {tuple(x.shape)}")
+            times[name] = time_ms(variant, 20, 7, queued=True)
+        times["production again"] = time_ms(run, 20, 7, queued=True)
+        times["K1"] = time_ms(lambda x=x: tiles.ntt_batched(x, root), 20, 7, queued=True)
+        print(f"K16 at ({x.shape[0]}, 256): " + ", ".join(f"{k} {v:.4f} ms"
+                                                          for k, v in times.items()), flush=True)
+
+
 def main(argv=None):
     import sys
 
@@ -1178,10 +1314,12 @@ def main(argv=None):
     parser.add_argument("probes", nargs="*", help="the probes to run (all by default)")
     parser.add_argument("--parent-csrc", help="k6 also splits the K6 of this csrc directory "
                                               "(another checkout's, its K6_PARENT_SPLITS)")
+    parser.add_argument("--sass-dir", help="k16 writes the SASS of each of its builds there")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     probes = {"k4": probe_k4, "k6": lambda: probe_k6(args.parent_csrc), "k2exp": probe_k2exp,
               "k7": probe_k7, "k8": probe_k8, "k9": probe_k9, "k10": probe_k10,
-              "k11": probe_k11, "k13": probe_k13, "k15": probe_k15, "b3": probe_b3}
+              "k11": probe_k11, "k13": probe_k13, "k15": probe_k15, "b3": probe_b3,
+              "k16": lambda: probe_k16(args.sass_dir)}
     if not torch.cuda.is_available():
         raise RuntimeError("air_probe: no CUDA device is available")
     print(f"device: {card_line()}", flush=True)

@@ -6,7 +6,6 @@ Every JAX call here uses one operand shape, (128, 4), so that the file
 costs only a handful of XLA compiles."""
 
 import random
-import re
 import subprocess
 from pathlib import Path
 
@@ -23,6 +22,7 @@ from distaff_torch.interop import limbs_from_numpy, limbs_to_numpy
 from distaff_torch.math import field_torch as ft
 from distaff_torch.ops import field_kernels as fk
 from distaff_torch.ops import fri_torch
+from torch_ptx_host import asm_block, run_ptx
 
 M = ft.M
 EDGE = [0, 1, 2, M - 1, M - 2, 2**96, 2**96 + 12345, 2**127, 2**64 - 1, 2**64, M // 2]
@@ -392,69 +392,7 @@ def _ptx_mul_limbs(signature="mul_limbs(uint4 a, uint4 b)"):
     """The instructions of field128.cuh's mul_limbs (or of the function of
     another signature there) and its operand names, in order (%0-%3 the
     result, then a and b)."""
-    src = (Path(distaff_torch.__file__).resolve().parent / "csrc" / "field128.cuh").read_text()
-    body = src[src.index(signature):]
-    body = re.sub(r"//[^\n]*", "", body[body.index("asm("):body.index(");")])
-    template, operands = body.split(":", 1)
-    text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
-    text = text.replace("\\n", "\n").replace("\\t", " ")
-    names = re.findall(r'"=?r"\(([\w.]+)\)', operands)
-    lines = [ln.strip() for ln in text.replace("{", "").replace("}", "").split(";")]
-    return [ln for ln in lines if ln and not ln.startswith(".reg")], names
-
-
-def _run_ptx(instructions, operands):
-    """Run u32 PTX arithmetic with the carry flag; operands maps %k to values."""
-    mask = 0xFFFFFFFF
-    regs, cf = {}, None
-
-    def val(tok):
-        if tok.startswith("%"):
-            return operands[int(tok[1:])]
-        if tok[0].isdigit():
-            return int(tok.rstrip("U"), 0) & mask
-        return regs[tok]
-
-    for ins in instructions:
-        op, args = ins.split(None, 1)
-        dst, *src = [t.strip() for t in args.split(",")]
-        parts = op.split(".")
-        name, cc = parts[0], "cc" in parts
-        carry_in = name in ("addc", "madc", "subc")
-        if carry_in and cf is None:
-            raise AssertionError(f"{ins}: reads the carry flag before any instruction sets it")
-        c_in = cf if carry_in else 0
-        if name in ("mov",):
-            result = val(src[0])
-        elif name == "setp":
-            assert parts[1] == "ne"
-            result = val(src[0]) != val(src[1])
-        elif name == "selp":
-            result = val(src[0]) if regs[src[2]] else val(src[1])
-        elif name in ("mul", "mad", "madc"):
-            prod = val(src[0]) * val(src[1])
-            half = prod & mask if parts[1] == "lo" else prod >> 32
-            total = half + (val(src[2]) if name != "mul" else 0) + c_in
-            result = total & mask
-            if cc:
-                cf = total >> 32
-        elif name in ("add", "addc"):
-            total = val(src[0]) + val(src[1]) + c_in
-            result = total & mask
-            if cc:
-                cf = total >> 32
-        elif name in ("sub", "subc"):
-            total = val(src[0]) - val(src[1]) - c_in
-            result = total & mask
-            if cc:
-                cf = int(total < 0)
-        else:
-            raise AssertionError(f"instruction not modelled: {ins}")
-        if dst.startswith("%"):
-            operands[int(dst[1:])] = result
-        else:
-            regs[dst] = result
-    return operands
+    return asm_block("field128.cuh", signature)
 
 
 def test_device_multiply_ptx_matches_host_ints():
@@ -481,7 +419,7 @@ def test_device_multiply_ptx_matches_host_ints():
     assert len(cases) > len(values) ** 2 + 30
     for x, y in cases:
         limbs = [(v >> (32 * k)) & 0xFFFFFFFF for v in (x, y) for k in range(4)]
-        out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
+        out = run_ptx(instructions, [0, 0, 0, 0] + limbs)
         got = sum(out[k] << (32 * k) for k in range(4))
         assert got == x * y % M, (hex(x), hex(y))
 
@@ -514,7 +452,7 @@ def test_device_squaring_ptx_matches_host_ints():
     assert sum(map(second_fold_carries, folds)) >= 10
     for x in values + folds:
         limbs = [(x >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
-        out = _run_ptx(instructions, [0, 0, 0, 0] + limbs)
+        out = run_ptx(instructions, [0, 0, 0, 0] + limbs)
         got = sum(out[k] << (32 * k) for k in range(4))
         assert got == x * x % M, hex(x)
 

@@ -1,7 +1,9 @@
 // The card's int8 tensor-core product on the CPU, for the tests that build
 // the port's kernel headers with g++ (tests/test_torch_fri.py for K10,
-// test_torch_deep.py for K7, test_torch_stream.py for K15): ldmatrix.x4 and
-// mma.m16n8k32.row.col.s32.u8.u8.s32 as the PTX ISA gives their fragments,
+// test_torch_deep.py for K7, test_torch_stream.py for K15,
+// test_torch_mxu_ntt.py for K16): ldmatrix.x4,
+// mma.m16n8k32.row.col.s32.u8.u8.s32 and (K16's even digits)
+// mma.m16n8k16.row.col.s32.u8.u8.s32 as the PTX ISA gives their fragments,
 // a warp's product and its digits' store for the 32 lanes at once (as
 // csrc/wsum_product.cuh's product and store_digits run them), and the ring
 // of K7 and K15 (wsum::run) a block at a time.
@@ -44,6 +46,28 @@ inline void mma(int32_t (&c)[32][4], const uint32_t (&a)[32][4], uint32_t (&b)[3
             const int row = (l >> 2) + 8 * (i >> 1), col = 2 * (l & 3) + (i & 1);
             int32_t sum = 0;
             for (int k = 0; k < 32; ++k) sum += A[row][k] * B[col][k];
+            c[l][i] += sum;
+        }
+}
+
+// mma.m16n8k16.row.col.s32.u8.u8.s32: lane l = 4 g + t holds A's rows g
+// (a0) and g + 8 (a1) at bytes 4 t, B's column g at bytes 4 t (b0), C as
+// mma's
+inline void mma16(int32_t (&c)[32][4], const uint32_t (&a)[32][2], const uint32_t (&b)[32]) {
+    uint8_t A[16][16], B[8][16];
+    for (int l = 0; l < 32; ++l) {
+        const int g = l >> 2, t = l & 3;
+        for (int e = 0; e < 4; ++e) {
+            A[g][4 * t + e] = a[l][0] >> (8 * e);
+            A[g + 8][4 * t + e] = a[l][1] >> (8 * e);
+            B[g][4 * t + e] = b[l] >> (8 * e);
+        }
+    }
+    for (int l = 0; l < 32; ++l)
+        for (int i = 0; i < 4; ++i) {
+            const int row = (l >> 2) + 8 * (i >> 1), col = 2 * (l & 3) + (i & 1);
+            int32_t sum = 0;
+            for (int k = 0; k < 16; ++k) sum += A[row][k] * B[col][k];
             c[l][i] += sum;
         }
 }
