@@ -4,8 +4,9 @@ and verifies the bench's Fibonacci program on the card, runs the kernel
 bench, proves the six examples and the CLI on the card, proves the
 bench's larger rungs, proves with the streaming LDE up to 2^22 steps,
 whose extended trace does not fit the card, proves over a mesh of slots
-of the card (distaff_torch/parallel/), and proves the Python VM's traces
-(distaff_torch/processor/) and holds the tensor-core leaf NTT (K16).
+of the card (distaff_torch/parallel/), proves the Python VM's traces
+(distaff_torch/processor/) and holds the tensor-core leaf NTT (K16), and
+proves over several processes (distaff_torch/dist_setup.py).
 
 Usage (from the root of the repository, on a machine with the card):
 
@@ -15,6 +16,7 @@ Usage (from the root of the repository, on a machine with the card):
     python3 chip_smoke.py --tree-times
     python3 chip_smoke.py --wsum-times
     python3 chip_smoke.py --inv-times
+    python3 chip_smoke.py --processes
 
 The second form only prints step times (step_times below), the third only
 the times of K9 and K11 at the proofs' shapes (kernel_times below), the
@@ -24,7 +26,9 @@ the BLAKE3 compression (tree_times below), the fifth only the times of K7
 and K15 at the proofs' calls (wsum_times below), the sixth only those of
 K6 and of K2's exp_const at M - 2 (inv_times below): a copy of this file
 placed at the root of another checkout times that checkout's port, so
-that two versions compare on one card in one call.
+that two versions compare on one card in one call.  The seventh runs only
+phase 11 (with its own single-process proof in place of phase 4's); each
+rank of its jobs is this script again, with --rank-proof.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    - all at once: nvcc builds each distaff_torch/csrc/*.cu but
@@ -220,6 +224,25 @@ Phases, in order; any failure raises and exits non-zero:
                 plain version and to K1 (tiles.ntt_batched), one launch a
                 call, timed beside K1 (a row each), and at a ragged
                 (4083, 256)
+ 11. processes - jobs of several processes on the card, each rank this
+                script (--rank-proof) joined through DISTAFF_COORDINATOR
+                on a free local port, each job under a time limit: with
+                one card a job of 1 rank (NCCL) and jobs of 2 and 4 ranks
+                sharing cuda:0 (gloo through pinned host memory); with
+                more, 2 ranks (and 4 with 4 cards) over NCCL, a card a
+                rank (OpenMP's threads a rank the cores over the ranks);
+                every rank proves the 2^16 main program at the default
+                options three times (warm, steady, stepped) with phase
+                4's bytes, every stage of MESH_STAGES split over the
+                ranks; each rank's backend, card, warm and steady seconds,
+                peak device memory, launches of K1, K4, K7, K9, K10 and
+                K13, exchanges and step times printed with the card's
+                name and power limit; then python -m
+                distaff_torch.tools.multihost_prove 16 --bench on one rank
+                (its proof_sha256 that of a single-process proof of its
+                program and options made in the phase) and on 2 ranks of
+                the card (or a card a rank) against it as --baseline
+                (proof_matches_baseline true, scaling_efficiency printed)
 
 The new paths run after the 2^16 proof, so that what they build and
 cache on the card leaves phase 4's peak memory as it was.
@@ -410,6 +433,20 @@ IMMA_K = {"16832": 32, "16816": 16}  # the K bytes of an m16n8k32 and of an m16n
 # takes 0.68 of an m16n8k32's time for half its work
 MMA_SYNC_OPS_PER_S = {"16832": 1270.6e12, "16816": 927.8e12}
 EXAMPLE_PROOFS = {}
+# phase 11: multi-process jobs (distaff_torch/dist_setup.py), each rank a
+# process of this script (--rank-proof) or of the tool: the ranks of each job
+# (on one card: NCCL at one rank, then ranks sharing cuda:0 over gloo; with
+# more cards: one card a rank over NCCL), a job's time limit, the kernels
+# whose launches a rank prints, and the tool's options and size
+PROCESS_RANKS_ONE_CARD = (1, 2, 4)
+PROCESS_TIMEOUT = 300
+PROCESS_KERNELS = ("ntt_pass", "air_transition", "deep_compose", "fri_fold", "boundary_columns",
+                   "merkle_tree")
+TOOL_OPTIONS = (16, 10, 2)
+# the prover's steps, as its DEBUG log names them
+PROVER_STEPS = ("extend trace", "trace tree", "evaluate constraints", "constraint polynomial",
+                "constraint tree", "DEEP composition", "FRI layers",
+                "proof of work and queries", "proof assembly")
 # the golden case with hash_fn="sha3": the JAX package's proof bytes before
 # the options (tests/test_torch_prove.py pins them and says how they were made)
 SHA3_BODY_SHA256 = "73fd09242cd8ffc781def7cd68416ea83fd41c59d63a94c570d15a03340ba74b"
@@ -3426,6 +3463,202 @@ def phase_processor(ops_rate):
     return rows, Counter()
 
 
+def rank_proof(out):
+    """One rank of a phase-11 job (its environment names the job): the 2^16
+    proof at the default options three times on its card, warm, steady
+    (its launches, exchanges and peak memory counted from 0) and stepped
+    (the prover's DEBUG step times, a synchronize at each step's end);
+    writes the rank's backend, device, times, peak device memory, launches,
+    exchanges, step times, recorded stages and proof digest to `out` as
+    JSON."""
+    import distaff_torch
+    from distaff_torch import assembly, dist_setup, ProgramInputs, ProofOptions
+    from distaff_torch.ops import cuda_lib
+    from distaff_torch.parallel import mesh as pm, mesh_stages
+    from distaff_torch.stark import serde
+
+    program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
+    inputs = ProgramInputs.from_public([1, 0])
+    outputs, proof, warm_s, _ = timed_execute(program, inputs, ProofOptions(), stepped=False)
+    job = dist_setup.job()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    mesh_stages.RECORDED_SHARDINGS.clear()
+    pm.EXCHANGES.update(posts=0, sent=0, received=0)
+    outputs, proof, steady_s, _ = timed_execute(program, inputs, ProofOptions(), stepped=False)
+    if not distaff_torch.verify(program.hash, inputs.get_public_inputs(), outputs, proof):
+        raise AssertionError(f"rank {job.rank}: the proof does not verify")
+    data = serde.serialize(proof)
+    result = {"rank": job.rank, "ranks": job.world, "backend": job.describe(),
+              "device": str(job.device), "warm_s": warm_s,
+              "steady_s": steady_s, "peak": torch.cuda.max_memory_allocated(),
+              "launches": {k: cuda_lib.LAUNCHES[k] for k in PROCESS_KERNELS},
+              "exchanges": dict(pm.EXCHANGES),
+              "recorded": {k: len(v) for k, (_, v) in mesh_stages.RECORDED_SHARDINGS.items()},
+              "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+    _, stepped, _, lines = timed_execute(program, inputs, ProofOptions(), stepped=True)
+    if serde.serialize(stepped) != data:
+        raise AssertionError(f"rank {job.rank}: the stepped proof's bytes differ")
+    result["steps"] = {f"{i}": step_ms(lines, f"step {i} {name}") for i, name in
+                       enumerate(PROVER_STEPS, 1)}
+    with open(out, "w") as fh:
+        json.dump(result, fh)
+
+
+def run_job(ranks, command, env=None):
+    """The processes of one job, one a rank, each `command(rank)` from the
+    root of the repository with the job's coordinator on a free local port
+    and, as torchrun does, OpenMP's threads limited (to the host's cores
+    over the ranks, where the environment does not set them: every rank's
+    native host code, the grinding's hashes among it, would otherwise run
+    a thread a core): [(stdout, stderr)] a rank.  A rank that exits
+    non-zero, or a job past PROCESS_TIMEOUT, raises; every process is
+    stopped before it returns."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    threads = max(1, len(os.sched_getaffinity(0)) // ranks)
+    procs = []
+    try:
+        for rank in range(ranks):
+            rank_env = dict(os.environ, DISTAFF_COORDINATOR=f"127.0.0.1:{port}",
+                            DISTAFF_NUM_PROCESSES=str(ranks), DISTAFF_PROCESS_ID=str(rank),
+                            DISTAFF_RENDEZVOUS_TIMEOUT=str(PROCESS_TIMEOUT // 2), **(env or {}))
+            rank_env.setdefault("OMP_NUM_THREADS", str(threads))
+            procs.append(subprocess.Popen(command(rank), cwd=root, env=rank_env, text=True,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        deadline = time.monotonic() + PROCESS_TIMEOUT
+        outs = []
+        for rank, proc in enumerate(procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=max(1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"a job of {ranks} rank(s): rank {rank} did not end within "
+                                     f"{PROCESS_TIMEOUT} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"a job of {ranks} rank(s): rank {rank} exited "
+                                     f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-6000:]}")
+            outs.append((stdout, stderr))
+        return outs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def phase_processes(ops_rate):
+    """Proving over several processes (distaff_torch/dist_setup.py, the mesh
+    over a job's ranks): with one card, a job of one rank (NCCL, through the
+    whole entry path) and jobs of 2 and 4 ranks sharing cuda:0 over gloo
+    through pinned host memory; with more cards, 2 ranks (and 4 with 4
+    cards) over NCCL, one card a rank.  Each rank of each job proves the 2^16
+    main program at the default options (rank_proof): every rank's bytes
+    phase 4's, every stage of MESH_STAGES split over the ranks of a job of
+    2 or more; each job's backend, ranks, cards, warm and steady seconds,
+    each rank's peak device memory and launches of PROCESS_KERNELS printed
+    with the card's name and power limit.  Then the tool (python -m
+    distaff_torch.tools.multihost_prove) at 2^16 with --bench on one rank,
+    its proof_sha256 that of a single-process proof of its program and
+    options made here, and on 2 ranks (one card) or on one card a rank
+    against it as --baseline: proof_matches_baseline true.  Returns no
+    rows."""
+    import os
+    import tempfile
+
+    import distaff_torch
+    from distaff_torch import assembly, ProgramInputs, ProofOptions
+    from distaff_torch.stark import serde
+    from distaff_torch.tools.timing import card_line
+
+    card = card_line()
+    cards = torch.cuda.device_count()
+    inputs = ProgramInputs.from_public([1, 0])
+    program = fibonacci_program(assembly, MAIN_LOG2_TRACE)
+    if MAIN_LOG2_TRACE not in MATERIALIZED:
+        _, proof = distaff_torch.execute(program, inputs, 1, ProofOptions(), device="cuda")
+        MATERIALIZED[MAIN_LOG2_TRACE] = (hashlib.sha256(serde.serialize(proof)).hexdigest(), 0)
+    want = MATERIALIZED[MAIN_LOG2_TRACE][0]
+    _, proof = distaff_torch.execute(program, inputs, 1, ProofOptions(*TOOL_OPTIONS),
+                                     device="cuda")
+    tool_want = hashlib.sha256(serde.serialize(proof)).hexdigest()
+    del proof
+    torch.cuda.empty_cache()
+    jobs = PROCESS_RANKS_ONE_CARD if cards == 1 else (1, 2) + ((4,) if cards >= 4 else ())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for ranks in jobs:
+            outs = [f"{tmp}/rank-{ranks}-{rank}.json" for rank in range(ranks)]
+            t0 = time.perf_counter()
+            run_job(ranks, lambda rank: [sys.executable, os.path.abspath(__file__),
+                                         "--rank-proof", outs[rank]],
+                    {"DISTAFF_MESH_DEVICES": str(ranks)})
+            job_s = time.perf_counter() - t0
+            results = []
+            for path in outs:
+                with open(path) as fh:
+                    results.append(json.load(fh))
+            backends = {r["backend"] for r in results}
+            used = sorted({r["device"] for r in results})
+            for r in results:
+                print(f"processes, {ranks} rank(s), rank {r['rank']} on {r['device']} ({card}): "
+                      f"backend {r['backend']}, warm {r['warm_s']:.3f} s, steady "
+                      f"{r['steady_s']:.3f} s, peak device memory {r['peak']} bytes, launches "
+                      f"{json.dumps(r['launches'])}, exchanges {json.dumps(r['exchanges'])}, "
+                      f"stepped proof's steps 1-9 (ms) {json.dumps(r['steps'])}, {r['bytes']} "
+                      f"bytes sha256 {r['sha256']}",
+                      flush=True)
+            print(f"processes, {ranks} rank(s) on {len(used)} card(s) {used} ({card}): backend "
+                  f"{'; '.join(sorted(backends))}, the job's command time {job_s:.1f} s, "
+                  f"OpenMP threads a rank {max(1, len(os.sched_getaffinity(0)) // ranks)} "
+                  f"(unless the environment sets OMP_NUM_THREADS)", flush=True)
+            wrong = [r["rank"] for r in results if r["sha256"] != want]
+            if wrong:
+                raise AssertionError(f"{ranks} rank(s): ranks {wrong} proved other bytes than "
+                                     f"phase 4's proof")
+            expected = "nccl" if len(used) == ranks else \
+                "gloo through pinned host memory (ranks share a card)"
+            if backends != {expected}:
+                raise AssertionError(f"{ranks} rank(s) on {used}: backend {backends}, not "
+                                     f"{expected}")
+            off = [(r["rank"], st) for r in results for st in MESH_STAGES
+                   if ranks > 1 and r["recorded"].get(st) != ranks]
+            idle = [(r["rank"], k) for r in results for k in PROCESS_KERNELS
+                    if r["launches"][k] == 0]
+            if off or idle:
+                raise AssertionError(f"{ranks} rank(s): stages not split over the ranks {off}, "
+                                     f"kernels not launched {idle}")
+            print(f"processes, {ranks} rank(s): every rank verified phase 4's bytes"
+                  + (", every stage split over the ranks" if ranks > 1 else ""), flush=True)
+
+        tool = [sys.executable, "-m", "distaff_torch.tools.multihost_prove",
+                str(MAIN_LOG2_TRACE), "--bench"]
+        base = f"{tmp}/tool-1.json"
+        (stdout, _), = run_job(1, lambda rank: tool + ["--out", base])
+        line = json.loads(stdout.strip().splitlines()[-1])
+        print(f"processes, tool on 1 rank ({card}): {stdout.strip().splitlines()[0]}; "
+              f"{json.dumps(line)}", flush=True)
+        if line["proof_sha256"] != tool_want:
+            raise AssertionError(f"the tool's proof_sha256 {line['proof_sha256']}, a single "
+                                 f"process's {tool_want}")
+        ranks = 2 if cards == 1 else min(cards, 4)
+        outs = run_job(ranks, lambda rank: tool + ["--baseline", base])
+        line = json.loads(outs[0][0].strip().splitlines()[-1])
+        for stdout, _ in outs:
+            print(f"processes, tool on {ranks} ranks ({card}): {stdout.strip().splitlines()[0]}",
+                  flush=True)
+        print(f"processes, tool on {ranks} ranks ({card}): {json.dumps(line)}", flush=True)
+        if line["proof_matches_baseline"] is not True or line["proof_sha256"] != tool_want:
+            raise AssertionError(f"the tool on {ranks} ranks: {line}")
+    if cards == 1:
+        print("multi-process: NCCL across cards not exercised (1 card)", flush=True)
+    return [], Counter()
+
+
 def phase_bench():
     """The kernel bench at BENCH_SIZES; it raises if ntt_stagewise and
     tiles.ntt differ at any size.  Returns the launches of its run."""
@@ -3459,10 +3692,23 @@ def main():
                         help="only print the times of K7 and K15 at the proofs' calls")
     parser.add_argument("--inv-times", action="store_true",
                         help="only print the times of K6 and of K2's exp_const at M - 2")
+    parser.add_argument("--processes", action="store_true",
+                        help="only run phase 11, the multi-process jobs")
+    parser.add_argument("--rank-proof", metavar="OUT",
+                        help="run as one rank of a phase-11 job, writing its result to OUT")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.rank_proof:
+        rank_proof(args.rank_proof)
+        return 0
+    if args.processes:
+        from distaff_torch.tools.timing import card_line
+
+        print(card_line(), flush=True)
+        phase_processes(None)
+        return 0
     if args.step_times or args.kernel_times or args.tree_times or args.wsum_times or \
             args.inv_times:
         from distaff_torch.tools.timing import card_line
@@ -3553,7 +3799,8 @@ def main():
     phase_golden()
     launches, keyed = phase_main([row["key"] for row in rows if "key" in row])
     bench_launches = phase_bench()
-    for phase in (phase_examples, phase_ladder, phase_stream, phase_mesh, phase_processor):
+    for phase in (phase_examples, phase_ladder, phase_stream, phase_mesh, phase_processor,
+                  phase_processes):
         phase_rows, phase_keyed = phase(ops_rate)
         rows += phase_rows
         keyed += phase_keyed

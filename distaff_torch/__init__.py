@@ -16,12 +16,19 @@ commitments, constraint composition and FRI folding run on the device
 through the hand-written kernels in distaff_torch/csrc.  The device is the
 card unless the caller passes device="cpu", which runs each kernel's plain
 PyTorch version instead.  Proofs are byte-identical to distaff_tpu's.
+
+Importing the package joins a multi-process proving job where the
+environment asks for one (dist_setup.py), as distaff_tpu's import does.
 """
 
 import logging
 import time
 
 import torch
+
+from . import dist_setup
+
+dist_setup.initialize_distributed()
 
 from .config import MAX_OUTPUTS, MIN_TRACE_LENGTH
 from .programs import Program, ProgramInputs, assembly

@@ -40,12 +40,9 @@ def commit(rows, hash_name, leaves=False):
         mesh = rows.mesh
         if hash_name == "blake3" and mesh_stages.subtree_fits(rows.share() * mesh.size, mesh):
             if not leaves:
-                digests = []
                 with mesh.stage():
-                    for slot, part in zip(mesh.slots, rows.parts):
-                        with slot.run():
-                            digests.append(hash_rows(part))
-                rows = Sharded(mesh, digests, 0, "rows")
+                    rows = Sharded(mesh, mesh.each(lambda slot, part: hash_rows(part), rows.parts),
+                                   0, "rows")
             return TiledDeviceMerkleTree(rows)
         rows = rows.gather()
     if hash_name == "blake3":
@@ -147,7 +144,9 @@ class TiledDeviceMerkleTree(DeviceMerkleTree):
     Node values are those of a monolithic build, so roots and batch proofs
     are byte for byte DeviceMerkleTree's; only where each node is stored
     differs: flat indexes [1, k) in the cap, the others in the slots'
-    subtrees."""
+    subtrees.  In a multi-process job every rank holds its own slot's
+    subtree, take() brings the subtree roots to every rank, each hashes the
+    same cap, and the openings' leaves and nodes come from their owners."""
 
     def __init__(self, leaves):
         from ..parallel import mesh_stages

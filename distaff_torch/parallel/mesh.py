@@ -39,6 +39,23 @@ DISTAFF_MESH_DEVICES chooses the prover's mesh (configured_mesh):
 Proofs are byte for byte the same with and without a mesh: a mesh only
 changes where the same field arithmetic runs.
 
+In a multi-process job (dist_setup.py) the mesh is the JAX package's mesh
+over every process's devices: DISTAFF_MESH_DEVICES=N takes the first N
+ranks, one slot a rank in rank order, and a rank beyond them proves whole
+on its own device.  Every rank builds the same Mesh and runs the same
+stages on the same host values, but launches only on its own slot (the
+local one); another rank's part of a Sharded is a placeholder, a tensor of
+the meta device with the part's shape, that no code reads.  Each rank's
+home is its own slot, and what the single-process mesh brings to slot 0 a
+job brings to every rank's home, since every rank's transcript needs it:
+a gather is an all-gather, and a scatter from home moves nothing (each
+rank keeps its share of the value it holds whole).  A copy between slots
+of two ranks is a send on the one and a receive on the other, over
+torch.distributed; the copies of one reshard are posted together
+(Mesh.exchange: batch_isend_irecv, waited once), as int32 views of the
+limbs (gloo takes no uint32), through pinned host memory where gloo
+carries a card's tensors.
+
 Each stage runs on the mesh wherever its operand splits over the slots
 (ntt_sharded.fits, mesh_stages.transition_fits, fold_fits, subtree_fits),
 and whole on the home slot elsewhere.  The JAX package's DISTAFF_MESH_NTT
@@ -52,17 +69,23 @@ import os
 import numpy as np
 import torch
 
+from .. import dist_setup
 from ..math import field
 from ..math import field_torch as ft
 
 
 class Slot:
-    """One place of the mesh: a device and, on a card, a stream of its own."""
+    """One place of the mesh: a device and, on a card of this process, a
+    stream of its own; `rank` is the process that holds it in a job (None
+    in a single-process mesh), and `local` whether this process does."""
 
-    def __init__(self, index, device):
+    def __init__(self, index, device, rank=None):
         self.index = index
         self.device = device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.rank = rank
+        self.local = _local(rank)
+        self.stream = (torch.cuda.Stream(device) if self.local and device.type == "cuda"
+                       else None)
 
     def run(self):
         """The context of a launch on this slot."""
@@ -71,33 +94,56 @@ class Slot:
         return _launch_context(self.device, self.stream)
 
 
+def _local(rank):
+    """Whether a slot of this rank (None: of a single-process mesh) is this
+    process's."""
+    return rank is None or rank == dist_setup.job().rank
+
+
 @contextlib.contextmanager
 def _launch_context(device, stream):
     with torch.cuda.device(device), torch.cuda.stream(stream):
         yield
 
 
-class Mesh:
-    """A 1-D mesh: an ordered list of slots, all on the CPU or all on cards."""
+def _placeholder(value):
+    """Another rank's counterpart of a local result: meta tensors of its
+    shapes."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(_placeholder(v) for v in value)
+    return torch.empty_like(value, device="meta")
 
-    def __init__(self, devices):
+
+class Mesh:
+    """A 1-D mesh: an ordered list of slots, all on the CPU or all on cards;
+    with `ranks`, slot i held by process ranks[i] of the job."""
+
+    def __init__(self, devices, ranks=None):
         devices = [torch.device(d) for d in devices]
         kinds = {d.type for d in devices}
         if not devices or len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
             raise ValueError(f"a mesh's slots are all on the CPU or all on cards, got "
                              f"{[str(d) for d in devices]}")
+        ranks = [None] * len(devices) if ranks is None else list(ranks)
+        local = [_local(r) for r in ranks]
+        if not any(local):
+            raise ValueError("this process holds no slot of the mesh")
         if "cuda" in kinds:
             if not torch.cuda.is_available():
                 raise RuntimeError("a mesh of cards: no CUDA device is available")
-            devices = [torch.device("cuda", torch.cuda.current_device() if d.index is None
-                                    else d.index) for d in devices]
+            devices = [torch.device("cuda", torch.cuda.current_device())
+                       if mine and d.index is None else d for d, mine in zip(devices, local)]
             count = torch.cuda.device_count()
-            missing = sorted({str(d) for d in devices if d.index >= count})
+            missing = sorted({str(d) for d, mine in zip(devices, local)
+                              if mine and d.index >= count})
             if missing:
                 raise RuntimeError(f"a mesh on {missing}: the machine has {count} card(s)")
-        self.slots = [Slot(i, d) for i, d in enumerate(devices)]
+        self.slots = [Slot(i, d, r) for i, (d, r) in enumerate(zip(devices, ranks))]
+        self.in_job = ranks[0] is not None
+        self.home_index = local.index(True)
         self._depth = 0
         self._callers = None
+        self._exchange = None
 
     @property
     def size(self):
@@ -105,19 +151,44 @@ class Mesh:
 
     @property
     def home(self):
-        """Slot 0's device: where the prover keeps what is not split."""
-        return self.slots[0].device
+        """The home slot's device: where the prover keeps what is not split
+        (slot 0, or in a job this rank's own slot)."""
+        return self.slots[self.home_index].device
+
+    def local_slots(self):
+        return [s for s in self.slots if s.local]
 
     def devices(self):
-        """The distinct devices of the slots, in order."""
-        return list(dict.fromkeys(s.device for s in self.slots))
+        """The distinct devices of this process's slots, in order."""
+        return list(dict.fromkeys(s.device for s in self.local_slots()))
+
+    def device_count(self):
+        """The distinct devices of the mesh, over every process."""
+        if self.in_job:
+            return len(set(dist_setup.job().places[:self.size]))
+        return len(self.devices())
 
     def names(self):
+        if self.in_job:
+            return tuple(f"rank{s.rank}:{s.device}" for s in self.slots)
         return tuple(str(s.device) for s in self.slots)
 
     def splits(self, n):
         """Whether n rows split into equal whole shares, one a slot."""
         return n >= self.size and n % self.size == 0
+
+    def each(self, fn, *per_slot):
+        """[fn(slot, its entry of each list in per_slot)] over the slots,
+        each under its launch context; another rank's slot gets a
+        placeholder of this rank's result."""
+        out = [None] * self.size
+        for slot in self.local_slots():
+            with slot.run():
+                out[slot.index] = fn(slot, *(p[slot.index] for p in per_slot))
+        if self.in_job:
+            fill = _placeholder(out[self.home_index])
+            out = [fill if not s.local else v for s, v in zip(self.slots, out)]
+        return out
 
     @contextlib.contextmanager
     def stage(self):
@@ -136,23 +207,54 @@ class Mesh:
                 self._join()
 
     def _fork(self):
-        if self.slots[0].stream is None:
+        if self.slots[self.home_index].stream is None:
             return
         self._callers = {d: torch.cuda.current_stream(d) for d in self.devices()}
-        for s in self.slots:
+        for s in self.local_slots():
             s.stream.wait_stream(self._callers[s.device])
 
     def _join(self):
         if self._callers is None:
             return
-        for s in self.slots:
+        for s in self.local_slots():
             self._callers[s.device].wait_stream(s.stream)
         self._callers = None
 
+    @contextlib.contextmanager
+    def exchange(self):
+        """The copies between slots of two ranks made inside are posted
+        together when it ends, and waited for (a reshard's all-to-all);
+        outside a job it does nothing."""
+        if not self.in_job:
+            yield self
+            return
+        if self._exchange is not None:
+            raise RuntimeError("Mesh.exchange() inside another: its copies would land only at "
+                               "the outer one's end")
+        self._exchange = _Exchange()
+        try:
+            yield self
+            self._exchange.post()
+        finally:
+            self._exchange = None
+
+    def _remote(self):
+        if self._exchange is None:
+            raise RuntimeError("a copy between two ranks' slots outside Mesh.exchange()")
+        return self._exchange
+
     def copy_(self, dst, dst_slot, src, src_slot):
         """dst (on slot dst_slot's device) <- src (on slot src_slot's), after
-        what src_slot queued; returns dst."""
+        what src_slot queued; returns dst.  Between two ranks' slots a send
+        or a receive of the open exchange; between two other ranks' slots
+        nothing."""
         a, b = self.slots[src_slot], self.slots[dst_slot]
+        if not (a.local and b.local):
+            if a.local:
+                self._remote().send(src, a, b.rank)
+            elif b.local:
+                self._remote().receive(dst, b, a.rank)
+            return dst
         if b.stream is None:
             return dst.copy_(src)
         if a is not b:
@@ -170,10 +272,35 @@ class Mesh:
             dst.record_stream(a.stream)
         return dst
 
-    def empty(self, slot, shape):
-        """An uninitialized limb tensor on a slot, from its stream's memory."""
+    def from_home(self, dst, dst_slot, src):
+        """dst (on slot dst_slot) <- src, a value on the home device; in a
+        job every rank holds it there, and each copies it onto its own
+        slots only."""
+        if self.slots[dst_slot].local:
+            self.copy_(dst, dst_slot, src, self.home_index)
+        return dst
+
+    def to_home(self, dst, src, src_slot):
+        """dst (on the home device) <- src (on slot src_slot's); in a job
+        every rank's home: the owner sends src to every other rank of the
+        mesh in the open exchange."""
+        owner = self.slots[src_slot]
+        if not owner.local:
+            self._remote().receive(dst, self.slots[self.home_index], owner.rank)
+            return dst
+        self.copy_(dst, self.home_index, src, src_slot)
+        for s in self.slots:
+            if not s.local:
+                self._remote().send(src, owner, s.rank)
+        return dst
+
+    def empty(self, slot, shape, dtype=torch.uint32):
+        """An uninitialized tensor on a slot, from its stream's memory (for
+        another rank's slot, a placeholder)."""
+        if not self.slots[slot].local:
+            return torch.empty(shape, dtype=dtype, device="meta")
         with self.slots[slot].run():
-            return torch.empty(shape, dtype=torch.uint32, device=self.slots[slot].device)
+            return torch.empty(shape, dtype=dtype, device=self.slots[slot].device)
 
     def scatter(self, x, dim, axis, pad_to=None):
         """Split a tensor on the home device into equal shares along `dim`,
@@ -189,19 +316,109 @@ class Mesh:
                 shape[dim] = share
                 part = self.empty(s, shape)
                 real = max(0, min(share, x.shape[dim] - s * share))
-                if real < share:
+                if real < share and self.slots[s].local:
                     with self.slots[s].run():
                         part.narrow(dim, real, share - real).zero_()
                 if real:
-                    self.copy_(part.narrow(dim, 0, real), s, x.narrow(dim, s * share, real), 0)
+                    self.from_home(part.narrow(dim, 0, real), s, x.narrow(dim, s * share, real))
                 parts.append(part)
         return Sharded(self, parts, dim, axis)
+
+    def min_over_ranks(self, value):
+        """The least of every rank's host int `value` (non-negative, below
+        2^64); outside a job, value."""
+        if not self.in_job:
+            return value
+        home = self.slots[self.home_index]
+        with home.run():
+            words = torch.tensor([[value >> 32, value & 0xFFFFFFFF]], dtype=torch.int64).to(
+                torch.uint32).to(home.device)
+        parts = [words if s.local else _placeholder(words) for s in self.slots]
+        every = Sharded(self, parts, 0, "ranks").gather().cpu().to(torch.int64)
+        return min(int(hi) << 32 | int(lo) for hi, lo in every.tolist())
+
+
+# the exchanges between ranks this process posted, and the bytes it sent
+# and received in them (chip_smoke.py phase 11 reads and resets them)
+EXCHANGES = {"posts": 0, "sent": 0, "received": 0}
+
+
+class _Exchange:
+    """The sends and receives of one reshard between ranks, posted together
+    (torch.distributed.batch_isend_irecv) and waited for once.  The k-th
+    message from one rank to another pairs with the k-th receive there:
+    every rank makes the copies in the same order, and tags each message
+    with its number for its pair of ranks."""
+
+    def __init__(self):
+        self.host = dist_setup.job().backend == "gloo"    # gloo carries only host tensors
+        self.ops = []                       # (kind, wire tensor, peer, tag, slot)
+        self.after = []                     # (slot, dst, wire) of each staged receive
+        self.sent, self.got = {}, {}
+
+    def _tag(self, counts, peer):
+        counts[peer] = counts.get(peer, 0) + 1
+        return counts[peer] - 1
+
+    def send(self, src, slot, peer):
+        if src.numel() == 0:
+            return
+        with slot.run():
+            if self.host and src.device.type == "cuda":
+                wire = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
+                wire.copy_(src.view(torch.int32), non_blocking=True)
+            else:
+                wire = src.contiguous().view(torch.int32)
+                if slot.stream is not None:
+                    wire.record_stream(slot.stream)
+        self.ops.append(("send", wire, peer, self._tag(self.sent, peer), slot))
+
+    def receive(self, dst, slot, peer):
+        if dst.numel() == 0:
+            return
+        with slot.run():
+            if self.host and dst.device.type == "cuda":
+                wire = torch.empty(dst.shape, dtype=torch.int32, pin_memory=True)
+            elif dst.is_contiguous():
+                wire = dst.view(torch.int32)
+            else:
+                wire = torch.empty(dst.shape, dtype=torch.int32, device=dst.device)
+        self.ops.append(("receive", wire, peer, self._tag(self.got, peer), slot))
+        if wire.data_ptr() != dst.data_ptr() or wire.device != dst.device:
+            self.after.append((slot, dst, wire))
+
+    def post(self):
+        import torch.distributed as dist
+
+        if not self.ops:
+            return
+        EXCHANGES["posts"] += 1
+        for kind, wire, *_ in self.ops:
+            EXCHANGES["sent" if kind == "send" else "received"] += wire.numel() * 4
+        # every staged send must be on the host (gloo) or queued before the
+        # collective's stream (nccl): post on the slots' streams
+        slots = {id(slot): slot for *_, slot in self.ops}.values()
+        if self.host:
+            for slot in slots:
+                if slot.stream is not None:
+                    slot.stream.synchronize()
+        home = next(iter(slots))
+        with home.run():
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend if kind == "send" else dist.irecv, wire, peer, tag=tag)
+                for kind, wire, peer, tag, _ in self.ops])
+            for work in works:
+                work.wait()
+        for slot, dst, wire in self.after:
+            with slot.run():
+                dst.view(torch.int32).copy_(wire, non_blocking=True)
 
 
 class Sharded:
     """A value split over a mesh: parts[s] on slot s, equal shares along
     dimension `dim`; `axis` names what is split ("rows", "registers" or
-    "columns", the second axis of a four-step transform's matrix)."""
+    "columns", the second axis of a four-step transform's matrix).  In a job
+    another rank's part is a placeholder (parallel/mesh.py)."""
 
     def __init__(self, mesh, parts, dim, axis):
         if len(parts) != mesh.size:
@@ -216,28 +433,41 @@ class Sharded:
 
     def gather(self, length=None):
         """The whole value on the home device (its first `length` along the
-        split dimension, where given)."""
+        split dimension, where given); in a job on every rank's home."""
         mesh = self.mesh
-        shape = list(self.parts[0].shape)
+        mine = self.parts[mesh.home_index]
+        shape = list(mine.shape)
         shape[self.dim] = self.share() * mesh.size if length is None else length
-        out = mesh.empty(0, shape)
-        with mesh.stage():
+        out = mesh.empty(mesh.home_index, shape, mine.dtype)
+        with mesh.stage(), mesh.exchange():
             for s, part in enumerate(self.parts):
                 lo = s * self.share()
                 real = min(self.share(), shape[self.dim] - lo)
                 if real > 0:
-                    mesh.copy_(out.narrow(self.dim, lo, real), 0, part.narrow(self.dim, 0, real),
-                               s)
+                    mesh.to_home(out.narrow(self.dim, lo, real), part.narrow(self.dim, 0, real),
+                                 s)
         return out
 
 
 def configured_mesh(device="cuda"):
     """The mesh the prover runs on, from DISTAFF_MESH_DEVICES (the module's
-    docstring), or None; `device` is the prover's."""
+    docstring), or None; `device` is the prover's.  In a job, N counts the
+    job's ranks (it raises above them), and a rank beyond the first N gets
+    None: it proves whole on its own device."""
     spec = os.environ.get("DISTAFF_MESH_DEVICES", "").strip()
     if not spec:
         return None
     kind = torch.device(device).type
+    job = dist_setup.job()
+    if job is not None:
+        if not spec.isdigit():
+            raise ValueError(f"DISTAFF_MESH_DEVICES={spec}: in a job, the mesh is a number of "
+                             f"its ranks")
+        n = int(spec)
+        if n > job.world:
+            raise RuntimeError(f"DISTAFF_MESH_DEVICES={n}: the job has {job.world} rank(s)")
+        job.bind(kind)                  # every rank, also those beyond the mesh
+        return make_mesh(n, device=kind) if 1 < n and job.rank < n else None
     if spec.isdigit():
         return make_mesh(int(spec), device=kind) if int(spec) > 1 else None
     names = [name.strip() for name in spec.split(",")]
@@ -248,14 +478,28 @@ def configured_mesh(device="cuda"):
     return make_mesh(devices=devices) if len(devices) > 1 else None
 
 
+# the meshes made so far, by their slots' devices (in a job, by the ranks
+# whose slots they hold)
 _MESHES = {}
 
 
 def make_mesh(n_devices=None, devices=None, device="cuda"):
     """A 1-D mesh over `devices`, or the first n_devices of `device`'s type:
-    cards 0..n-1 (raising where there are fewer), or n CPU slots.  Meshes
-    are kept by their devices, so that a process's proofs reuse the slots'
-    streams."""
+    in a job the first n ranks' devices (every rank, where n_devices is
+    None), one slot a rank; else cards 0..n-1 (raising where there are
+    fewer), or n CPU slots.  Meshes are kept, so that a process's proofs
+    reuse the slots' streams."""
+    job = dist_setup.job()
+    if devices is None and job is not None:
+        job.bind(device)
+        n = job.world if n_devices is None else n_devices
+        if not 0 < n <= job.world or job.rank >= n:
+            raise ValueError(f"rank {job.rank} holds no slot of a mesh of the first {n} of "
+                             f"{job.world} ranks")
+        key = ("job", job.rank, n)
+        if key not in _MESHES:
+            _MESHES[key] = Mesh(job.devices[:n], ranks=range(n))
+        return _MESHES[key]
     if devices is None:
         kind = torch.device(device).type
         if kind == "cuda":
@@ -285,7 +529,7 @@ def registers_to_rows(regs, count):
     k, share = mesh.size, regs.share()
     rows = regs.parts[0].shape[1] // k
     parts = [mesh.empty(t, (count, rows, 4)) for t in range(k)]
-    with mesh.stage():
+    with mesh.stage(), mesh.exchange():
         for s, part in enumerate(regs.parts):
             real = min(share, count - s * share)
             if real <= 0:
@@ -306,13 +550,13 @@ def extend_registers(regs, n, domain, mesh):
     k = mesh.size
     regs = mesh.scatter(regs, 0, "registers", -(-regs.shape[0] // k) * k)
     root_n, root_d = field.get_root_of_unity(n), field.get_root_of_unity(domain)
-    polys, lde = [], []
+
+    def extend(slot, part):
+        p = tiles.intt_batched(part, root_n)
+        return p, tiles.ntt_batched(p, root_d, n=domain)
+
     with mesh.stage():
-        for slot, part in zip(mesh.slots, regs.parts):
-            with slot.run():
-                p = tiles.intt_batched(part, root_n)
-                polys.append(p)
-                lde.append(tiles.ntt_batched(p, root_d, n=domain))
+        polys, lde = zip(*mesh.each(extend, regs.parts))
     return Sharded(mesh, polys, 0, "registers"), Sharded(mesh, lde, 0, "registers")
 
 
@@ -341,32 +585,33 @@ def sharded_composition(lde, weights1, weights2, z, next_z, mesh):
     rows = registers_to_rows(lde, regs)
     n = rows.share() * mesh.size
     root = field.get_root_of_unity(n)
-    out = []
+
+    def compose(slot, part):
+        device, share = slot.device, part.shape[1]
+        first = slot.index * share
+        w1 = ft.from_ints(np.array(weights1, dtype=object), device)
+        w2 = ft.from_ints(np.array(weights2, dtype=object), device)
+        a1 = a2 = None
+        for i in range(regs):
+            t1, t2 = fk.mul(part[i], w1[i]), fk.mul(part[i], w2[i])
+            a1 = t1 if a1 is None else fk.add(a1, t1)
+            a2 = t2 if a2 is None else fk.add(a2, t2)
+        xs = fk.power_series(root, share, device, field.exp(root, first))
+        points = ft.from_ints(np.array([[z], [next_z]], dtype=object), device)
+        u, v = fk.inv_batch(fk.sub(xs[None], points))
+        return fk.add(fk.mul(a1, u), fk.mul(a2, v))
+
     with mesh.stage():
-        for slot, part in zip(mesh.slots, rows.parts):
-            with slot.run():
-                device, share = slot.device, part.shape[1]
-                first = slot.index * share
-                w1 = ft.from_ints(np.array(weights1, dtype=object), device)
-                w2 = ft.from_ints(np.array(weights2, dtype=object), device)
-                a1 = a2 = None
-                for i in range(regs):
-                    t1, t2 = fk.mul(part[i], w1[i]), fk.mul(part[i], w2[i])
-                    a1 = t1 if a1 is None else fk.add(a1, t1)
-                    a2 = t2 if a2 is None else fk.add(a2, t2)
-                xs = fk.power_series(root, share, device, field.exp(root, first))
-                points = ft.from_ints(np.array([[z], [next_z]], dtype=object), device)
-                u, v = fk.inv_batch(fk.sub(xs[None], points))
-                out.append(fk.add(fk.mul(a1, u), fk.mul(a2, v)))
-    return Sharded(mesh, out, 0, "rows")
+        return Sharded(mesh, mesh.each(compose, rows.parts), 0, "rows")
 
 
 def dryrun_step(n_devices, trace_registers=None, devices=None, device="cuda"):
     """One sharded proving step on tiny shapes: one transform split over
     every slot (a four-step NTT with its all-to-all) and back, the
     register-sharded LDE, and the row-sharded composition core with the
-    all-to-all between.  The mesh is make_mesh(n_devices, devices, device).
-    Returns the composition, (D, 4) on the home device."""
+    all-to-all between.  The mesh is make_mesh(n_devices, devices, device)
+    (in a job, over the first n_devices ranks).  Returns the composition,
+    (D, 4) on the home device (in a job, on every rank's)."""
     from . import ntt_sharded as ns
 
     mesh = make_mesh(n_devices, devices, device)

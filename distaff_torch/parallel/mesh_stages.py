@@ -21,7 +21,10 @@ parallel.rs:10-179 and src/math/fft.rs:29-38, becomes these placements):
 - Merkle subtrees:  leaves         (subtree_nodes_sharded, K13)
 
 Every stage records its layout in RECORDED_SHARDINGS, for the tests and
-the smoke run to see that it ran split.
+the smoke run to see that it ran split (in a multi-process job each slot
+named with its rank, Mesh.names).  In a job each rank launches on its own
+slot only, and take() and the gathers bring their values to every rank's
+home (parallel/mesh.py).
 """
 
 import numpy as np
@@ -53,25 +56,29 @@ def rows_of(value, mesh, axis="rows"):
 
 def take(value, indexes):
     """The rows of a Sharded at global `indexes` along its split dimension,
-    gathered on each slot and brought, in order, to the home device."""
+    gathered on each slot by its owner and brought, in order, to the home
+    device (in a job, to every rank's)."""
     mesh, dim, share = value.mesh, value.dim, value.share()
     indexes = [int(i) for i in indexes]
     by_slot = [[(n, i % share) for n, i in enumerate(indexes) if i // share == s]
                for s in range(mesh.size)]
     pieces, order = [], []
     with mesh.stage():
-        for s, wanted in enumerate(by_slot):
-            if not wanted:
-                continue
-            slot = mesh.slots[s]
-            with slot.run():
-                local = torch.tensor([i for _, i in wanted], dtype=torch.int64).to(slot.device)
-                got = value.parts[s].index_select(dim, local)
-            shape = list(got.shape)
-            here = mesh.copy_(mesh.empty(0, shape), 0, got, s)
-            pieces.append(here)
-            order += [n for n, _ in wanted]
-        with mesh.slots[0].run():
+        with mesh.exchange():
+            for s, wanted in enumerate(by_slot):
+                if not wanted:
+                    continue
+                slot, got = mesh.slots[s], None
+                if slot.local:
+                    with slot.run():
+                        local = torch.tensor([i for _, i in wanted],
+                                             dtype=torch.int64).to(slot.device)
+                        got = value.parts[s].index_select(dim, local)
+                shape = list(value.parts[s].shape)
+                shape[dim] = len(wanted)
+                pieces.append(mesh.to_home(mesh.empty(mesh.home_index, shape), got, s))
+                order += [n for n, _ in wanted]
+        with mesh.slots[mesh.home_index].run():
             joined = torch.cat(pieces, dim=dim)
             inverse = [0] * len(order)
             for at, n in enumerate(order):
@@ -107,26 +114,25 @@ def transition_sharded(evaluator, trace, mesh):
     one concatenate, is each slot's own rows and an 8-row halo: the next
     slot's first 8 rows (the first slot's at the last).  Returns (the
     column split by rows, the slots' counts of trace steps whose
-    constraints do not vanish, each a (1,) int32 tensor)."""
+    constraints do not vanish, (1,) int32 a slot, split)."""
     from ..stark.constraints.device_eval import air_tables, transition
 
     lde = ev_rows(trace, mesh)
     _record("transition", lde.axis, mesh)
     k, share = mesh.size, lde.share()
-    out, bad = [], []
     with mesh.stage():
         halos = []
-        for s in range(k):
-            nxt = (s + 1) % k
-            halo = mesh.empty(s, (lde.parts[nxt].shape[0], MAX_CONSTRAINT_DEGREE, 4))
-            halos.append(mesh.copy_(halo, s, lde.parts[nxt][:, :MAX_CONSTRAINT_DEGREE], nxt))
-        for slot, part, halo in zip(mesh.slots, lde.parts, halos):
-            with slot.run():
-                column, count = transition(part, air_tables(evaluator, slot.device),
-                                           slot.index * share, halo)
-                out.append(column)
-                bad.append(count)
-    return Sharded(mesh, out, 0, "rows"), bad
+        with mesh.exchange():
+            for s in range(k):
+                nxt = (s + 1) % k
+                halo = mesh.empty(s, (lde.parts[nxt].shape[0], MAX_CONSTRAINT_DEGREE, 4))
+                halos.append(mesh.copy_(halo, s, lde.parts[nxt][:, :MAX_CONSTRAINT_DEGREE],
+                                        nxt))
+        out, bad = zip(*mesh.each(
+            lambda slot, part, halo: transition(part, air_tables(evaluator, slot.device),
+                                                slot.index * share, halo),
+            lde.parts, halos))
+    return Sharded(mesh, out, 0, "rows"), Sharded(mesh, bad, 0, "rows")
 
 
 # ------------------------------------------------------------------------------------------------
@@ -144,14 +150,11 @@ def boundaries_sharded(evaluator, trace, mesh):
     n_ev = evaluator.domain_size
     xb_root = field.exp(field.get_root_of_unity(n_ev), evaluator.b_degree_adj)
     i_parts, f_parts = evaluator.boundary_weight_vectors(trace.register_count())
-    firsts, lasts = [], []
     with mesh.stage():
-        for slot, part in zip(mesh.slots, lde.parts):
-            with slot.run():
-                i, f = boundary_kernels.boundary_columns(
-                    part, i_parts, f_parts, xb_root, slot.index * lde.share(), n_ev)
-                firsts.append(i)
-                lasts.append(f)
+        firsts, lasts = zip(*mesh.each(
+            lambda slot, part: boundary_kernels.boundary_columns(
+                part, i_parts, f_parts, xb_root, slot.index * lde.share(), n_ev),
+            lde.parts))
     return Sharded(mesh, firsts, 0, "rows"), Sharded(mesh, lasts, 0, "rows")
 
 
@@ -201,14 +204,14 @@ def _compose_slots(lde, constraint_lde, w1, w2, z, cc, s1, s2, c_at_z, trace_len
     incr = stark_utils.get_incremental_trace_degree(trace_length)
     scalars = (z, next_z, s1, s2, c_at_z, cc.t1_degree, cc.t2_degree, cc.constraints)
     _record("composition", constraint_lde.axis, mesh)
-    out = []
+
+    def compose(slot, part, c_part):
+        weights = [ft.from_ints(np.array(w, dtype=object), slot.device) for w in (w1, w2)]
+        return deep_kernels.deep_compose(part, c_part, *weights, root, incr, scalars,
+                                         slot.index * part.shape[1], n)
+
     with mesh.stage():
-        for slot, part, c_part in zip(mesh.slots, lde.parts, constraint_lde.parts):
-            with slot.run():
-                weights = [ft.from_ints(np.array(w, dtype=object), slot.device) for w in (w1, w2)]
-                out.append(deep_kernels.deep_compose(
-                    part, c_part, *weights, root, incr, scalars, slot.index * part.shape[1], n))
-    return Sharded(mesh, out, 0, "rows")
+        return Sharded(mesh, mesh.each(compose, lde.parts, constraint_lde.parts), 0, "rows")
 
 
 def compose_sharded_from_sums(sums, constraint_lde, z, cc_obj, s1, s2, c_at_z, mesh,
@@ -250,7 +253,7 @@ def fold_layout(column, q):
     k = mesh.size
     share, rows = column.share(), q // k
     parts = [mesh.empty(s, (4, rows, 4)) for s in range(k)]
-    with mesh.stage():
+    with mesh.stage(), mesh.exchange():
         for s in range(k):
             for j in range(4):
                 start = j * q + s * rows
@@ -274,13 +277,11 @@ def fold_sharded(layout, special_x, root, stride, mesh):
     rows = layout.share()
     q = rows * mesh.size
     _record("fri_fold", layout.axis, mesh)
-    out = []
     with mesh.stage():
-        for slot, part in zip(mesh.slots, layout.parts):
-            with slot.run():
-                out.append(fri_torch.fri_fold(part.view(4 * rows, 4), special_x, root, stride,
-                                              first=slot.index * rows, layer_rows=q))
-    return Sharded(mesh, out, 0, "rows")
+        return Sharded(mesh, mesh.each(
+            lambda slot, part: fri_torch.fri_fold(part.view(4 * rows, 4), special_x, root,
+                                                  stride, first=slot.index * rows, layer_rows=q),
+            layout.parts), 0, "rows")
 
 
 # ------------------------------------------------------------------------------------------------
@@ -300,9 +301,5 @@ def subtree_nodes_sharded(leaves, mesh):
     from ..ops.blake3_torch import merkle_tree
 
     _record("merkle_subtrees", leaves.axis, mesh)
-    nodes = []
     with mesh.stage():
-        for slot, part in zip(mesh.slots, leaves.parts):
-            with slot.run():
-                nodes.append(merkle_tree(part))
-    return nodes
+        return mesh.each(lambda slot, part: merkle_tree(part), leaves.parts)

@@ -18,8 +18,9 @@ For n = n1 * n2 with the i1 axis split over the slots:
 The result, Out[k1, k2] with the k2 axis split (the JAX package's
 out_specs), is the natural-order transform read row-major.  Where the JAX
 package re-replicates it (the reshape to (n, 4)), `gather` brings it to the
-home slot; where the next reader wants it split by rows, `columns_to_rows`
-lays it out so (one more all-to-all).  A transform of several rows at
+home slot (in a multi-process job, to every rank's); where the next
+reader wants it split by rows, `columns_to_rows` lays it out so (one more
+all-to-all).  A transform of several rows at
 once (B, n, 4) runs them together.  The inverse folds 1/n into step 1's
 store factors, as ops/tiles does.
 """
@@ -91,58 +92,63 @@ def transform(x, mesh, root_int, n, c_int=1):
                 raise ValueError(f"ntt_sharded: a {x.axis} split of {x.share() * k} points")
             batch, points = x.parts[0].shape[0], n2
             ins = [mesh.empty(s, (batch, points, c, 4)) for s in range(k)]
-            for u, part in enumerate(x.parts):
-                block = part.view(batch, w, n1, 4)
-                for s in range(k):
-                    mesh.copy_(ins[s][:, u * w:(u + 1) * w], s, block[:, :, s * c:(s + 1) * c], u)
+            with mesh.exchange():
+                for u, part in enumerate(x.parts):
+                    block = part.view(batch, w, n1, 4)
+                    for s in range(k):
+                        mesh.copy_(ins[s][:, u * w:(u + 1) * w], s,
+                                   block[:, :, s * c:(s + 1) * c], u)
         else:
             batch, n_in = x.shape[0], x.shape[1]
             if n_in > n:
                 raise ValueError(f"ntt_sharded: {n_in} points into a transform of {n}")
             points = -(-n_in // n1)
             if points * n1 != n_in:
-                with mesh.slots[0].run():
+                with mesh.slots[mesh.home_index].run():
                     padded = x.new_zeros((batch, points * n1, 4))
                     padded[:, :n_in] = x
                 x = padded
             block = x.view(batch, points, n1, 4)
             ins = [mesh.empty(s, (batch, points, c, 4)) for s in range(k)]
             for s in range(k):
-                mesh.copy_(ins[s], s, block[:, :, s * c:(s + 1) * c], 0)
+                mesh.from_home(ins[s], s, block[:, :, s * c:(s + 1) * c])
 
         # step 1 and its twiddles: (B, n2, c, 4) [k2][i1] on each slot
-        rows = []
-        for slot, src in zip(mesh.slots, ins):
-            with slot.run():
-                device = slot.device
-                lo, hi = tiles._store_factors(n, root_int, c_int, device)
-                dst = mesh.empty(slot.index, (batch, n2, c, 4))
-                fk.ntt_pass(src, dst, tiles._stage_twiddles(n2, pow(root_int, n1, M), device),
-                            batch, c, (points * c, 1, c), (n2 * c, 1, c), points * c, lo, hi,
-                            first=slot.index * c)
-                rows.append(dst)
+        def step1(slot, src):
+            device = slot.device
+            lo, hi = tiles._store_factors(n, root_int, c_int, device)
+            dst = mesh.empty(slot.index, (batch, n2, c, 4))
+            fk.ntt_pass(src, dst, tiles._stage_twiddles(n2, pow(root_int, n1, M), device),
+                        batch, c, (points * c, 1, c), (n2 * c, 1, c), points * c, lo, hi,
+                        first=slot.index * c)
+            return dst
+
+        rows = mesh.each(step1, ins)
         del ins
 
         # the transpose: slot t takes the columns k2 of its share from each slot
         cols = [mesh.empty(t, (batch, w, n1, 4)) for t in range(k)]
-        for s, part in enumerate(rows):
-            for t in range(k):
-                mesh.copy_(cols[t][:, :, s * c:(s + 1) * c], t, part[:, t * w:(t + 1) * w], s)
+        with mesh.exchange():
+            for s, part in enumerate(rows):
+                for t in range(k):
+                    mesh.copy_(cols[t][:, :, s * c:(s + 1) * c], t, part[:, t * w:(t + 1) * w],
+                               s)
         del rows
 
         # step 3: (B, n1, w, 4) [k1][k2] on each slot
-        out = []
         root1 = pow(root_int, n2, M)
-        for slot, src in zip(mesh.slots, cols):
-            with slot.run():
-                dst = mesh.empty(slot.index, (batch, n1, w, 4))
-                if n1 <= tiles.LEAF:
-                    fk.ntt_pass(src, dst, tiles._stage_twiddles(n1, root1, slot.device),
-                                batch, w, (w * n1, n1, 1), (n1 * w, 1, w), w * n1)
-                else:
-                    done = tiles.ntt_batched(src.view(batch * w, n1, 4), root1)
-                    dst.copy_(done.view(batch, w, n1, 4).transpose(1, 2))
-                out.append(dst)
+
+        def step3(slot, src):
+            dst = mesh.empty(slot.index, (batch, n1, w, 4))
+            if n1 <= tiles.LEAF:
+                fk.ntt_pass(src, dst, tiles._stage_twiddles(n1, root1, slot.device),
+                            batch, w, (w * n1, n1, 1), (n1 * w, 1, w), w * n1)
+            else:
+                done = tiles.ntt_batched(src.view(batch * w, n1, 4), root1)
+                dst.copy_(done.view(batch, w, n1, 4).transpose(1, 2))
+            return dst
+
+        out = mesh.each(step3, cols)
     return Sharded(mesh, out, 2, "columns")
 
 
@@ -152,11 +158,11 @@ def gather(columns, n):
     n1, n2 = _split(n)
     w = n2 // mesh.size
     batch = columns.parts[0].shape[0]
-    out = mesh.empty(0, (batch, n, 4))
+    out = mesh.empty(mesh.home_index, (batch, n, 4))
     grid = out.view(batch, n1, n2, 4)
-    with mesh.stage():
+    with mesh.stage(), mesh.exchange():
         for t, part in enumerate(columns.parts):
-            mesh.copy_(grid[:, :, t * w:(t + 1) * w], 0, part, t)
+            mesh.to_home(grid[:, :, t * w:(t + 1) * w], part, t)
     return out
 
 
@@ -169,7 +175,7 @@ def columns_to_rows(columns, n):
     c, w = n1 // k, n2 // k
     batch = columns.parts[0].shape[0]
     parts = [mesh.empty(u, (batch, n // k, 4)) for u in range(k)]
-    with mesh.stage():
+    with mesh.stage(), mesh.exchange():
         for t, part in enumerate(columns.parts):
             for u in range(k):
                 mesh.copy_(parts[u].view(batch, c, n2, 4)[:, :, t * w:(t + 1) * w], u,

@@ -43,7 +43,9 @@ registers, steps 3, 6 and 7 and the trees by rows, and the transforms of
 steps 4 and 5 (and of the streamed LDE and of step 6's sums) as four-step
 transforms over the slots; K11 runs on the home slot after step 4's
 gather, K8 and the host's steps where they always do.  The proof's bytes
-are the single-device proof's.
+are the single-device proof's.  In a multi-process job (dist_setup.py)
+every rank runs this pipeline on the same host values over a mesh of the
+ranks, launching on its own slot, and returns the same proof.
 
 With DISTAFF_DEBUG set to anything but "0", the prover runs the JAX
 package's three debug checks (the reference's debug_assert!s) and raises
@@ -285,9 +287,8 @@ def _evaluate_constraints_columnar(evaluator, trace, clock, debug=False):
         i_evals, f_evals = _evaluate_boundaries_device(evaluator, trace)
         clock.part(3, "boundary columns")
         t_evals, bad = evaluate_transition_device(evaluator, trace)
-        bad = [bad]
     if debug:
-        total = sum(int(b.sum()) for b in bad)
+        total = int((bad if mesh is None else bad.gather()).sum())
         assert total == 0, f"transition constraints not satisfied at {total} trace steps"
     clock.part(3, "transition (K4 tables and launch)")
     return i_evals, f_evals, t_evals
@@ -364,11 +365,9 @@ def _combine_constraint_polys(evaluator, i_evals, f_evals, t_evals, trace_length
         from ..parallel import mesh_stages, ntt_sharded as ns
 
         split = [mesh_stages.rows_of(c, ntt_mesh) for c in columns]
-        stacked = []
         with ntt_mesh.stage():
-            for slot, parts in zip(ntt_mesh.slots, zip(*(c.parts for c in split))):
-                with slot.run():
-                    stacked.append(torch.stack(parts))
+            stacked = ntt_mesh.each(lambda slot, *parts: torch.stack(parts),
+                                    *(c.parts for c in split))
         transformed = ns.transform(Sharded(ntt_mesh, stacked, 1, "rows"), ntt_mesh,
                                    pow(ev_root, n_ev - 1, M), n_ev, field.inv(n_ev))
         mesh_stages._record("constraint_intt", transformed.axis, ntt_mesh)

@@ -22,7 +22,8 @@ memory (on the CPU, no budget: auto never streams).
 
 On a mesh (parallel/mesh.py) the budget is a device's, counted once for
 each distinct device of the mesh (four slots on one card do not claim four
-cards' memory).  Materialized, each slot extends its share of the
+cards' memory); in a multi-process job the least of the ranks' budgets, so
+that every rank makes the same choice.  Materialized, each slot extends its share of the
 registers (padded with zero registers to a multiple of the slots), and one
 all-to-all lays the LDE out by rows, `lde_rows`, a slot's rows of every
 register; where the rows do not split over the slots it is gathered to
@@ -165,7 +166,8 @@ class TraceTable:
         lde_bytes = self.extend_bytes()
         budget = self._budget(device)
         if budget is not None and mesh is not None:
-            budget *= len(mesh.devices())
+            # every rank of a job decides alike: the least rank's budget
+            budget = mesh.min_over_ranks(budget) * mesh.device_count()
         over = budget is not None and lde_bytes > budget
         mode = os.environ.get("DISTAFF_STREAM_LDE", "auto")
         self.streaming = mode == "1" or (mode == "auto" and over)
